@@ -1,0 +1,168 @@
+"""Basic building blocks on NHWC tensors.
+
+Counterpart of `hrfuser_tpu.layers.common`. Feature maps are NHWC
+`[B, H, W, C]` as in the JAX package; torch convolutions see them through
+a permuted view (NCHW shape, channels-last memory), so no copy is made.
+Modules keep the reference (mmdet) parameter names, so a reference
+`.pth` loads with `load_state_dict`. Eval only: each conv is run with its
+BatchNorm folded in (running statistics, eps 1e-5), cached per dtype.
+Parameters stay float32; the activations' dtype picks the compute dtype.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+Tensor = torch.Tensor
+
+
+def cached(owner: nn.Module, tag, fn: Callable, tensors: Sequence[Tensor]):
+    """`fn()` memoised on `owner` under `tag`.
+
+    Recomputed when any of `tensors` moves, is replaced or is modified in
+    place (`load_state_dict` copies in place, which bumps the version).
+    """
+    key = tuple((t.device, t.dtype, t.data_ptr(), t._version)
+                for t in tensors)
+    store = owner.__dict__.setdefault('_cached', {})
+    hit = store.get(tag)
+    if hit is None or hit[0] != key:
+        with torch.no_grad():
+            hit = store[tag] = (key, fn())
+    return hit[1]
+
+
+def layer_norm(x: Tensor, weight: Tensor, bias: Tensor,
+               eps: float = 1e-6) -> Tensor:
+    """LayerNorm over the last dim in float32, zero-variance guarded.
+
+    Forward-identical to `F.layer_norm` (a constant row maps to `bias`);
+    mirrors `hrfuser_tpu/layers/common.py:224`. Returns float32.
+    """
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    centered = xf - mean
+    var = (centered * centered).mean(-1, keepdim=True)
+    inv = torch.where(var > 0, torch.rsqrt(var + eps), torch.zeros_like(var))
+    return centered * inv * weight + bias
+
+
+class LayerNorm(nn.LayerNorm):
+    """`nn.LayerNorm` (reference names) with the zero-variance guard."""
+
+    def forward(self, x: Tensor) -> Tensor:
+        return layer_norm(x, self.weight, self.bias, self.eps).to(x.dtype)
+
+
+def fold_bn(bn: nn.BatchNorm2d) -> Tuple[Tensor, Tensor]:
+    """Eval BN as per-channel (scale, shift), float32."""
+    scale = bn.weight.float() * torch.rsqrt(bn.running_var.float() + bn.eps)
+    return scale, bn.bias.float() - bn.running_mean.float() * scale
+
+
+def _bn_tensors(bn: nn.BatchNorm2d):
+    return [bn.weight, bn.bias, bn.running_mean, bn.running_var]
+
+
+def conv_bn(x: Tensor, conv: nn.Conv2d, bn: Optional[nn.BatchNorm2d] = None,
+            relu: bool = False) -> Tensor:
+    """Conv (+ eval BN folded in) (+ ReLU) on an NHWC tensor."""
+    def fold():
+        w = conv.weight.float()
+        b = (conv.bias.float() if conv.bias is not None
+             else torch.zeros(w.shape[0], device=w.device))
+        if bn is not None:
+            s, t = fold_bn(bn)
+            w = w * s[:, None, None, None]
+            b = b * s + t
+        return w.to(x.dtype), b.to(x.dtype)
+
+    deps = [conv.weight] + ([conv.bias] if conv.bias is not None else [])
+    deps += _bn_tensors(bn) if bn is not None else []
+    w, b = cached(conv, ('conv_bn', x.dtype), fold, deps)
+    y = F.conv2d(x.permute(0, 3, 1, 2), w, b, conv.stride, conv.padding,
+                 conv.dilation, conv.groups).permute(0, 2, 3, 1)
+    return F.relu(y) if relu else y
+
+
+def run_seq(seq: nn.Module, x: Tensor) -> Tensor:
+    """Run a reference-style Sequential of Conv2d[+BatchNorm2d], ReLU and
+    nested Sequentials on an NHWC tensor."""
+    mods = list(seq) if isinstance(seq, nn.Sequential) else [seq]
+    i = 0
+    while i < len(mods):
+        m = mods[i]
+        if isinstance(m, nn.Conv2d):
+            bn = mods[i + 1] if (i + 1 < len(mods) and isinstance(
+                mods[i + 1], nn.BatchNorm2d)) else None
+            x = conv_bn(x, m, bn)
+            i += 2 if bn is not None else 1
+            continue
+        if isinstance(m, nn.ReLU):
+            x = F.relu(x)
+        elif isinstance(m, nn.Sequential):
+            x = run_seq(m, x)
+        elif not isinstance(m, nn.Identity):
+            raise TypeError(f'run_seq: unsupported module {type(m).__name__}')
+        i += 1
+    return x
+
+
+def linear(x: Tensor, fc: nn.Linear) -> Tensor:
+    """`fc(x)` with the weights cast (cached) to the activations' dtype."""
+    w, b = cached(fc, ('linear', x.dtype),
+                  lambda: (fc.weight.to(x.dtype), fc.bias.to(x.dtype)),
+                  [fc.weight, fc.bias])
+    return F.linear(x, w, b)
+
+
+def conv3x3(cin: int, cout: int, stride: int = 1, groups: int = 1
+            ) -> nn.Conv2d:
+    return nn.Conv2d(cin, cout, 3, stride=stride, padding=1, groups=groups,
+                     bias=False)
+
+
+class Bottleneck(nn.Module):
+    """ResNet Bottleneck (pytorch style: stride on the 3x3), expansion 4."""
+    expansion = 4
+
+    def __init__(self, cin: int, planes: int):
+        super().__init__()
+        cout = planes * self.expansion
+        self.conv1 = nn.Conv2d(cin, planes, 1, bias=False)
+        self.bn1 = nn.BatchNorm2d(planes)
+        self.conv2 = conv3x3(planes, planes)
+        self.bn2 = nn.BatchNorm2d(planes)
+        self.conv3 = nn.Conv2d(planes, cout, 1, bias=False)
+        self.bn3 = nn.BatchNorm2d(cout)
+        self.downsample = (nn.Sequential(nn.Conv2d(cin, cout, 1, bias=False),
+                                         nn.BatchNorm2d(cout))
+                           if cin != cout else None)
+
+    def forward(self, x: Tensor) -> Tensor:
+        idt = x if self.downsample is None else run_seq(self.downsample, x)
+        out = conv_bn(x, self.conv1, self.bn1, relu=True)
+        out = conv_bn(out, self.conv2, self.bn2, relu=True)
+        out = conv_bn(out, self.conv3, self.bn3)
+        return F.relu(out + idt)
+
+
+def res_layer(cin: int, planes: int, num_blocks: int) -> nn.Sequential:
+    """A run of Bottlenecks (`HRNet._make_layer`), NHWC in and out."""
+    blocks = [Bottleneck(cin, planes)]
+    blocks += [Bottleneck(planes * Bottleneck.expansion, planes)
+               for _ in range(1, num_blocks)]
+    return nn.Sequential(*blocks)
+
+
+def bilinear_resize(x: Tensor, out_hw: Tuple[int, int]) -> Tensor:
+    """Bilinear resize of an NHWC tensor, half-pixel centres
+    (`align_corners=False`, which `jax.image.resize` matches when
+    upsampling, the only use here)."""
+    y = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(out_hw),
+                      mode='bilinear', align_corners=False)
+    return y.permute(0, 2, 3, 1)

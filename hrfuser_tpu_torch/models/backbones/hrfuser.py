@@ -1,0 +1,152 @@
+"""HRFuser multi-modal fusion backbone (HRFormer-based), eval, NHWC.
+
+Counterpart of `hrfuser_tpu.models.backbones.hrfuser` (the reference
+`mmdet/models/backbones/hrfuser_hrformer_based.py:331-628`). The camera
+follows the HRFormer trunk; each extra modality gets its own stem +
+Bottleneck stage A, then stays a single stride-4 branch through HRFormer
+stages B/C. Before every camera stage each modality is transitioned to
+every camera branch's width and fused into the camera feature by an
+`HRFuserFusionBlock`; modality stages consume the branch-0 transitioned
+feature. Parameter names are the reference's.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import torch
+from torch import nn
+
+from hrfuser_tpu_torch.layers.attention import HRFuserFusionBlock
+from hrfuser_tpu_torch.layers.common import conv3x3, res_layer
+from hrfuser_tpu_torch.models.backbones.hr_config import (FusionCfg,
+                                                          HRBackboneCfg,
+                                                          StageCfg)
+from hrfuser_tpu_torch.models.backbones.hr_modules import (HRStage,
+                                                           Transition)
+from hrfuser_tpu_torch.models.backbones.hrformer import stem
+from hrfuser_tpu_torch.ops.chain import fusion_chain, hrformer_chain
+
+Tensor = torch.Tensor
+
+
+class FusionBank(nn.ModuleList):
+    """One `HRFuserFusionBlock` per camera branch, each run as one
+    `fusion_chain` (`hrfuser_tpu/models/backbones/hrfuser.py:53-74`)."""
+
+    def __init__(self, fusion: FusionCfg, num_modalities: int):
+        super().__init__([
+            HRFuserFusionBlock(fusion.num_channels[i], fusion.num_heads[i],
+                               num_modalities, fusion.window_sizes[i],
+                               fusion.mlp_ratios[i])
+            for i in range(fusion.num_branches)])
+
+    def forward(self, xs: List[Tensor], mods: List[List[Tensor]]
+                ) -> List[Tensor]:
+        return [fusion_chain(x, mods[i], self[i].folded(),
+                             self[i].num_heads) for i, x in enumerate(xs)]
+
+
+class ModalityStage(nn.ModuleList):
+    """A single-branch HRFormer stage per modality. With no fuse layers
+    the whole stage is a block chain: all its modules' blocks run as one
+    `hrformer_chain` per stream (`hrfuser.py:123-145`)."""
+
+    def __init__(self, stage: StageCfg, num_modalities: int):
+        assert stage.num_branches == 1 and stage.block == 'HRFORMER'
+        super().__init__([HRStage(stage) for _ in range(num_modalities)])
+        self.num_heads = stage.num_heads[0]
+
+    def forward(self, feats: List[Tensor]) -> List[Tensor]:
+        blocks = [blk for per_mod in self for module in per_mod
+                  for blk in module.branch_blocks(0)]
+        y = hrformer_chain(torch.cat(feats), blocks, self.num_heads,
+                           n_streams=len(self))
+        return list(y.chunk(len(self)))
+
+
+class ModalityTransition(nn.ModuleList):
+    """Per-modality `Transition` (`_make_mod_transition_layer`)."""
+
+    def __init__(self, in_channels, out_channels, num_modalities: int):
+        super().__init__([Transition(in_channels, out_channels)
+                          for _ in range(num_modalities)])
+
+    def forward(self, feats: List[Tensor]) -> List[List[Tensor]]:
+        """out[i][k] = modality k at camera branch i."""
+        per_mod = [t([f]) for t, f in zip(self, feats, strict=True)]
+        return [list(branch) for branch in zip(*per_mod)]
+
+
+class HRFuserBackbone(nn.Module):
+    def __init__(self, cfg: HRBackboneCfg):
+        super().__init__()
+        self.cfg = cfg
+        nm = cfg.num_fused_modalities
+        # camera stem + stage 1
+        self.conv1 = conv3x3(3, 64, 2)
+        self.bn1 = nn.BatchNorm2d(64)
+        self.conv2 = conv3x3(64, 64, 2)
+        self.bn2 = nn.BatchNorm2d(64)
+        self.layer1 = res_layer(64, cfg.stage1.num_channels[0],
+                                cfg.stage1.num_blocks[0])
+        # modality stems + stage A
+        self.conv_a = nn.ModuleList([conv3x3(c, 64, 2)
+                                     for c in cfg.mod_in_channels[:nm]])
+        self.norm_a = nn.ModuleList([nn.BatchNorm2d(64) for _ in range(nm)])
+        self.conv_b = nn.ModuleList([conv3x3(64, 64, 2) for _ in range(nm)])
+        self.norm_b = nn.ModuleList([nn.BatchNorm2d(64) for _ in range(nm)])
+        self.layer_a = nn.ModuleList([
+            res_layer(64, cfg.stage_a.num_channels[0],
+                      cfg.stage_a.num_blocks[0]) for _ in range(nm)])
+        # camera transitions + stages
+        self.transition1 = Transition(cfg.stage1.out_channels,
+                                      cfg.stage2.out_channels)
+        self.transition2 = Transition(cfg.stage2.out_channels,
+                                      cfg.stage3.out_channels)
+        self.transition3 = Transition(cfg.stage3.out_channels,
+                                      cfg.stage4.out_channels)
+        self.stage2 = HRStage(cfg.stage2)
+        self.stage3 = HRStage(cfg.stage3)
+        self.stage4 = HRStage(cfg.stage4)
+        # modality transitions, stages and fusion banks
+        self.transition_a = ModalityTransition(
+            cfg.stage_a.out_channels, cfg.fusion_a.num_channels, nm)
+        self.transition_b = ModalityTransition(
+            cfg.stage_b.out_channels, cfg.fusion_b.num_channels, nm)
+        self.transition_c = ModalityTransition(
+            cfg.stage_c.out_channels, cfg.fusion_c.num_channels, nm)
+        self.stage_b = ModalityStage(cfg.stage_b, nm)
+        self.stage_c = ModalityStage(cfg.stage_c, nm)
+        self.fusion_a = FusionBank(cfg.fusion_a, nm)
+        self.fusion_b = FusionBank(cfg.fusion_b, nm)
+        self.fusion_c = FusionBank(cfg.fusion_c, nm)
+
+    def forward(self, x: Tensor, x_mods: List[Tensor]) -> List[Tensor]:
+        """x: [B, H, W, 3]; x_mods: per-modality [B, H, W, C_k]. Returns
+        one NHWC map per camera branch (strides 4, 8, 16, 32)."""
+        nm = self.cfg.num_fused_modalities
+        if len(x_mods) != nm:
+            raise ValueError(f'expected {nm} modality inputs, '
+                             f'got {len(x_mods)}')
+        x = self.layer1(stem(x, self.conv1, self.bn1, self.conv2, self.bn2))
+        mods = [self.layer_a[k](stem(m, self.conv_a[k], self.norm_a[k],
+                                     self.conv_b[k], self.norm_b[k]))
+                for k, m in enumerate(x_mods)]
+
+        # stage 2 (+ fusion A, modality stage B)
+        xs = self.transition1([x], conv_only_on_existing=True)
+        m_br = self.transition_a(mods)
+        ys = self.stage2(self.fusion_a(xs, m_br))
+        mods = self.stage_b(m_br[0])
+
+        # stage 3 (+ fusion B, modality stage C)
+        xs = self.transition2(ys)
+        m_br = self.transition_b(mods)
+        ys = self.stage3(self.fusion_b(xs, m_br))
+        mods = self.stage_c(m_br[0])
+
+        # stage 4 (+ fusion C)
+        xs = self.transition3(ys)
+        m_br = self.transition_c(mods)
+        return self.stage4(self.fusion_c(xs, m_br))

@@ -1,0 +1,65 @@
+"""Box math: IoU, delta decoding, clipping.
+
+Torch counterpart of `hrfuser_tpu.ops.boxes` (the reference
+`mmdet/core/bbox/coder/delta_xywh_bbox_coder.py:164-260` and
+`iou2d_calculator.py`). Boxes are `[x1, y1, x2, y2]` float32; padded
+slots are zero boxes. Every function takes any leading batch dims.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+
+Tensor = torch.Tensor
+
+
+def bbox_overlaps(boxes1: Tensor, boxes2: Tensor) -> Tensor:
+    """Pairwise IoU: [..., N, 4] x [..., M, 4] -> [..., N, M]."""
+    area1 = ((boxes1[..., 2] - boxes1[..., 0])
+             * (boxes1[..., 3] - boxes1[..., 1]))
+    area2 = ((boxes2[..., 2] - boxes2[..., 0])
+             * (boxes2[..., 3] - boxes2[..., 1]))
+    lt = torch.maximum(boxes1[..., :, None, :2], boxes2[..., None, :, :2])
+    rb = torch.minimum(boxes1[..., :, None, 2:], boxes2[..., None, :, 2:])
+    wh = (rb - lt).clamp(min=0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = area1[..., :, None] + area2[..., None, :] - inter
+    return inter / union.clamp(min=1e-6)
+
+
+def clip_boxes(boxes: Tensor, img_hw: Tensor) -> Tensor:
+    """Clip [..., N, 4] boxes to [0, w] x [0, h]; img_hw is [..., 2]."""
+    h = img_hw[..., 0:1].to(boxes.dtype)
+    w = img_hw[..., 1:2].to(boxes.dtype)
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    return torch.stack([torch.minimum(x1.clamp(min=0), w),
+                        torch.minimum(y1.clamp(min=0), h),
+                        torch.minimum(x2.clamp(min=0), w),
+                        torch.minimum(y2.clamp(min=0), h)], dim=-1)
+
+
+def delta2bbox(rois: Tensor, deltas: Tensor,
+               stds: Sequence[float] = (1., 1., 1., 1.),
+               max_shape: Tensor = None) -> Tensor:
+    """Decode (dx, dy, dw, dh) deltas on [..., N, 4] rois.
+
+    dw/dh are clamped to |log(16 / 1000)| as in the reference.
+    `max_shape` is an [..., 2] (h, w) tensor with the rois' leading dims,
+    or None for no clipping.
+    """
+    denorm = deltas * torch.tensor(stds, dtype=deltas.dtype,
+                                   device=deltas.device)
+    dxy = denorm[..., :2]
+    max_ratio = abs(math.log(16 / 1000))
+    dwh = denorm[..., 2:].clamp(-max_ratio, max_ratio)
+    pxy = (rois[..., :2] + rois[..., 2:]) * 0.5
+    pwh = rois[..., 2:] - rois[..., :2]
+    gxy = pxy + pwh * dxy
+    gwh = pwh * torch.exp(dwh)
+    boxes = torch.cat([gxy - gwh * 0.5, gxy + gwh * 0.5], dim=-1)
+    if max_shape is not None:
+        boxes = clip_boxes(boxes, max_shape)
+    return boxes

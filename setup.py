@@ -5,7 +5,9 @@ setup(
     version='0.1.0',
     description='TPU-native multi-modal sensor-fusion 2D detection '
                 '(JAX/XLA/Pallas rebuild of the HRFuser capability surface)',
-    packages=find_packages(include=['hrfuser_tpu', 'hrfuser_tpu.*']),
+    packages=find_packages(include=['hrfuser_tpu', 'hrfuser_tpu.*',
+                                    'hrfuser_tpu_torch',
+                                    'hrfuser_tpu_torch.*']),
     python_requires='>=3.10',
     install_requires=[
         'jax', 'flax', 'optax', 'orbax-checkpoint', 'numpy',
