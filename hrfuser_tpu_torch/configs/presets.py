@@ -1,6 +1,7 @@
 """Model presets for the configurations the port runs.
 
-Copies of `hrfuser_tpu/configs/presets.py:90-141,187-190,238-252,319-325`
+Copies of `hrfuser_tpu/configs/presets.py:90-141,187-190,238-252,319-325,
+361-371`
 restricted to the eval fields of `DetectorCfg` (see `hr_config.py`).
 `tests/test_torch_configs.py` holds each equal, field for field, to
 `hrfuser_tpu.configs.get_config(name).model`.
@@ -72,9 +73,18 @@ def _hrfuser_t_nus() -> DetectorCfg:
     return detector(hrfuser_backbone(), num_classes=10)
 
 
+def _hrfuser_b_nus() -> DetectorCfg:
+    """HRFuser-B: the same architecture at widths 78-624, head dim 39
+    (`drop_path_rate` is train-only and not carried)."""
+    return detector(hrfuser_backbone(channels=(78, 156, 312, 624),
+                                     heads=(2, 4, 8, 16), stage3_modules=4,
+                                     lidar_c_modules=4), num_classes=10)
+
+
 _REGISTRY: Dict[str, Callable[[], DetectorCfg]] = {
     'tiny_fusion_test': _tiny_fusion,
     'cascade_rcnn_hrfuser_t_1x_nus_r640_l_r_fusion': _hrfuser_t_nus,
+    'cascade_rcnn_hrfuser_b_1x_nus_r640_l_r_fusion': _hrfuser_b_nus,
 }
 
 

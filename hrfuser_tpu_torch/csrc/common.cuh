@@ -54,25 +54,63 @@ __device__ __forceinline__ float gelu(float v) {
   return 0.5f * v * (1.0f + erff(v * 0.7071067811865476f));
 }
 
-// LayerNorm of one C-vector by one warp, with the zero-variance guard of
-// hrfuser_tpu/layers/common.py:224 (a constant row maps to `bias`).
-// `ln` is [2, C]: scale then bias. Writes C floats to `dst`.
+// LayerNorm statistics of one C-vector by one warp, with the zero-variance
+// guard of hrfuser_tpu/layers/common.py:224: a constant row gets rstd 0,
+// so it maps to `bias`. Every lane returns the same mean and rstd.
 template <typename T>
-__device__ __forceinline__ void warp_layer_norm(const T* __restrict__ row,
-                                                const float* __restrict__ ln,
-                                                float* dst, int C, int lane) {
+__device__ __forceinline__ void warp_ln_stats(const T* __restrict__ row,
+                                              int C, int lane, float& mean,
+                                              float& rstd) {
   float s = 0.f;
   for (int c = lane; c < C; c += 32) s += load(row + c);
-  const float mean = warp_sum(s) / C;
+  mean = warp_sum(s) / C;
   float v = 0.f;
   for (int c = lane; c < C; c += 32) {
     const float d = load(row + c) - mean;
     v += d * d;
   }
   const float var = warp_sum(v) / C;
-  const float inv = var > 0.f ? 1.0f / sqrtf(var + 1e-6f) : 0.f;
-  for (int c = lane; c < C; c += 32)
-    dst[c] = (load(row + c) - mean) * inv * ln[c] + ln[C + c];
+  rstd = var > 0.f ? 1.0f / sqrtf(var + 1e-6f) : 0.f;
 }
+
+// LayerNorm of one C-vector by one warp. `ln` is [2, C]: scale then bias.
+// Writes C floats to `dst`.
+template <typename T>
+__device__ __forceinline__ void warp_layer_norm(const T* __restrict__ row,
+                                                const float* __restrict__ ln,
+                                                float* dst, int C, int lane) {
+  float mean, rstd;
+  warp_ln_stats(row, C, lane, mean, rstd);
+  for (int c = lane; c < C; c += 32)
+    dst[c] = (load(row + c) - mean) * rstd * ln[c] + ln[C + c];
+}
+
+// acc + sum_{c < n} a[c] * w[c * stride], with `a` in shared memory and
+// `w` a weight column read through the read-only path. The projections
+// are latency bound (few warps per SM, one FMA chain per thread), so each
+// batch of 16 weight loads is issued before its FMAs: 16 reads in flight
+// per thread, independent of how the compiler schedules a plain loop.
+__device__ __forceinline__ float dot_column(const float* a,
+                                            const float* __restrict__ w,
+                                            int stride, int n, float acc) {
+  constexpr int kBatch = 16;
+  int c = 0;
+  for (; c + kBatch <= n; c += kBatch) {
+    float wv[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) wv[u] = __ldg(w + (c + u) * stride);
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) acc = fmaf(a[c + u], wv[u], acc);
+  }
+  for (; c < n; ++c) acc = fmaf(a[c], __ldg(w + c * stride), acc);
+  return acc;
+}
+
+// Largest dynamic shared memory a block may use on the H100 (227 KB).
+constexpr size_t kSmemMax = 232448;
+
+// Returned by a launcher when no shared-memory plan fits the shape; the
+// host queries the plan's byte count to say why.
+constexpr int kErrNoPlan = 100000;
 
 }  // namespace hrf

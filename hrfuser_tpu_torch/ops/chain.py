@@ -13,7 +13,12 @@ Counterpart of `hrfuser_tpu/ops/pallas_chain.py`. A block is two halves:
 wrapper runs its plain PyTorch twin (`*_plain`, float32 math, output in
 the input's dtype) when its tensor lies on the CPU, and on a CUDA tensor
 launches its kernel or raises. Each keeps a launch count in
-`<wrapper>.launches`.
+`<wrapper>.launches`. `launch_window_attention` and `launch_cross_ffn`
+validate and launch without counting; the other ops modules' wrappers
+(`ops/block.py`, `ops/window_attention.py`) use them too and keep their
+own counts. `attention_plan` / `ffn_plan` report the shared-memory plan
+each kernel's host code picks for a width, and raise with the byte count
+when none fits.
 
 The kernels take weights folded for eval (`fold_hrformer_block`,
 `fold_fusion_block`): the BatchNorms folded into the CrossFFN convs with
@@ -25,7 +30,9 @@ are one [C, 3C] matrix in both modes.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+import ctypes
+import functools
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -40,6 +47,7 @@ Tensor = torch.Tensor
 Folded = Dict[str, Tensor]
 
 _ACT_DTYPES = (torch.float32, torch.bfloat16)
+SMEM_MAX = 232448            # shared memory an H100 block may use, bytes
 
 
 # ---------------------------------------------------------------------------
@@ -155,7 +163,9 @@ def cross_ffn_plain(x: Tensor, p: Folded) -> Tensor:
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _on_cpu(x: Tensor) -> bool:
+def on_cpu(x: Tensor) -> bool:
+    """True for a CPU tensor (take the twin), False for a CUDA tensor
+    (launch the kernel); raises for any other device."""
     if x.device.type == 'cpu':
         return True
     if x.device.type != 'cuda':
@@ -188,41 +198,99 @@ def _ptr(t: Optional[Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _launch_attention(res: Tensor, q_src: Tensor, kv_src: Tensor,
-                      z: Optional[Tensor], p: Folded,
-                      num_heads: int) -> Tensor:
-    if res.dtype not in _ACT_DTYPES or res.dim() != 4:
+def _stream(t: Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def attention_plan(c: int, num_heads: int, cross: bool
+                   ) -> Tuple[str, int, int]:
+    """Kernel A's shared-memory plan: ('resident' or 'streamed', channels
+    staged per pass, bytes). Raises `ValueError` with the byte count when
+    no plan fits a block."""
+    chunk, resident = ctypes.c_int(), ctypes.c_int()
+    nbytes = cuda_build.lib().hrf_window_attention_plan(
+        c, num_heads, int(cross), ctypes.byref(chunk), ctypes.byref(resident))
+    if chunk.value == 0:
+        raise ValueError(
+            f'window attention kernel: C={c} with {num_heads} heads '
+            f'({"cross" if cross else "self"} mode) needs {nbytes} B of '
+            f'shared memory per block; an H100 block has {SMEM_MAX} B')
+    return ('resident' if resident.value else 'streamed'), chunk.value, nbytes
+
+
+@functools.lru_cache(maxsize=None)
+def ffn_plan(c: int, hidden: int) -> Tuple[int, int, int]:
+    """Kernel B's plan: (tile rows, hidden channels per chunk, bytes).
+    Raises `ValueError` with the byte count when no plan fits a block."""
+    th, kh = ctypes.c_int(), ctypes.c_int()
+    nbytes = cuda_build.lib().hrf_cross_ffn_plan(
+        c, hidden, ctypes.byref(th), ctypes.byref(kh))
+    if th.value == 0:
+        raise ValueError(
+            f'cross_ffn kernel: C={c} with {hidden} hidden channels needs '
+            f'{nbytes} B of shared memory per block at its smallest tile; '
+            f'the plan allows 204800 B')
+    return th.value, kh.value, nbytes
+
+
+def launch_window_attention(q_src: Tensor, kv_src: Tensor,
+                            res: Optional[Tensor], z: Optional[Tensor],
+                            p: Folded, num_heads: int,
+                            padded_hw: Optional[Tuple[int, int]] = None,
+                            ln: bool = True) -> Tensor:
+    """Launch kernel A on NHWC token maps shaped like `q_src`:
+
+        out = [res] [+ z] + Wo . MHA(LN_q q_src, LN_kv kv_src) + bo
+
+    Self mode when `kv_src` is `q_src` and the two LNs are one tensor,
+    else cross mode. `padded_hw=(H, W)`: the maps are centre-padded slabs
+    of a real H x W map, and the ring tokens get `[res] [+ z]`. `ln=False`
+    skips both LNs (pre-normed windows). Validates and raises; counts
+    nothing (the public wrappers count their launches).
+    """
+    if q_src.dtype not in _ACT_DTYPES or q_src.dim() != 4:
         raise ValueError(f'window attention: NHWC float32/bfloat16 tensor '
-                         f'expected, got {res.dtype} {tuple(res.shape)}')
-    b, h, w, c = res.shape
+                         f'expected, got {q_src.dtype} {tuple(q_src.shape)}')
+    b, hs, ws_, c = q_src.shape
     if c % num_heads:
         raise ValueError(f'window attention: C={c} not divisible by '
                          f'{num_heads} heads')
-    for name, t in (('q_src', q_src), ('kv_src', kv_src), ('z', z)):
+    h, w = (hs, ws_) if padded_hw is None else padded_hw
+    if padded_hw is not None and (hs, ws_) != (-(-h // 7) * 7,
+                                               -(-w // 7) * 7):
+        raise ValueError(f'window attention: slab {hs}x{ws_} is not the '
+                         f'centre-padded frame of {h}x{w}')
+    for name, t in (('q_src', q_src), ('kv_src', kv_src), ('res', res),
+                    ('z', z)):
         if t is not None:
-            _check_act(name, t, res)
-    _check_act('res', res, res)
-    _check_params(p, dict(lnq=(2, c), lnkv=(2, c), wqkv=(c, 3 * c),
-                          bqkv=(3 * c,), wo=(c, c), bo=(c,),
-                          bias=(num_heads, 49, 49)), res.device)
-    out = torch.empty_like(res)
-    lib = cuda_build.lib()
-    cuda_build.check(lib.hrf_window_attention(
-        res.data_ptr(), q_src.data_ptr(), kv_src.data_ptr(), _ptr(z),
-        out.data_ptr(), p['lnq'].data_ptr(), p['lnkv'].data_ptr(),
-        p['wqkv'].data_ptr(), p['bqkv'].data_ptr(), p['wo'].data_ptr(),
-        p['bo'].data_ptr(), p['bias'].data_ptr(), b, h, w, c, num_heads,
-        int(z is not None), int(res.dtype == torch.bfloat16),
-        torch.cuda.current_stream(res.device).cuda_stream),
+            _check_act(name, t, q_src)
+    shapes = dict(wqkv=(c, 3 * c), bqkv=(3 * c,), wo=(c, c), bo=(c,),
+                  bias=(num_heads, 49, 49))
+    if ln:
+        shapes.update(lnq=(2, c), lnkv=(2, c))
+    _check_params(p, shapes, q_src.device)
+    cross = kv_src.data_ptr() != q_src.data_ptr() or (
+        ln and p['lnkv'].data_ptr() != p['lnq'].data_ptr())
+    attention_plan(c, num_heads, cross)
+    out = torch.empty_like(q_src)
+    cuda_build.check(cuda_build.lib().hrf_window_attention(
+        _ptr(res), q_src.data_ptr(), kv_src.data_ptr(), _ptr(z),
+        out.data_ptr(), p['lnq'].data_ptr() if ln else None,
+        p['lnkv'].data_ptr() if ln else None, p['wqkv'].data_ptr(),
+        p['bqkv'].data_ptr(), p['wo'].data_ptr(), p['bo'].data_ptr(),
+        p['bias'].data_ptr(), b, h, w, c, num_heads,
+        int(padded_hw is not None), int(cross),
+        int(q_src.dtype == torch.bfloat16), _stream(q_src)),
         'hrf_window_attention')
     return out
 
 
 def window_self_attention(x: Tensor, p: Folded, num_heads: int) -> Tensor:
     """HRFormerBlock attention half: `x + Wo . MHSA(LN1 x)` (kernel A)."""
-    if _on_cpu(x):
+    if on_cpu(x):
         return window_attention_plain(x, x, p, num_heads)
-    out = _launch_attention(x, x, x, None, p, num_heads)
+    out = launch_window_attention(x, x, x, None, p, num_heads)
     window_self_attention.launches += 1
     return out
 
@@ -234,9 +302,9 @@ def window_cross_attention(acc: Tensor, x: Tensor, z: Tensor, p: Folded,
                            num_heads: int) -> Tensor:
     """One fusion-block modality: `acc + z + Wo . MHCA(q = LN1 x,
     kv = LN2 z)` with x the frozen camera feature (kernel A)."""
-    if _on_cpu(acc):
+    if on_cpu(acc):
         return window_attention_plain(acc, x, p, num_heads, kv_src=z, z=z)
-    out = _launch_attention(acc, x, z, z, p, num_heads)
+    out = launch_window_attention(x, z, acc, z, p, num_heads)
     window_cross_attention.launches += 1
     return out
 
@@ -244,10 +312,8 @@ def window_cross_attention(acc: Tensor, x: Tensor, z: Tensor, p: Folded,
 window_cross_attention.launches = 0
 
 
-def cross_ffn(x: Tensor, p: Folded) -> Tensor:
-    """CrossFFN half: `x + CrossFFN(LN x)` (kernel B)."""
-    if _on_cpu(x):
-        return cross_ffn_plain(x, p)
+def launch_cross_ffn(x: Tensor, p: Folded) -> Tensor:
+    """Launch kernel B on NHWC `x`; validates and raises, counts nothing."""
     if x.dtype not in _ACT_DTYPES or x.dim() != 4:
         raise ValueError(f'cross_ffn: NHWC float32/bfloat16 tensor '
                          f'expected, got {x.dtype} {tuple(x.shape)}')
@@ -256,14 +322,21 @@ def cross_ffn(x: Tensor, p: Folded) -> Tensor:
     ch = p['w1'].shape[1]
     _check_params(p, dict(ln=(2, c), w1=(c, ch), b1=(ch,), wdw=(ch, 9),
                           bdw=(ch,), w2=(ch, c), b2=(c,)), x.device)
+    ffn_plan(c, ch)
     out = torch.empty_like(x)
-    lib = cuda_build.lib()
-    cuda_build.check(lib.hrf_cross_ffn(
+    cuda_build.check(cuda_build.lib().hrf_cross_ffn(
         x.data_ptr(), out.data_ptr(), p['ln'].data_ptr(), p['w1'].data_ptr(),
         p['b1'].data_ptr(), p['wdw'].data_ptr(), p['bdw'].data_ptr(),
         p['w2'].data_ptr(), p['b2'].data_ptr(), b, h, w, c, ch,
-        int(x.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream), 'hrf_cross_ffn')
+        int(x.dtype == torch.bfloat16), _stream(x)), 'hrf_cross_ffn')
+    return out
+
+
+def cross_ffn(x: Tensor, p: Folded) -> Tensor:
+    """CrossFFN half: `x + CrossFFN(LN x)` (kernel B)."""
+    if on_cpu(x):
+        return cross_ffn_plain(x, p)
+    out = launch_cross_ffn(x, p)
     cross_ffn.launches += 1
     return out
 

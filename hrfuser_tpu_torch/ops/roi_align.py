@@ -2,8 +2,10 @@
 
 Counterpart of the eval pool of `hrfuser_tpu.models.roi_heads.
 cascade_roi_head` (`multilevel_roi_align_pallas`, variant v7, on the TPU;
-the gather `multilevel_roi_align` elsewhere). `multilevel_roi_align` runs
-kernel C (`csrc/roi_align.cu`) on CUDA tensors and its plain twin
+the gather `multilevel_roi_align` elsewhere), and of the single-image
+`multilevel_roi_align_pallas` entry with its v4 / v7 / v8 variants.
+`multilevel_roi_align` runs kernel C (`csrc/roi_align.cu`) on CUDA
+tensors and its plain twin
 `multilevel_roi_align_plain` (the gather formulation of
 `hrfuser_tpu/ops/roi_align.py:157-192,282-315`) on CPU tensors. Static
 2x2 samples per bin, aligned=True. Features are NHWC per level
@@ -17,6 +19,7 @@ from typing import Sequence
 
 import torch
 
+from hrfuser_tpu_torch.ops.chain import on_cpu
 from hrfuser_tpu_torch.utils import cuda_build
 
 Tensor = torch.Tensor
@@ -94,17 +97,10 @@ def multilevel_roi_align_plain(feats: Sequence[Tensor], rois: Tensor,
     return torch.stack(outs).to(feats[0].dtype)
 
 
-def multilevel_roi_align(feats: Sequence[Tensor], rois: Tensor,
-                         strides: Sequence[int], out_size: int = 7,
-                         sample_num: int = 2, finest_scale: int = 56
-                         ) -> Tensor:
-    """RoIAlign over 4 NHWC levels (kernel C on CUDA, plain on CPU)."""
+def _launch(feats: Sequence[Tensor], rois: Tensor, strides: Sequence[int],
+            out_size: int, sample_num: int, finest_scale: int) -> Tensor:
+    """Validate and launch kernel C; counts nothing."""
     f0 = feats[0]
-    if f0.device.type == 'cpu':
-        return multilevel_roi_align_plain(feats, rois, strides, out_size,
-                                          sample_num, finest_scale)
-    if f0.device.type != 'cuda':
-        raise ValueError(f'unsupported device {f0.device}')
     if (len(feats) != 4 or len(strides) != 4 or out_size != 7
             or sample_num != 2
             or f0.dtype not in (torch.float32, torch.bfloat16)):
@@ -131,8 +127,72 @@ def multilevel_roi_align(feats: Sequence[Tensor], rois: Tensor,
         *[1.0 / s for s in strides], rois.data_ptr(), out.data_ptr(),
         b, n, c, float(finest_scale), int(f0.dtype == torch.bfloat16),
         torch.cuda.current_stream(f0.device).cuda_stream), 'hrf_roi_align')
+    return out
+
+
+def multilevel_roi_align(feats: Sequence[Tensor], rois: Tensor,
+                         strides: Sequence[int], out_size: int = 7,
+                         sample_num: int = 2, finest_scale: int = 56
+                         ) -> Tensor:
+    """RoIAlign over 4 NHWC levels (kernel C on CUDA, plain on CPU)."""
+    if on_cpu(feats[0]):
+        return multilevel_roi_align_plain(feats, rois, strides, out_size,
+                                          sample_num, finest_scale)
+    out = _launch(feats, rois, strides, out_size, sample_num, finest_scale)
     multilevel_roi_align.launches += 1
     return out
 
 
 multilevel_roi_align.launches = 0
+
+# The TPU kernel's schedules (`pallas_roi_align.py` QP_VARIANTS): one
+# function, served here by one kernel.
+VARIANTS = ('v4', 'v7', 'v8')
+
+
+def multilevel_roi_align_pallas(feats: Sequence[Tensor], rois: Tensor,
+                                strides: Sequence[int] = (4, 8, 16, 32),
+                                out_size: int = 7, sample_num: int = 2,
+                                finest_scale: int = 56,
+                                interpret: bool = False,
+                                flat_out: bool = False,
+                                variant: str = 'v7') -> Tensor:
+    """Single-image RoIAlign with the signature of
+    `hrfuser_tpu/ops/pallas_roi_align.py:834` (batched callers use
+    `multilevel_roi_align`).
+
+    feats: per-level [H_l, W_l, C]; rois: [N, 4]. Returns [N, out, out, C]
+    with bins in (p, q) = (y, x) order or, with `flat_out`, [N, out*out, C]
+    in the TPU kernels' (q, p) row order (x-bin major). `variant` v4, v7
+    and v8 are three TPU schedules of one function (the same sampling,
+    aligned=True, a static 2x2 grid); all three run kernel C, whose
+    full-coverage contract pools every RoI exactly, so v4's oversize-
+    gather fallback has nothing to catch. `interpret` is ignored. Unlike
+    the TPU kernel, which always returns bfloat16, the result keeps the
+    features' dtype (float32 or bfloat16). Launches are counted in
+    `multilevel_roi_align_pallas.launches`.
+    """
+    del interpret
+    if variant not in VARIANTS:
+        raise ValueError(f'unknown RoIAlign kernel variant: {variant!r}; '
+                         f'known: {VARIANTS}')
+    if sample_num <= 0:
+        raise ValueError('multilevel_roi_align_pallas needs a static sample '
+                         'grid (sample_num > 0)')
+    batched = [f[None] for f in feats]
+    if on_cpu(feats[0]):
+        out = multilevel_roi_align_plain(batched, rois[None], strides,
+                                         out_size, sample_num, finest_scale)
+    else:
+        out = _launch([f.contiguous() for f in batched],
+                      rois[None].contiguous(), strides, out_size,
+                      sample_num, finest_scale)
+        multilevel_roi_align_pallas.launches += 1
+    n, c = rois.shape[0], out.shape[-1]
+    grid = out[0].reshape(n, out_size, out_size, c)
+    if flat_out:
+        return grid.transpose(1, 2).reshape(n, out_size * out_size, c)
+    return grid
+
+
+multilevel_roi_align_pallas.launches = 0

@@ -8,6 +8,10 @@ OIHW, depthwise [kh, kw, 1, C] -> [C, 1, kh, kw], dense [in, out] ->
 [out, in]. The HRFuser stage-2 transition applies only its conv
 (`trans{i}_conv` in the JAX tree); the port keeps the reference's unused
 BatchNorm beside it, which gets identity statistics here.
+
+`hrformer_block_state_dict` and `fusion_block_state_dict` do the same for
+one block: a flax `HRFormerBlock` / `HRFuserFusionBlock`'s own variables
+to the state dict of the port's `layers.attention` block.
 """
 
 from __future__ import annotations
@@ -156,6 +160,26 @@ class _Emitter:
                                   fp + (f'step{k}_dw',))
                     self.convnorm(f'{base}.{k}.2', f'{base}.{k}.3',
                                   fp + (f'step{k}_pw',))
+
+
+def _block(variables, emit) -> Dict[str, Tensor]:
+    e = _Emitter(variables)
+    emit(e)
+    return {k[1:]: v for k, v in e.sd.items()}      # drop the empty prefix
+
+
+def hrformer_block_state_dict(variables) -> Dict[str, Tensor]:
+    """State dict of the port's `HRFormerBlock` from the variables
+    (`{'params', 'batch_stats'}`) of one flax `HRFormerBlock`."""
+    return _block(variables, lambda e: e.hrformer_block('', ()))
+
+
+def fusion_block_state_dict(variables, num_modalities: int
+                            ) -> Dict[str, Tensor]:
+    """State dict of the port's `HRFuserFusionBlock` from the variables of
+    one flax `HRFuserFusionBlock` with `num_modalities` streams."""
+    return _block(variables,
+                  lambda e: e.fusion_block('', (), num_modalities))
 
 
 def state_dict_from_jax(variables, cfg) -> Dict[str, Tensor]:

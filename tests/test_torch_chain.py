@@ -21,7 +21,8 @@ from hrfuser_tpu.layers.attention import HRFuserFusionBlock as JaxFusion
 from hrfuser_tpu_torch.layers.attention import (HRFormerBlock,
                                                 HRFuserFusionBlock)
 from hrfuser_tpu_torch.ops import chain
-from hrfuser_tpu_torch.utils.jax_weights import _Emitter
+from hrfuser_tpu_torch.utils.jax_weights import (fusion_block_state_dict,
+                                                 hrformer_block_state_dict)
 from tests.oracles.random_variables import random_variables
 
 ATOL = RTOL = 1e-4
@@ -41,21 +42,22 @@ class _JaxChain(nn.Module):
 
 
 def _port_blocks(variables, n_blocks, c, heads):
-    e = _Emitter(variables)
+    sd = {}
     for i in range(n_blocks):
-        e.hrformer_block(str(i), (f'b{i}',))
+        block_vars = {k: variables[k][f'b{i}']
+                      for k in ('params', 'batch_stats')}
+        sd.update({f'{i}.{k}': v for k, v in
+                   hrformer_block_state_dict(block_vars).items()})
     seq = torch.nn.Sequential(*[HRFormerBlock(c, heads, 7, MLP)
                                 for _ in range(n_blocks)])
-    seq.load_state_dict(e.sd, strict=True)
+    seq.load_state_dict(sd, strict=True)
     return seq.eval()
 
 
 def _port_fusion(variables, c, heads, m):
-    e = _Emitter(variables)
-    e.fusion_block('0', (), m)
-    seq = torch.nn.Sequential(HRFuserFusionBlock(c, heads, m, 7, MLP))
-    seq.load_state_dict(e.sd, strict=True)
-    return seq[0].eval()
+    blk = HRFuserFusionBlock(c, heads, m, 7, MLP)
+    blk.load_state_dict(fusion_block_state_dict(variables, m), strict=True)
+    return blk.eval()
 
 
 def _inputs(rng, n, shape):

@@ -15,7 +15,8 @@ from hrfuser_tpu.configs import get_config as jax_get_config
 from hrfuser_tpu.ops.anchors import AnchorGenerator as JaxAnchors
 from hrfuser_tpu_torch.configs import get_config
 
-NAMES = ['cascade_rcnn_hrfuser_t_1x_nus_r640_l_r_fusion', 'tiny_fusion_test']
+NAMES = ['cascade_rcnn_hrfuser_t_1x_nus_r640_l_r_fusion',
+         'cascade_rcnn_hrfuser_b_1x_nus_r640_l_r_fusion', 'tiny_fusion_test']
 
 # TPU routing knobs and training-only fields the port does not carry
 OMITTED = {

@@ -5,6 +5,14 @@ On the CPU the JAX cascade head pools with the gather formulation
 the reference here at f32 (`gather_dtype=None`). The `slow` case adds
 the Pallas v7 kernel in interpret mode at the tolerance
 `tests/test_pallas_roi_align.py` uses (it rounds to bf16).
+
+The single-image entry `multilevel_roi_align_pallas` (variants v4, v7,
+v8, one kernel) is held to the JAX gather path at f32 on the cases of
+`tests/test_pallas_roi_align.py`: edge and outside boxes, many random
+RoIs, the flat (q, p) row order, the right edge of a level whose width is
+not a multiple of 8, more oversize RoIs than v4's fallback takes per
+iteration, and full-axis slivers. Its `slow` cases hold it to the v4 and
+v8 Pallas kernels in interpret mode.
 """
 
 import jax.numpy as jnp
@@ -111,3 +119,105 @@ def test_plain_roi_align_matches_pallas_interpret():
         torch.from_numpy(rois[None]), STRIDES).numpy()[0]
     np.testing.assert_allclose(got.reshape(want.shape), want, atol=0.05,
                                rtol=0.05)
+
+
+# ---------------------------------------------------------------------------
+# the single-image variant entry (`pallas_roi_align.py:834`)
+# ---------------------------------------------------------------------------
+
+def _level_feats(rng, h0, w0, c=256):
+    return [rng.normal(0, 1, (h0 // 2 ** i, w0 // 2 ** i, c))
+            .astype(np.float32) for i in range(4)]
+
+
+def _variant_case(name):
+    """(feats, rois) of the `tests/test_pallas_roi_align.py` cases."""
+    rng = np.random.default_rng(dict(edge=0, many=1, flat=2, right=31,
+                                     oversize=7, slivers=3)[name])
+    if name == 'edge':
+        rois = [[4., 4., 100., 90.], [0., 0., 30., 20.], [-8., -4., 40., 44.],
+                [10., 5., 200., 180.], [0., 0., 383., 250.],
+                [100., 60., 380., 255.], [5., 5., 6., 6.],
+                [50., 40., 150., 120.]]
+        return _level_feats(rng, 64, 96), np.array(rois, np.float32)
+    if name == 'many':
+        feats = _level_feats(rng, 96, 160)
+        n = 64
+        x1, y1 = rng.uniform(-10, 500, n), rng.uniform(-10, 300, n)
+        w, h = rng.uniform(2, 400, n), rng.uniform(2, 250, n)
+        return feats, np.stack([x1, y1, x1 + w, y1 + h], -1).astype(
+            np.float32)
+    if name == 'flat':
+        feats = _level_feats(rng, 64, 96)
+        wh = rng.uniform(4, 300, (16, 2))
+        xy = rng.uniform(0, 1, (16, 2)) * (np.array([380., 250.]) - wh)
+        return feats, np.concatenate([xy, xy + wh], -1).astype(np.float32)
+    if name == 'right':                  # STF stride-8 level width 156
+        feats = [rng.normal(0, 1, (312 // s, 1248 // s, 256))
+                 .astype(np.float32) for s in STRIDES]
+        rois = [[x2 - 112., y1, x2, y1 + 112.]
+                for x2 in (1247., 1240., 1200.) for y1 in (10., 100., 200.)]
+        rois += [[0., 0., 100., 80.], [600., 100., 710., 190.]]
+        return feats, np.array(rois, np.float32)
+    if name == 'oversize':               # 24 > v4's FALLBACK of 16
+        wide = [[5. + i, 40., 620. + i, 52.] for i in range(12)]
+        tall = [[30. + i, 2., 44. + i, 370.] for i in range(12)]
+        normal = [[10., 10., 120., 100.], [200., 80., 320., 200.],
+                  [0., 0., 60., 60.], [100., 100., 400., 300.]]
+        return (_level_feats(rng, 96, 160),
+                np.array(wide + tall + normal, np.float32))
+    w_img, h_img = 384, 256              # full-axis slivers
+    rois = [[0., 100., w_img - 1., 101.5], [200., 0., 201.2, h_img - 1.],
+            [0., 0., w_img - 1., 12.], [370., 0., w_img - 1., h_img - 1.],
+            [0., 0., w_img - 1., h_img - 1.], [10., 20., 60., 70.],
+            [0., 0., 2., 2.],
+            [w_img - 3., h_img - 3., w_img - 1., h_img - 1.]]
+    return _level_feats(rng, 64, 96), np.array(rois, np.float32)
+
+
+def _pallas_entry(feats, rois, variant, flat_out=False):
+    return roi_align.multilevel_roi_align_pallas(
+        [torch.from_numpy(f) for f in feats], torch.from_numpy(rois),
+        STRIDES, flat_out=flat_out, variant=variant).numpy()
+
+
+@pytest.mark.parametrize('variant', roi_align.VARIANTS)
+@pytest.mark.parametrize('name', ['edge', 'many', 'right', 'oversize',
+                                  'slivers'])
+def test_pallas_entry_matches_jax_gather(name, variant):
+    feats, rois = _variant_case(name)
+    want = np.asarray(jax_pool([jnp.asarray(f) for f in feats],
+                               jnp.asarray(rois), list(STRIDES),
+                               gather_dtype=None))
+    got = _pallas_entry(feats, rois, variant)
+    assert got.shape == want.shape == (len(rois), 7, 7, 256)
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize('variant', roi_align.VARIANTS)
+def test_pallas_entry_flat_out_is_qp_order(variant):
+    feats, rois = _variant_case('flat')
+    full = _pallas_entry(feats, rois, variant)
+    flat = _pallas_entry(feats, rois, variant, flat_out=True)
+    assert flat.shape == (16, 49, 256)
+    np.testing.assert_array_equal(flat.reshape(16, 7, 7, 256).swapaxes(1, 2),
+                                  full)
+
+
+def test_pallas_entry_rejects_unknown_variant():
+    feats, rois = _variant_case('edge')
+    with pytest.raises(ValueError, match='variant'):
+        _pallas_entry(feats, rois, 'v3')
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize('variant', ['v4', 'v8'])
+@pytest.mark.parametrize('name', ['edge', 'right', 'oversize', 'slivers'])
+def test_pallas_entry_matches_pallas_interpret(name, variant):
+    from hrfuser_tpu.ops.pallas_roi_align import multilevel_roi_align_pallas
+    feats, rois = _variant_case(name)
+    want = np.asarray(multilevel_roi_align_pallas(
+        [jnp.asarray(f) for f in feats], jnp.asarray(rois), STRIDES,
+        interpret=True, variant=variant), np.float32)
+    got = _pallas_entry(feats, rois, variant)
+    np.testing.assert_allclose(got, want, atol=0.05, rtol=0.05)

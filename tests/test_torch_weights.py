@@ -15,11 +15,17 @@ import pytest
 import torch
 
 from hrfuser_tpu.configs import get_config as jax_get_config
+from hrfuser_tpu.layers.attention import HRFormerBlock as JaxBlock
+from hrfuser_tpu.layers.attention import HRFuserFusionBlock as JaxFusion
 from hrfuser_tpu.models import CascadeRCNN as JaxCascadeRCNN
 from hrfuser_tpu.utils.pth_convert import convert_state_dict
 from hrfuser_tpu_torch.configs import get_config
+from hrfuser_tpu_torch.layers.attention import (HRFormerBlock,
+                                                HRFuserFusionBlock)
 from hrfuser_tpu_torch.models.detectors.cascade_rcnn import CascadeRCNN
-from hrfuser_tpu_torch.utils.jax_weights import state_dict_from_jax
+from hrfuser_tpu_torch.utils.jax_weights import (fusion_block_state_dict,
+                                                 hrformer_block_state_dict,
+                                                 state_dict_from_jax)
 from tests.oracles.random_variables import random_variables
 from tests.oracles.torch_hrfuser import TorchHRFuserDetector
 
@@ -89,3 +95,46 @@ def test_main_config_builds_with_reference_names():
         == (1024, 256 * 49)
     assert torch.equal(sd['backbone.transition1.0.1.running_var'],
                        torch.ones(18))
+
+
+def test_hrfuser_b_loads_strict_from_jax_variables():
+    """Full-width HRFuser-B: the JAX variables tree (shapes by
+    `jax.eval_shape`, nothing compiled) carries over and loads strictly."""
+    name = 'cascade_rcnn_hrfuser_b_1x_nus_r640_l_r_fusion'
+    x = jnp.zeros((1, 64, 96, 3), jnp.float32)
+    v = random_variables(JaxCascadeRCNN(jax_get_config(name).model), x,
+                         [x, x], False, seed=2)
+    model = CascadeRCNN(get_config(name))
+    sd = state_dict_from_jax(v, model.cfg)
+    model.load_state_dict(sd, strict=True)
+    assert sd['backbone.stage4.1.branches.3.1.attn.attn.qkv.weight'].shape \
+        == (3 * 624, 624)
+    assert sd['backbone.stage_c.1.3.branches.0.1.ffn.layers.0.weight'] \
+        .shape == (312, 78, 1, 1)
+    np.testing.assert_array_equal(
+        sd['backbone.fusion_c.3.attn.1.attn.q_proj.weight'].numpy(),
+        np.asarray(v['params']['backbone']['fusion_c']['branch3']['attn_1']
+                   ['q_proj']['kernel']).T)
+
+
+@pytest.mark.parametrize('m', [None, 2, 3])
+def test_block_bridges_load_strict(m):
+    """`hrformer_block_state_dict` / `fusion_block_state_dict`: one flax
+    block's variables -> the port block, strictly, leaf for leaf."""
+    x = jnp.zeros((1, 7, 7, 12), jnp.float32)
+    if m is None:
+        v = random_variables(JaxBlock(num_heads=2), x, False, seed=5)
+        sd, port = hrformer_block_state_dict(v), HRFormerBlock(12, 2)
+        kernel = v['params']['attn']['qkv']['kernel']
+        key = 'attn.attn.qkv.weight'
+    else:
+        v = random_variables(JaxFusion(num_heads=2, num_modalities=m), x,
+                             [x] * m, False, seed=m)
+        sd, port = fusion_block_state_dict(v, m), HRFuserFusionBlock(12, 2, m)
+        kernel = v['params'][f'attn_{m - 1}']['v_proj']['kernel']
+        key = f'attn.{m - 1}.attn.v_proj.weight'
+    port.load_state_dict(sd, strict=True)
+    np.testing.assert_array_equal(sd[key].numpy(), np.asarray(kernel).T)
+    var = v['batch_stats']['ffn']['norm2']['bn']['var']
+    np.testing.assert_array_equal(sd['ffn.layers.4.running_var'].numpy(),
+                                  np.asarray(var))
