@@ -6,12 +6,15 @@ Phases, each printed on its own lines; any failure exits non-zero:
 
 1. environment: torch / CUDA / nvcc versions and the card's name and
    power limit (exits non-zero without a CUDA device);
-2. build: nvcc compiles `hrfuser_tpu_torch/csrc/*.cu` into `build/`;
+2. build: nvcc compiles `hrfuser_tpu_torch/csrc/*.cu` into `build/`; the
+   count of tensor-core instructions (`HMMA`, `HGMMA`) in each kernel of
+   the library, from `cuobjdump --dump-sass` (fails if kernel A's or B's
+   bf16 plan has none);
 3. every kernel of the eval path vs its plain PyTorch twin on the card at
    HRFuser-T's main-path shapes, float32 (TF32 off) and bfloat16, with
-   both timed;
-3b. the same at HRFuser-B's widths (kernel A in self, cross and windows
-   mode, kernel B), the block-level entries (`ops/block.py`), the
+   both timed and each line naming the plan the host picked;
+3b. the same at HRFuser-B's four widths (kernel A in self, cross and
+   windows mode, kernel B), the block-level entries (`ops/block.py`), the
    pre-partitioned window entry (`ops/window_attention.py`) and the
    single-image RoIAlign entry with variants v4 and v8;
 4. the main path: `init_detector` on the full-width HRFuser-T r640
@@ -31,6 +34,7 @@ lists each kernel's launches, error and times as JSON.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -139,6 +143,39 @@ def phase_environment():
     return smi
 
 
+def _kernel_name(mangled):
+    """`_ZN3hrf11name_kernelILi4ELb0EE..` -> `name_kernel<4, false>`"""
+    m = re.search(r'_ZN3hrf(\d+)', mangled)
+    rest = mangled[m.end():]
+    name, rest = rest[:int(m.group(1))], rest[int(m.group(1)):]
+    words = {'Lb0E': 'false', 'Lb1E': 'true', '13__nv_bfloat16': 'bf16',
+             'f': 'f32'}
+    args = []
+    if rest.startswith('I'):
+        for tok in re.finditer(r'Li(\d+)E|Lb[01]E|13__nv_bfloat16|f|E',
+                               rest[1:]):
+            if tok.group(0) == 'E':
+                break
+            args.append(tok.group(1) or words[tok.group(0)])
+    return f'{name}<{", ".join(args)}>' if args else name
+
+
+def _sass_mma_counts(path):
+    """Tensor-core instructions (HMMA, HGMMA) per kernel of a library."""
+    from pathlib import Path
+    from hrfuser_tpu_torch.utils.cuda_build import nvcc
+    sass = _run([str(Path(nvcc()).parent / 'cuobjdump'), '--dump-sass',
+                 str(path)])
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if 'Function :' in line:
+            name = _kernel_name(line.split('Function :')[1].strip())
+            counts[name] = 0
+        elif name and re.search(r'\bHG?MMA\b', line):
+            counts[name] += 1
+    return counts
+
+
 def phase_build():
     print('== 2. build')
     from hrfuser_tpu_torch.utils import cuda_build
@@ -148,6 +185,26 @@ def phase_build():
     for line in info.log.splitlines():
         if 'registers' in line or 'spill' in line or 'Compiling' in line:
             print('  ' + line.strip())
+    counts = _sass_mma_counts(info.path)
+    for name, n in counts.items():
+        print(f'  SASS {name}: {n} HMMA/HGMMA')
+    for kernel, prefixes in (('A', ('window_attention_mma', 'window_out_mma')),
+                             ('B', ('ffn_fc1_mma', 'ffn_tile_mma'))):
+        n = sum(v for k, v in counts.items() if k.startswith(prefixes))
+        print(f'  kernel {kernel} bf16 plan: {n} tensor-core instructions')
+        if n == 0:
+            raise AssertionError(f'kernel {kernel}: no HMMA/HGMMA in its '
+                                 f'bf16 instantiation')
+
+
+def _plans(c, heads, dt):
+    """The plan the host picks for each kernel at a width and dtype."""
+    from hrfuser_tpu_torch.ops import chain
+    return {'window_attention_self': chain.attention_plan(c, heads, False,
+                                                          dt)[0],
+            'window_attention_cross': chain.attention_plan(c, heads, True,
+                                                           dt)[0],
+            'cross_ffn': chain.ffn_plan(c, 4 * c, dt)[0]}
 
 
 def phase_kernels(report):
@@ -193,13 +250,15 @@ def phase_kernels(report):
                 return chain.cross_ffn_plain(x, p['ffn'])
 
             main = dt == torch.bfloat16 and c == 18
+            plans = _plans(c, heads, dt)
             for name, src, rep, fk, fp in (
                     ('window_attention_self', SRC_A, REPLACES_A, self_k,
                      self_p),
                     ('window_attention_cross', SRC_A, REPLACES_A, cross_k,
                      cross_p),
                     ('cross_ffn', SRC_B, REPLACES_B, ffn_k, ffn_p)):
-                err = _compare(f'{name} {tag}', fk(), fp(), dt)
+                err = _compare(f'{name} {tag} [plan {plans[name]}]', fk(),
+                               fp(), dt)
                 torch.cuda.synchronize()
                 ms, plain_ms = _time_ms(fk), _time_ms(fp)
                 print(f'    time {ms:.4f} ms, plain {plain_ms:.4f} ms')
@@ -262,11 +321,14 @@ def phase_kernels_wide(report):
                                        window_attention)
     from hrfuser_tpu_torch.ops.window import window_partition
     g = torch.Generator().manual_seed(2)
-    for (h, w, c, heads) in ((96, 160, 78, 2), (12, 20, 624, 16)):
-        print(f'  plans at C={c}, {heads} heads: kernel A self '
-              f'{chain.attention_plan(c, heads, False)}, cross '
-              f'{chain.attention_plan(c, heads, True)} (plan, chunk, bytes); '
-              f'kernel B {chain.ffn_plan(c, 4 * c)} (rows, chunk, bytes)')
+    for (h, w, c, heads) in ((96, 160, 78, 2), (48, 80, 156, 4),
+                             (24, 40, 312, 8), (12, 20, 624, 16)):
+        for dt in (torch.float32, torch.bfloat16):
+            print(f'  plans at C={c}, {heads} heads, {str(dt)[6:]}: kernel A '
+                  f'self {chain.attention_plan(c, heads, False, dt)}, cross '
+                  f'{chain.attention_plan(c, heads, True, dt)} (plan, chunk, '
+                  f'bytes); kernel B {chain.ffn_plan(c, 4 * c, dt)} (plan, '
+                  f'rows, chunk, bytes)')
         blk = _randomize(HRFormerBlock(c, heads), g).cuda()
         fus = _randomize(HRFuserFusionBlock(c, heads, 2), g).cuda()
         p, pf = blk.folded(), fus.folded()
@@ -284,6 +346,7 @@ def phase_kernels_wide(report):
             x, z = x32.to(dt), [t.to(dt) for t in z32]
             xw, yw = xw32.to(dt).contiguous(), yw32.to(dt).contiguous()
             tag = f'{h}x{w}x{c} heads={heads} B={BATCH} {str(dt)[6:]}'
+            plans = _plans(c, heads, dt)
 
             def cross_k():
                 out = x
@@ -298,24 +361,28 @@ def phase_kernels_wide(report):
                                                        kv_src=zk, z=zk)
                 return out
 
-            for name, src, rep, label, fk, fp in (
+            for name, src, rep, label, fk, fp, plan in (
                     ('window_attention_self', SRC_A, REPLACES_A, 'self',
                      lambda: chain.window_self_attention(x, p['attn'], heads),
                      lambda: chain.window_attention_plain(x, x, p['attn'],
-                                                          heads)),
+                                                          heads),
+                     plans['window_attention_self']),
                     ('window_attention_cross', SRC_A, REPLACES_A,
-                     'cross x2', cross_k, cross_p),
+                     'cross x2', cross_k, cross_p,
+                     plans['window_attention_cross']),
                     ('window_attention_self', SRC_A, REPLACES_A,
                      f'windows [{xw.shape[0]}, 49, {c}] cross',
                      lambda: window_attention.fused_window_attention(
                          xw, yw, *wts, bias, heads),
                      lambda: window_attention.fused_window_attention_plain(
-                         xw, yw, *wts, bias, heads)),
+                         xw, yw, *wts, bias, heads),
+                     plans['window_attention_cross']),
                     ('cross_ffn', SRC_B, REPLACES_B, 'ffn',
                      lambda: chain.cross_ffn(x, p['ffn']),
-                     lambda: chain.cross_ffn_plain(x, p['ffn']))):
-                _check(report, name, src, rep, f'{name} {label} {tag}', fk,
-                       fp, dt)
+                     lambda: chain.cross_ffn_plain(x, p['ffn']),
+                     plans['cross_ffn'])):
+                _check(report, name, src, rep,
+                       f'{name} {label} {tag} [plan {plan}]', fk, fp, dt)
 
     # rows 4 and 5: the block entries at test_pallas_block.py's shapes
     for (h, w, c, heads) in ((20, 26, 18, 1), (13, 12, 36, 2),

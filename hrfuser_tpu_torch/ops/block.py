@@ -73,7 +73,8 @@ def _in_window_bias(bias_full: Tensor, window: int, wp: int) -> Tensor:
 def _fold_heads(wq, bq, wk, bk, wv, bv, wo, bo, lnq, lnkv, bias_full,
                 window: int, wp: int) -> chain.Folded:
     """Per-head JAX-layout weights -> kernel A's folded weights (d^-0.5 in
-    Wq / bq, as `ops/chain.py:_fold_attention` does)."""
+    Wq / bq, as `ops/chain.py:_fold_attention` does), packed by
+    `chain.pack_attention`."""
     h, c, d = wq.shape
 
     def cols(t):                          # [h, C, d] -> [C, h*d]
@@ -81,7 +82,7 @@ def _fold_heads(wq, bq, wk, bk, wv, bv, wo, bo, lnq, lnkv, bias_full,
 
     scale = d ** -0.5
     f32 = torch.float32
-    return dict(
+    return chain.pack_attention(dict(
         lnq=lnq.to(f32).contiguous(), lnkv=lnkv.to(f32).contiguous(),
         wqkv=torch.cat([cols(wq) * scale, cols(wk), cols(wv)], 1)
         .to(f32).contiguous(),
@@ -89,7 +90,7 @@ def _fold_heads(wq, bq, wk, bk, wv, bv, wo, bo, lnq, lnkv, bias_full,
                         bv.reshape(-1)]).to(f32).contiguous(),
         wo=wo.reshape(h * d, c).to(f32).contiguous(),
         bo=bo.reshape(c).to(f32).contiguous(),
-        bias=_in_window_bias(bias_full, window, wp).to(f32).contiguous())
+        bias=_in_window_bias(bias_full, window, wp).to(f32).contiguous()), h)
 
 
 def _crop(t: Tensor, pads, hw) -> Tensor:

@@ -25,7 +25,10 @@ The kernels take weights folded for eval (`fold_hrformer_block`,
 their running statistics (as `pallas_chain.py:760-772` does), and the
 attention scale d^-0.5 folded into Wq / bq (`pallas_chain.py:740-753,
 587-598`). Folded tensors are float32 and contiguous; q, k and v weights
-are one [C, 3C] matrix in both modes.
+are one [C, 3C] matrix in both modes. Folding also packs the projection
+weights once as bf16 in the layout the kernels' tensor-core plan reads
+(`pack_attention`, `pack_cross_ffn`: keys ending in `_p`), used for
+bfloat16 activations.
 """
 
 from __future__ import annotations
@@ -58,6 +61,49 @@ def _ln(norm: nn.LayerNorm) -> Tensor:
     return torch.stack([norm.weight, norm.bias]).float().contiguous()
 
 
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def _pad_bf16(w: Tensor, rows: int, cols: int) -> Tensor:
+    """`w` [r, c] zero-padded to [rows, cols], bf16, contiguous."""
+    out = w.new_zeros((rows, cols), dtype=torch.bfloat16)
+    out[:w.shape[0], :w.shape[1]] = w
+    return out
+
+
+def pack_attention(p: Folded, num_heads: int) -> Folded:
+    """`p` with kernel A's tensor-core weights added, bf16 [N][K] (the
+    folded weight transposed, K contiguous), zero-padded:
+
+      wqkv_p [heads * 3 * dp, KP]  rows of head h: q_h | k_h | v_h, each
+                                   its d rows then zeros up to dp
+      wo_p   [round64(C), KP]      Wo^T
+
+    with d = C / heads, dp = round16(d) (39 -> 48, as the TPU stackers pad
+    odd head dims), KP = round64(C)."""
+    wqkv = p['wqkv']
+    c = wqkv.shape[0]
+    d = c // num_heads
+    dp, kp = _round_up(d, 16), _round_up(c, 64)
+    w = wqkv.t().reshape(3, num_heads, d, c).transpose(0, 1)
+    heads = wqkv.new_zeros((num_heads, 3, dp, c))
+    heads[:, :, :d] = w
+    return dict(p, wqkv_p=_pad_bf16(heads.reshape(-1, c),
+                                    num_heads * 3 * dp, kp),
+                wo_p=_pad_bf16(p['wo'].t(), _round_up(c, 64), kp))
+
+
+def pack_cross_ffn(p: Folded) -> Folded:
+    """`p` with kernel B's tensor-core weights added, bf16, zero-padded:
+    w1_p [round64(4C), round64(C)] = W1^T, w2_p [round64(C), round64(4C)]
+    = W2^T."""
+    c, ch = p['w1'].shape
+    cp, chp = _round_up(c, 64), _round_up(ch, 64)
+    return dict(p, w1_p=_pad_bf16(p['w1'].t(), chp, cp),
+                w2_p=_pad_bf16(p['w2'].t(), cp, chp))
+
+
 def _fold_attention(lnq: Tensor, lnkv: Tensor, w: Tensor, b: Tensor,
                     out_proj: nn.Linear, table: Tensor, num_heads: int,
                     ws: int) -> Folded:
@@ -66,12 +112,13 @@ def _fold_attention(lnq: Tensor, lnkv: Tensor, w: Tensor, b: Tensor,
     c = out_proj.weight.shape[0]
     scale = torch.ones(3 * c, device=w.device)
     scale[:c] = (c // num_heads) ** -0.5
-    return dict(lnq=lnq, lnkv=lnkv,
-                wqkv=(w.float() * scale[:, None]).t().contiguous(),
-                bqkv=(b.float() * scale).contiguous(),
-                wo=out_proj.weight.float().t().contiguous(),
-                bo=out_proj.bias.detach().float().contiguous(),
-                bias=rpe_bias(table.float(), ws).contiguous())
+    return pack_attention(dict(
+        lnq=lnq, lnkv=lnkv,
+        wqkv=(w.float() * scale[:, None]).t().contiguous(),
+        bqkv=(b.float() * scale).contiguous(),
+        wo=out_proj.weight.float().t().contiguous(),
+        bo=out_proj.bias.detach().float().contiguous(),
+        bias=rpe_bias(table.float(), ws).contiguous()), num_heads)
 
 
 def fold_cross_ffn(norm: nn.LayerNorm, layers: nn.Sequential) -> Folded:
@@ -82,14 +129,14 @@ def fold_cross_ffn(norm: nn.LayerNorm, layers: nn.Sequential) -> Folded:
     s2, t2 = fold_bn(layers[4])
     s3, t3 = fold_bn(layers[7])
     ch = fc1.weight.shape[0]
-    return dict(
+    return pack_cross_ffn(dict(
         ln=_ln(norm),
         w1=(fc1.weight[:, :, 0, 0].float().t() * s1[None, :]).contiguous(),
         b1=(fc1.bias.float() * s1 + t1).contiguous(),
         wdw=(dw.weight.float().reshape(ch, 9) * s2[:, None]).contiguous(),
         bdw=(dw.bias.float() * s2 + t2).contiguous(),
         w2=(fc2.weight[:, :, 0, 0].float().t() * s3[None, :]).contiguous(),
-        b2=(fc2.bias.float() * s3 + t3).contiguous())
+        b2=(fc2.bias.float() * s3 + t3).contiguous()))
 
 
 def fold_hrformer_block(blk) -> Dict[str, Folded]:
@@ -185,13 +232,22 @@ def _check_act(name: str, t: Tensor, like: Tensor) -> None:
 
 
 def _check_params(p: Folded, shapes: Dict[str, tuple], device) -> None:
+    """Folded weights are float32; the packed ones (`*_p`) bf16 and
+    16-byte aligned, as the kernels' cp.async copies read them."""
     for key, shape in shapes.items():
-        t = p[key]
-        if (t.device != device or t.dtype != torch.float32
-                or not t.is_contiguous() or tuple(t.shape) != shape):
+        t = p.get(key)
+        if t is None:
+            raise ValueError(f'folded weight {key!r} missing: fold with '
+                             f'fold_hrformer_block / fold_fusion_block')
+        packed = key.endswith('_p')
+        dtype = torch.bfloat16 if packed else torch.float32
+        if (t.device != device or t.dtype != dtype
+                or not t.is_contiguous() or tuple(t.shape) != shape
+                or (packed and t.data_ptr() % 16)):
             raise ValueError(f'folded weight {key!r}: {t.device}/{t.dtype} '
-                             f'{tuple(t.shape)}, expected {device}/float32 '
-                             f'{shape} contiguous')
+                             f'{tuple(t.shape)}, expected {device}/{dtype} '
+                             f'{shape} contiguous'
+                             + (' and 16-byte aligned' if packed else ''))
 
 
 def _ptr(t: Optional[Tensor]):
@@ -203,35 +259,44 @@ def _stream(t: Tensor) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def attention_plan(c: int, num_heads: int, cross: bool
+def attention_plan(c: int, num_heads: int, cross: bool,
+                   dtype: torch.dtype = torch.float32
                    ) -> Tuple[str, int, int]:
-    """Kernel A's shared-memory plan: ('resident' or 'streamed', channels
-    staged per pass, bytes). Raises `ValueError` with the byte count when
-    no plan fits a block."""
-    chunk, resident = ctypes.c_int(), ctypes.c_int()
+    """Kernel A's plan for a width and activation dtype: ('mma',
+    'resident' or 'streamed', channels staged per pass, bytes of shared
+    memory). 'mma' (tensor cores) serves bfloat16 wherever it fits.
+    Raises `ValueError` with the byte count when no plan fits a block."""
+    chunk, resident, mma = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     nbytes = cuda_build.lib().hrf_window_attention_plan(
-        c, num_heads, int(cross), ctypes.byref(chunk), ctypes.byref(resident))
+        c, num_heads, int(cross), int(dtype == torch.bfloat16),
+        ctypes.byref(chunk), ctypes.byref(resident), ctypes.byref(mma))
     if chunk.value == 0:
         raise ValueError(
             f'window attention kernel: C={c} with {num_heads} heads '
             f'({"cross" if cross else "self"} mode) needs {nbytes} B of '
             f'shared memory per block; an H100 block has {SMEM_MAX} B')
-    return ('resident' if resident.value else 'streamed'), chunk.value, nbytes
+    kind = ('mma' if mma.value else
+            'resident' if resident.value else 'streamed')
+    return kind, chunk.value, nbytes
 
 
 @functools.lru_cache(maxsize=None)
-def ffn_plan(c: int, hidden: int) -> Tuple[int, int, int]:
-    """Kernel B's plan: (tile rows, hidden channels per chunk, bytes).
+def ffn_plan(c: int, hidden: int, dtype: torch.dtype = torch.float32
+             ) -> Tuple[str, int, int, int]:
+    """Kernel B's plan: ('mma' or 'scalar', tile rows, hidden channels per
+    chunk, bytes of its largest launch). 'mma' (tensor cores, two launches
+    through a bf16 scratch of GELU(fc1)) serves bfloat16 wherever it fits.
     Raises `ValueError` with the byte count when no plan fits a block."""
-    th, kh = ctypes.c_int(), ctypes.c_int()
+    th, kh, mma = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     nbytes = cuda_build.lib().hrf_cross_ffn_plan(
-        c, hidden, ctypes.byref(th), ctypes.byref(kh))
+        c, hidden, int(dtype == torch.bfloat16), ctypes.byref(th),
+        ctypes.byref(kh), ctypes.byref(mma))
     if th.value == 0:
         raise ValueError(
             f'cross_ffn kernel: C={c} with {hidden} hidden channels needs '
             f'{nbytes} B of shared memory per block at its smallest tile; '
             f'the plan allows 204800 B')
-    return th.value, kh.value, nbytes
+    return ('mma' if mma.value else 'scalar'), th.value, kh.value, nbytes
 
 
 def launch_window_attention(q_src: Tensor, kv_src: Tensor,
@@ -269,18 +334,27 @@ def launch_window_attention(q_src: Tensor, kv_src: Tensor,
                   bias=(num_heads, 49, 49))
     if ln:
         shapes.update(lnq=(2, c), lnkv=(2, c))
-    _check_params(p, shapes, q_src.device)
     cross = kv_src.data_ptr() != q_src.data_ptr() or (
         ln and p['lnkv'].data_ptr() != p['lnq'].data_ptr())
-    attention_plan(c, num_heads, cross)
+    mma = attention_plan(c, num_heads, cross, q_src.dtype)[0] == 'mma'
+    packed = obuf = None
+    if mma:
+        kp, dp = _round_up(c, 64), _round_up(c // num_heads, 16)
+        shapes.update(wqkv_p=(num_heads * 3 * dp, kp),
+                      wo_p=(_round_up(c, 64), kp))
+        packed = (p['wqkv_p'].data_ptr(), p['wo_p'].data_ptr())
+        nwin = -(-hs // 7) * -(-ws_ // 7)
+        obuf = torch.empty((b * nwin * 49, _round_up(c, 8)),
+                           dtype=torch.bfloat16, device=q_src.device)
+    _check_params(p, shapes, q_src.device)
     out = torch.empty_like(q_src)
     cuda_build.check(cuda_build.lib().hrf_window_attention(
         _ptr(res), q_src.data_ptr(), kv_src.data_ptr(), _ptr(z),
         out.data_ptr(), p['lnq'].data_ptr() if ln else None,
         p['lnkv'].data_ptr() if ln else None, p['wqkv'].data_ptr(),
         p['bqkv'].data_ptr(), p['wo'].data_ptr(), p['bo'].data_ptr(),
-        p['bias'].data_ptr(), b, h, w, c, num_heads,
-        int(padded_hw is not None), int(cross),
+        p['bias'].data_ptr(), *(packed or (None, None)), _ptr(obuf), b, h,
+        w, c, num_heads, int(padded_hw is not None), int(cross),
         int(q_src.dtype == torch.bfloat16), _stream(q_src)),
         'hrf_window_attention')
     return out
@@ -320,14 +394,23 @@ def launch_cross_ffn(x: Tensor, p: Folded) -> Tensor:
     _check_act('x', x, x)
     b, h, w, c = x.shape
     ch = p['w1'].shape[1]
-    _check_params(p, dict(ln=(2, c), w1=(c, ch), b1=(ch,), wdw=(ch, 9),
-                          bdw=(ch,), w2=(ch, c), b2=(c,)), x.device)
-    ffn_plan(c, ch)
+    shapes = dict(ln=(2, c), w1=(c, ch), b1=(ch,), wdw=(ch, 9), bdw=(ch,),
+                  w2=(ch, c), b2=(c,))
+    mma = ffn_plan(c, ch, x.dtype)[0] == 'mma'
+    hbuf = None
+    if mma:
+        cp, chp = _round_up(c, 64), _round_up(ch, 64)
+        shapes.update(w1_p=(chp, cp), w2_p=(cp, chp))
+        hbuf = torch.empty((b * h * w, chp), dtype=torch.bfloat16,
+                           device=x.device)
+    _check_params(p, shapes, x.device)
     out = torch.empty_like(x)
     cuda_build.check(cuda_build.lib().hrf_cross_ffn(
         x.data_ptr(), out.data_ptr(), p['ln'].data_ptr(), p['w1'].data_ptr(),
         p['b1'].data_ptr(), p['wdw'].data_ptr(), p['bdw'].data_ptr(),
-        p['w2'].data_ptr(), p['b2'].data_ptr(), b, h, w, c, ch,
+        p['w2'].data_ptr(), p['b2'].data_ptr(),
+        p['w1_p'].data_ptr() if mma else None,
+        p['w2_p'].data_ptr() if mma else None, _ptr(hbuf), b, h, w, c, ch,
         int(x.dtype == torch.bfloat16), _stream(x)), 'hrf_cross_ffn')
     return out
 

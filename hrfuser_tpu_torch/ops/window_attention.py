@@ -54,11 +54,11 @@ def _fold(wq, wk, wv, wo, bq, bk, bv, bo, bias, num_heads) -> chain.Folded:
     c = wq.shape[0]
     scale = (c // num_heads) ** -0.5
     f32 = torch.float32
-    return dict(
+    return chain.pack_attention(dict(
         wqkv=torch.cat([wq * scale, wk, wv], 1).to(f32).contiguous(),
         bqkv=torch.cat([bq * scale, bk, bv]).to(f32).contiguous(),
         wo=wo.to(f32).contiguous(), bo=bo.to(f32).contiguous(),
-        bias=bias.to(f32).contiguous())
+        bias=bias.to(f32).contiguous()), num_heads)
 
 
 def fused_window_attention(x: Tensor, y: Tensor, wq: Tensor, wk: Tensor,

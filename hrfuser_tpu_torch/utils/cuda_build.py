@@ -32,10 +32,10 @@ _IP = ctypes.POINTER(ctypes.c_int)
 _L = ctypes.c_longlong
 # name: (argument types, result type)
 _SIGNATURES = {
-    'hrf_window_attention': ([_P] * 12 + [_I] * 8 + [_P], _I),
-    'hrf_window_attention_plan': ([_I] * 3 + [_IP, _IP], _L),
-    'hrf_cross_ffn': ([_P] * 9 + [_I] * 6 + [_P], _I),
-    'hrf_cross_ffn_plan': ([_I, _I, _IP, _IP], _L),
+    'hrf_window_attention': ([_P] * 15 + [_I] * 8 + [_P], _I),
+    'hrf_window_attention_plan': ([_I] * 4 + [_IP] * 3, _L),
+    'hrf_cross_ffn': ([_P] * 12 + [_I] * 6 + [_P], _I),
+    'hrf_cross_ffn_plan': ([_I] * 3 + [_IP] * 3, _L),
     'hrf_roi_align': ([_P] * 4 + [_I] * 8 + [_F] * 4 + [_P, _P]
                       + [_I] * 3 + [_F, _I, _P], _I),
 }

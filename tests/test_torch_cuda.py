@@ -6,8 +6,11 @@ False (this file imports no JAX, so it also runs where JAX is absent):
     python -m pytest tests/test_torch_cuda.py --noconftest -m cuda
 
 Tolerances: float32 with TF32 off 1e-3; bfloat16 0.05, as the Pallas
-kernel tests use. Both sides compute in float32 and round once, so the
-bfloat16 gap is about one output rounding.
+kernel tests use. For float32 both sides compute in float32 and round
+once. For bfloat16 kernels A and B take their tensor-core plan ('mma'),
+which rounds the operands to bf16 where the TPU kernels do (LN output,
+q/k/v, probabilities, head outputs, the GELU'd hidden maps) and
+accumulates in float32; the twins stay float32.
 """
 
 import pytest
@@ -54,10 +57,14 @@ def _close(got, want, dt):
 
 
 SHAPES = [(13, 17, 8, 2), (7, 7, 18, 1), (96, 160, 18, 1), (12, 20, 144, 8),
-          (25, 40, 72, 4),
-          # HRFuser-B widths, head dim 39: kernel A resident up to C = 312,
-          # streamed at 624; kernel B chunked at 312 and 624
-          (13, 12, 78, 2), (24, 40, 312, 8), (12, 20, 624, 16)]
+          (25, 40, 72, 4), (13, 17, 36, 2),
+          # HRFuser-B widths, head dim 39 (padded to 48 by the 'mma' plans);
+          # float32: kernel A resident up to C = 156, streamed at 312 and
+          # 624, kernel B chunked at 312 and 624
+          (13, 12, 78, 2), (48, 80, 156, 4), (24, 40, 312, 8),
+          (12, 20, 624, 16),
+          # ragged 4x8 tiles and split fc2 columns at the widest C
+          (13, 17, 624, 16)]
 
 
 @pytest.mark.parametrize('dt', DTYPES)
@@ -119,6 +126,7 @@ def test_roi_align_matches_twin_on_edge_rois(dev, dt):
 @pytest.mark.parametrize('dt', DTYPES)
 @pytest.mark.parametrize('w,c,heads,cross', [(40, 78, 2, False),
                                              (40, 78, 2, True),
+                                             (40, 156, 4, True),
                                              (12, 624, 16, True)])
 def test_windows_mode_matches_twin(dev, w, c, heads, cross, dt):
     g = torch.Generator().manual_seed(c)
@@ -214,7 +222,30 @@ def test_shapes_without_a_plan_raise_with_their_bytes(dev):
         chain.ffn_plan(2048, 8192)
     assert chain.attention_plan(624, 16, True) == ('streamed', 156, 217168)
     assert chain.attention_plan(144, 8, True)[0] == 'resident'
-    assert chain.ffn_plan(624, 2496)[:2] == (2, 278)
+    assert chain.ffn_plan(624, 2496)[:3] == ('scalar', 2, 278)
+    # bf16 widths beyond the 'mma' plan fall to the scalar plan's limits
+    with pytest.raises(ValueError, match='B of shared memory'):
+        chain.attention_plan(2496, 64, True, torch.bfloat16)
+    with pytest.raises(ValueError, match='B of shared memory'):
+        chain.ffn_plan(2048, 8192, torch.bfloat16)
+
+
+@pytest.mark.parametrize('c,heads', [(18, 1), (36, 2), (72, 4), (144, 8),
+                                     (78, 2), (156, 4), (312, 8),
+                                     (624, 16)])
+def test_plans_by_dtype(dev, c, heads):
+    """bfloat16 takes the tensor-core plans at every HRFuser-T and
+    HRFuser-B width; float32 keeps the CUDA-core plans."""
+    for cross in (False, True):
+        kind, _, nbytes = chain.attention_plan(c, heads, cross,
+                                               torch.bfloat16)
+        assert kind == 'mma' and nbytes <= chain.SMEM_MAX
+        assert chain.attention_plan(c, heads, cross)[0] in ('resident',
+                                                            'streamed')
+    kind, th, kh, nbytes = chain.ffn_plan(c, 4 * c, torch.bfloat16)
+    assert (kind, th, kh) == ('mma', 8 if c <= 192 else 4, 64)
+    assert nbytes <= chain.SMEM_MAX
+    assert chain.ffn_plan(c, 4 * c)[0] == 'scalar'
 
 
 def test_wrappers_raise_instead_of_falling_back(dev):
@@ -227,3 +258,12 @@ def test_wrappers_raise_instead_of_falling_back(dev):
         chain.cross_ffn(x.transpose(1, 2), p['ffn'])
     with pytest.raises(ValueError):
         chain.window_self_attention(x, blk.cpu().folded()['attn'], 1)
+    # the bf16 'mma' plans refuse float32 or missing packed weights
+    p = blk.to(dev).folded()
+    xb = x.bfloat16()
+    with pytest.raises(ValueError, match='wqkv_p'):
+        chain.window_self_attention(
+            xb, dict(p['attn'], wqkv_p=p['attn']['wqkv_p'].float()), 1)
+    with pytest.raises(ValueError, match='w2_p'):
+        chain.cross_ffn(xb, {k: v for k, v in p['ffn'].items()
+                             if k != 'w2_p'})
