@@ -12,7 +12,13 @@ Phases, each printed on its own lines; any failure exits non-zero:
    bf16 plan has none);
 3. every kernel of the eval path vs its plain PyTorch twin on the card at
    HRFuser-T's main-path shapes, float32 (TF32 off) and bfloat16, with
-   both timed and each line naming the plan the host picked;
+   both timed, each line naming the plan the host picked and each timed
+   kernel call printing its bound (the larger of its FLOPs over the
+   card's peak for their type and the bytes it must move over 3.35 TB/s);
+   kernel C at r640, C = 256, 8 x 1000 RoIs also prints its bytes (output
+   plus the pyramid pixels its taps touch, counted on the card), GB/s,
+   share of bound and device time under `torch.profiler`, and is timed on
+   two skewed batches (every RoI on level 0, every RoI on level 3);
 3b. the same at HRFuser-B's four widths (kernel A in self, cross and
    windows mode, kernel B), the block-level entries (`ops/block.py`), the
    pre-partitioned window entry (`ops/window_attention.py`) and the
@@ -28,7 +34,7 @@ Phases, each printed on its own lines; any failure exits non-zero:
    it runs at full size).
 
 The last line is `{"ok": true, "device": {...}}`; the line before it
-lists each kernel's launches, error and times as JSON.
+lists each kernel's launches, error, times and bound as JSON.
 """
 
 from __future__ import annotations
@@ -60,6 +66,11 @@ REPLACES_B = ['hrfuser_tpu/ops/pallas_chain.py:878',
 REPLACES_C = ['hrfuser_tpu/ops/pallas_roi_align.py:597',
               'hrfuser_tpu/ops/pallas_roi_align.py:633',
               'hrfuser_tpu/ops/pallas_roi_align.py:558']
+# H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W): kernels A and B
+# multiply bf16 on tensor cores and float32 on CUDA cores; kernel C
+# accumulates in float32 on CUDA cores whatever its features' type
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+HBM_BYTES_PER_S = 3.35e12
 
 
 def _run(cmd):
@@ -78,6 +89,92 @@ def _time_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _device_ms(fn, name, iters=20):
+    """Device time per call of the kernels whose name holds `name`, from
+    `torch.profiler` (CUDA activity only); None if it records none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA and name in e.name]
+    return sum(us) / iters / 1e3 if us else None
+
+
+def _nbytes(*tensors):
+    """Bytes of distinct tensors, each counted once."""
+    seen = {t.data_ptr(): t.numel() * t.element_size() for t in tensors}
+    return sum(seen.values())
+
+
+def _bound(flops, nbytes, dt):
+    """(least ms, 'bytes' or 'operations'): the larger of FLOPs over the
+    peak for `dt` and bytes over the memory rate."""
+    ops_ms = flops / PEAK_FLOPS[dt] * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return (bytes_ms, 'bytes') if bytes_ms >= ops_ms else (ops_ms,
+                                                            'operations')
+
+
+def _attn_work(x, ps, dt, acts):
+    """FLOPs, bytes and peak type of one kernel A call per folded weight
+    set in `ps` on maps like `x`: the model's T C (8C + 196) a call; the
+    activations `acts` (read or written once) and the weights the plan
+    reads."""
+    t, c = x.numel() // x.shape[-1], x.shape[-1]
+    keys = ['lnq', 'lnkv', 'bqkv', 'bo', 'bias']
+    keys += ['wqkv_p', 'wo_p'] if dt == torch.bfloat16 else ['wqkv', 'wo']
+    return (len(ps) * t * c * (8 * c + 196),
+            _nbytes(*acts, *(p[k] for p in ps for k in keys)), dt)
+
+
+def _ffn_work(x, p, dt, acts):
+    """FLOPs (16 P C^2 + 72 P C), bytes and peak type of one kernel B
+    call."""
+    n, c = x.numel() // x.shape[-1], x.shape[-1]
+    keys = ['ln', 'b1', 'wdw', 'bdw', 'b2']
+    keys += ['w1_p', 'w2_p'] if dt == torch.bfloat16 else ['w1', 'w2']
+    return (16 * n * c * c + 72 * n * c,
+            _nbytes(*acts, *(p[k] for k in keys)), dt)
+
+
+def _roi_work(feats, rois, out):
+    """FLOPs (2 per channel of each of 196 samples x 4 taps, float32),
+    bytes, float32 and pixels of one kernel C call. The bytes are its
+    output, its RoIs and the pyramid pixels whose taps these RoIs weight
+    non-zero, each counted once (on the device)."""
+    from hrfuser_tpu_torch.ops.roi_align import _axis_taps, map_roi_levels
+    b, n, _ = rois.shape
+    c, dev = feats[0].shape[-1], rois.device
+    lvl = map_roi_levels(rois, 4)
+    hs = torch.tensor([f.shape[1] for f in feats], device=dev)
+    ws = torch.tensor([f.shape[2] for f in feats], device=dev)
+    starts = torch.cumsum(b * hs * ws, 0) - b * hs * ws  # level offsets
+    scale = torch.tensor([1.0 / s for s in (4, 8, 16, 32)],
+                         device=dev)[lvl]
+    fh, fw = hs[lvl], ws[lvl]
+    taps = []
+    for lo_i, hi_i, size in ((0, 2, fw), (1, 3, fh)):
+        a1 = rois[..., lo_i] * scale - 0.5
+        bin_ = (rois[..., hi_i] * scale - 0.5 - a1) / 7
+        lo, hi, wl, wh = _axis_taps(a1, bin_, size, 7, 2)
+        taps.append((torch.stack([lo, hi], -1), torch.stack([wl, wh], -1)))
+    (xs, wx), (ys, wy) = taps                           # [B, N, 14, 2]
+    img = torch.arange(b, device=dev)[:, None]
+    base = starts[lvl] + img * fh * fw                           # [B, N]
+    idx = (base[..., None, None, None, None]
+           + ys[..., None, None] * fw[..., None, None, None, None]
+           + xs[:, :, None, None])
+    wt = wy[..., None, None] * wx[:, :, None, None]
+    pixels = torch.unique(idx[wt != 0]).numel()
+    nbytes = (pixels * c * feats[0].element_size() + _nbytes(rois, out))
+    return b * n * 196 * 4 * 2 * c, nbytes, torch.float32, pixels
 
 
 def _randomize(module, g):
@@ -106,13 +203,24 @@ class Report:
     def __init__(self):
         self.kernels = {}
 
-    def add(self, name, source, replaces, err, ms=None, plain_ms=None):
+    def add(self, name, source, replaces, err, ms=None, plain_ms=None,
+            bound=None):
+        """`bound`: (ms, 'bytes' or 'operations') of the timed call. No
+        single PyTorch call computes any of the three kernels' functions
+        (PERF.md gives the reasons), so `library_ms` stays null."""
         k = self.kernels.setdefault(name, dict(
             name=name, route='cuda', source=source, replaces=replaces,
-            launches=0, max_abs_err=0.0, ms=None, plain_ms=None))
+            launches=0, max_abs_err=0.0, ms=None, plain_ms=None,
+            bound_ms=None, bound_by=None, library_ms=None))
         k['max_abs_err'] = max(k['max_abs_err'], err)
         if ms is not None and k['ms'] is None:
             k['ms'], k['plain_ms'] = ms, plain_ms
+            k['bound_ms'], k['bound_by'] = bound
+
+
+def _print_time(ms, plain_ms, bound):
+    print(f'    time {ms:.4f} ms, plain {plain_ms:.4f} ms, bound '
+          f'{bound[0]:.4f} ms ({bound[1]}), {bound[0] / ms:.1%} of bound')
 
 
 def _compare(label, got, want, dtype):
@@ -251,40 +359,80 @@ def phase_kernels(report):
 
             main = dt == torch.bfloat16 and c == 18
             plans = _plans(c, heads, dt)
-            for name, src, rep, fk, fp in (
+            for name, src, rep, fk, fp, work in (
                     ('window_attention_self', SRC_A, REPLACES_A, self_k,
-                     self_p),
+                     self_p, lambda out: _attn_work(x, [p['attn']], dt,
+                                                    [x, out])),
                     ('window_attention_cross', SRC_A, REPLACES_A, cross_k,
-                     cross_p),
-                    ('cross_ffn', SRC_B, REPLACES_B, ffn_k, ffn_p)):
-                err = _compare(f'{name} {tag} [plan {plans[name]}]', fk(),
+                     cross_p, lambda out: _attn_work(x, pf['attn'], dt,
+                                                     [x, *z, out])),
+                    ('cross_ffn', SRC_B, REPLACES_B, ffn_k, ffn_p,
+                     lambda out: _ffn_work(x, p['ffn'], dt, [x, out]))):
+                got = fk()
+                err = _compare(f'{name} {tag} [plan {plans[name]}]', got,
                                fp(), dt)
                 torch.cuda.synchronize()
                 ms, plain_ms = _time_ms(fk), _time_ms(fp)
-                print(f'    time {ms:.4f} ms, plain {plain_ms:.4f} ms')
-                report.add(name, src, rep, err, *((ms, plain_ms) if main
-                                                  else (None, None)))
+                bound = _bound(*work(got))
+                _print_time(ms, plain_ms, bound)
+                report.add(name, src, rep, err,
+                           *((ms, plain_ms, bound) if main else ()))
 
-    # kernel C at the r640 pyramid, 8 x 1000 RoIs with the edge cases
+    # kernel C at the r640 pyramid, 8 x 1000 RoIs with the edge cases,
+    # then bf16 batches skewed onto one level
     feats32, rois = _roi_inputs(g)
-    n = rois.shape[1]
     for dt in (torch.float32, torch.bfloat16):
         feats = [f.to(dt).contiguous() for f in feats32]
+        _roi_case(report, f'r640 C=256 {BATCH}x{rois.shape[1]} '
+                  f'{str(dt)[6:]}', feats, rois, dt,
+                  record=dt == torch.bfloat16)
+    for level in (0, 3):
+        _roi_case(report, f'r640 C=256 {BATCH}x1000 bfloat16, every RoI on '
+                  f'level {level}', feats, _skewed_rois(g, level),
+                  torch.bfloat16)
 
-        def roi_k():
-            return roi_align.multilevel_roi_align(feats, rois, (4, 8, 16, 32))
 
-        def roi_p():
-            return roi_align.multilevel_roi_align_plain(feats, rois,
-                                                        (4, 8, 16, 32))
+def _roi_case(report, label, feats, rois, dt, record=False):
+    """Kernel C against its twin on one batch: error, times, bytes, bound
+    and device time under the profiler."""
+    from hrfuser_tpu_torch.ops import roi_align
 
-        err = _compare(f'roi_align r640 C=256 {BATCH}x{n} {str(dt)[6:]}',
-                       roi_k(), roi_p(), dt)
-        ms, plain_ms = _time_ms(roi_k), _time_ms(roi_p, iters=3, warmup=1)
-        print(f'    time {ms:.4f} ms, plain {plain_ms:.4f} ms')
-        main = dt == torch.bfloat16
-        report.add('roi_align', SRC_C, REPLACES_C, err,
-                   *((ms, plain_ms) if main else (None, None)))
+    def roi_k():
+        return roi_align.multilevel_roi_align(feats, rois, (4, 8, 16, 32))
+
+    def roi_p():
+        return roi_align.multilevel_roi_align_plain(feats, rois,
+                                                    (4, 8, 16, 32))
+
+    got = roi_k()
+    err = _compare(f'roi_align {label}', got, roi_p(), dt)
+    ms, plain_ms = _time_ms(roi_k), _time_ms(roi_p, iters=3, warmup=1)
+    flops, nbytes, peak_dt, pixels = _roi_work(feats, rois, got)
+    bound = _bound(flops, nbytes, peak_dt)
+    _print_time(ms, plain_ms, bound)
+    dev_ms = _device_ms(roi_k, 'roi_align_kernel')
+    print(f'    moves {nbytes / 1e6:.1f} MB (output, RoIs and the {pixels} '
+          f'pyramid pixels its taps touch): {nbytes / ms / 1e6:.0f} GB/s; '
+          f'device time under torch.profiler '
+          + ('not measured' if dev_ms is None else f'{dev_ms:.4f} ms'))
+    report.add('roi_align', SRC_C, REPLACES_C, err,
+               *((ms, plain_ms, bound) if record else ()))
+
+
+def _skewed_rois(g, level):
+    """8 x 1000 RoIs inside the image, every one on FPN level 0 (sides of
+    4-110 px) or 3 (530-640 x 380-384 px)."""
+    from hrfuser_tpu_torch.ops.roi_align import map_roi_levels
+    lo, hi = {0: ([4., 4.], [110., 110.]),
+              3: ([530., 380.], [640., 384.])}[level]
+    lo, hi = torch.tensor(lo), torch.tensor(hi)
+    wh = lo + torch.rand((BATCH, 1000, 2), generator=g) * (hi - lo)
+    xy = torch.rand((BATCH, 1000, 2), generator=g) * (torch.tensor([W, H])
+                                                      - wh)
+    rois = torch.cat([xy, xy + wh], -1).cuda().contiguous()
+    if not bool((map_roi_levels(rois, 4) == level).all()):
+        raise AssertionError(f'skewed RoIs are not all on level {level}')
+    return rois
 
 
 def _roi_inputs(g):
@@ -302,13 +450,13 @@ def _roi_inputs(g):
     return feats32, rois.cuda().contiguous()
 
 
-def _check(report, name, src, rep, label, fk, fp, dt, time_it=True):
-    """Hold a kernel call to its twin; time both."""
-    err = _compare(label, fk(), fp(), dt)
+def _check(report, name, src, rep, label, fk, fp, dt, work):
+    """Hold a kernel call to its twin; time both beside the call's bound,
+    from `work(out)` -> (FLOPs, bytes, peak type)."""
+    got = fk()
+    err = _compare(label, got, fp(), dt)
     torch.cuda.synchronize()
-    if time_it:
-        ms, plain_ms = _time_ms(fk), _time_ms(fp)
-        print(f'    time {ms:.4f} ms, plain {plain_ms:.4f} ms')
+    _print_time(_time_ms(fk), _time_ms(fp), _bound(*work(got)))
     report.add(name, src, rep, err)
 
 
@@ -361,28 +509,38 @@ def phase_kernels_wide(report):
                                                        kv_src=zk, z=zk)
                 return out
 
-            for name, src, rep, label, fk, fp, plan in (
+            def windows_work(out):
+                t = xw.numel() // c
+                return (t * c * (8 * c + 196),
+                        _nbytes(xw, yw, out, *wts, bias), dt)
+
+            for name, src, rep, label, fk, fp, plan, work in (
                     ('window_attention_self', SRC_A, REPLACES_A, 'self',
                      lambda: chain.window_self_attention(x, p['attn'], heads),
                      lambda: chain.window_attention_plain(x, x, p['attn'],
                                                           heads),
-                     plans['window_attention_self']),
+                     plans['window_attention_self'],
+                     lambda out: _attn_work(x, [p['attn']], dt, [x, out])),
                     ('window_attention_cross', SRC_A, REPLACES_A,
                      'cross x2', cross_k, cross_p,
-                     plans['window_attention_cross']),
+                     plans['window_attention_cross'],
+                     lambda out: _attn_work(x, pf['attn'], dt,
+                                            [x, *z, out])),
                     ('window_attention_self', SRC_A, REPLACES_A,
                      f'windows [{xw.shape[0]}, 49, {c}] cross',
                      lambda: window_attention.fused_window_attention(
                          xw, yw, *wts, bias, heads),
                      lambda: window_attention.fused_window_attention_plain(
                          xw, yw, *wts, bias, heads),
-                     plans['window_attention_cross']),
+                     plans['window_attention_cross'], windows_work),
                     ('cross_ffn', SRC_B, REPLACES_B, 'ffn',
                      lambda: chain.cross_ffn(x, p['ffn']),
                      lambda: chain.cross_ffn_plain(x, p['ffn']),
-                     plans['cross_ffn'])):
+                     plans['cross_ffn'],
+                     lambda out: _ffn_work(x, p['ffn'], dt, [x, out]))):
                 _check(report, name, src, rep,
-                       f'{name} {label} {tag} [plan {plan}]', fk, fp, dt)
+                       f'{name} {label} {tag} [plan {plan}]', fk, fp, dt,
+                       work)
 
     # rows 4 and 5: the block entries at test_pallas_block.py's shapes
     for (h, w, c, heads) in ((20, 26, 18, 1), (13, 12, 36, 2),
@@ -393,17 +551,26 @@ def phase_kernels_wide(report):
         zs = [torch.randn((BATCH, h, w, c), generator=g).cuda()
               for _ in range(2)]
         tag = f'{h}x{w}x{c} heads={heads} B={BATCH} float32'
+        # the model's FLOPs of one attention half and of the CrossFFN half
+        attn_flops = BATCH * h * w * c * (8 * c + 196)
+        ffn_flops = BATCH * h * w * (16 * c * c + 72 * c)
         with torch.no_grad():
             _check(report, 'window_attention_self', SRC_A, REPLACES_A,
                    f'block.fused_hrformer_block {tag}',
                    lambda: block.fused_hrformer_block(x, blk,
                                                       num_heads=heads),
-                   lambda: blk(x), torch.float32)
+                   lambda: blk(x), torch.float32,
+                   lambda out: (attn_flops + ffn_flops,
+                                _nbytes(x, out, *blk.parameters()),
+                                torch.float32))
             _check(report, 'window_attention_cross', SRC_A, REPLACES_A,
                    f'block.fused_fusion_block {tag}',
                    lambda: block.fused_fusion_block(x, zs, fus,
                                                     num_heads=heads),
-                   lambda: fus(x, zs), torch.float32)
+                   lambda: fus(x, zs), torch.float32,
+                   lambda out: (2 * attn_flops + ffn_flops,
+                                _nbytes(x, *zs, out, *fus.parameters()),
+                                torch.float32))
 
     # rows 3b / 3c: the single-image entry, variants v4 and v8
     feats32, rois = _roi_inputs(g)
@@ -422,7 +589,9 @@ def phase_kernels_wide(report):
                    f'flat_out 1x{rois.shape[1]} {str(dt)[6:]}',
                    lambda: roi_align.multilevel_roi_align_pallas(
                        feats, rois[0], variant=variant, flat_out=True),
-                   roi_p, dt)
+                   roi_p, dt,
+                   lambda out: _roi_work([f[None] for f in feats], rois[:1],
+                                         out)[:3])
 
 
 def _inputs(cfg, batch, rng, hw=(H, W)):

@@ -80,13 +80,14 @@ class Detector:
                 else self._tensor(scale_factors, f32))
 
 
-def init_detector(config: str, device: Union[str, torch.device] = 'cpu',
+def init_detector(config: str, device: Union[str, torch.device] = 'cuda',
                   seed: int = 0, dtype: torch.dtype = torch.float32
                   ) -> Detector:
     """Build a detector from a config name with seeded random weights.
 
-    The weights are drawn on the CPU, so one seed gives the same weights
-    on every device.
+    It runs on the card (its kernels) unless the caller passes
+    `device='cpu'`, which runs the kernels' plain twins. The weights are
+    drawn on the CPU, so one seed gives the same weights on every device.
     """
     model = CascadeRCNN(get_config(config))
     init_weights_(model, torch.Generator().manual_seed(seed))

@@ -4,8 +4,9 @@ Counterpart of the eval pool of `hrfuser_tpu.models.roi_heads.
 cascade_roi_head` (`multilevel_roi_align_pallas`, variant v7, on the TPU;
 the gather `multilevel_roi_align` elsewhere), and of the single-image
 `multilevel_roi_align_pallas` entry with its v4 / v7 / v8 variants.
-`multilevel_roi_align` runs kernel C (`csrc/roi_align.cu`) on CUDA
-tensors and its plain twin
+`multilevel_roi_align` runs kernel C (`csrc/roi_align.cu`, 16-byte
+channel vectors: C % 8 == 0 in bfloat16, C % 4 == 0 in float32, levels
+16-byte aligned) on CUDA tensors and its plain twin
 `multilevel_roi_align_plain` (the gather formulation of
 `hrfuser_tpu/ops/roi_align.py:157-192,282-315`) on CPU tensors. Static
 2x2 samples per bin, aligned=True. Features are NHWC per level
@@ -107,12 +108,19 @@ def _launch(feats: Sequence[Tensor], rois: Tensor, strides: Sequence[int],
         raise ValueError('roi_align kernel: 4 levels, 7x7 bins, 2x2 '
                          'samples, float32/bfloat16 features')
     b, _, _, c = f0.shape
+    vec = 16 // f0.element_size()        # channels in one 16-byte load
+    if c % vec:
+        raise ValueError(f'roi_align kernel: C={c} {f0.dtype} features need '
+                         f'C % {vec} == 0 (16-byte channel vectors)')
     for f in feats:
         if (f.device != f0.device or f.dtype != f0.dtype or f.dim() != 4
                 or f.shape[0] != b or f.shape[3] != c
                 or not f.is_contiguous()):
             raise ValueError('roi_align kernel: levels must be contiguous '
                              f'[{b}, H, W, {c}] {f0.dtype} on {f0.device}')
+        if f.data_ptr() % 16:
+            raise ValueError('roi_align kernel: every level must start on '
+                             'a 16-byte boundary')
     if (rois.device != f0.device or rois.dtype != torch.float32
             or rois.dim() != 3 or rois.shape[0] != b or rois.shape[2] != 4
             or not rois.is_contiguous()):

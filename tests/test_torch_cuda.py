@@ -123,6 +123,66 @@ def test_roi_align_matches_twin_on_edge_rois(dev, dt):
                                                      (4, 8, 16, 32)), dt)
 
 
+def _rois_on_level(g, b, n, h, w, level):
+    """[b, n, 4] RoIs inside an h x w image: mixed sizes (level None), or
+    every one on FPN level 0 (sides 4-110 px) or 3 (about the whole
+    384 x 640 image)."""
+    if level is None:
+        xy = torch.rand((b, n, 2), generator=g) * torch.tensor([w, h]) - 10
+        wh = torch.rand((b, n, 2), generator=g) ** 2 * torch.tensor([w, h])
+        return torch.cat([xy, xy + wh + 1], -1)
+    lo, hi = {0: ([4., 4.], [110., 110.]),
+              3: ([530., 380.], [640., 384.])}[level]
+    lo, hi = torch.tensor(lo), torch.tensor(hi)
+    wh = lo + torch.rand((b, n, 2), generator=g) * (hi - lo)
+    xy = torch.rand((b, n, 2), generator=g) * (torch.tensor([w, h]) - wh)
+    return torch.cat([xy, xy + wh], -1)
+
+
+@pytest.mark.parametrize('dt', DTYPES)
+@pytest.mark.parametrize('level', [None, 0, 3])
+@pytest.mark.parametrize('c', [32, 256])
+def test_roi_align_matches_twin_by_width_and_level(dev, c, level, dt):
+    """C = 32 (tiny_fusion_test; 8 RoIs a block group in bf16) and 256
+    (every config), on mixed and on skewed batches; 2 x 301 RoIs is not
+    a multiple of the bf16 C = 32 group."""
+    g = torch.Generator().manual_seed(c + (level or 0))
+    h, w = 384, 640
+    feats = [torch.randn((2, h // s, w // s, c), generator=g).to(dev, dt)
+             for s in (4, 8, 16, 32)]
+    rois = _rois_on_level(g, 2, 301, h, w, level).to(dev).contiguous()
+    if level is not None:
+        assert bool((roi_align.map_roi_levels(rois, 4) == level).all())
+    before = roi_align.multilevel_roi_align.launches
+    got = roi_align.multilevel_roi_align(feats, rois, (4, 8, 16, 32))
+    assert roi_align.multilevel_roi_align.launches == before + 1
+    _close(got, roi_align.multilevel_roi_align_plain(feats, rois,
+                                                     (4, 8, 16, 32)), dt)
+
+
+def test_roi_align_raises_where_it_cannot_load_16_byte_vectors(dev):
+    rois = torch.tensor([[[0., 0., 50., 50.]]], device=dev)
+
+    def feats(c, dt):
+        return [torch.zeros((1, 32 // 2 ** i, 32 // 2 ** i, c), device=dev,
+                            dtype=dt) for i in range(4)]
+
+    before = roi_align.multilevel_roi_align.launches
+    with pytest.raises(ValueError, match='C % 8'):
+        roi_align.multilevel_roi_align(feats(12, torch.bfloat16), rois,
+                                       (4, 8, 16, 32))
+    with pytest.raises(ValueError, match='C % 4'):
+        roi_align.multilevel_roi_align(feats(6, torch.float32), rois,
+                                       (4, 8, 16, 32))
+    # level 0 starts one bf16 element past a 16-byte boundary
+    lv = feats(32, torch.bfloat16)
+    flat = torch.zeros(lv[0].numel() + 1, device=dev, dtype=torch.bfloat16)
+    lv[0] = flat[1:].view(lv[0].shape)
+    with pytest.raises(ValueError, match='16-byte boundary'):
+        roi_align.multilevel_roi_align(lv, rois, (4, 8, 16, 32))
+    assert roi_align.multilevel_roi_align.launches == before
+
+
 @pytest.mark.parametrize('dt', DTYPES)
 @pytest.mark.parametrize('w,c,heads,cross', [(40, 78, 2, False),
                                              (40, 78, 2, True),
@@ -194,7 +254,7 @@ def test_slab_attention_combinations_match_twin(dev, mode, add_kv):
 
 
 @pytest.mark.parametrize('dt', DTYPES)
-@pytest.mark.parametrize('variant', ['v4', 'v8'])
+@pytest.mark.parametrize('variant', ['v4', 'v7', 'v8'])
 def test_pallas_entry_matches_twin(dev, variant, dt):
     g = torch.Generator().manual_seed(3)
     h, w = 96, 160

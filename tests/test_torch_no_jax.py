@@ -2,10 +2,12 @@
 
 Checked in a fresh interpreter (this test process has JAX loaded by
 `tests/conftest.py`) that runs the tiny slice end to end on the CPU, and
-statically over every module of the package.
+statically over every module of the package and the scripts that drive it
+on the card. Its entry point runs on the card unless asked for the CPU.
 """
 
 import ast
+import inspect
 import os
 import subprocess
 import sys
@@ -14,6 +16,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / 'hrfuser_tpu_torch'
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'hrfuser_tpu')
+SCRIPTS = [ROOT / 'chip_smoke.py', ROOT / 'chip_profile.py']
 
 _SCRIPT = """
 import sys
@@ -44,7 +47,7 @@ def test_tiny_slice_runs_without_jax_in_a_fresh_process():
 
 def test_no_module_of_the_package_imports_jax():
     offenders = []
-    for path in PKG.rglob('*.py'):
+    for path in [*PKG.rglob('*.py'), *SCRIPTS]:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -55,3 +58,9 @@ def test_no_module_of_the_package_imports_jax():
             offenders += [f'{path.relative_to(ROOT)}: {n}' for n in names
                           if n.split('.')[0] in FORBIDDEN]
     assert offenders == []
+
+
+def test_init_detector_defaults_to_the_card():
+    from hrfuser_tpu_torch import init_detector
+    device = inspect.signature(init_detector).parameters['device'].default
+    assert device == 'cuda'

@@ -104,6 +104,26 @@ def test_roi_align_keeps_feature_dtype_and_counts_no_cpu_launch():
     assert roi_align.multilevel_roi_align.launches == before
 
 
+@pytest.mark.parametrize('c,dtype,offset,match', [
+    (12, torch.bfloat16, 0, 'C % 8'),
+    (6, torch.float32, 0, 'C % 4'),
+    (32, torch.bfloat16, 1, '16-byte boundary'),
+    (32, torch.float32, 2, '16-byte boundary'),
+])
+def test_kernel_launcher_refuses_what_it_cannot_vector_load(c, dtype, offset,
+                                                           match):
+    """Kernel C loads 16-byte channel vectors: the launcher raises before
+    it reaches the library for a C that does not fill them or a level
+    that does not start on a 16-byte boundary (checked on CPU tensors)."""
+    feats = [torch.zeros((1, 32 // 2 ** i, 32 // 2 ** i, c), dtype=dtype)
+             for i in range(4)]
+    flat = torch.zeros(feats[0].numel() + offset, dtype=dtype)
+    feats[0] = flat[offset:].view(feats[0].shape)
+    rois = torch.tensor([[[0., 0., 50., 50.]]])
+    with pytest.raises(ValueError, match=match):
+        roi_align._launch(feats, rois, STRIDES, 7, 2, 56)
+
+
 @pytest.mark.slow
 def test_plain_roi_align_matches_pallas_interpret():
     from hrfuser_tpu.ops.pallas_roi_align import multilevel_roi_align_pallas
