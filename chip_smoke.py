@@ -31,7 +31,21 @@ Phases, each printed on its own lines; any failure exits non-zero:
 5. HRFuser-T at batch 1 in float32 on the card (kernels) vs the CPU
    (plain twins): neck features compared;
 5b. the same for HRFuser-B (its CPU forward at 384x640 takes seconds, so
-   it runs at full size).
+   it runs at full size);
+6. the serving path, HRFuser-T r640 bf16 from raw requests (a 900x1600
+   BGR uint8 camera image, nuScenes' native size, and two 360x640 uint16
+   lidar / radar projections): 6a preprocessing (resize, dequantize,
+   normalize, pad) on the card vs the CPU; 6b `inference_detector` with
+   weights from a checkpoint this phase writes (`save_checkpoint`, loaded
+   bit-equal), each request's launch counts, boxes inside the 1600x900
+   frame, camera-only too, and the median request latency with its host
+   -> device copy / preprocessing / `predict` split (CUDA events); 6c
+   `run_inference` over 3 raw batches of 8 + `evaluate_nuscenes` and
+   `evaluate_proposal_recall` on seeded ground truth, images/s; 6d the
+   HTTP server on 127.0.0.1 (/healthz, /predict_multi with PNGs encoded
+   here, its `latency_ms` beside the host's PNG, JSON and base64 decode
+   times, a JPEG refused with 400) and `inference_detector`'s time on
+   this thread, on fresh threads and on one worker thread.
 
 The last line is `{"ok": true, "device": {...}}`; the line before it
 lists each kernel's launches, error, times and bound as JSON.
@@ -39,16 +53,25 @@ lists each kernel's launches, error, times and bound as JSON.
 
 from __future__ import annotations
 
+import base64
 import json
 import re
+import struct
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
+import zlib
 
 import numpy as np
 import torch
 
 CONFIG = 'cascade_rcnn_hrfuser_t_1x_nus_r640_l_r_fusion'
+RAW_HW, GRID_HW = (900, 1600), (360, 640)    # nuScenes camera; model grid
+PRE_TOL = 1e-4                   # card vs CPU preprocessing, normalized
 CONFIG_B = 'cascade_rcnn_hrfuser_b_1x_nus_r640_l_r_fusion'
 BATCH, H, W = 8, 384, 640
 TOL = {torch.float32: 1e-3, torch.bfloat16: 0.05}
@@ -618,15 +641,33 @@ def _expected_launches(cfg):
             'roi_align': cfg.roi.num_stages}
 
 
+def _counters():
+    from hrfuser_tpu_torch.ops import chain, roi_align
+    return {'window_attention_self': chain.window_self_attention,
+            'window_attention_cross': chain.window_cross_attention,
+            'cross_ffn': chain.cross_ffn,
+            'roi_align': roi_align.multilevel_roi_align}
+
+
+def _reset_counts():
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def _check_counts(want, calls, label):
+    counts = {k: fn.launches for k, fn in _counters().items()}
+    print(f'  {label}: launches {counts}')
+    for k, n in want.items():
+        if counts[k] != calls * n:
+            raise AssertionError(f'{label}: {k} launched {counts[k]} '
+                                 f'times, expected {calls * n}')
+
+
 def phase_slice(report, smi, config, title, record):
     """Drive `config` as a user would; check launches and outputs."""
     print(f'== {title}')
     from hrfuser_tpu_torch import init_detector
-    from hrfuser_tpu_torch.ops import chain, roi_align
-    counters = {'window_attention_self': chain.window_self_attention,
-                'window_attention_cross': chain.window_cross_attention,
-                'cross_ffn': chain.cross_ffn,
-                'roi_align': roi_align.multilevel_roi_align}
+    counters = _counters()
     det = init_detector(config, 'cuda', seed=0, dtype=torch.bfloat16)
     cfg = det.cfg
     img, mods = _inputs(cfg, BATCH, np.random.default_rng(0))
@@ -690,6 +731,321 @@ def phase_cpu_check(config, title, hw=(H, W)):
             raise AssertionError(f'neck level {lvl}: GPU and CPU disagree')
 
 
+def _request(rng):
+    """A raw request: 900x1600 BGR uint8 camera image and two 360x640
+    uint16 projections (background 0 m, returns on 30 % of the pixels)."""
+    from hrfuser_tpu_torch.data.projection import quantize
+    img = rng.integers(0, 256, (*RAW_HW, 3)).astype(np.uint8)
+    mods = []
+    for _ in range(2):
+        m = quantize(np.zeros((*GRID_HW, 3), np.float32))
+        hit = rng.random(GRID_HW) < 0.3
+        m[hit] = quantize(rng.uniform(-1., 60., (int(hit.sum()), 3)))
+        mods.append(m)
+    return img, mods
+
+
+def phase_preprocess(state):
+    print('== 6a. serving path: preprocessing on the card vs the CPU')
+    from hrfuser_tpu_torch.data.device_pipeline import (
+        make_device_preprocess, resize_image, to_device)
+    img, mods = state['request'] = _request(np.random.default_rng(6))
+    pre = make_device_preprocess('nuscenes', ('lidar', 'radar'))
+
+    def run(device):
+        x = resize_image(to_device(img[None], device), GRID_HW)
+        return pre(x, [to_device(m[None], device) for m in mods])
+
+    (gi, gm), (ci, cm) = run('cuda'), run('cpu')
+    for label, g, c in (('camera', gi, ci), ('lidar', gm[0], cm[0]),
+                        ('radar', gm[1], cm[1])):
+        err = (g.cpu() - c).abs().max().item()
+        ok = tuple(g.shape) == (1, 384, 640, 3) and err <= PRE_TOL
+        print(f'  {label} {tuple(g.shape)}: max_abs_err {err:.3e} '
+              f'(atol {PRE_TOL:g}) {"ok" if ok else "FAIL"}')
+        if not ok:
+            raise AssertionError(f'{label}: card and CPU preprocessing '
+                                 f'disagree')
+
+
+def _check_frame(boxes, label):
+    h, w = RAW_HW
+    ok = (np.isfinite(boxes).all() and (boxes >= 0).all()
+          and (boxes[:, [0, 2]] <= w + 1e-3).all()
+          and (boxes[:, [1, 3]] <= h + 1e-3).all())
+    if not ok:
+        raise AssertionError(f'{label}: boxes not finite inside the '
+                             f'{w}x{h} frame')
+
+
+def phase_inference_detector(state, smi):
+    print('== 6b. serving path: inference_detector, HRFuser-T r640 bf16, '
+          'weights from a checkpoint')
+    from hrfuser_tpu_torch import inference_detector, init_detector
+    from hrfuser_tpu_torch.apis.inference import (detections_of,
+                                                  preprocess_request,
+                                                  request_to_device)
+    from hrfuser_tpu_torch.utils.checkpoint import save_checkpoint
+    src = init_detector(CONFIG, 'cuda', seed=0, dtype=torch.bfloat16)
+    with tempfile.TemporaryDirectory() as ckpt:
+        save_checkpoint(ckpt, 0, src.model, meta={'config': CONFIG})
+        det = init_detector(CONFIG, 'cuda', seed=1, dtype=torch.bfloat16,
+                            checkpoint=ckpt)
+    a, b = src.model.state_dict(), det.model.state_dict()
+    if a.keys() != b.keys() or not all(torch.equal(a[k], b[k]) for k in a):
+        raise AssertionError('checkpoint round trip changed the weights')
+    print(f'  checkpoint round trip: {len(a)} tensors bit-equal')
+    del src, a, b
+    state['det'] = det
+    img, mods = state['request']
+    want = _expected_launches(det.cfg)
+    for label, request in (('camera + lidar + radar', (img, mods)),
+                           ('camera only', (img,))):
+        inference_detector(det, *request)                  # warm-up
+        torch.cuda.synchronize()
+        _reset_counts()
+        out = inference_detector(det, *request)
+        _check_counts(want, 1, f'one request, {label}')
+        _check_frame(out['boxes'], label)
+        print(f'  {label}: {len(out["boxes"])} detections, boxes inside '
+              f'{RAW_HW[1]}x{RAW_HW[0]}')
+    state['direct'] = inference_detector(det, img, mods)
+    rows = []
+    for _ in range(11):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        img_t, mods_t = request_to_device(det, img, mods)
+        ev[1].record()
+        inputs = preprocess_request(det, img_t, mods_t)
+        ev[2].record()
+        out = det(*inputs)
+        ev[3].record()
+        detections_of(out)
+        torch.cuda.synchronize()
+        rows.append(((time.perf_counter() - t0) * 1e3,
+                     *(ev[i].elapsed_time(ev[i + 1]) for i in range(3))))
+    med = [float(np.median([r[i] for r in rows])) for i in range(4)]
+    print(f'  request latency over {len(rows)} requests (ms): '
+          f'{", ".join(f"{r[0]:.1f}" for r in rows)}')
+    print(f'  median request {med[0]:.2f} ms: host->device copy '
+          f'{med[1]:.2f}, preprocessing {med[2]:.2f}, predict {med[3]:.2f} '
+          f'(CUDA events) on {smi}')
+    busy, wall = _busy_ms(lambda: inference_detector(det, img, mods))
+    print(f'  under torch.profiler: {wall:.2f} ms a request, device busy '
+          + ('not measured' if busy is None else
+             f'{busy:.2f} ms, idle {1 - busy / wall:.1%}'))
+
+
+def _busy_ms(fn, calls=3):
+    """(device busy ms, wall ms) per call of `fn` under `torch.profiler`:
+    the union of the CUDA-side event intervals; busy is None if the
+    profiler records no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / calls
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not spans:
+        return None, wall
+    busy, end = 0, spans[0][0]
+    for a, b in spans:
+        busy += max(0, b - max(a, end))
+        end = max(end, b)
+    return busy / 1e3 / calls, wall
+
+
+class _GroundTruth:
+    """Seeded ground truth in the 1600x900 frame: every class at each of
+    COCO's small, medium and large sizes, and two boxes near each image's
+    first detections."""
+
+    def __init__(self, results, num_classes, rng):
+        self.anns = []
+        for r in results:
+            side = np.repeat([[20.], [60.], [200.]], num_classes, 0)
+            xy = rng.uniform(0, [RAW_HW[1] - 200, RAW_HW[0] - 200],
+                             (len(side), 2))
+            near = r['boxes'][:2] + rng.normal(0, 4, (len(r['boxes'][:2]),
+                                                      4))
+            self.anns.append(dict(
+                bboxes=np.concatenate([np.concatenate([xy, xy + side], 1),
+                                       near]).astype(np.float32),
+                labels=np.concatenate([np.tile(np.arange(num_classes), 3),
+                                       r['labels'][:2]])))
+
+    def __len__(self):
+        return len(self.anns)
+
+    def get_ann_info(self, i):
+        return self.anns[i]
+
+
+def phase_run_inference(state, smi):
+    print('== 6c. serving path: run_inference over raw batches + '
+          'evaluate_nuscenes')
+    from hrfuser_tpu_torch.apis.test import (evaluate_nuscenes,
+                                             evaluate_proposal_recall,
+                                             run_inference)
+    det = state['det']
+    rng = np.random.default_rng(7)
+
+    def batch(i):
+        imgs = rng.integers(0, 256, (BATCH, *GRID_HW, 3)).astype(np.uint8)
+        mods = [np.stack(m) for m in zip(*(_request(rng)[1]
+                                           for _ in range(BATCH)))]
+        return dict(img=imgs, mod_imgs=mods,
+                    img_shapes=np.array([GRID_HW] * BATCH, np.float32),
+                    scale_factors=np.full((BATCH, 4), 0.4, np.float32),
+                    metas=[{'index': i * BATCH + j} for j in range(BATCH)])
+
+    batches = [batch(i) for i in range(3)]
+    run_inference(det, batches[:1], progress=False)          # warm-up
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    results = run_inference(det, batches, progress=False)
+    dt = time.perf_counter() - t0
+    _check_counts(_expected_launches(det.cfg), len(batches),
+                  f'run_inference, {len(batches)} batches of {BATCH}')
+    if len(results) != len(batches) * BATCH:
+        raise AssertionError(f'{len(results)} results for '
+                             f'{len(batches) * BATCH} images')
+    for r in results:
+        _check_frame(r['boxes'], 'run_inference')
+    gts = _GroundTruth(results, len(det.data.classes), rng)
+    metrics = evaluate_nuscenes(results, gts, len(det.data.classes))
+    metrics.update(evaluate_proposal_recall(results, gts))
+    bad = [k for k, v in metrics.items() if not np.isfinite(v)]
+    if bad:
+        raise AssertionError(f'non-finite metrics: {bad}')
+    print(f'  {len(results)} images in {dt * 1e3:.1f} ms: '
+          f'{len(results) / dt:.1f} images/s on {smi}; '
+          f'{sum(len(r["boxes"]) for r in results)} detections')
+    print('  metrics (random weights) ' + ', '.join(
+        f'{k} {metrics[k]:.4f}' for k in ('mAP', 'mAP_50', 'mAP_s',
+                                          'mAP_l', 'AR@100', 'AR@1000')))
+
+
+def _png(img):
+    """PNG bytes of a uint8 or uint16 BGR image, filter 0 (the card's
+    machine has no image encoder)."""
+    h, w, c = img.shape
+    depth = 16 if img.dtype == np.uint16 else 8
+    rows = np.ascontiguousarray(img[..., ::-1]).astype(
+        '>u2' if depth == 16 else np.uint8).view(np.uint8).reshape(h, -1)
+    data = np.concatenate([np.zeros((h, 1), np.uint8), rows], 1).tobytes()
+
+    def chunk(kind, body):
+        return (struct.pack('>I', len(body)) + kind + body
+                + struct.pack('>I', zlib.crc32(kind + body)))
+
+    return (b'\x89PNG\r\n\x1a\n'
+            + chunk(b'IHDR', struct.pack('>IIBBBBB', w, h, depth, 2, 0, 0, 0))
+            + chunk(b'IDAT', zlib.compress(data, 1)) + chunk(b'IEND', b''))
+
+
+def _by_thread(fn, calls=3):
+    """Host ms of `fn` on this thread, each on a fresh thread (as the
+    server's handlers run), and on one long-lived worker thread."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def timed():
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    main = [timed() for _ in range(calls)]
+    fresh = []
+    for _ in range(calls):
+        box = []
+        t = threading.Thread(target=lambda: box.append(timed()))
+        t.start()
+        t.join()
+        fresh.append(box[0])
+    with ThreadPoolExecutor(1) as pool:
+        worker = [pool.submit(timed).result() for _ in range(calls)]
+    return '; '.join(f'{k} {", ".join(f"{v:.1f}" for v in vs)}' for k, vs in
+                     (('this', main), ('fresh', fresh), ('worker', worker)))
+
+
+def phase_serve(state):
+    print('== 6d. serving path: HTTP server on 127.0.0.1')
+    from hrfuser_tpu_torch import inference_detector
+    from hrfuser_tpu_torch.tools import serve
+    det, (img, mods) = state['det'], state['request']
+    server = serve.make_server(det, '127.0.0.1', 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f'http://127.0.0.1:{server.server_address[1]}'
+    # a local server: never through a proxy the environment may name
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+
+    def call(path, data=None):
+        try:
+            with opener.open(url + path, data=data, timeout=300) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    pngs = [_png(img), *(_png(m) for m in mods)]
+    from hrfuser_tpu_torch.data.png import imdecode
+    t0 = time.perf_counter()
+    imdecode(pngs[0])
+    t1 = time.perf_counter()
+    for data in pngs[1:]:
+        imdecode(data, unchanged=True)
+    t2 = time.perf_counter()
+    print(f'  PNG decode on the host: camera {(t1 - t0) * 1e3:.1f} ms, two '
+          f'sensor images {(t2 - t1) * 1e3:.1f} ms')
+    try:
+        code, reply = call('/healthz')
+        print(f'  GET /healthz: {code} {reply}')
+        if (code, reply) != (200, {'status': 'ok'}):
+            raise AssertionError('/healthz failed')
+        body = json.dumps({'img': base64.b64encode(pngs[0]).decode(),
+                           'mods': [base64.b64encode(p).decode()
+                                    for p in pngs[1:]]}).encode()
+        code, reply = call('/predict_multi', body)
+        if code != 200:
+            raise AssertionError(f'/predict_multi: {code} {reply}')
+        boxes = np.asarray(reply['boxes'], np.float32).reshape(-1, 4)
+        _check_frame(boxes, '/predict_multi')
+        same = reply['labels'] == state['direct']['labels'].tolist()
+        print(f'  POST /predict_multi ({len(body) / 1e6:.1f} MB): 200, '
+              f'{len(boxes)} detections, latency_ms {reply["latency_ms"]} '
+              f'(PNG decode included); labels as inference_detector: {same}')
+        if not same:
+            raise AssertionError('/predict_multi differs from '
+                                 'inference_detector on the same request')
+        again = [call('/predict_multi', body)[1]['latency_ms']
+                 for _ in range(3)]
+        t0 = time.perf_counter()
+        req = json.loads(body)
+        [base64.b64decode(v) for v in (req['img'], *req['mods'])]
+        print(f'  latency_ms of 3 more requests: {again}; JSON + base64 '
+              f'decode {(time.perf_counter() - t0) * 1e3:.1f} ms')
+        print('  inference_detector ms by calling thread: '
+              + _by_thread(lambda: inference_detector(det, img, mods)))
+        code, reply = call('/predict', b'\xff\xd8\xff\xe0\x00\x10JFIF\x00')
+        print(f'  POST /predict with a JPEG header: {code} {reply}')
+        if code != 400:
+            raise AssertionError('a JPEG payload was not refused with 400')
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    if thread.is_alive():
+        raise AssertionError('server thread did not stop')
+
+
 def main():
     smi = phase_environment()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -697,6 +1053,7 @@ def main():
     t0 = time.perf_counter()
     phase_build()
     report = Report()
+    state = {}
     phases = [
         ('3', lambda: phase_kernels(report)),
         ('3b', lambda: phase_kernels_wide(report)),
@@ -708,6 +1065,10 @@ def main():
             'batch 8', record=False)),
         ('5', lambda: phase_cpu_check(CONFIG, '5. HRFuser-T')),
         ('5b', lambda: phase_cpu_check(CONFIG_B, '5b. HRFuser-B')),
+        ('6a', lambda: phase_preprocess(state)),
+        ('6b', lambda: phase_inference_detector(state, smi)),
+        ('6c', lambda: phase_run_inference(state, smi)),
+        ('6d', lambda: phase_serve(state)),
     ]
     for name, run in phases:
         t1 = time.perf_counter()

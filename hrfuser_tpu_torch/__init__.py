@@ -1,12 +1,14 @@
 """HRFuser on PyTorch and CUDA: the eval-inference port of `hrfuser_tpu`.
 
 Mirrors the JAX package's layout (`ops/`, `layers/`, `models/`, `apis/`,
-`configs/`, `utils/`). The three TPU Pallas kernels on the inference path
-are hand-written CUDA C++ for Hopper (`csrc/`), each with a plain PyTorch
-twin that runs on CPU tensors. Imports torch and numpy only.
+`configs/`, `data/`, `evaluation/`, `utils/`, `tools/`). The TPU Pallas
+kernels are hand-written CUDA C++ for Hopper (`csrc/`), each with a plain
+PyTorch twin that runs on CPU tensors. Imports torch and numpy only.
 """
 
-from hrfuser_tpu_torch.apis.inference import Detector, init_detector
-from hrfuser_tpu_torch.configs import get_config
+from hrfuser_tpu_torch.apis.inference import (Detector, inference_detector,
+                                              init_detector)
+from hrfuser_tpu_torch.configs import get_config, get_experiment
 
-__all__ = ['Detector', 'init_detector', 'get_config']
+__all__ = ['Detector', 'init_detector', 'inference_detector', 'get_config',
+           'get_experiment']

@@ -1,3 +1,4 @@
-from hrfuser_tpu_torch.configs.presets import get_config
+from hrfuser_tpu_torch.configs.presets import (DataCfg, Experiment,
+                                              get_config, get_experiment)
 
-__all__ = ['get_config']
+__all__ = ['DataCfg', 'Experiment', 'get_config', 'get_experiment']

@@ -1,16 +1,17 @@
-"""Model presets for the configurations the port runs.
+"""Model and data presets for the configurations the port runs.
 
-Copies of `hrfuser_tpu/configs/presets.py:90-141,187-190,238-252,319-325,
-361-371`
-restricted to the eval fields of `DetectorCfg` (see `hr_config.py`).
-`tests/test_torch_configs.py` holds each equal, field for field, to
-`hrfuser_tpu.configs.get_config(name).model`.
+Copies of `hrfuser_tpu/configs/presets.py:64-77,90-141,187-198,238-252,
+319-325,361-371`: the eval fields of `DetectorCfg` (see `hr_config.py`)
+and the whole `DataCfg`. `get_config(name)` gives the model half,
+`get_experiment(name)` both halves. `tests/test_torch_configs.py` holds
+each equal, field for field, to `hrfuser_tpu.configs.get_config(name)`'s
+`.model` and `.data`.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 from hrfuser_tpu_torch.models.backbones.hr_config import (FusionCfg,
                                                           HRBackboneCfg,
@@ -18,6 +19,45 @@ from hrfuser_tpu_torch.models.backbones.hr_config import (FusionCfg,
 from hrfuser_tpu_torch.models.detectors.cascade_rcnn import (DetectorCfg,
                                                              RPNTestCfg)
 from hrfuser_tpu_torch.models.roi_heads.cascade_roi_head import RoIHeadCfg
+
+
+NUSCENES_CLASSES = ('car', 'truck', 'trailer', 'bus', 'construction_vehicle',
+                    'bicycle', 'motorcycle', 'pedestrian', 'traffic_cone',
+                    'barrier')
+
+
+@dataclasses.dataclass(frozen=True)
+class DataCfg:
+    dataset: str                             # 'nuscenes' | 'stf'
+    classes: Tuple[str, ...]
+    img_scale: Tuple[int, int]               # (w, h) target resize
+    pad_divisor: int = 32
+    modalities: Tuple[str, ...] = ()         # ordered extra streams
+    modality_drop_p: Tuple[float, ...] = ()
+    flip_ratio: float = 0.5
+    # STF-only deterministic crops: ((h, w, off_h, off_w), ...)
+    crops: Tuple[Tuple[int, int, int, int], ...] = ()
+    eval_on_crop: Optional[Tuple[int, int, int, int]] = None
+    # restrict metric computation to a label subset (reference
+    # `evaluation_ids`, `mmdet/datasets/coco.py:485-486`); None = all
+    evaluation_class_ids: Optional[Tuple[int, ...]] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class Experiment:
+    """The model and data halves of a config (the JAX `ExperimentCfg`
+    without its training schedule and optimizer)."""
+    name: str
+    model: DetectorCfg
+    data: DataCfg
+
+
+def _nus_data(modalities=('lidar', 'radar')) -> DataCfg:
+    return DataCfg(dataset='nuscenes', classes=NUSCENES_CLASSES,
+                   img_scale=(640, 360),
+                   modalities=tuple(modalities),
+                   modality_drop_p=(0.2,) * (len(modalities) + 1)
+                   if modalities else ())
 
 
 def hrfuser_backbone(channels: Tuple[int, ...] = (18, 36, 72, 144),
@@ -93,3 +133,9 @@ def get_config(name: str) -> DetectorCfg:
     if name not in _REGISTRY:
         raise KeyError(f'unknown config {name!r}; known: {sorted(_REGISTRY)}')
     return _REGISTRY[name]()
+
+
+def get_experiment(name: str) -> Experiment:
+    """The model and data configs of a config name (every registered name
+    is a nuScenes camera + lidar + radar config)."""
+    return Experiment(name=name, model=get_config(name), data=_nus_data())

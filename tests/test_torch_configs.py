@@ -1,4 +1,5 @@
-"""The port's config and anchor copies equal the JAX originals.
+"""The port's config, data config and anchor copies equal the JAX
+originals.
 
 `hrfuser_tpu_torch` cannot import `hrfuser_tpu` (it pulls in jax), so it
 carries its own config dataclasses and anchor generator. Every field the
@@ -13,7 +14,7 @@ import pytest
 
 from hrfuser_tpu.configs import get_config as jax_get_config
 from hrfuser_tpu.ops.anchors import AnchorGenerator as JaxAnchors
-from hrfuser_tpu_torch.configs import get_config
+from hrfuser_tpu_torch.configs import get_config, get_experiment
 
 NAMES = ['cascade_rcnn_hrfuser_t_1x_nus_r640_l_r_fusion',
          'cascade_rcnn_hrfuser_b_1x_nus_r640_l_r_fusion', 'tiny_fusion_test']
@@ -61,9 +62,20 @@ def test_config_fields_equal_jax(name):
 
 
 @pytest.mark.parametrize('name', NAMES)
+def test_data_config_equals_jax(name):
+    exp = get_experiment(name)
+    assert exp.name == name
+    assert exp.model == get_config(name)
+    assert (dataclasses.asdict(exp.data)
+            == dataclasses.asdict(jax_get_config(name).data))
+
+
+@pytest.mark.parametrize('name', NAMES)
 def test_unknown_name_raises(name):
     with pytest.raises(KeyError):
         get_config(name + '_nope')
+    with pytest.raises(KeyError):
+        get_experiment(name + '_nope')
 
 
 def test_anchors_bit_equal_jax_at_r640():

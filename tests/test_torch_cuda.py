@@ -1,4 +1,5 @@
-"""Hand-written CUDA kernels vs their plain PyTorch twins, on the card.
+"""Hand-written CUDA kernels vs their plain PyTorch twins, on the card;
+the serving path (preprocessing, `inference_detector`, checkpoints) on it.
 
 Marked `cuda`: each test skips where `torch.cuda.is_available()` is
 False (this file imports no JAX, so it also runs where JAX is absent):
@@ -13,12 +14,17 @@ q/k/v, probabilities, head outputs, the GELU'd hidden maps) and
 accumulates in float32; the twins stay float32.
 """
 
+import numpy as np
 import pytest
 import torch
 
+from hrfuser_tpu_torch import inference_detector, init_detector
+from hrfuser_tpu_torch.data.device_pipeline import (make_device_preprocess,
+                                                    resize_image, to_device)
 from hrfuser_tpu_torch.layers.attention import (HRFormerBlock,
                                                 HRFuserFusionBlock)
 from hrfuser_tpu_torch.ops import block, chain, roi_align, window_attention
+from hrfuser_tpu_torch.utils.checkpoint import save_checkpoint
 
 pytestmark = pytest.mark.cuda
 
@@ -327,3 +333,75 @@ def test_wrappers_raise_instead_of_falling_back(dev):
     with pytest.raises(ValueError, match='w2_p'):
         chain.cross_ffn(xb, {k: v for k, v in p['ffn'].items()
                              if k != 'w2_p'})
+
+
+def test_device_preprocess_matches_cpu(dev):
+    """Resize (bilinear camera, nearest sensors), dequantize, normalize
+    and pad on the card vs the CPU, uint16 moved as its int16 bits."""
+    rng = np.random.default_rng(0)
+    img = rng.integers(0, 256, (2, 90, 160, 3)).astype(np.uint8)
+    mods = [rng.integers(0, 65536, (2, 18, 32, 3)).astype(np.uint16)
+            for _ in range(2)]
+    pre = make_device_preprocess('nuscenes', ('lidar', 'radar'))
+
+    def run(device):
+        x = resize_image(to_device(img, device), (36, 64))
+        ms = [resize_image(to_device(m, device), (36, 64), 'nearest')
+              for m in mods]
+        return pre(x, ms)
+
+    (gi, gm), (ci, cm) = run(dev), run('cpu')
+    assert gi.shape == ci.shape == (2, 64, 64, 3)
+    torch.testing.assert_close(gi.cpu(), ci, atol=1e-4, rtol=0)
+    for g, c in zip(gm, cm):
+        torch.testing.assert_close(g.cpu(), c, atol=1e-4, rtol=0)
+
+
+def _launch_counters():
+    return {'window_attention_self': chain.window_self_attention,
+            'window_attention_cross': chain.window_cross_attention,
+            'cross_ffn': chain.cross_ffn,
+            'roi_align': roi_align.multilevel_roi_align}
+
+
+def test_inference_detector_on_the_card(dev):
+    """`tiny_fusion_test` from a raw 60x90 request: every kernel of the
+    path launches once per block (per stage for RoIAlign), boxes land in
+    the original frame."""
+    det = init_detector('tiny_fusion_test', dev, seed=0)
+    bb = det.cfg.backbone
+    blocks = sum(s.num_modules * sum(s.num_blocks)
+                 for s in (bb.stage2, bb.stage3, bb.stage4))
+    blocks += bb.num_fused_modalities * sum(
+        s.num_modules * s.num_blocks[0] for s in (bb.stage_b, bb.stage_c))
+    fusions = sum(f.num_branches
+                  for f in (bb.fusion_a, bb.fusion_b, bb.fusion_c))
+    want = {'window_attention_self': blocks,
+            'window_attention_cross': fusions * bb.num_fused_modalities,
+            'cross_ffn': blocks + fusions,
+            'roi_align': det.cfg.roi.num_stages}
+    rng = np.random.default_rng(0)
+    img = rng.integers(0, 256, (60, 90, 3)).astype(np.uint8)
+    mods = [rng.integers(19900, 21000, (60, 90, 3)).astype(np.uint16)
+            for _ in range(2)]
+    for request in ((img, mods), (img,)):
+        counters = _launch_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        out = inference_detector(det, *request)
+        assert {k: fn.launches for k, fn in counters.items()} == want
+        assert np.isfinite(out['boxes']).all()
+        assert (out['boxes'] >= 0).all()
+        assert (out['boxes'][:, [0, 2]] <= 90 + 1e-3).all()
+        assert (out['boxes'][:, [1, 3]] <= 60 + 1e-3).all()
+
+
+def test_checkpoint_round_trip_on_the_card(dev, tmp_path):
+    src = init_detector('tiny_fusion_test', dev, seed=0)
+    save_checkpoint(str(tmp_path), 1, src.model)
+    det = init_detector('tiny_fusion_test', dev, seed=1,
+                        checkpoint=str(tmp_path))
+    a, b = src.model.state_dict(), det.model.state_dict()
+    assert a.keys() == b.keys()
+    for k in a:
+        assert b[k].device.type == 'cuda' and torch.equal(a[k], b[k]), k

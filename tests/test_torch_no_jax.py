@@ -1,9 +1,11 @@
-"""`hrfuser_tpu_torch` never imports JAX, flax or the JAX package.
+"""`hrfuser_tpu_torch` never imports JAX, flax, orbax, the JAX package
+or `cv2` (the card's machine has neither JAX nor `cv2`).
 
 Checked in a fresh interpreter (this test process has JAX loaded by
-`tests/conftest.py`) that runs the tiny slice end to end on the CPU, and
-statically over every module of the package and the scripts that drive it
-on the card. Its entry point runs on the card unless asked for the CPU.
+`tests/conftest.py`) that runs the tiny slice, `inference_detector` and
+`run_inference` end to end on the CPU, and statically over every module
+of the package and the scripts that drive it on the card. Its entry
+point runs on the card unless asked for the CPU.
 """
 
 import ast
@@ -15,7 +17,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / 'hrfuser_tpu_torch'
-FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'hrfuser_tpu')
+FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'hrfuser_tpu', 'cv2')
 SCRIPTS = [ROOT / 'chip_smoke.py', ROOT / 'chip_profile.py']
 
 _SCRIPT = """
@@ -30,6 +32,21 @@ mods = [rng.normal(0, 1, (1, 64, 96, 3)).astype(np.float32)
 out = det(img, mods)
 assert tuple(out.boxes.shape) == (1, 20, 4), out.boxes.shape
 assert bool(out.boxes.isfinite().all())
+import dataclasses
+from hrfuser_tpu_torch import inference_detector
+from hrfuser_tpu_torch.apis.test import run_inference
+det.data = dataclasses.replace(det.data, img_scale=(96, 64))  # small grid
+raw = rng.integers(0, 256, (60, 90, 3)).astype(np.uint8)
+u16 = [rng.integers(19900, 21000, (60, 90, 3)).astype(np.uint16)
+       for _ in range(2)]
+dets = inference_detector(det, raw, u16)
+assert dets['boxes'].shape[1:] == (4,) and np.isfinite(dets['boxes']).all()
+batch = dict(img=rng.integers(0, 256, (1, 64, 96, 3)).astype(np.uint8),
+             mod_imgs=[rng.integers(19900, 21000, (1, 64, 96, 3)).astype(
+                 np.uint16) for _ in range(2)],
+             img_shapes=np.array([[64, 96]], np.float32),
+             scale_factors=np.ones((1, 4), np.float32), metas=[None])
+assert len(run_inference(det, [batch], progress=False)) == 1
 bad = sorted(m for m in sys.modules if m.split('.')[0] in {forbidden})
 assert not bad, bad
 print('ok')
