@@ -45,7 +45,26 @@ Phases, each printed on its own lines; any failure exits non-zero:
    HTTP server on 127.0.0.1 (/healthz, /predict_multi with PNGs encoded
    here, its `latency_ms` beside the host's PNG, JSON and base64 decode
    times, a JPEG refused with 400) and `inference_detector`'s time on
-   this thread, on fresh threads and on one worker thread.
+   this thread, on fresh threads and on one worker thread;
+3c. every kernel of the STF path vs its twin at the r1248 map shapes
+   (HRFuser-T widths at 96x312x18, 48x156x36, 24x78x72, 12x39x144:
+   kernel A self, A cross over three modalities accumulated as the
+   fusion block does, B), and kernel C over the 96x312 ... 12x39 pyramid
+   with 8 x 1000 RoIs, float32 and bfloat16, each timed beside its twin
+   and its bound;
+7. STF HRFuser-T with camera + lidar + radar + gated
+   (`cascade_rcnn_hrfuser_t_1x_stf_r1248_4mod`, input channels 3 / 2 /
+   1): bf16 batches of 8 at 384x1248 with launch counts, then batch 1
+   f32 card vs CPU at 192x608 (odd stride-32 width, as r1248's 39);
+7b. the camera-only HRFormer-T and HRFormer-B r640 configs, bf16 batches
+   of 8 with launch counts, and HRFormer-T card vs CPU;
+7c. the request path of the new configs: `inference_detector` on a
+   camera-only request (HRFormer-T, 900x1600 camera image) and on an STF
+   request (1024x1920 camera image, uint16 lidar, radar and gated
+   images with 3 / 2 / 1 channels), launch counts and boxes inside the
+   frame; `run_inference` + `evaluate` on a synthetic STF
+   `Kitti2DDataset` written to a temporary directory, every KITTI metric
+   present and finite.
 
 The last line is `{"ok": true, "device": {...}}`; the line before it
 lists each kernel's launches, error, times and bound as JSON.
@@ -74,6 +93,12 @@ RAW_HW, GRID_HW = (900, 1600), (360, 640)    # nuScenes camera; model grid
 PRE_TOL = 1e-4                   # card vs CPU preprocessing, normalized
 CONFIG_B = 'cascade_rcnn_hrfuser_b_1x_nus_r640_l_r_fusion'
 BATCH, H, W = 8, 384, 640
+CONFIG_STF = 'cascade_rcnn_hrfuser_t_1x_stf_r1248_4mod'
+CONFIG_CAM_T = 'cascade_rcnn_hrformer_t_1x_nus_r640'
+CONFIG_CAM_B = 'cascade_rcnn_hrformer_b_1x_nus_r640'
+STF_HW = (384, 1248)                 # the STF grid; stride 32 is 12x39
+STF_CPU_HW = (192, 608)              # reduced, stride 32 still odd: 6x19
+STF_RAW_HW = (1024, 1920)            # STF's camera frame
 TOL = {torch.float32: 1e-3, torch.bfloat16: 0.05}
 SRC_A = 'hrfuser_tpu_torch/csrc/window_attention.cu'
 SRC_B = 'hrfuser_tpu_torch/csrc/cross_ffn.cu'
@@ -458,18 +483,20 @@ def _skewed_rois(g, level):
     return rois
 
 
-def _roi_inputs(g):
-    """The r640 pyramid (C = 256) and 8 x 1000 RoIs with the edge cases."""
-    feats32 = [torch.randn((BATCH, H // s, W // s, 256), generator=g).cuda()
+def _roi_inputs(g, hw=(H, W)):
+    """The pyramid of an `hw` grid (C = 256; r640 unless asked) and 8 x
+    1000 RoIs with the edge cases."""
+    h, w = hw
+    feats32 = [torch.randn((BATCH, h // s, w // s, 256), generator=g).cuda()
                for s in (4, 8, 16, 32)]
     n = 1000
-    xy = torch.rand((BATCH, n, 2), generator=g) * torch.tensor([W, H]) - 20
-    wh = torch.rand((BATCH, n, 2), generator=g) ** 2 * torch.tensor([W, H])
+    xy = torch.rand((BATCH, n, 2), generator=g) * torch.tensor([w, h]) - 20
+    wh = torch.rand((BATCH, n, 2), generator=g) ** 2 * torch.tensor([w, h])
     rois = torch.cat([xy, xy + wh + 1], -1)
     rois[:, :100] = 0.0                                  # padded proposals
-    rois[:, 100:150] = torch.tensor([0., 40., W, 43.])   # full-width slivers
+    rois[:, 100:150] = torch.tensor([0., 40., w, 43.])   # full-width slivers
     rois[:, 150:200] = torch.tensor([-80., -60., -5., -2.])      # outside
-    rois[:, 200:250] = torch.tensor([W - 10., H - 10., W + 50., H + 40.])
+    rois[:, 200:250] = torch.tensor([w - 10., h - 10., w + 50., h + 40.])
     return feats32, rois.cuda().contiguous()
 
 
@@ -617,6 +644,63 @@ def phase_kernels_wide(report):
                                          out)[:3])
 
 
+def phase_kernels_r1248(report):
+    print('== 3c. kernels vs plain twins at the STF r1248 map shapes')
+    from hrfuser_tpu_torch.layers.attention import (HRFormerBlock,
+                                                    HRFuserFusionBlock)
+    from hrfuser_tpu_torch.ops import chain
+    g = torch.Generator().manual_seed(3)
+    for (h, w, c, heads) in ((96, 312, 18, 1), (48, 156, 36, 2),
+                             (24, 78, 72, 4), (12, 39, 144, 8)):
+        blk = _randomize(HRFormerBlock(c, heads), g).cuda()
+        fus = _randomize(HRFuserFusionBlock(c, heads, 3), g).cuda()
+        p, pf = blk.folded(), fus.folded()
+        x32 = torch.randn((BATCH, h, w, c), generator=g).cuda()
+        z32 = [torch.randn((BATCH, h, w, c), generator=g).cuda()
+               for _ in range(3)]
+        for dt in (torch.float32, torch.bfloat16):
+            x, z = x32.to(dt), [t.to(dt) for t in z32]
+            tag = f'{h}x{w}x{c} heads={heads} B={BATCH} {str(dt)[6:]}'
+            plans = _plans(c, heads, dt)
+
+            def cross_k():                # one launch per modality, summed
+                out = x
+                for zk, pk in zip(z, pf['attn']):
+                    out = chain.window_cross_attention(out, x, zk, pk, heads)
+                return out
+
+            def cross_p():
+                out = x
+                for zk, pk in zip(z, pf['attn']):
+                    out = chain.window_attention_plain(out, x, pk, heads,
+                                                       kv_src=zk, z=zk)
+                return out
+
+            for name, src, rep, label, fk, fp, work in (
+                    ('window_attention_self', SRC_A, REPLACES_A, 'self',
+                     lambda: chain.window_self_attention(x, p['attn'], heads),
+                     lambda: chain.window_attention_plain(x, x, p['attn'],
+                                                          heads),
+                     lambda out: _attn_work(x, [p['attn']], dt, [x, out])),
+                    ('window_attention_cross', SRC_A, REPLACES_A, 'cross x3',
+                     cross_k, cross_p,
+                     lambda out: _attn_work(x, pf['attn'], dt,
+                                            [x, *z, out])),
+                    ('cross_ffn', SRC_B, REPLACES_B, 'ffn',
+                     lambda: chain.cross_ffn(x, p['ffn']),
+                     lambda: chain.cross_ffn_plain(x, p['ffn']),
+                     lambda out: _ffn_work(x, p['ffn'], dt, [x, out]))):
+                _check(report, name, src, rep,
+                       f'{name} {label} {tag} [plan {plans[name]}]', fk, fp,
+                       dt, work)
+    feats32, rois = _roi_inputs(g, STF_HW)
+    print(f'  pyramid {[tuple(f.shape[1:3]) for f in feats32]}')
+    for dt in (torch.float32, torch.bfloat16):
+        feats = [f.to(dt).contiguous() for f in feats32]
+        _roi_case(report, f'r1248 C=256 {BATCH}x{rois.shape[1]} '
+                  f'{str(dt)[6:]}', feats, rois, dt)
+
+
 def _inputs(cfg, batch, rng, hw=(H, W)):
     img = rng.normal(0., 1., (batch, *hw, 3)).astype(np.float32)
     mods = [rng.normal(0., 1., (batch, *hw, c)).astype(np.float32)
@@ -628,10 +712,13 @@ def _expected_launches(cfg):
     bb = cfg.backbone
     hr_blocks = sum(s.num_modules * sum(s.num_blocks)
                     for s in (bb.stage2, bb.stage3, bb.stage4))
-    hr_blocks += bb.num_fused_modalities * sum(
-        s.num_modules * s.num_blocks[0] for s in (bb.stage_b, bb.stage_c))
-    fusion_blocks = sum(f.num_branches
-                        for f in (bb.fusion_a, bb.fusion_b, bb.fusion_c))
+    fusion_blocks = 0
+    if bb.num_fused_modalities:                  # camera-only: no streams
+        hr_blocks += bb.num_fused_modalities * sum(
+            s.num_modules * s.num_blocks[0] for s in (bb.stage_b,
+                                                      bb.stage_c))
+        fusion_blocks = sum(f.num_branches
+                            for f in (bb.fusion_a, bb.fusion_b, bb.fusion_c))
     print(f'  per forward: {hr_blocks} HRFormer blocks, {fusion_blocks} '
           f'fusion blocks')
     return {'window_attention_self': hr_blocks,
@@ -663,14 +750,15 @@ def _check_counts(want, calls, label):
                                  f'times, expected {calls * n}')
 
 
-def phase_slice(report, smi, config, title, record):
-    """Drive `config` as a user would; check launches and outputs."""
+def phase_slice(report, smi, config, title, record, hw=(H, W)):
+    """Drive `config` as a user would on an `hw` grid; check launches and
+    outputs."""
     print(f'== {title}')
     from hrfuser_tpu_torch import init_detector
     counters = _counters()
     det = init_detector(config, 'cuda', seed=0, dtype=torch.bfloat16)
     cfg = det.cfg
-    img, mods = _inputs(cfg, BATCH, np.random.default_rng(0))
+    img, mods = _inputs(cfg, BATCH, np.random.default_rng(0), hw)
     det(img, mods)                                       # warm-up
     torch.cuda.synchronize()
     for fn in counters.values():
@@ -701,9 +789,13 @@ def phase_slice(report, smi, config, title, record):
     if not (out.boxes.isfinite().all() and out.scores.isfinite().all()):
         raise AssertionError('non-finite detections')
     print(f'  detections ok: {int(out.valid.sum())} valid of {BATCH}x{m}')
-    print(f'  latency per batch of {BATCH} (ms): '
+    print(f'  latency per batch of {BATCH} at {hw[0]}x{hw[1]} (ms): '
           f'{", ".join(f"{t:.1f}" for t in times)}; median '
           f'{sorted(times)[len(times) // 2]:.1f} on {smi}')
+    busy, wall = _busy_ms(lambda: det(img, mods))
+    print(f'  under torch.profiler: {wall:.2f} ms a batch, device busy '
+          + ('not measured' if busy is None else
+             f'{busy:.2f} ms, idle {1 - busy / wall:.1%}'))
     del det
     torch.cuda.empty_cache()
 
@@ -768,8 +860,8 @@ def phase_preprocess(state):
                                  f'disagree')
 
 
-def _check_frame(boxes, label):
-    h, w = RAW_HW
+def _check_frame(boxes, label, hw=RAW_HW):
+    h, w = hw
     ok = (np.isfinite(boxes).all() and (boxes >= 0).all()
           and (boxes[:, [0, 2]] <= w + 1e-3).all()
           and (boxes[:, [1, 3]] <= h + 1e-3).all())
@@ -1046,6 +1138,131 @@ def phase_serve(state):
         raise AssertionError('server thread did not stop')
 
 
+def _stf_request(rng):
+    """A raw STF request: a 1024x1920 BGR uint8 camera image, uint16 lidar
+    (3 channels) and radar (2) projections (background 0 m, returns on
+    30 % of the pixels) and a 1-channel uint16 gated image of 10-bit
+    intensities."""
+    from hrfuser_tpu_torch.data.projection import quantize
+    img = rng.integers(0, 256, (*STF_RAW_HW, 3)).astype(np.uint8)
+    mods = []
+    for c in (3, 2):
+        m = quantize(np.zeros((*STF_RAW_HW, c), np.float32))
+        hit = rng.random(STF_RAW_HW) < 0.3
+        m[hit] = quantize(rng.uniform(-1., 60., (int(hit.sum()), c)))
+        mods.append(m)
+    mods.append(rng.integers(0, 1024, (*STF_RAW_HW, 1)).astype(np.uint16))
+    return img, mods
+
+
+def _serve_request(det, request, label, frame_hw, smi):
+    """One request's launch counts and frame, then its latency."""
+    from hrfuser_tpu_torch import inference_detector
+    inference_detector(det, *request)                      # warm-up
+    torch.cuda.synchronize()
+    _reset_counts()
+    out = inference_detector(det, *request)
+    _check_counts(_expected_launches(det.cfg), 1, f'one request, {label}')
+    _check_frame(out['boxes'], label, frame_hw)
+    times = []
+    for _ in range(7):
+        t0 = time.perf_counter()
+        inference_detector(det, *request)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    print(f'  {label}: {len(out["boxes"])} detections inside '
+          f'{frame_hw[1]}x{frame_hw[0]}; request latency (ms) '
+          f'{", ".join(f"{t:.1f}" for t in times)}, median '
+          f'{float(np.median(times)):.1f} on {smi}')
+
+
+def _kitti_dataset(folder, results, data, rng):
+    """A synthetic STF `Kitti2DDataset` pickled into `folder`: per image,
+    ground truth near its first three detections taller than KITTI's
+    easy gate (40 px) and one box of every class, all moved from the
+    model frame into the camera frame by the eval crop's offset (so
+    `gt_annos(crop=)` moves them back)."""
+    import pickle
+    from hrfuser_tpu_torch.data.datasets.kitti2d import Kitti2DDataset
+    ch, cw, oy, ox = data.eval_on_crop
+    infos = []
+    for i, r in enumerate(results):
+        tall = np.flatnonzero(r['boxes'][:, 3] - r['boxes'][:, 1] > 45)[:3]
+        near = r['boxes'][tall] + rng.normal(0, 2, (len(tall), 4))
+        k = len(data.classes)
+        xy = rng.uniform(0, [cw - 200, ch - 150], (k, 2))
+        rand = np.concatenate([xy, xy + rng.uniform(40, 150, (k, 2))], 1)
+        names = [data.classes[c] for c in r['labels'][tall]] + list(
+            data.classes)
+        n = len(names)
+        infos.append({'image': {'image_path': f'{i:06d}.png',
+                                'image_shape': np.array(STF_RAW_HW)},
+                      'annos': {'name': np.array(names),
+                                'bbox': (np.concatenate([near, rand])
+                                         + [ox, oy, ox, oy]).astype(
+                                             np.float32),
+                                'truncated': np.zeros(n),
+                                'occluded': np.zeros(n)}})
+    path = f'{folder}/dense_infos_test.pkl'
+    with open(path, 'wb') as f:
+        pickle.dump(infos, f)
+    return Kitti2DDataset(path, data.classes, test_mode=True)
+
+
+def phase_new_requests(smi):
+    print('== 7c. request path of the new configs: camera-only and STF '
+          'requests, run_inference + KITTI evaluation')
+    from hrfuser_tpu_torch import get_experiment, init_detector
+    from hrfuser_tpu_torch.apis.test import evaluate, run_inference
+    rng = np.random.default_rng(8)
+    det = init_detector(CONFIG_CAM_T, 'cuda', seed=0, dtype=torch.bfloat16)
+    _serve_request(det, _request(rng)[:1], 'HRFormer-T camera only, '
+                   f'{RAW_HW[0]}x{RAW_HW[1]}', RAW_HW, smi)
+    del det
+    det = init_detector(CONFIG_STF, 'cuda', seed=0, dtype=torch.bfloat16)
+    _serve_request(det, _stf_request(rng), 'STF camera + lidar + radar + '
+                   f'gated, {STF_RAW_HW[0]}x{STF_RAW_HW[1]}', STF_RAW_HW,
+                   smi)
+    hw = STF_HW
+
+    def batch(i):                 # projections of -1 to 60 m, 10-bit gated
+        mods = [rng.integers(19900, 26000, (BATCH, *hw, c)).astype(np.uint16)
+                for c in (3, 2)]
+        mods.append(rng.integers(0, 1024, (BATCH, *hw, 1)).astype(np.uint16))
+        return dict(img=rng.integers(0, 256, (BATCH, *hw, 3)).astype(
+                        np.uint8), mod_imgs=mods,
+                    img_shapes=np.array([hw] * BATCH, np.float32),
+                    scale_factors=np.ones((BATCH, 4), np.float32),
+                    metas=[{'index': i * BATCH + j} for j in range(BATCH)])
+
+    batches = [batch(i) for i in range(2)]
+    run_inference(det, batches[:1], progress=False)          # warm-up
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    results = run_inference(det, batches, progress=False)
+    dt = time.perf_counter() - t0
+    _check_counts(_expected_launches(det.cfg), len(batches),
+                  f'run_inference, {len(batches)} STF batches of {BATCH}')
+    for r in results:
+        _check_frame(r['boxes'], 'run_inference STF', hw)
+    exp = get_experiment(CONFIG_STF)
+    with tempfile.TemporaryDirectory() as folder:
+        metrics = evaluate(exp, results,
+                           _kitti_dataset(folder, results, exp.data, rng))
+    want = {f'{c}_2d_{d}' for c in exp.data.classes
+            for d in ('easy', 'moderate', 'hard')} | {'mAP_2d_moderate'}
+    if set(metrics) != want or not all(np.isfinite(v)
+                                       for v in metrics.values()):
+        raise AssertionError(f'KITTI metrics incomplete or not finite: '
+                             f'{metrics}')
+    print(f'  {len(results)} STF images in {dt * 1e3:.1f} ms: '
+          f'{len(results) / dt:.1f} images/s on {smi}; '
+          f'{sum(len(r["boxes"]) for r in results)} detections')
+    print('  KITTI metrics (random weights) ' + ', '.join(
+        f'{k} {v:.4f}' for k, v in sorted(metrics.items())))
+
+
 def main():
     smi = phase_environment()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1057,6 +1274,7 @@ def main():
     phases = [
         ('3', lambda: phase_kernels(report)),
         ('3b', lambda: phase_kernels_wide(report)),
+        ('3c', lambda: phase_kernels_r1248(report)),
         ('4', lambda: phase_slice(
             report, smi, CONFIG, '4. main path: HRFuser-T r640 lidar+radar, '
             'bf16, batch 8', record=True)),
@@ -1069,6 +1287,19 @@ def main():
         ('6b', lambda: phase_inference_detector(state, smi)),
         ('6c', lambda: phase_run_inference(state, smi)),
         ('6d', lambda: phase_serve(state)),
+        ('7', lambda: phase_slice(
+            report, smi, CONFIG_STF, '7. STF HRFuser-T r1248 camera + lidar '
+            '+ radar + gated, bf16, batch 8', record=False, hw=STF_HW)),
+        ('7 cpu', lambda: phase_cpu_check(CONFIG_STF, '7. STF HRFuser-T',
+                                          STF_CPU_HW)),
+        ('7b T', lambda: phase_slice(
+            report, smi, CONFIG_CAM_T, '7b. HRFormer-T r640 camera only, '
+            'bf16, batch 8', record=False)),
+        ('7b B', lambda: phase_slice(
+            report, smi, CONFIG_CAM_B, '7b. HRFormer-B r640 camera only, '
+            'bf16, batch 8', record=False)),
+        ('7b cpu', lambda: phase_cpu_check(CONFIG_CAM_T, '7b. HRFormer-T')),
+        ('7c', lambda: phase_new_requests(smi)),
     ]
     for name, run in phases:
         t1 = time.perf_counter()

@@ -124,14 +124,22 @@ def preprocess_request(detector: Detector, img: torch.Tensor,
     """One request on the device -> the model's inputs.
 
     The camera image is resized (bilinear) to `data.img_scale` with the
-    `Resize` size rule, sensor images not on its grid are brought there
-    by nearest neighbour, then both are normalized and padded (uint16
-    sensor values dequantized). A fusion model asked without sensor
-    images gets zeroed streams in normalized space, which modality
-    dropout trains it to tolerate. Returns (img, mods, img_shapes,
-    scale_factors), float32.
+    `Resize` size rule (STF: (1248, 384) keeping the aspect ratio, as the
+    JAX `inference_detector` does; the dataset crops belong to the
+    loader), sensor images not on its grid are brought there by nearest
+    neighbour, then each is normalized with its dataset's table and
+    padded (`sensor_values`). A fusion model asked without sensor images
+    gets zeroed streams in normalized space, which modality dropout
+    trains it to tolerate; a camera-only model gets none. Returns (img,
+    mods, img_shapes, scale_factors), float32.
     """
     data = detector.data
+    want = list(detector.cfg.backbone.mod_in_channels[
+        :detector.cfg.backbone.num_fused_modalities])
+    got = [m.shape[-1] for m in mods]
+    if got and got != want:
+        raise ValueError(f'sensor images with {got} channels; the model '
+                         f'takes {want} ({", ".join(data.modalities)})')
     h, w = img.shape[1:3]
     new_h, new_w, scale_factor = rescale_size(h, w, data.img_scale)
     img = resize_image(img, (new_h, new_w))
@@ -164,8 +172,9 @@ def inference_detector(detector: Detector, img: ArrayLike,
     Args:
         img: [H, W, 3] uint8 BGR camera image, any size.
         mod_imgs: the sensor images in the config's modality order,
-            [h, w, C] uint16 (png values, dequantized on the device) or
-            float32 (already dequantized); None for camera only.
+            [h, w, C] uint16 (png values, dequantized on the device; the
+            STF gated image [h, w, 1], its integers taken as
+            intensities) or float32 (raw values); None for camera only.
 
     Returns:
         dict(boxes [N, 4] in the original image's frame, scores [N],

@@ -3,9 +3,9 @@
 Port of `hrfuser_tpu/apis/test.py:27-157` (the reference's
 `single_gpu_test`, `mmdet/apis/test.py:18-308`) for one device: iterate
 the test loader, run the detector, collect per-image detections on the
-host, then evaluate with the dataset's metric (COCO mAP for nuScenes).
-Multi-GPU inference is ROADMAP §1 item 6; KITTI evaluation (STF) comes
-with the STF configuration.
+host, then evaluate with the dataset's metric (COCO mAP for nuScenes,
+KITTI 2D AP with the GT cropped to the train-time frame for STF).
+Multi-GPU inference is ROADMAP §1 item 8.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ from hrfuser_tpu_torch.apis.inference import Detector
 from hrfuser_tpu_torch.configs import Experiment
 from hrfuser_tpu_torch.data.device_pipeline import make_raw_predictor
 from hrfuser_tpu_torch.evaluation.coco_map import evaluate_coco_map
+from hrfuser_tpu_torch.evaluation.kitti_eval import kitti_eval_2d
 from hrfuser_tpu_torch.evaluation.recall import fast_eval_recall
 
 
@@ -43,7 +44,7 @@ def run_inference(detector: Detector, loader: Iterable[dict],
     if devices is not None and len(devices) > 1:
         raise NotImplementedError(
             'run_inference runs on one device; inference over several '
-            'GPUs is ROADMAP §1 item 6')
+            'GPUs is ROADMAP §1 item 8')
     raw = make_raw_predictor(detector)
     results: List[dict] = []
     t0 = time.time()
@@ -92,9 +93,14 @@ def evaluate_proposal_recall(results: List[dict], dataset,
 
 def evaluate_stf(results: List[dict], dataset, classes,
                  eval_on_crop=None) -> Dict[str, float]:
-    raise NotImplementedError(
-        'KITTI evaluation (STF) is not ported yet: it comes with the STF '
-        'configuration (ROADMAP §1)')
+    """KITTI 2D AP of the detections against the dataset's GT, cropped
+    to `eval_on_crop` (`hrfuser_tpu/apis/test.py:129-137`)."""
+    dt_annos = dataset.detections_to_kitti(
+        [r['boxes'] for r in results], [r['scores'] for r in results],
+        [r['labels'] for r in results],
+        [np.ones(len(r['boxes']), bool) for r in results])
+    gt_annos = dataset.gt_annos(crop=eval_on_crop)
+    return kitti_eval_2d(gt_annos, dt_annos, list(classes))
 
 
 def evaluate(cfg: Experiment, results: List[dict], dataset

@@ -1,4 +1,6 @@
 from hrfuser_tpu_torch.configs.presets import (DataCfg, Experiment,
-                                              get_config, get_experiment)
+                                              get_config, get_experiment,
+                                              list_configs)
 
-__all__ = ['DataCfg', 'Experiment', 'get_config', 'get_experiment']
+__all__ = ['DataCfg', 'Experiment', 'get_config', 'get_experiment',
+           'list_configs']

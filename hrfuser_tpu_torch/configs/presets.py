@@ -1,11 +1,16 @@
 """Model and data presets for the configurations the port runs.
 
-Copies of `hrfuser_tpu/configs/presets.py:64-77,90-141,187-198,238-252,
-319-325,361-371`: the eval fields of `DetectorCfg` (see `hr_config.py`)
+Copies of `hrfuser_tpu/configs/presets.py:64-77,90-141,187-231,238-252,
+301-325,361-416`: the eval fields of `DetectorCfg` (see `hr_config.py`)
 and the whole `DataCfg`. `get_config(name)` gives the model half,
-`get_experiment(name)` both halves. `tests/test_torch_configs.py` holds
-each equal, field for field, to `hrfuser_tpu.configs.get_config(name)`'s
+`get_experiment(name)` both halves. As in the JAX package, every name has
+a `_bn` alias (plain BN and SyncBN are one thing at eval) and a `.py`
+path resolves to its file name. `tests/test_torch_configs.py` holds each
+equal, field for field, to `hrfuser_tpu.configs.get_config(name)`'s
 `.model` and `.data`.
+
+Not carried: `drop_path_rate` and `apply_stochastic_depth` (train-only),
+the HRNet-based configs and `micro_fusion_dryrun` (ROADMAP §1).
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from hrfuser_tpu_torch.models.roi_heads.cascade_roi_head import RoIHeadCfg
 NUSCENES_CLASSES = ('car', 'truck', 'trailer', 'bus', 'construction_vehicle',
                     'bicycle', 'motorcycle', 'pedestrian', 'traffic_cone',
                     'barrier')
+STF_CLASSES = ('Pedestrian', 'Cyclist', 'Car')
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,19 +66,54 @@ def _nus_data(modalities=('lidar', 'radar')) -> DataCfg:
                    if modalities else ())
 
 
+def _stf_data(modalities=('lidar', 'radar', 'gated')) -> DataCfg:
+    # Crop(768,1280)@(202,280) -> Resize -> Crop(384,1248)@(192,16);
+    # eval GT crop (384,1248)@(394,296) (`kitti_detection_2d_c1248_*`).
+    return DataCfg(dataset='stf', classes=STF_CLASSES,
+                   img_scale=(1248, 384),
+                   modalities=tuple(modalities),
+                   modality_drop_p=(0.5,) * (len(modalities) + 1)
+                   if modalities else (),
+                   crops=((768, 1280, 202, 280), (384, 1248, 192, 16)),
+                   eval_on_crop=(384, 1248, 394, 296))
+
+
+def _hrformer_stages(channels: Tuple[int, ...], heads: Tuple[int, ...],
+                     stage3_modules: int) -> Dict[str, StageCfg]:
+    """Camera trunk stages shared by all configs (window 7, mlp ratio 4)."""
+    def stage(n, nm):
+        return StageCfg(num_modules=nm, num_branches=n, block='HRFORMER',
+                        num_blocks=(2,) * n, num_channels=channels[:n],
+                        num_heads=heads[:n], window_sizes=(7,) * n,
+                        mlp_ratios=(4,) * n)
+    return dict(
+        stage1=StageCfg(1, 1, 'BOTTLENECK', (2,), (64,)),
+        stage2=stage(2, 1),
+        stage3=stage(3, stage3_modules),
+        stage4=stage(4, 2),
+    )
+
+
+def hrformer_backbone(channels: Tuple[int, ...] = (18, 36, 72, 144),
+                      heads: Tuple[int, ...] = (1, 2, 4, 8),
+                      stage3_modules: int = 3) -> HRBackboneCfg:
+    """Camera-only HRFormer trunk: no modality streams, no fusion banks."""
+    return HRBackboneCfg(**_hrformer_stages(channels, heads, stage3_modules))
+
+
 def hrfuser_backbone(channels: Tuple[int, ...] = (18, 36, 72, 144),
                      heads: Tuple[int, ...] = (1, 2, 4, 8),
                      stage3_modules: int = 3, lidar_c_modules: int = 3,
                      num_modalities: int = 2,
                      mod_in_channels: Tuple[int, ...] = (3, 3)
                      ) -> HRBackboneCfg:
-    """HRFormer camera trunk (window 7, mlp ratio 4) with lidar/radar
-    streams and MWCA fusion banks before stages 2-4."""
-    def stage(n, nm):
-        return StageCfg(num_modules=nm, num_branches=n, block='HRFORMER',
-                        num_blocks=(2,) * n, num_channels=channels[:n],
-                        num_heads=heads[:n], window_sizes=(7,) * n,
-                        mlp_ratios=(4,) * n)
+    """HRFormer camera trunk (window 7, mlp ratio 4) with one stream per
+    extra modality and MWCA fusion banks before stages 2-4."""
+    def mod_stage(nm):
+        return StageCfg(num_modules=nm, num_branches=1, block='HRFORMER',
+                        num_blocks=(2,), num_channels=(channels[0],),
+                        num_heads=(heads[0],), window_sizes=(7,),
+                        mlp_ratios=(4,))
 
     def fusion(n):
         return FusionCfg(num_branches=n, num_channels=channels[:n],
@@ -80,14 +121,12 @@ def hrfuser_backbone(channels: Tuple[int, ...] = (18, 36, 72, 144),
                          mlp_ratios=(4,) * n)
 
     return HRBackboneCfg(
-        stage1=StageCfg(1, 1, 'BOTTLENECK', (2,), (64,)),
-        stage2=stage(2, 1), stage3=stage(3, stage3_modules),
-        stage4=stage(4, 2),
         stage_a=StageCfg(1, 1, 'BOTTLENECK', (2,), (64,)),
-        stage_b=stage(1, 1), stage_c=stage(1, lidar_c_modules),
+        stage_b=mod_stage(1), stage_c=mod_stage(lidar_c_modules),
         fusion_a=fusion(2), fusion_b=fusion(3), fusion_c=fusion(4),
         num_fused_modalities=num_modalities,
-        mod_in_channels=tuple(mod_in_channels))
+        mod_in_channels=tuple(mod_in_channels),
+        **_hrformer_stages(channels, heads, stage3_modules))
 
 
 def detector(backbone: HRBackboneCfg, num_classes: int) -> DetectorCfg:
@@ -96,10 +135,9 @@ def detector(backbone: HRBackboneCfg, num_classes: int) -> DetectorCfg:
                        rpn_test=RPNTestCfg())
 
 
-def _tiny_fusion() -> DetectorCfg:
-    """Miniature fusion model for fast unit tests (not a reference config)."""
-    model = detector(hrfuser_backbone(channels=(8, 16, 24, 32),
-                                      heads=(1, 2, 2, 4)), num_classes=4)
+def _tiny(backbone: HRBackboneCfg) -> DetectorCfg:
+    """Miniature model for fast unit tests (not a reference config)."""
+    model = detector(backbone, num_classes=4)
     return dataclasses.replace(
         model,
         roi=dataclasses.replace(model.roi, fc_out_channels=64,
@@ -109,33 +147,61 @@ def _tiny_fusion() -> DetectorCfg:
         neck_out_channels=32)
 
 
-def _hrfuser_t_nus() -> DetectorCfg:
-    return detector(hrfuser_backbone(), num_classes=10)
+_TINY = dict(channels=(8, 16, 24, 32), heads=(1, 2, 2, 4))
+_B = dict(channels=(78, 156, 312, 624), heads=(2, 4, 8, 16),
+          stage3_modules=4)
 
-
-def _hrfuser_b_nus() -> DetectorCfg:
-    """HRFuser-B: the same architecture at widths 78-624, head dim 39
-    (`drop_path_rate` is train-only and not carried)."""
-    return detector(hrfuser_backbone(channels=(78, 156, 312, 624),
-                                     heads=(2, 4, 8, 16), stage3_modules=4,
-                                     lidar_c_modules=4), num_classes=10)
-
-
-_REGISTRY: Dict[str, Callable[[], DetectorCfg]] = {
-    'tiny_fusion_test': _tiny_fusion,
-    'cascade_rcnn_hrfuser_t_1x_nus_r640_l_r_fusion': _hrfuser_t_nus,
-    'cascade_rcnn_hrfuser_b_1x_nus_r640_l_r_fusion': _hrfuser_b_nus,
+# name -> (model half, data half); HRFuser-B and HRFormer-B drop their
+# train-only `drop_path_rate=0.4`
+_REGISTRY: Dict[str, Tuple[Callable[[], DetectorCfg],
+                           Callable[[], DataCfg]]] = {
+    'tiny_fusion_test': (lambda: _tiny(hrfuser_backbone(**_TINY)),
+                         _nus_data),
+    'tiny_camera_test': (lambda: _tiny(hrformer_backbone(**_TINY)),
+                         lambda: _nus_data(modalities=())),
+    'cascade_rcnn_hrfuser_t_1x_nus_r640_l_r_fusion': (
+        lambda: detector(hrfuser_backbone(), num_classes=10), _nus_data),
+    'cascade_rcnn_hrfuser_b_1x_nus_r640_l_r_fusion': (
+        lambda: detector(hrfuser_backbone(**_B, lidar_c_modules=4),
+                         num_classes=10), _nus_data),
+    'cascade_rcnn_hrfuser_t_1x_stf_r1248_4mod': (
+        lambda: detector(hrfuser_backbone(num_modalities=3,
+                                          mod_in_channels=(3, 2, 1)),
+                         num_classes=3), _stf_data),
+    'cascade_rcnn_hrformer_t_1x_nus_r640': (
+        lambda: detector(hrformer_backbone(), num_classes=10),
+        lambda: _nus_data(modalities=())),
+    'cascade_rcnn_hrformer_b_1x_nus_r640': (
+        lambda: detector(hrformer_backbone(**_B), num_classes=10),
+        lambda: _nus_data(modalities=())),
+    'cascade_rcnn_hrformer_t_1x_stf_c1248': (
+        lambda: detector(hrformer_backbone(), num_classes=3),
+        lambda: _stf_data(modalities=())),
 }
+
+
+def _lookup(name: str):
+    """(name as asked, its registry entry): a `.py` path gives its file
+    name, and a `_bn` suffix names the same config."""
+    if name.endswith('.py'):
+        name = name.rsplit('/', 1)[-1][:-3]
+    entry = _REGISTRY.get(name[:-3] if name.endswith('_bn') else name)
+    if entry is None:
+        raise KeyError(f'unknown config {name!r}; known: {list_configs()}')
+    return name, entry
+
+
+def list_configs():
+    """Every accepted name, `_bn` aliases included, sorted."""
+    return sorted([*_REGISTRY, *(n + '_bn' for n in _REGISTRY)])
 
 
 def get_config(name: str) -> DetectorCfg:
     """The `DetectorCfg` of a config name."""
-    if name not in _REGISTRY:
-        raise KeyError(f'unknown config {name!r}; known: {sorted(_REGISTRY)}')
-    return _REGISTRY[name]()
+    return _lookup(name)[1][0]()
 
 
 def get_experiment(name: str) -> Experiment:
-    """The model and data configs of a config name (every registered name
-    is a nuScenes camera + lidar + radar config)."""
-    return Experiment(name=name, model=get_config(name), data=_nus_data())
+    """The model and data configs of a config name, named as asked."""
+    name, (model, data) = _lookup(name)
+    return Experiment(name=name, model=model(), data=data())

@@ -62,6 +62,22 @@ def dequantize_sensor(img: Tensor, scale: float = SCALE,
     return img.to(torch.float32) / scale - shift
 
 
+def sensor_values(img: Tensor, name: str, scale: float = SCALE,
+                  shift: float = SHIFT) -> Tensor:
+    """A sensor stream's raw float32 values. Floating-point streams are
+    taken as raw; integer ones are uint16 projections, dequantized, except
+    the STF gated image: a grey image whose integer values are its
+    intensities (the JAX loader reads it as a grey image cast to float,
+    `hrfuser_tpu/data/pipelines/loading.py:114`)."""
+    if img.is_floating_point():
+        return img.to(torch.float32)
+    if name != 'gated':
+        return dequantize_sensor(img, scale, shift)
+    if img.dtype == torch.int16:                 # uint16 bits
+        img = img.to(torch.int32) & 0xFFFF
+    return img.to(torch.float32)
+
+
 def normalize_sensor(raw: Tensor, mean, std) -> Tensor:
     return ((raw - torch.tensor(mean, dtype=torch.float32, device=raw.device))
             / torch.tensor(std, dtype=torch.float32, device=raw.device))
@@ -130,8 +146,10 @@ def make_device_preprocess(dataset: str = 'nuscenes',
     """Preprocess: raw tensors -> model-ready float32 batch.
 
     Inputs: img uint8 (or float) [B, H, W, 3] BGR, already on the target
-    grid (`resize_image`); per modality [B, H, W, C], integer (uint16
-    png values, dequantized here) or float (already dequantized).
+    grid (`resize_image`); per modality in `modalities` order [B, H, W, C]
+    (`sensor_values`: integer uint16 png values are dequantized, the
+    gated image's integers taken as intensities, floats as raw). Each
+    stream is normalized with its own table.
     """
     tables = norm_tables.STF if dataset == 'stf' else norm_tables.NUS
 
@@ -142,9 +160,8 @@ def make_device_preprocess(dataset: str = 'nuscenes',
         if not mods:
             return img, None
         out = []
-        for name, m in zip(modalities, mods):
-            raw = (m.to(torch.float32) if m.is_floating_point()
-                   else dequantize_sensor(m, sensor_scale, sensor_shift))
+        for name, m in zip(modalities, mods, strict=True):
+            raw = sensor_values(m, name, sensor_scale, sensor_shift)
             t = tables[name]
             out.append(pad_to_divisor(
                 normalize_sensor(raw, t['mean'], t['std']), pad_divisor))

@@ -1,22 +1,25 @@
-"""Cascade R-CNN detector: HRFuser backbone + HRFPN + RPN + cascade head.
+"""Cascade R-CNN detector: backbone + HRFPN + RPN + cascade head.
 
 Counterpart of `hrfuser_tpu.models.detectors.cascade_rcnn` (the reference
 `two_stage.py` / `cascade_rcnn.py`). `predict` takes NHWC images as the
 JAX `predict` does (`cascade_rcnn.py:137-182`), with the batch dimension
 written out where the JAX version `vmap`s the per-image RPN decode and
-RoI path. The activations' dtype (float32 or bfloat16) is the input
-images' dtype.
+RoI path. The backbone is HRFuser's (camera fused with sensor streams)
+when the config fuses modalities, else the camera-only HRFormer
+(`cascade_rcnn.py:55-74`). The activations' dtype (float32 or bfloat16)
+is the input images' dtype.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from hrfuser_tpu_torch.models.backbones.hr_config import HRBackboneCfg
+from hrfuser_tpu_torch.models.backbones.hrformer import HRFormerBackbone
 from hrfuser_tpu_torch.models.backbones.hrfuser import HRFuserBackbone
 from hrfuser_tpu_torch.models.dense_heads.rpn_head import (RPNHead,
                                                            get_proposals)
@@ -46,6 +49,10 @@ class DetectorCfg:
     anchor_scales: Tuple[float, ...] = (8,)
     anchor_ratios: Tuple[float, ...] = (0.5, 1.0, 2.0)
 
+    @property
+    def is_fusion(self) -> bool:
+        return self.backbone.num_fused_modalities > 0
+
     def anchor_generator(self) -> AnchorGenerator:
         return AnchorGenerator(strides=self.anchor_strides,
                                ratios=self.anchor_ratios,
@@ -56,7 +63,8 @@ class CascadeRCNN(nn.Module):
     def __init__(self, cfg: DetectorCfg):
         super().__init__()
         self.cfg = cfg
-        self.backbone = HRFuserBackbone(cfg.backbone)
+        self.backbone = (HRFuserBackbone(cfg.backbone) if cfg.is_fusion
+                         else HRFormerBackbone(cfg.backbone))
         self.neck = HRFPN(sum(cfg.backbone.out_channels),
                           cfg.neck_out_channels)
         self.rpn_head = RPNHead(cfg.neck_out_channels,
@@ -64,23 +72,35 @@ class CascadeRCNN(nn.Module):
                                 * len(cfg.anchor_scales))
         self.roi_head = CascadeRoIHead(cfg.roi, cfg.neck_out_channels)
 
-    def forward_features(self, img: Tensor, mod_imgs: List[Tensor]):
+    def forward_features(self, img: Tensor,
+                         mod_imgs: Optional[Sequence[Tensor]] = None):
         """Backbone + neck + RPN maps, all NHWC: 5 pyramid levels
         [B, H_l, W_l, C], cls logits [B, H_l, W_l, A] and deltas
-        [B, H_l, W_l, 4A]."""
-        feats = self.neck(self.backbone(img, list(mod_imgs)))
+        [B, H_l, W_l, 4A]. A camera-only model takes no `mod_imgs`
+        (None or empty)."""
+        mods = list(mod_imgs or [])
+        if self.cfg.is_fusion:
+            xs = self.backbone(img, mods)
+        elif mods:
+            raise ValueError(f'camera-only model given {len(mods)} modality '
+                             f'inputs')
+        else:
+            xs = self.backbone(img)
+        feats = self.neck(xs)
         cls_scores, bbox_preds = self.rpn_head(feats)
         return feats, cls_scores, bbox_preds
 
 
-def predict(model: CascadeRCNN, img: Tensor, mod_imgs: List[Tensor],
+def predict(model: CascadeRCNN, img: Tensor,
+            mod_imgs: Optional[Sequence[Tensor]] = None,
             img_shapes: Optional[Tensor] = None,
             scale_factors: Optional[Tensor] = None) -> Detections:
     """Batched end-to-end inference.
 
     Args:
         img: [B, H, W, 3] (padded to /32).
-        mod_imgs: per-modality [B, H, W, C_k].
+        mod_imgs: per-modality [B, H, W, C_k]; None or empty for a
+            camera-only model.
         img_shapes: [B, 2] (h, w) unpadded shapes for box clipping;
             defaults to the padded shape.
         scale_factors: [B, 4] resize factors for rescaling to the

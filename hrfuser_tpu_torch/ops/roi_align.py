@@ -9,7 +9,8 @@ channel vectors: C % 8 == 0 in bfloat16, C % 4 == 0 in float32, levels
 16-byte aligned) on CUDA tensors and its plain twin
 `multilevel_roi_align_plain` (the gather formulation of
 `hrfuser_tpu/ops/roi_align.py:157-192,282-315`) on CPU tensors. Static
-2x2 samples per bin, aligned=True. Features are NHWC per level
+2x2 samples per bin, aligned=True; the adaptive grid (`sample_num=0` in
+the JAX package) is not ported and raises. Features are NHWC per level
 [B, H_l, W_l, C]; RoIs [B, N, 4]; the result is [B, N, out*out, C] in the
 features' dtype with bins in (y, x) row-major order.
 """
@@ -59,6 +60,10 @@ def multilevel_roi_align_plain(feats: Sequence[Tensor], rois: Tensor,
                                sample_num: int = 2, finest_scale: int = 56
                                ) -> Tensor:
     """Gather RoIAlign in float32, one image at a time."""
+    if sample_num < 1:
+        raise ValueError(f'roi_align: sample_num={sample_num}; adaptive '
+                         f'sampling (sample_num 0) is not ported, only a '
+                         f'static grid (sample_num > 0)')
     b, n, _ = rois.shape
     c = feats[0].shape[-1]
     dev = rois.device

@@ -15,8 +15,12 @@ not called before costs about 200 ms more on the card (measured by
 
     POST /predict        body = PNG bytes (BGR camera image)
     POST /predict_multi  json {"img": <b64 png>, "mods": [<b64 png>, ...]}
-                         (sensor PNGs are the offline uint16
-                         projections, dequantized on the device)
+                         (sensor PNGs in the config's modality order, as
+                         stored offline: uint16 projections, dequantized
+                         on the device, STF's radar with its empty
+                         channel 0 dropped as the loader drops it; STF's
+                         gated image a grey PNG of intensities; none for
+                         a camera-only config)
         -> {"boxes": [[x1, y1, x2, y2], ...], "scores": [...],
             "labels": [...], "class_names": [...], "latency_ms": t}
     GET  /healthz        -> {"status": "ok"}
@@ -51,6 +55,7 @@ from hrfuser_tpu_torch.tools.test import DTYPES
 
 def build_handler(detector, worker: ThreadPoolExecutor):
     class_names = list(detector.data.classes)
+    modalities = detector.data.modalities
 
     class Handler(BaseHTTPRequestHandler):
         def _json(self, code, payload):
@@ -83,9 +88,15 @@ def build_handler(detector, worker: ThreadPoolExecutor):
                 else:
                     req = json.loads(body)
                     img = imdecode(base64.b64decode(req['img']))
-                    mods = [_sensor(imdecode(base64.b64decode(m),
+                    pngs, names = req.get('mods', []), modalities
+                    if pngs and len(pngs) != len(names):
+                        raise ValueError(
+                            f'{len(pngs)} sensor images; the config takes '
+                            f'{len(names)} ({", ".join(names)})')
+                    mods = [_sensor(detector.data, name,
+                                    imdecode(base64.b64decode(m),
                                              unchanged=True))
-                            for m in req.get('mods', [])] or None
+                            for name, m in zip(names, pngs)] or None
                 det = worker.submit(inference_detector, detector, img,
                                     mods).result()
             except (ValueError, KeyError, TypeError) as e:
@@ -106,9 +117,21 @@ def build_handler(detector, worker: ThreadPoolExecutor):
     return Handler
 
 
-def _sensor(img: np.ndarray) -> np.ndarray:
-    """A decoded sensor PNG: uint16 values stay raw (dequantized on the
-    device), other depths are taken as raw values."""
+# channels of a stored sensor PNG that the dataset loader drops: STF's
+# radar 'yzv' projection (`hrfuser_tpu/data/loader.py:43-45`)
+_DROPPED = {('stf', 'radar'): 0}
+
+
+def _sensor(data, name: str, img: np.ndarray) -> np.ndarray:
+    """A decoded sensor PNG of stream `name` as [H, W, C]: channels the
+    loader drops are dropped, uint16 values stay integers
+    (`device_pipeline.sensor_values` reads them), other depths are taken
+    as raw values; a grey PNG gets its channel axis."""
+    if img.ndim == 2:
+        img = img[..., None]
+    drop = _DROPPED.get((data.dataset, name))
+    if drop is not None:
+        img = np.delete(img, drop, axis=-1)
     return img if img.dtype == np.uint16 else img.astype(np.float32)
 
 

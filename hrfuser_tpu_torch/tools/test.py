@@ -1,13 +1,15 @@
 """Evaluation CLI, synthetic mode.
 
 Port of the `--synthetic` mode of `tools/test.py:64-96`: seeded N(0, 1)
-inputs at the config's padded size drive the detector end to end without
-a dataset; one warm-up call, then one timed call.
+inputs at the config's padded grid (384x640 for nuScenes, 384x1248 for
+STF), with one stream per modality at its own channel count (none for a
+camera-only config), drive the detector end to end without a dataset;
+one warm-up call, then one timed call.
 
     python -m hrfuser_tpu_torch.tools.test \\
         cascade_rcnn_hrfuser_t_1x_nus_r640_l_r_fusion --synthetic \\
         --batch-size 8 --dtype bf16 [--checkpoint CKPT] [--out m.json]
-    python -m hrfuser_tpu_torch.tools.test tiny_fusion_test --synthetic \\
+    python -m hrfuser_tpu_torch.tools.test tiny_camera_test --synthetic \\
         --device cpu
 
 Evaluation over a dataset needs the dataset classes and the loader, which

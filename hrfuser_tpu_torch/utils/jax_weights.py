@@ -2,7 +2,8 @@
 
 `state_dict_from_jax(variables, cfg)` takes the JAX package's
 `{'params', 'batch_stats'}` tree (leaves convertible with `np.asarray`)
-and returns the state dict of `CascadeRCNN(cfg)`. It is the inverse of
+and returns the state dict of `CascadeRCNN(cfg)`, fusion or camera-only
+(no modality subtrees). It is the inverse of
 `hrfuser_tpu.utils.pth_convert.convert_state_dict`: conv kernels HWIO ->
 OIHW, depthwise [kh, kw, 1, C] -> [C, 1, kh, kw], dense [in, out] ->
 [out, in]. The HRFuser stage-2 transition applies only its conv
@@ -210,22 +211,22 @@ def state_dict_from_jax(variables, cfg) -> Dict[str, Tensor]:
                    B + (f'stem_mod{k}', 'conv2'))
         e.res_layer(f'backbone.layer_a.{k}', B + (f'layer_a{k}',),
                     bb.stage_a.num_blocks[0])
-    for name, in_ch, fus in (('transition_a', bb.stage_a.out_channels,
-                              bb.fusion_a),
-                             ('transition_b', bb.stage_b.out_channels,
-                              bb.fusion_b),
-                             ('transition_c', bb.stage_c.out_channels,
-                              bb.fusion_c)):
+    # modality transitions, stages and fusion banks (none camera-only)
+    streams = (('transition_a', 'stage_a', 'fusion_a'),
+               ('transition_b', 'stage_b', 'fusion_b'),
+               ('transition_c', 'stage_c', 'fusion_c')) if nm else ()
+    for name, stage, fusion in streams:
         for k in range(nm):
             e.transition(f'backbone.{name}.{k}', B + (name, f'mod{k}'),
-                         in_ch, fus.num_channels)
-    for name in ('stage_b', 'stage_c'):
+                         getattr(bb, stage).out_channels,
+                         getattr(bb, fusion).num_channels)
+    for _, name, _ in streams[1:]:
         stage = getattr(bb, name)
         for k in range(nm):
             for m in range(stage.num_modules):
                 e.hr_module(f'backbone.{name}.{k}.{m}',
                             B + (name, f'mod{k}', f'module{m}'), stage)
-    for name in ('fusion_a', 'fusion_b', 'fusion_c'):
+    for _, _, name in streams:
         for i in range(getattr(bb, name).num_branches):
             e.fusion_block(f'backbone.{name}.{i}', B + (name, f'branch{i}'),
                            nm)

@@ -4,10 +4,11 @@
 uint16 batches (preprocessed on the device) as the preprocessed ones,
 and refuses more than one device; `evaluate_nuscenes` and
 `evaluate_proposal_recall` give the JAX package's numbers on the same
-results (to 1e-6); STF evaluation names the slice it waits for.
+results (to 1e-6); `evaluate` sends STF data to the KITTI evaluation.
 """
 
 import dataclasses
+import pickle
 
 import numpy as np
 import pytest
@@ -18,6 +19,7 @@ from hrfuser_tpu.configs import get_config as jax_get_config
 from hrfuser_tpu_torch import get_experiment, init_detector
 from hrfuser_tpu_torch.apis import test as port_test
 from hrfuser_tpu_torch.apis.inference import detections_of
+from hrfuser_tpu_torch.data.datasets.kitti2d import Kitti2DDataset
 from hrfuser_tpu_torch.data.device_pipeline import (make_device_preprocess,
                                                     to_device)
 
@@ -78,7 +80,7 @@ def test_raw_and_preprocessed_batches_agree(det):
 
 
 def test_more_than_one_device_raises(det):
-    with pytest.raises(NotImplementedError, match='item 6'):
+    with pytest.raises(NotImplementedError, match='item 8'):
         port_test.run_inference(det, [_raw_batch(0)], progress=False,
                                 devices=['cuda:0', 'cuda:1'])
 
@@ -131,14 +133,37 @@ def test_evaluate_proposal_recall_equals_jax(results):
         jax_test.evaluate_proposal_recall(results, ds, (5, 20)), abs=1e-6)
 
 
-def test_evaluate_dispatches_on_the_dataset(results):
+def _kitti_dataset(results, classes, path):
+    """A `Kitti2DDataset` over `_StubDataset`'s ground truth, pickled as
+    `dense_infos`."""
+    infos = []
+    for i, ann in enumerate(_StubDataset(results, len(classes)).anns):
+        n = len(ann['labels'])
+        infos.append({'image': {'image_path': f'{i}.png',
+                                'image_shape': np.array([H, W])},
+                      'annos': {'name': np.array([classes[c] for c in
+                                                  ann['labels']]),
+                                'bbox': ann['bboxes'],
+                                'truncated': np.zeros(n),
+                                'occluded': np.zeros(n)}})
+    with open(path, 'wb') as f:
+        pickle.dump(infos, f)
+    return Kitti2DDataset(str(path), classes, test_mode=True)
+
+
+def test_evaluate_dispatches_on_the_dataset(results, tmp_path):
     exp = get_experiment(NAME)
     ds = _StubDataset(results, 4)
     jcfg = jax_get_config(NAME)
     got = port_test.evaluate(exp, results, ds)
     want = jax_test.evaluate(jcfg, results, ds)
     assert got == pytest.approx(want, abs=1e-6, nan_ok=True)
+    # STF data goes to the KITTI evaluation, as in JAX
     stf = dataclasses.replace(exp, data=dataclasses.replace(exp.data,
                                                             dataset='stf'))
-    with pytest.raises(NotImplementedError, match='STF'):
-        port_test.evaluate(stf, results, ds)
+    jstf = dataclasses.replace(jcfg, data=dataclasses.replace(jcfg.data,
+                                                              dataset='stf'))
+    kitti = _kitti_dataset(results, exp.data.classes, tmp_path / 'gt.pkl')
+    got = port_test.evaluate(stf, results, kitti)
+    assert got == jax_test.evaluate(jstf, results, kitti)
+    assert 'mAP_2d_moderate' in got

@@ -70,7 +70,12 @@ SHAPES = [(13, 17, 8, 2), (7, 7, 18, 1), (96, 160, 18, 1), (12, 20, 144, 8),
           (13, 12, 78, 2), (48, 80, 156, 4), (24, 40, 312, 8),
           (12, 20, 624, 16),
           # ragged 4x8 tiles and split fc2 columns at the widest C
-          (13, 17, 624, 16)]
+          (13, 17, 624, 16),
+          # the STF r1248 maps (HRFuser-T widths): widths 312 / 156 / 78 /
+          # 39 leave kernel B's 8-wide tiles 0 / 4 / 6 / 7 columns over and
+          # pad to 315 / 161 / 84 / 42 for kernel A's windows
+          (96, 312, 18, 1), (48, 156, 36, 2), (24, 78, 72, 4),
+          (12, 39, 144, 8)]
 
 
 @pytest.mark.parametrize('dt', DTYPES)
@@ -93,7 +98,12 @@ def test_self_attention_and_ffn_match_twins(dev, h, w, c, heads, dt):
 @pytest.mark.parametrize('h,w,c,heads,m', [(13, 17, 8, 2, 3),
                                            (96, 160, 18, 1, 2),
                                            (12, 20, 144, 8, 2),
-                                           (12, 20, 624, 16, 2)])
+                                           (12, 20, 624, 16, 2),
+                                           # STF: three modalities, r1248
+                                           (96, 312, 18, 1, 3),
+                                           (48, 156, 36, 2, 3),
+                                           (24, 78, 72, 4, 3),
+                                           (12, 39, 144, 8, 3)])
 def test_fusion_chain_matches_eager_block(dev, h, w, c, heads, m, dt):
     fus = _randomized(HRFuserFusionBlock(c, heads, m), c + m).to(dev)
     x = torch.randn((2, h, w, c), device=dev)
@@ -164,6 +174,21 @@ def test_roi_align_matches_twin_by_width_and_level(dev, c, level, dt):
     assert roi_align.multilevel_roi_align.launches == before + 1
     _close(got, roi_align.multilevel_roi_align_plain(feats, rois,
                                                      (4, 8, 16, 32)), dt)
+
+
+@pytest.mark.parametrize('dt', DTYPES)
+def test_roi_align_matches_twin_on_the_r1248_pyramid(dev, dt):
+    """The STF pyramid 96x312 ... 12x39 (odd stride-32 width), C = 256,
+    2 x 1000 RoIs over the whole 384x1248 frame."""
+    g = torch.Generator().manual_seed(1248)
+    h, w = 384, 1248
+    feats = [torch.randn((2, h // s, w // s, 256), generator=g).to(dev, dt)
+             for s in (4, 8, 16, 32)]
+    assert feats[3].shape[1:3] == (12, 39)
+    rois = _rois_on_level(g, 2, 1000, h, w, None).to(dev).contiguous()
+    _close(roi_align.multilevel_roi_align(feats, rois, (4, 8, 16, 32)),
+           roi_align.multilevel_roi_align_plain(feats, rois, (4, 8, 16, 32)),
+           dt)
 
 
 def test_roi_align_raises_where_it_cannot_load_16_byte_vectors(dev):
@@ -405,3 +430,25 @@ def test_checkpoint_round_trip_on_the_card(dev, tmp_path):
     assert a.keys() == b.keys()
     for k in a:
         assert b[k].device.type == 'cuda' and torch.equal(a[k], b[k]), k
+
+
+@pytest.mark.parametrize('name,hw', [
+    ('cascade_rcnn_hrformer_t_1x_nus_r640', (128, 192)),
+    ('cascade_rcnn_hrfuser_t_1x_stf_r1248_4mod', (192, 608))])
+def test_new_configs_forward_matches_cpu_twins(dev, name, hw):
+    """Camera-only HRFormer-T and STF HRFuser-T (3 / 2 / 1 input
+    channels; 192x608 keeps r1248's odd stride-32 width) at batch 1,
+    float32: the kernels on the card vs the plain twins on the CPU, neck
+    features at `chip_smoke.py` phase 5's tolerance."""
+    gpu = init_detector(name, dev, seed=0)
+    cpu = init_detector(name, 'cpu', seed=0)
+    rng = np.random.default_rng(0)
+    img = torch.from_numpy(rng.normal(0, 1, (1, *hw, 3)).astype(np.float32))
+    mods = [torch.from_numpy(rng.normal(0, 1, (1, *hw, c)).astype(np.float32))
+            for c in gpu.cfg.backbone.mod_in_channels]
+    with torch.no_grad():
+        fg = gpu.model.forward_features(img.to(dev),
+                                        [m.to(dev) for m in mods])[0]
+        fc = cpu.model.forward_features(img, mods)[0]
+    for a, b in zip(fg, fc, strict=True):
+        torch.testing.assert_close(a.cpu(), b, atol=5e-3, rtol=1e-3)

@@ -196,3 +196,40 @@ def test_modality_drop_zeroes_whole_streams_and_repeats():
         assert torch.equal(a, b)
     assert all(bool((o == 1).all()) for o in drop(1, [0.0, 0.0]))
     assert all(bool((o == 0).all()) for o in drop(1, [1.0, 1.0]))
+
+
+@pytest.mark.parametrize('gated_dtype', [np.uint8, np.uint16, np.float32])
+def test_stf_preprocess_normalizes_each_stream_with_its_table(gated_dtype):
+    """STF camera + lidar (3 channels) + radar (2) + gated (1): the
+    camera and the uint16 projections as the JAX device pipeline
+    preprocesses them; the gated image as the JAX loader reads it (a grey
+    image cast to float, `loading.py:114`) and its `Normalize` with the
+    STF gated table. Any integer depth of the gated image is taken as
+    intensities, never dequantized."""
+    rng = np.random.default_rng(9)
+    img = rng.integers(0, 256, (2, 36, 44, 3), np.uint8)
+    lidar = rng.integers(19000, 26000, (2, 36, 44, 3)).astype(np.uint16)
+    radar = rng.integers(19000, 26000, (2, 36, 44, 2)).astype(np.uint16)
+    high = 255 if gated_dtype == np.uint8 else 1024
+    gated = rng.integers(0, high, (2, 36, 44, 1)).astype(gated_dtype)
+    pre = dp.make_device_preprocess('stf', ('lidar', 'radar', 'gated'))
+    out_img, out_mods = pre(torch.from_numpy(img),
+                            [dp.to_device(m, 'cpu')
+                             for m in (lidar, radar, gated)])
+    j_img, (j_lidar, j_radar) = jdp.make_device_preprocess(
+        'stf', ('lidar', 'radar'))(jnp.asarray(img),
+                                   [jnp.asarray(lidar), jnp.asarray(radar)])
+    np.testing.assert_allclose(out_img.numpy(), np.asarray(j_img), atol=1e-6)
+    assert [tuple(m.shape[1:]) for m in out_mods] == [(64, 64, 3),
+                                                      (64, 64, 2),
+                                                      (64, 64, 1)]
+    for got, want in zip(out_mods, (j_lidar, j_radar)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+    for b in range(2):
+        res = dict(gated_img=gated[b].astype(np.float32),
+                   img_fields=['gated_img'])
+        res = JaxNormalize(**jax_norms.STF['gated'], keys=['gated_img'],
+                           sensor_type='gated')(res)
+        np.testing.assert_allclose(out_mods[2][b, :36, :44].numpy(),
+                                   res['gated_img'], atol=1e-6)
+    assert not out_mods[2][:, 36:].any() and not out_mods[2][:, :, 44:].any()

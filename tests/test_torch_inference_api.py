@@ -141,3 +141,80 @@ def test_camera_only_matches_jax(pair):
     got = inference_detector(pair.port, pair.img)
     _same_detections(got, pair.camera_only)
     assert np.isfinite(got['boxes']).all()
+
+
+def _small_pair(jcfg, port_model_cfg, data, mod_channels, seed):
+    """(JAX `Detector` with the un-jitted predict, port `Detector`) of one
+    model config with the same weights, both serving `data`'s grid."""
+    from hrfuser_tpu_torch.apis.inference import Detector
+    from hrfuser_tpu_torch.models.detectors.cascade_rcnn import CascadeRCNN
+    model = dataclasses.replace(jcfg.model, roi=dataclasses.replace(
+        jcfg.model.roi, gather_bf16=False))
+    jcfg = dataclasses.replace(jcfg, model=model, data=data)
+    module = JaxCascadeRCNN(model)
+    w, h = data.img_scale
+    x = jnp.zeros((1, h, w, 3), jnp.float32)
+    variables = random_variables(
+        module, x, [jnp.zeros((1, h, w, c), jnp.float32)
+                    for c in mod_channels] or None, False, seed=seed)
+    jdet = JaxDetector(jcfg, module, variables)
+    jdet._predict = functools.partial(jax_predict, module)
+    port = CascadeRCNN(port_model_cfg).eval()
+    port.load_state_dict(state_dict_from_jax(variables, port_model_cfg),
+                         strict=True)
+    from hrfuser_tpu_torch.configs import DataCfg
+    return jdet, Detector(port, DataCfg(**dataclasses.asdict(data)),
+                          torch.device('cpu'))
+
+
+def test_camera_only_config_matches_jax():
+    """`tiny_camera_test` (no sensor streams, none invented) on a 60x90
+    request resized to 64x96."""
+    from hrfuser_tpu_torch.configs import get_config
+    jcfg = jax_get_config('tiny_camera_test')
+    data = dataclasses.replace(jcfg.data, img_scale=(96, 64))
+    jdet, port = _small_pair(jcfg, get_config('tiny_camera_test'), data, (),
+                             seed=7)
+    img = np.random.default_rng(1).integers(0, 256, (*RAW_HW, 3)).astype(
+        np.uint8)
+    img_t, mods_t = request_to_device(port, img)
+    inputs = preprocess_request(port, img_t, mods_t)
+    assert inputs[1] is None                    # no streams for the model
+    _same_detections(inference_detector(port, img),
+                     jax_inference_detector(jdet, img), scale=64 / 60)
+
+
+def test_stf_request_with_a_one_channel_gated_image_matches_jax():
+    """An STF request on the three-modality tiny model: a 60x90 camera
+    image, uint16 lidar (3 channels) and radar (2) projections and a
+    1-channel uint16 gated image, resized to 64x96 (the STF `Resize` rule
+    at a small `img_scale`) and normalized with the STF tables. The
+    JAX `inference_detector` takes sensor values as floats: the
+    dequantized projections and the gated intensities."""
+    from hrfuser_tpu.configs import presets as jax_presets
+    from hrfuser_tpu_torch.configs import presets
+    args = dict(channels=(8, 16, 24, 32), heads=(1, 2, 2, 4),
+                num_modalities=3, mod_in_channels=(3, 2, 1))
+    jcfg = jax_get_config('tiny_fusion_test')
+    jcfg = dataclasses.replace(jcfg, model=dataclasses.replace(
+        jcfg.model, backbone=jax_presets.hrfuser_backbone(**args)))
+    data = dataclasses.replace(jax_get_config(
+        'cascade_rcnn_hrfuser_t_1x_stf_r1248_4mod').data,
+        img_scale=(96, 64))
+    jdet, port = _small_pair(jcfg, presets._tiny(presets.hrfuser_backbone(
+        **args)), data, (3, 2, 1), seed=8)
+    rng = np.random.default_rng(2)
+    raw_hw = RAW_HW
+    img = rng.integers(0, 256, (*raw_hw, 3)).astype(np.uint8)
+    u16 = []
+    for c in (3, 2):
+        m = np.full((*raw_hw, c), 20000, np.uint16)
+        hit = rng.random(raw_hw) < 0.3
+        m[hit] = rng.integers(19900, 23000, (int(hit.sum()), c))
+        u16.append(m)
+    gated = rng.integers(0, 1024, (*raw_hw, 1)).astype(np.uint16)
+    want = jax_inference_detector(
+        jdet, img, [dequantize(m) for m in u16] + [gated.astype(np.float32)])
+    got = inference_detector(port, img, u16 + [gated])
+    assert port.data.dataset == 'stf' and port.data.modalities[-1] == 'gated'
+    _same_detections(got, want, scale=64 / 60)

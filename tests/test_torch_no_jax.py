@@ -2,8 +2,9 @@
 or `cv2` (the card's machine has neither JAX nor `cv2`).
 
 Checked in a fresh interpreter (this test process has JAX loaded by
-`tests/conftest.py`) that runs the tiny slice, `inference_detector` and
-`run_inference` end to end on the CPU, and statically over every module
+`tests/conftest.py`) that runs the tiny fusion and camera-only slices,
+`inference_detector` and `run_inference` end to end on the CPU and
+imports the KITTI evaluation, and statically over every module
 of the package and the scripts that drive it on the card. Its entry
 point runs on the card unless asked for the CPU.
 """
@@ -47,6 +48,10 @@ batch = dict(img=rng.integers(0, 256, (1, 64, 96, 3)).astype(np.uint8),
              img_shapes=np.array([[64, 96]], np.float32),
              scale_factors=np.ones((1, 4), np.float32), metas=[None])
 assert len(run_inference(det, [batch], progress=False)) == 1
+cam = init_detector('tiny_camera_test', 'cpu', seed=0)
+assert tuple(cam(img, None).boxes.shape) == (1, 20, 4)
+import hrfuser_tpu_torch.data.datasets.kitti2d
+import hrfuser_tpu_torch.evaluation.kitti_eval
 bad = sorted(m for m in sys.modules if m.split('.')[0] in {forbidden})
 assert not bad, bad
 print('ok')

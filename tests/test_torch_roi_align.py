@@ -241,3 +241,18 @@ def test_pallas_entry_matches_pallas_interpret(name, variant):
         interpret=True, variant=variant), np.float32)
     got = _pallas_entry(feats, rois, variant)
     np.testing.assert_allclose(got, want, atol=0.05, rtol=0.05)
+
+
+@pytest.mark.parametrize('sample_num', [0, -1])
+def test_adaptive_sampling_raises_on_the_cpu(sample_num):
+    """`sample_num=0` is the JAX package's adaptive mode
+    (`hrfuser_tpu/ops/roi_align.py:8-14`), not ported: the CPU path
+    raises as the card's does, instead of returning NaN."""
+    feats = [torch.zeros((1, 64 // s, 64 // s, 8)) for s in (4, 8, 16, 32)]
+    rois = torch.tensor([[[4., 4., 40., 40.]]])
+    with pytest.raises(ValueError, match='adaptive sampling'):
+        roi_align.multilevel_roi_align_plain(feats, rois, (4, 8, 16, 32),
+                                             sample_num=sample_num)
+    with pytest.raises(ValueError, match='adaptive sampling'):
+        roi_align.multilevel_roi_align(feats, rois, (4, 8, 16, 32),
+                                       sample_num=sample_num)

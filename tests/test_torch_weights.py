@@ -138,3 +138,88 @@ def test_block_bridges_load_strict(m):
     var = v['batch_stats']['ffn']['norm2']['bn']['var']
     np.testing.assert_array_equal(sd['ffn.layers.4.running_var'].numpy(),
                                   np.asarray(var))
+
+
+STF_TINY = dict(channels=(8, 16, 24, 32), heads=(1, 2, 2, 4),
+                num_modalities=3, mod_in_channels=(3, 2, 1))
+# modules only a fusion backbone has
+MODALITY_KEYS = ('conv_a', 'norm_a', 'conv_b', 'norm_b', 'layer_a',
+                 'transition_a', 'transition_b', 'transition_c', 'stage_b',
+                 'stage_c', 'fusion_a', 'fusion_b', 'fusion_c')
+
+
+def _tiny_pair(kind):
+    """(JAX model cfg, port model cfg): `tiny_camera_test`, or
+    `tiny_fusion_test`'s widths with three modalities (3 / 2 / 1 input
+    channels), built from the same arguments on both sides."""
+    from hrfuser_tpu.configs import presets as jax_presets
+    from hrfuser_tpu_torch.configs import presets
+    if kind == 'camera':
+        return jax_get_config('tiny_camera_test').model, get_config(
+            'tiny_camera_test')
+    jcfg = jax_get_config('tiny_fusion_test').model
+    jcfg = dataclasses.replace(
+        jcfg, backbone=jax_presets.hrfuser_backbone(**STF_TINY))
+    return jcfg, presets._tiny(presets.hrfuser_backbone(**STF_TINY))
+
+
+@pytest.mark.parametrize('kind', ['camera', 'three_modalities'])
+def test_bridge_round_trip_is_exact_for_new_trees(kind):
+    """As `test_bridge_round_trip_is_exact`, for the camera-only tree (no
+    `stem_mod*`, `layer_a*`, modality stages or fusion banks) and the
+    three-modality tree."""
+    jcfg, cfg = _tiny_pair(kind)
+    x = jnp.zeros((1, 64, 96, 3), jnp.float32)
+    mods = ([jnp.zeros((1, 64, 96, c), jnp.float32)
+             for c in cfg.backbone.mod_in_channels] or None)
+    variables = random_variables(JaxCascadeRCNN(jcfg), x, mods, False,
+                                 seed=4)
+    model = CascadeRCNN(cfg)
+    model.load_state_dict(state_dict_from_jax(variables, cfg), strict=True)
+    back = convert_state_dict(
+        {k: v.numpy() for k, v in model.state_dict().items()}, jcfg)
+    for coll in ('params', 'batch_stats'):
+        want, got = _flat(variables[coll]), _flat(back[coll])
+        extra = set(got) - set(want)
+        assert set(want) <= set(got), set(want) - set(got)
+        assert all('/transition' in k for k in extra), extra
+        for k, v in want.items():
+            np.testing.assert_array_equal(got[k], v, err_msg=k)
+    names = _flat(variables['params'])
+    if kind == 'camera':
+        assert not any(k.split('/')[1].startswith(('stem_mod', 'layer_a'))
+                       for k in names)
+    else:
+        assert 'backbone/stem_mod2/conv1/conv/kernel' in names
+        assert model.backbone.conv_a[2].weight.shape == (64, 1, 3, 3)
+
+
+def test_camera_only_names_are_the_reference_trunk():
+    """HRFormer's parameter names are HRFuser's camera trunk's
+    (the reference oracle builds fusion models only)."""
+    ours = CascadeRCNN(get_config('tiny_camera_test')).state_dict()
+    cfg = get_config(NAME)
+    oracle_cfg = dataclasses.replace(
+        jax_get_config(NAME).model, neck_out_channels=cfg.neck_out_channels)
+    ref = {k: v for k, v in TorchHRFuserDetector(oracle_cfg).state_dict()
+           .items() if k.split('.')[1] not in MODALITY_KEYS}
+    assert set(ours) == set(ref)
+    for k, v in ref.items():
+        assert tuple(ours[k].shape) == tuple(v.shape), k
+
+
+def test_stf_4mod_loads_strict_from_jax_variables():
+    """Full-width STF HRFuser-T: three streams with 3 / 2 / 1 input
+    channels carry over and load strictly."""
+    name = 'cascade_rcnn_hrfuser_t_1x_stf_r1248_4mod'
+    x = jnp.zeros((1, 64, 96, 3), jnp.float32)
+    cfg = get_config(name)
+    mods = [jnp.zeros((1, 64, 96, c), jnp.float32) for c in (3, 2, 1)]
+    v = random_variables(JaxCascadeRCNN(jax_get_config(name).model), x,
+                         mods, False, seed=6)
+    model = CascadeRCNN(cfg)
+    sd = state_dict_from_jax(v, cfg)
+    model.load_state_dict(sd, strict=True)
+    assert sd['backbone.conv_a.2.weight'].shape == (64, 1, 3, 3)
+    assert sd['backbone.fusion_c.3.attn.2.attn.q_proj.weight'].shape \
+        == (144, 144)
