@@ -65,6 +65,29 @@ Phases, each printed on its own lines; any failure exits non-zero:
    frame; `run_inference` + `evaluate` on a synthetic STF
    `Kitti2DDataset` written to a temporary directory, every KITTI metric
    present and finite.
+8. training: 8a `train_step` on the full-width HRFuser-T r640 config
+   (`cascade_rcnn_hrfuser_t_1x_nus_r640_l_r_fusion`, random weights from
+   seed 0) at its batch of 3, 384x640, float32 (TF32 off), the reference
+   caps (2000 proposals, 512 RoIs a stage), drop path 0.2 and `proj_drop`
+   0.1 live: 40 steps on one `synthetic_batches` batch at the full lr
+   3e-4 from the first step (the preset's warmup dropped for this check
+   only); the overfit ratio (mean of the last
+   quarter of the losses over the first, must be < 0.7), median ms a
+   step over steps 5-40, images/s, peak memory, device busy / idle and
+   the ten kernels with the most device time under `torch.profiler` for 2
+   steps, the parts of one step on the host clock; no kernel launches
+   inside a step;
+   then in eval the trained weights serve a bf16 batch of 8 with exact
+   launch counts, and card vs CPU neck features agree at batch 1 f32;
+   8b the card's train step against the CPU's on the same weights, batch
+   and draws (made on the CPU and moved), HRFuser-T at 128x192, B = 2,
+   drop rates 0, lr 3e-4 from the first step: losses at rtol 1e-3
+   (accuracies within 3 of the 1,024 sampled RoIs), all gradients
+   together within relative L2 2e-2 and each within 1e-1, params after
+   the step within 2 x lr. The bars are about three times the float32
+   spread measured between the two devices (PERF.md §6): rounding
+   amplified by the norm layers' backward in the random-weight trunk, and
+   near-tied random-weight RPN scores that can swap a proposal.
 
 The last line is `{"ok": true, "device": {...}}`; the line before it
 lists each kernel's launches, error, times and bound as JSON.
@@ -929,10 +952,11 @@ def phase_inference_detector(state, smi):
              f'{busy:.2f} ms, idle {1 - busy / wall:.1%}'))
 
 
-def _busy_ms(fn, calls=3):
+def _busy_ms(fn, calls=3, top=0):
     """(device busy ms, wall ms) per call of `fn` under `torch.profiler`:
     the union of the CUDA-side event intervals; busy is None if the
-    profiler records no device activity."""
+    profiler records no device activity. `top` > 0 prints the kernels
+    with the most device time a call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -942,8 +966,14 @@ def _busy_ms(fn, calls=3):
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / calls
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    cuda = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if top:
+        per = {}
+        for e in cuda:
+            per[e.name] = per.get(e.name, 0) + e.time_range.elapsed_us()
+        for name, us in sorted(per.items(), key=lambda kv: -kv[1])[:top]:
+            print(f'    {us / 1e3 / calls:8.2f} ms  {name[:90]}')
+    spans = sorted((e.time_range.start, e.time_range.end) for e in cuda)
     if not spans:
         return None, wall
     busy, end = 0, spans[0][0]
@@ -1263,6 +1293,211 @@ def phase_new_requests(smi):
         f'{k} {v:.4f}' for k, v in sorted(metrics.items())))
 
 
+def _train_setup(config, device, seed=0, no_drop=False, warmup=True):
+    """A training model on `device` (random weights drawn on the CPU from
+    `seed`), its `TrainState` and experiment."""
+    import dataclasses
+    from hrfuser_tpu_torch.apis.inference import init_weights_
+    from hrfuser_tpu_torch.apis.train import create_train_state
+    from hrfuser_tpu_torch.configs import get_experiment
+    from hrfuser_tpu_torch.configs.presets import without_drops
+    from hrfuser_tpu_torch.models.detectors.cascade_rcnn import CascadeRCNN
+    exp = get_experiment(config)
+    if no_drop:
+        exp = dataclasses.replace(exp, model=without_drops(exp.model))
+    sched = exp.schedule
+    if not warmup:
+        # the full lr from the first step: with warmup_iters 0 alone the
+        # schedule stays at lr x warmup_ratio (t = min(count, 0))
+        sched = dataclasses.replace(sched, warmup_iters=0, warmup_ratio=1.0)
+    model = CascadeRCNN(exp.model)
+    init_weights_(model, torch.Generator().manual_seed(seed))
+    state = create_train_state(model.to(device), exp.optim, sched, 100)
+    return state, exp
+
+
+def _step_split(state, batch, gen):
+    """Host-clock times of one step's parts, synchronised between them."""
+    from hrfuser_tpu_torch.apis.train import apply_gradients, batch_to
+    from hrfuser_tpu_torch.core.samplers import Draws
+    from hrfuser_tpu_torch.layers.common import train_generator
+    from hrfuser_tpu_torch.models.dense_heads.rpn_head import (
+        train_proposals)
+    from hrfuser_tpu_torch.models.detectors.train_loss import forward_train
+    model, tb = state.model, batch_to(batch, 'cuda')
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def features():
+        with train_generator(gen):
+            return model.forward_features(tb['img'], tb['mod_imgs'])
+
+    (feats, cls, reg), t_feat = timed(features)
+    anchors = [torch.from_numpy(a).cuda() for a in
+               model.cfg.anchor_generator().grid_anchors(
+                   [tuple(f.shape[1:3]) for f in feats])]
+    hw = torch.tensor([[H, W]], dtype=torch.float32, device='cuda')
+    _, t_props = timed(lambda: train_proposals(cls, reg, anchors,
+                                               hw.expand(len(cls[0]), 2)))
+    del feats, cls, reg
+    state.optimizer.zero_grad(set_to_none=True)
+    losses, t_fwd = timed(lambda: forward_train(model, tb, Draws(gen)))
+    _, t_bwd = timed(lambda: losses['loss'].backward())
+    _, t_opt = timed(lambda: apply_gradients(state))
+    print(f'  one step, synchronised between parts (ms): forward_train '
+          f'{t_fwd:.1f} (alone: backbone + neck + RPN maps {t_feat:.1f}, '
+          f'proposal decode + NMS {t_props:.1f}; the rest is targets and '
+          f'the cascade), backward {t_bwd:.1f}, AdamW with the finite '
+          f'check {t_opt:.1f}')
+
+
+def phase_train(report, smi):
+    print(f'== 8a. training: {CONFIG}, float32, batch 3 at {H}x{W}, '
+          f'reference caps, drop path live')
+    from hrfuser_tpu_torch.apis.inference import Detector
+    from hrfuser_tpu_torch.apis.train import train_step
+    from hrfuser_tpu_torch.tools.train import (overfit_ratio,
+                                               synthetic_batches)
+    state, exp = _train_setup(CONFIG, 'cuda', warmup=False)
+    fb = exp.model.backbone.fusion_a
+    print(f'  drop path {fb.drop_path}, proj_drop {fb.proj_drop_rate}, '
+          f'lr {state.schedule(0)} from the first step (the preset warms up '
+          f'over {exp.schedule.warmup_iters} steps from lr x '
+          f'{exp.schedule.warmup_ratio})')
+    batch = next(synthetic_batches(exp, exp.schedule.samples_per_device,
+                                   pool=1))
+    gen = torch.Generator('cuda').manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    losses, times = [], []
+    for _ in range(40):
+        t0 = time.perf_counter()
+        m = train_step(state, batch, gen)
+        losses.append(float(m['loss']))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    counts = {k: fn.launches for k, fn in _counters().items()}
+    print(f'  kernel launches over 40 train steps: {counts}')
+    if any(counts.values()):
+        raise AssertionError('a train step launched an eval kernel')
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f'non-finite loss: {losses}')
+    ratio = overfit_ratio(losses)
+    print(f'  loss {losses[0]:.4f} -> {losses[-1]:.4f}; last-quarter mean '
+          f'/ first = {ratio:.3f} ' + ('PASS' if ratio < 0.7 else 'FAIL'))
+    print('  losses: ' + ' '.join(f'{v:.3f}' for v in losses))
+    if ratio >= 0.7:
+        raise AssertionError(f'overfit ratio {ratio:.3f} >= 0.7')
+    med = float(np.median(times[4:]))
+    b = exp.schedule.samples_per_device
+    print(f'  ms per step (steps 5-40): median {med:.1f}, min '
+          f'{min(times[4:]):.1f}, max {max(times[4:]):.1f}; '
+          f'{b / med * 1e3:.2f} images/s; peak memory '
+          f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {smi}')
+    print('  kernels with the most device time a step:')
+    busy, wall = _busy_ms(lambda: train_step(state, batch, gen), calls=2,
+                          top=10)
+    print(f'  under torch.profiler: {wall:.1f} ms a step, device busy '
+          + ('not measured' if busy is None else
+             f'{busy:.1f} ms, idle {1 - busy / wall:.1%}'))
+    _step_split(state, batch, gen)
+
+    model = state.model.eval()
+    det = Detector(model, exp.data, torch.device('cuda'), torch.bfloat16)
+    img, mods = _inputs(exp.model, BATCH, np.random.default_rng(0))
+    _reset_counts()
+    out = det(img, mods)
+    torch.cuda.synchronize()
+    _check_counts(_expected_launches(exp.model), 1,
+                  'trained weights, eval bf16 batch of 8')
+    if not (out.boxes.isfinite().all() and out.scores.isfinite().all()):
+        raise AssertionError('non-finite detections from trained weights')
+    import copy
+    cpu = copy.deepcopy(model).cpu()
+    img, mods = _inputs(exp.model, 1, np.random.default_rng(1))
+    with torch.no_grad():
+        fg = model.forward_features(torch.from_numpy(img).cuda(), [
+            torch.from_numpy(m).cuda() for m in mods])[0]
+        fc = cpu.forward_features(torch.from_numpy(img),
+                                  [torch.from_numpy(m) for m in mods])[0]
+    for lvl, (a, c) in enumerate(zip(fg, fc)):
+        a = a.cpu()
+        err = (a - c).abs().max().item()
+        print(f'  trained, neck level {lvl}: card vs CPU max_abs_err '
+              f'{err:.3e}')
+        if not torch.allclose(a, c, atol=5e-3, rtol=1e-3):
+            raise AssertionError(f'trained neck level {lvl}: card and CPU '
+                                 f'disagree')
+    del state, model, det, cpu
+    torch.cuda.empty_cache()
+
+
+def _one_step(dev, hw):
+    """One train step of HRFuser-T (drop rates 0, no warmup) on `dev` from
+    seed-0 weights, a fixed synthetic batch and sampler draws made on the
+    CPU: (losses, gradients, params after, lr of the step)."""
+    from hrfuser_tpu_torch.apis.train import apply_gradients, batch_to
+    from hrfuser_tpu_torch.core.samplers import Draws
+    from hrfuser_tpu_torch.models.detectors.train_loss import forward_train
+    from hrfuser_tpu_torch.tools.train import synthetic_batches
+    state, exp = _train_setup(CONFIG, dev, no_drop=True, warmup=False)
+    model = state.model
+    t0 = time.perf_counter()
+    losses = forward_train(
+        model, batch_to(next(synthetic_batches(exp, 2, hw, pool=1)), dev),
+        Draws(torch.Generator().manual_seed(3)))
+    losses['loss'].backward()
+    grads = {n: p.grad.detach().cpu().clone()
+             for n, p in model.named_parameters() if p.grad is not None}
+    apply_gradients(state)
+    print(f'  {dev}: step {time.perf_counter() - t0:.1f} s')
+    return ({k: float(v.detach()) for k, v in losses.items()}, grads,
+            {n: p.detach().cpu() for n, p in model.named_parameters()},
+            state.schedule(0))
+
+
+def phase_train_parity():
+    hw = (128, 192)
+    print(f'== 8b. train step, card vs CPU: HRFuser-T at {hw[0]}x{hw[1]}, '
+          f'batch 2, drop rates 0, same weights, batch and draws')
+    (lg, gg, pg, lr), (lc, gc, pc, _) = (_one_step('cuda', hw),
+                                         _one_step('cpu', hw))
+    for k in lc:
+        diff = abs(lg[k] - lc[k])
+        if k.endswith('acc'):        # one of 2 x 512 sampled RoIs: 1e-3
+            ok, err = diff * 1024 <= 3, f'{diff * 1024:.1f} RoIs'
+        else:
+            ok, err = diff <= 1e-3 * abs(lc[k]), f'{diff / abs(lc[k]):.2e}'
+        print(f'  {k}: card {lg[k]:.6f}, CPU {lc[k]:.6f}, {err}')
+        if not ok:
+            raise AssertionError(f'card vs CPU {k}: {lg[k]} vs {lc[k]}')
+    if set(gg) != set(gc):
+        raise AssertionError('card and CPU differ in which params get grads')
+    whole = (torch.cat([(gg[n] - gc[n]).flatten() for n in gc]).norm()
+             / torch.cat([gc[n].flatten() for n in gc]).norm()).item()
+    floor = 1e-3 * max(g.norm().item() for g in gc.values())
+    rels = sorted(((gg[n] - gc[n]).norm().item()
+                   / max(gc[n].norm().item(), floor), n) for n in gc)
+    print(f'  gradients: relative L2 of all {len(gc)} together {whole:.2e} '
+          f'(bar 2e-2); per parameter, worst: ' + ', '.join(
+              f'{n} {r:.2e}' for r, n in rels[:-4:-1]) + ' (bar 1e-1)')
+    if whole > 2e-2 or rels[-1][0] > 1e-1:
+        raise AssertionError('card vs CPU gradients')
+    # a gradient of opposite sign moves a param +lr on one side and -lr on
+    # the other; float32 rounds the updated param to 1e-6 of its size
+    step_err = max(((pg[n] - pc[n]).abs() - 1e-6 * pc[n].abs()).max().item()
+                   for n in pc)
+    print(f'  params after one step at lr {lr:g}: max abs difference '
+          f'{step_err:.2e} beyond 1e-6 of the param (bound 2 x lr)')
+    if step_err > 2 * lr:
+        raise AssertionError('card vs CPU params after one step')
+
+
 def main():
     smi = phase_environment()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1300,6 +1535,8 @@ def main():
             'bf16, batch 8', record=False)),
         ('7b cpu', lambda: phase_cpu_check(CONFIG_CAM_T, '7b. HRFormer-T')),
         ('7c', lambda: phase_new_requests(smi)),
+        ('8a', lambda: phase_train(report, smi)),
+        ('8b', phase_train_parity),
     ]
     for name, run in phases:
         t1 = time.perf_counter()

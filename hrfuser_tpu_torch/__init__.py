@@ -1,4 +1,5 @@
-"""HRFuser on PyTorch and CUDA: the eval-inference port of `hrfuser_tpu`.
+"""HRFuser on PyTorch and CUDA: the port of `hrfuser_tpu` (eval, serving
+and training).
 
 Mirrors the JAX package's layout (`ops/`, `layers/`, `models/`, `apis/`,
 `configs/`, `data/`, `evaluation/`, `utils/`, `tools/`). The TPU Pallas

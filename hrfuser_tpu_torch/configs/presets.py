@@ -1,16 +1,16 @@
 """Model and data presets for the configurations the port runs.
 
-Copies of `hrfuser_tpu/configs/presets.py:64-77,90-141,187-231,238-252,
-301-325,361-416`: the eval fields of `DetectorCfg` (see `hr_config.py`)
-and the whole `DataCfg`. `get_config(name)` gives the model half,
-`get_experiment(name)` both halves. As in the JAX package, every name has
-a `_bn` alias (plain BN and SyncBN are one thing at eval) and a `.py`
-path resolves to its file name. `tests/test_torch_configs.py` holds each
-equal, field for field, to `hrfuser_tpu.configs.get_config(name)`'s
-`.model` and `.data`.
+Copies of `hrfuser_tpu/configs/presets.py:40-141,187-231,238-252,
+301-325,361-416`: `DetectorCfg` (see `hr_config.py`), `DataCfg`,
+`ScheduleCfg` and `OptimCfg`. `get_config(name)` gives the model half,
+`get_experiment(name)` all four. As in the JAX package, every name has
+a `_bn` alias (one device computes the same batch statistics with BN and
+SyncBN) and a `.py` path resolves to its file name.
+`tests/test_torch_configs.py` holds each equal, field for field, to
+`hrfuser_tpu.configs.get_config(name)`.
 
-Not carried: `drop_path_rate` and `apply_stochastic_depth` (train-only),
-the HRNet-based configs and `micro_fusion_dryrun` (ROADMAP §1).
+Not carried: the HRNet-based configs and `micro_fusion_dryrun`
+(ROADMAP §1).
 """
 
 from __future__ import annotations
@@ -18,9 +18,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, Optional, Tuple
 
-from hrfuser_tpu_torch.models.backbones.hr_config import (FusionCfg,
-                                                          HRBackboneCfg,
-                                                          StageCfg)
+from hrfuser_tpu_torch.models.backbones.hr_config import (
+    FusionCfg, HRBackboneCfg, StageCfg, apply_stochastic_depth)
 from hrfuser_tpu_torch.models.detectors.cascade_rcnn import (DetectorCfg,
                                                              RPNTestCfg)
 from hrfuser_tpu_torch.models.roi_heads.cascade_roi_head import RoIHeadCfg
@@ -30,6 +29,27 @@ NUSCENES_CLASSES = ('car', 'truck', 'trailer', 'bus', 'construction_vehicle',
                     'bicycle', 'motorcycle', 'pedestrian', 'traffic_cone',
                     'barrier')
 STF_CLASSES = ('Pedestrian', 'Cyclist', 'Car')
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimCfg:
+    lr: float = 3e-4
+    betas: Tuple[float, float] = (0.9, 0.999)
+    weight_decay: float = 0.01
+    # parameter-name substrings excluded from weight decay (the reference
+    # decays biases of conv/fc, so 'bias' is NOT excluded; custom_keys at
+    # `cascade_rcnn_hrfuser_t_1x_nus_r640_l_r_fusion.py:43-48`)
+    no_decay_keys: Tuple[str, ...] = ('relative_position_bias_table', 'norm',
+                                     'bn')
+
+
+@dataclasses.dataclass(frozen=True)
+class ScheduleCfg:
+    max_epochs: int = 12
+    lr_steps: Tuple[int, ...] = (8, 11)
+    warmup_iters: int = 500
+    warmup_ratio: float = 1e-3
+    samples_per_device: int = 3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,11 +71,13 @@ class DataCfg:
 
 @dataclasses.dataclass(frozen=True)
 class Experiment:
-    """The model and data halves of a config (the JAX `ExperimentCfg`
-    without its training schedule and optimizer)."""
+    """A config's model, data, schedule and optimizer (the JAX
+    `ExperimentCfg`)."""
     name: str
     model: DetectorCfg
     data: DataCfg
+    schedule: ScheduleCfg = ScheduleCfg()
+    optim: OptimCfg = OptimCfg()
 
 
 def _nus_data(modalities=('lidar', 'radar')) -> DataCfg:
@@ -96,17 +118,22 @@ def _hrformer_stages(channels: Tuple[int, ...], heads: Tuple[int, ...],
 
 def hrformer_backbone(channels: Tuple[int, ...] = (18, 36, 72, 144),
                       heads: Tuple[int, ...] = (1, 2, 4, 8),
-                      stage3_modules: int = 3) -> HRBackboneCfg:
+                      stage3_modules: int = 3,
+                      drop_path_rate: float = 0.0) -> HRBackboneCfg:
     """Camera-only HRFormer trunk: no modality streams, no fusion banks."""
-    return HRBackboneCfg(**_hrformer_stages(channels, heads, stage3_modules))
+    return apply_stochastic_depth(HRBackboneCfg(
+        drop_path_rate=drop_path_rate,
+        **_hrformer_stages(channels, heads, stage3_modules)))
 
 
 def hrfuser_backbone(channels: Tuple[int, ...] = (18, 36, 72, 144),
                      heads: Tuple[int, ...] = (1, 2, 4, 8),
                      stage3_modules: int = 3, lidar_c_modules: int = 3,
                      num_modalities: int = 2,
-                     mod_in_channels: Tuple[int, ...] = (3, 3)
-                     ) -> HRBackboneCfg:
+                     mod_in_channels: Tuple[int, ...] = (3, 3),
+                     drop_path_rate: float = 0.0,
+                     fusion_drop_path: float = 0.2,
+                     proj_drop_rate: float = 0.1) -> HRBackboneCfg:
     """HRFormer camera trunk (window 7, mlp ratio 4) with one stream per
     extra modality and MWCA fusion banks before stages 2-4."""
     def mod_stage(nm):
@@ -118,15 +145,29 @@ def hrfuser_backbone(channels: Tuple[int, ...] = (18, 36, 72, 144),
     def fusion(n):
         return FusionCfg(num_branches=n, num_channels=channels[:n],
                          num_heads=heads[:n], window_sizes=(7,) * n,
-                         mlp_ratios=(4,) * n)
+                         mlp_ratios=(4,) * n, drop_path=fusion_drop_path,
+                         proj_drop_rate=proj_drop_rate)
 
-    return HRBackboneCfg(
+    return apply_stochastic_depth(HRBackboneCfg(
         stage_a=StageCfg(1, 1, 'BOTTLENECK', (2,), (64,)),
         stage_b=mod_stage(1), stage_c=mod_stage(lidar_c_modules),
         fusion_a=fusion(2), fusion_b=fusion(3), fusion_c=fusion(4),
         num_fused_modalities=num_modalities,
         mod_in_channels=tuple(mod_in_channels),
-        **_hrformer_stages(channels, heads, stage3_modules))
+        drop_path_rate=drop_path_rate,
+        **_hrformer_stages(channels, heads, stage3_modules)))
+
+
+def without_drops(model: DetectorCfg) -> DetectorCfg:
+    """`model` with drop path and `proj_drop` off (deterministic training,
+    for parity checks)."""
+    bb = model.backbone
+    fusions = {f: dataclasses.replace(getattr(bb, f), drop_path=0.0,
+                                      proj_drop_rate=0.0)
+               for f in ('fusion_a', 'fusion_b', 'fusion_c')
+               if getattr(bb, f) is not None}
+    return dataclasses.replace(model, backbone=apply_stochastic_depth(
+        dataclasses.replace(bb, drop_path_rate=0.0, **fusions)))
 
 
 def detector(backbone: HRBackboneCfg, num_classes: int) -> DetectorCfg:
@@ -149,34 +190,42 @@ def _tiny(backbone: HRBackboneCfg) -> DetectorCfg:
 
 _TINY = dict(channels=(8, 16, 24, 32), heads=(1, 2, 2, 4))
 _B = dict(channels=(78, 156, 312, 624), heads=(2, 4, 8, 16),
-          stage3_modules=4)
+          stage3_modules=4, drop_path_rate=0.4)
+_STF_SCHEDULE = dict(max_epochs=60, lr_steps=(40, 50))
 
-# name -> (model half, data half); HRFuser-B and HRFormer-B drop their
-# train-only `drop_path_rate=0.4`
-_REGISTRY: Dict[str, Tuple[Callable[[], DetectorCfg],
-                           Callable[[], DataCfg]]] = {
-    'tiny_fusion_test': (lambda: _tiny(hrfuser_backbone(**_TINY)),
-                         _nus_data),
-    'tiny_camera_test': (lambda: _tiny(hrformer_backbone(**_TINY)),
-                         lambda: _nus_data(modalities=())),
-    'cascade_rcnn_hrfuser_t_1x_nus_r640_l_r_fusion': (
-        lambda: detector(hrfuser_backbone(), num_classes=10), _nus_data),
-    'cascade_rcnn_hrfuser_b_1x_nus_r640_l_r_fusion': (
-        lambda: detector(hrfuser_backbone(**_B, lidar_c_modules=4),
-                         num_classes=10), _nus_data),
-    'cascade_rcnn_hrfuser_t_1x_stf_r1248_4mod': (
-        lambda: detector(hrfuser_backbone(num_modalities=3,
-                                          mod_in_channels=(3, 2, 1)),
-                         num_classes=3), _stf_data),
-    'cascade_rcnn_hrformer_t_1x_nus_r640': (
-        lambda: detector(hrformer_backbone(), num_classes=10),
-        lambda: _nus_data(modalities=())),
-    'cascade_rcnn_hrformer_b_1x_nus_r640': (
-        lambda: detector(hrformer_backbone(**_B), num_classes=10),
-        lambda: _nus_data(modalities=())),
-    'cascade_rcnn_hrformer_t_1x_stf_c1248': (
-        lambda: detector(hrformer_backbone(), num_classes=3),
-        lambda: _stf_data(modalities=())),
+# name -> (model, data, schedule, optimizer)
+_REGISTRY: Dict[str, Callable[[], Tuple[DetectorCfg, DataCfg, ScheduleCfg,
+                                        OptimCfg]]] = {
+    'tiny_fusion_test': lambda: (
+        _tiny(hrfuser_backbone(**_TINY)), _nus_data(),
+        ScheduleCfg(samples_per_device=2), OptimCfg()),
+    'tiny_camera_test': lambda: (
+        _tiny(hrformer_backbone(**_TINY)), _nus_data(modalities=()),
+        ScheduleCfg(samples_per_device=2), OptimCfg()),
+    'cascade_rcnn_hrfuser_t_1x_nus_r640_l_r_fusion': lambda: (
+        detector(hrfuser_backbone(), num_classes=10), _nus_data(),
+        ScheduleCfg(samples_per_device=3), OptimCfg(lr=3e-4)),
+    'cascade_rcnn_hrfuser_b_1x_nus_r640_l_r_fusion': lambda: (
+        detector(hrfuser_backbone(**_B, lidar_c_modules=4), num_classes=10),
+        _nus_data(), ScheduleCfg(samples_per_device=2), OptimCfg(lr=3e-4)),
+    'cascade_rcnn_hrfuser_t_1x_stf_r1248_4mod': lambda: (
+        detector(hrfuser_backbone(num_modalities=3,
+                                  mod_in_channels=(3, 2, 1)), num_classes=3),
+        _stf_data(), ScheduleCfg(samples_per_device=3, **_STF_SCHEDULE),
+        OptimCfg(lr=1e-3)),
+    'cascade_rcnn_hrformer_t_1x_nus_r640': lambda: (
+        detector(hrformer_backbone(), num_classes=10),
+        _nus_data(modalities=()), ScheduleCfg(samples_per_device=6),
+        OptimCfg(lr=1e-3)),
+    'cascade_rcnn_hrformer_b_1x_nus_r640': lambda: (
+        detector(hrformer_backbone(**_B), num_classes=10),
+        _nus_data(modalities=()), ScheduleCfg(samples_per_device=2),
+        OptimCfg(lr=1e-3)),
+    'cascade_rcnn_hrformer_t_1x_stf_c1248': lambda: (
+        detector(hrformer_backbone(), num_classes=3),
+        _stf_data(modalities=()),
+        ScheduleCfg(samples_per_device=3, **_STF_SCHEDULE),
+        OptimCfg(lr=1e-3)),
 }
 
 
@@ -198,10 +247,11 @@ def list_configs():
 
 def get_config(name: str) -> DetectorCfg:
     """The `DetectorCfg` of a config name."""
-    return _lookup(name)[1][0]()
+    return get_experiment(name).model
 
 
 def get_experiment(name: str) -> Experiment:
-    """The model and data configs of a config name, named as asked."""
-    name, (model, data) = _lookup(name)
-    return Experiment(name=name, model=model(), data=data())
+    """The model, data, schedule and optimizer configs of a config name,
+    named as asked."""
+    name, build = _lookup(name)
+    return Experiment(name, *build())

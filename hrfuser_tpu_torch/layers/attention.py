@@ -5,11 +5,17 @@ parameter names (`mmdet/models/backbones/hrformer.py:18-386`,
 `hrfuser_hrformer_based.py:21-326`): WindowMSA has a fused qkv
 projection, WindowMCA split q/k/v ones.
 
-The `forward` of these modules is the eager (unfolded) eval computation
-on NHWC maps, the plain version of kernels A and B. The backbone does not
-call it: it runs each block's `folded()` weights through
+The `forward` of these modules is the eager (unfolded) computation on
+NHWC maps. In eval it is the plain version of kernels A and B, which the
+backbone does not call: it runs each block's `folded()` weights through
 `ops.chain.hrformer_chain` / `fusion_chain`, which route to the kernels
-on CUDA tensors.
+on CUDA tensors. In training it is the route the backbone takes, as the
+JAX package's blocks train without their Pallas chains
+(`hrfuser_tpu/ops/pallas_chain.py:84-94`): drop path on each residual
+branch, `proj_drop` dropout after the fusion blocks' attention
+projections (the HRFormer blocks have none) and batch-statistics
+BatchNorm in the CrossFFN
+(`hrfuser_tpu/layers/attention.py:133-318`).
 """
 
 from __future__ import annotations
@@ -19,7 +25,8 @@ from typing import List
 import torch
 from torch import nn
 
-from hrfuser_tpu_torch.layers.common import LayerNorm, cached
+from hrfuser_tpu_torch.layers.common import (DropPath, Dropout, LayerNorm,
+                                             cached, run_seq)
 from hrfuser_tpu_torch.ops.chain import fold_fusion_block, fold_hrformer_block
 from hrfuser_tpu_torch.ops.window import (rpe_bias, window_partition,
                                           window_reverse)
@@ -62,13 +69,15 @@ class WindowMCA(nn.Module):
     """Split-projection window cross-attention
     (`hrfuser_hrformer_based.py:21-151`)."""
 
-    def __init__(self, c: int, num_heads: int, ws: int):
+    def __init__(self, c: int, num_heads: int, ws: int,
+                 proj_drop: float = 0.0):
         super().__init__()
         self.num_heads, self.ws = num_heads, ws
         self.q_proj = nn.Linear(c, c)
         self.k_proj = nn.Linear(c, c)
         self.v_proj = nn.Linear(c, c)
         self.out_proj = nn.Linear(c, c)
+        self.proj_drop = Dropout(proj_drop)
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros((2 * ws - 1) ** 2, num_heads))
 
@@ -76,7 +85,7 @@ class WindowMCA(nn.Module):
         bias = rpe_bias(self.relative_position_bias_table, self.ws)
         out = _attend(self.q_proj(xw), self.k_proj(zw), self.v_proj(zw),
                       bias, self.num_heads)
-        return self.out_proj(out)
+        return self.proj_drop(self.out_proj(out))
 
 
 class LocalWindowSelfAttention(nn.Module):
@@ -95,9 +104,10 @@ class LocalWindowSelfAttention(nn.Module):
 class MultiWindowCrossAttention(nn.Module):
     """MWCA: q windows from the camera, k/v windows from a modality."""
 
-    def __init__(self, c: int, num_heads: int, ws: int):
+    def __init__(self, c: int, num_heads: int, ws: int,
+                 proj_drop: float = 0.0):
         super().__init__()
-        self.attn = WindowMCA(c, num_heads, ws)
+        self.attn = WindowMCA(c, num_heads, ws, proj_drop)
 
     def forward(self, x: Tensor, z: Tensor) -> Tensor:
         b, h, w, _ = x.shape
@@ -119,24 +129,29 @@ class CrossFFN(nn.Module):
             nn.Conv2d(hidden, c, 1), nn.BatchNorm2d(c), nn.GELU())
 
     def forward(self, x: Tensor) -> Tensor:              # NHWC
+        if self.training:
+            return run_seq(self.layers, x)
         return self.layers(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
 
 class HRFormerBlock(nn.Module):
-    """LN -> LSA -> +residual; LN -> CrossFFN -> +residual (eval)."""
+    """LN -> LSA -> drop path -> +residual; LN -> CrossFFN -> drop path
+    -> +residual."""
 
     def __init__(self, c: int, num_heads: int, ws: int = 7,
-                 mlp_ratio: int = 4):
+                 mlp_ratio: int = 4, drop_path: float = 0.0):
         super().__init__()
         self.num_heads, self.window_size = num_heads, ws
         self.norm1 = LayerNorm(c, eps=1e-6)
         self.attn = LocalWindowSelfAttention(c, num_heads, ws)
+        self.drop_path1 = DropPath(drop_path)
         self.norm2 = LayerNorm(c, eps=1e-6)
         self.ffn = CrossFFN(c, int(c * mlp_ratio))
+        self.drop_path2 = DropPath(drop_path)
 
     def forward(self, x: Tensor) -> Tensor:
-        x = x + self.attn(self.norm1(x))
-        return x + self.ffn(self.norm2(x))
+        x = x + self.drop_path1(self.attn(self.norm1(x)))
+        return x + self.drop_path2(self.ffn(self.norm2(x)))
 
     def folded(self):
         """Eval weights for `ops.chain` (`fold_hrformer_block`), cached."""
@@ -149,12 +164,13 @@ class HRFuserFusionBlock(nn.Module):
     (`hrfuser_hrformer_based.py:305-317`):
 
         x_tmp = x
-        for k: x = x + z_k + MWCA_k(LN1_k(x_tmp), LN2_k(z_k))
-        x = x + CrossFFN(LN3(x))
+        for k: x = x + z_k + DropPath_k(MWCA_k(LN1_k(x_tmp), LN2_k(z_k)))
+        x = x + DropPath(CrossFFN(LN3(x)))
     """
 
     def __init__(self, c: int, num_heads: int, num_modalities: int,
-                 ws: int = 7, mlp_ratio: int = 4):
+                 ws: int = 7, mlp_ratio: int = 4, drop_path: float = 0.0,
+                 proj_drop: float = 0.0):
         super().__init__()
         self.num_heads, self.window_size = num_heads, ws
         self.norm1 = nn.ModuleList(
@@ -162,17 +178,20 @@ class HRFuserFusionBlock(nn.Module):
         self.norm2 = nn.ModuleList(
             [LayerNorm(c, eps=1e-6) for _ in range(num_modalities)])
         self.attn = nn.ModuleList(
-            [MultiWindowCrossAttention(c, num_heads, ws)
+            [MultiWindowCrossAttention(c, num_heads, ws, proj_drop)
              for _ in range(num_modalities)])
+        self.drop_path = nn.ModuleList(
+            [DropPath(drop_path) for _ in range(num_modalities)])
         self.norm3 = LayerNorm(c, eps=1e-6)
         self.ffn = CrossFFN(c, int(c * mlp_ratio))
+        self.drop_path_ffn = DropPath(drop_path)
 
     def forward(self, x: Tensor, mods: List[Tensor]) -> Tensor:
         x_tmp = x
         for k, z in enumerate(mods):
             a = self.attn[k](self.norm1[k](x_tmp), self.norm2[k](z))
-            x = x + z + a
-        return x + self.ffn(self.norm3(x))
+            x = x + z + self.drop_path[k](a)
+        return x + self.drop_path_ffn(self.ffn(self.norm3(x)))
 
     def folded(self):
         """Eval weights for `ops.chain` (`fold_fusion_block`), cached."""

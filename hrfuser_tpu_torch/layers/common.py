@@ -4,13 +4,23 @@ Counterpart of `hrfuser_tpu.layers.common`. Feature maps are NHWC
 `[B, H, W, C]` as in the JAX package; torch convolutions see them through
 a permuted view (NCHW shape, channels-last memory), so no copy is made.
 Modules keep the reference (mmdet) parameter names, so a reference
-`.pth` loads with `load_state_dict`. Eval only: each conv is run with its
-BatchNorm folded in (running statistics, eps 1e-5), cached per dtype.
-Parameters stay float32; the activations' dtype picks the compute dtype.
+`.pth` loads with `load_state_dict`. Parameters stay float32; the
+activations' dtype picks the compute dtype.
+
+Each helper has two routes, picked by the module's `training` flag. Eval
+runs each conv with its BatchNorm folded in (running statistics, eps
+1e-5), cached per dtype. Training runs the live parameters, so gradients
+reach them, and BatchNorm normalizes with the batch statistics and
+updates its running statistics as flax's `nn.BatchNorm` does
+(`hrfuser_tpu/layers/common.py:33-55`): momentum 0.1 and the biased batch
+variance. `DropPath` and `Dropout` draw from the generator that
+`train_generator` installs.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Callable, Optional, Sequence, Tuple
 
 import torch
@@ -34,6 +44,62 @@ def cached(owner: nn.Module, tag, fn: Callable, tensors: Sequence[Tensor]):
         with torch.no_grad():
             hit = store[tag] = (key, fn())
     return hit[1]
+
+
+_GENERATOR = contextvars.ContextVar('train_generator', default=None)
+
+
+@contextlib.contextmanager
+def train_generator(generator: torch.Generator):
+    """Make `generator` the source of `DropPath` / `Dropout` draws."""
+    token = _GENERATOR.set(generator)
+    try:
+        yield generator
+    finally:
+        _GENERATOR.reset(token)
+
+
+def _uniform(shape, like: Tensor) -> Tensor:
+    """U[0, 1) of `shape` on `like`'s device, drawn from the installed
+    generator on its own device."""
+    g = _GENERATOR.get()
+    if g is None:
+        raise RuntimeError('a training forward with drop path or dropout '
+                           'needs a generator: wrap it in train_generator()')
+    return torch.rand(shape, generator=g, device=g.device).to(like.device)
+
+
+class DropPath(nn.Module):
+    """Per-sample stochastic depth (mmcv `DropPath`,
+    `hrfuser_tpu/layers/common.py:229-241`): in training, each sample is
+    kept with probability 1 - rate and scaled by 1 / (1 - rate)."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x: Tensor) -> Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        mask = _uniform((x.shape[0],) + (1,) * (x.dim() - 1), x) < keep
+        return x * mask.to(x.dtype) / keep
+
+
+class Dropout(nn.Module):
+    """Elementwise dropout with flax's `nn.Dropout` semantics (each element
+    kept with probability 1 - rate and scaled by 1 / (1 - rate))."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x: Tensor) -> Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        return torch.where(_uniform(x.shape, x) < keep, x / keep,
+                           torch.zeros_like(x))
 
 
 def layer_norm(x: Tensor, weight: Tensor, bias: Tensor,
@@ -68,9 +134,38 @@ def _bn_tensors(bn: nn.BatchNorm2d):
     return [bn.weight, bn.bias, bn.running_mean, bn.running_var]
 
 
+def batch_norm_train(x: Tensor, bn: nn.BatchNorm2d) -> Tensor:
+    """Training BatchNorm of an NCHW `x` with its batch statistics; the
+    running statistics take the biased batch variance, as flax's do
+    (`nn.BatchNorm2d` would take the unbiased one)."""
+    n = x.numel() // x.shape[1]
+    batch_mean = torch.zeros_like(bn.running_mean)
+    batch_var = torch.zeros_like(bn.running_var)
+    # momentum 1 leaves the batch mean and unbiased variance in the temps
+    y = F.batch_norm(x, batch_mean, batch_var, bn.weight.to(x.dtype),
+                     bn.bias.to(x.dtype), True, 1.0, bn.eps)
+    with torch.no_grad():
+        m = bn.momentum
+        bn.running_mean.mul_(1 - m).add_(batch_mean, alpha=m)
+        bn.running_var.mul_(1 - m).add_(batch_var, alpha=m * (n - 1) / n)
+        bn.num_batches_tracked.add_(1)
+    return y
+
+
 def conv_bn(x: Tensor, conv: nn.Conv2d, bn: Optional[nn.BatchNorm2d] = None,
             relu: bool = False) -> Tensor:
-    """Conv (+ eval BN folded in) (+ ReLU) on an NHWC tensor."""
+    """Conv (+ BN) (+ ReLU) on an NHWC tensor: eval folds the BN into the
+    conv (cached), training runs the live weights and `batch_norm_train`."""
+    if conv.training:
+        w = conv.weight.to(x.dtype)
+        b = None if conv.bias is None else conv.bias.to(x.dtype)
+        y = F.conv2d(x.permute(0, 3, 1, 2), w, b, conv.stride, conv.padding,
+                     conv.dilation, conv.groups)
+        if bn is not None:
+            y = batch_norm_train(y, bn)
+        y = y.permute(0, 2, 3, 1)
+        return F.relu(y) if relu else y
+
     def fold():
         w = conv.weight.float()
         b = (conv.bias.float() if conv.bias is not None
@@ -90,8 +185,8 @@ def conv_bn(x: Tensor, conv: nn.Conv2d, bn: Optional[nn.BatchNorm2d] = None,
 
 
 def run_seq(seq: nn.Module, x: Tensor) -> Tensor:
-    """Run a reference-style Sequential of Conv2d[+BatchNorm2d], ReLU and
-    nested Sequentials on an NHWC tensor."""
+    """Run a reference-style Sequential of Conv2d[+BatchNorm2d], ReLU,
+    GELU and nested Sequentials on an NHWC tensor."""
     mods = list(seq) if isinstance(seq, nn.Sequential) else [seq]
     i = 0
     while i < len(mods):
@@ -104,6 +199,8 @@ def run_seq(seq: nn.Module, x: Tensor) -> Tensor:
             continue
         if isinstance(m, nn.ReLU):
             x = F.relu(x)
+        elif isinstance(m, nn.GELU):
+            x = F.gelu(x)
         elif isinstance(m, nn.Sequential):
             x = run_seq(m, x)
         elif not isinstance(m, nn.Identity):
@@ -113,7 +210,10 @@ def run_seq(seq: nn.Module, x: Tensor) -> Tensor:
 
 
 def linear(x: Tensor, fc: nn.Linear) -> Tensor:
-    """`fc(x)` with the weights cast (cached) to the activations' dtype."""
+    """`fc(x)` with the weights cast to the activations' dtype (cached in
+    eval)."""
+    if fc.training:
+        return F.linear(x, fc.weight.to(x.dtype), fc.bias.to(x.dtype))
     w, b = cached(fc, ('linear', x.dtype),
                   lambda: (fc.weight.to(x.dtype), fc.bias.to(x.dtype)),
                   [fc.weight, fc.bias])

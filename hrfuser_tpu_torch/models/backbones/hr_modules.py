@@ -1,4 +1,4 @@
-"""HR multi-branch modules and transitions (NHWC, eval).
+"""HR multi-branch modules and transitions (NHWC).
 
 Counterpart of `hrfuser_tpu.models.backbones.hr_modules` for the HRFormer
 block type: `HRModule` (`mmdet/models/backbones/hrnet.py:14-207`) with
@@ -74,23 +74,30 @@ class Transition(nn.ModuleList):
 class HRModule(nn.Module):
     """One multi-resolution exchange module of HRFormer blocks.
 
-    Each branch's block pair runs as one `hrformer_chain`
-    (`hrfuser_tpu/models/backbones/hr_modules.py:168-183`); then the
-    all-to-all fuse: up-paths 1x1+BN and a bilinear resize, down-paths
-    depthwise-separable stride-2 chains, summed and ReLU'd.
+    In eval each branch's block pair runs as one `hrformer_chain`
+    (`hrfuser_tpu/models/backbones/hr_modules.py:168-183`); in training
+    the blocks run their eager forward, as JAX's `resolve_chain(mode,
+    train=True)` routes them. Then the all-to-all fuse: up-paths 1x1+BN
+    and a bilinear resize, down-paths depthwise-separable stride-2
+    chains, summed and ReLU'd. Block j of module m takes drop-path rate
+    `drop_path_rates[m * num_blocks[0] + j]` (the last rate past the end,
+    `hr_modules.py:195-198`).
     """
 
-    def __init__(self, stage: StageCfg):
+    def __init__(self, stage: StageCfg, module_index: int = 0):
         super().__init__()
         assert stage.block == 'HRFORMER', stage.block
         nb = stage.num_branches
         out = stage.out_channels
         self.num_heads = stage.num_heads
+        rates = stage.drop_path_rates
+        base = module_index * stage.num_blocks[0]
         self.branches = nn.ModuleList([
-            nn.Sequential(*[HRFormerBlock(out[i], stage.num_heads[i],
-                                          stage.window_sizes[i],
-                                          stage.mlp_ratios[i])
-                            for _ in range(stage.num_blocks[i])])
+            nn.Sequential(*[HRFormerBlock(
+                out[i], stage.num_heads[i], stage.window_sizes[i],
+                stage.mlp_ratios[i],
+                drop_path=rates[min(base + j, len(rates) - 1)])
+                for j in range(stage.num_blocks[i])])
             for i in range(nb)])
         if nb == 1:
             self.fuse_layers = None
@@ -126,8 +133,12 @@ class HRModule(nn.Module):
         return [blk.folded() for blk in self.branches[i]]
 
     def forward(self, xs: List[Tensor]) -> List[Tensor]:
-        feats = [hrformer_chain(x, self.branch_blocks(i), self.num_heads[i])
-                 for i, x in enumerate(xs)]
+        if self.training:
+            feats = [branch(x) for branch, x in zip(self.branches, xs)]
+        else:
+            feats = [hrformer_chain(x, self.branch_blocks(i),
+                                    self.num_heads[i])
+                     for i, x in enumerate(xs)]
         if self.fuse_layers is None:
             return feats
         outs = []
@@ -148,7 +159,8 @@ class HRStage(nn.ModuleList):
     """`num_modules` HRModules in sequence (`HRNet._make_stage`)."""
 
     def __init__(self, stage: StageCfg):
-        super().__init__([HRModule(stage) for _ in range(stage.num_modules)])
+        super().__init__([HRModule(stage, m)
+                          for m in range(stage.num_modules)])
 
     def forward(self, xs: List[Tensor]) -> List[Tensor]:
         for m in self:

@@ -1,4 +1,4 @@
-"""Camera-only HRFormer backbone, eval, NHWC.
+"""Camera-only HRFormer backbone, NHWC.
 
 Counterpart of `hrfuser_tpu.models.backbones.hrformer` (the reference
 `mmdet/models/backbones/hrformer.py:564-740`): a two-conv stride-2 stem,

@@ -1,4 +1,4 @@
-"""HRFuser multi-modal fusion backbone (HRFormer-based), eval, NHWC.
+"""HRFuser multi-modal fusion backbone (HRFormer-based), NHWC.
 
 Counterpart of `hrfuser_tpu.models.backbones.hrfuser` (the reference
 `mmdet/models/backbones/hrfuser_hrformer_based.py:331-628`). The camera
@@ -7,7 +7,9 @@ Bottleneck stage A, then stays a single stride-4 branch through HRFormer
 stages B/C. Before every camera stage each modality is transitioned to
 every camera branch's width and fused into the camera feature by an
 `HRFuserFusionBlock`; modality stages consume the branch-0 transitioned
-feature. Parameter names are the reference's.
+feature. Parameter names are the reference's. In training the fusion
+blocks and modality stages run their blocks' eager forward instead of the
+eval chains (the JAX `resolve_chain(mode, train=True) -> False`).
 """
 
 from __future__ import annotations
@@ -31,18 +33,21 @@ Tensor = torch.Tensor
 
 
 class FusionBank(nn.ModuleList):
-    """One `HRFuserFusionBlock` per camera branch, each run as one
+    """One `HRFuserFusionBlock` per camera branch, each run in eval as one
     `fusion_chain` (`hrfuser_tpu/models/backbones/hrfuser.py:53-74`)."""
 
     def __init__(self, fusion: FusionCfg, num_modalities: int):
         super().__init__([
             HRFuserFusionBlock(fusion.num_channels[i], fusion.num_heads[i],
                                num_modalities, fusion.window_sizes[i],
-                               fusion.mlp_ratios[i])
+                               fusion.mlp_ratios[i], fusion.drop_path,
+                               fusion.proj_drop_rate)
             for i in range(fusion.num_branches)])
 
     def forward(self, xs: List[Tensor], mods: List[List[Tensor]]
                 ) -> List[Tensor]:
+        if self.training:
+            return [blk(x, ms) for blk, x, ms in zip(self, xs, mods)]
         return [fusion_chain(x, mods[i], self[i].folded(),
                              self[i].num_heads) for i, x in enumerate(xs)]
 
@@ -58,6 +63,8 @@ class ModalityStage(nn.ModuleList):
         self.num_heads = stage.num_heads[0]
 
     def forward(self, feats: List[Tensor]) -> List[Tensor]:
+        if self.training:
+            return [stage([f])[0] for stage, f in zip(self, feats)]
         blocks = [blk for per_mod in self for module in per_mod
                   for blk in module.branch_blocks(0)]
         y = hrformer_chain(torch.cat(feats), blocks, self.num_heads,

@@ -6,12 +6,15 @@ Counterpart of `hrfuser_tpu.models.dense_heads.rpn_head` (the reference
 per-level top `nms_pre` by sigmoid score (stable descending sort, so ties
 resolve to the lower index as `jax.lax.top_k` does), delta decode clipped
 to the image, the `min_bbox_size` filter, level-batched NMS, top
-`max_per_img`. Every image of the batch is decoded at once.
+`max_per_img`. Every image of the batch is decoded at once. Training
+decodes its proposals the same way, without gradient, under the train
+caps `RPN_PROPOSAL_TRAIN` (`hrfuser_tpu/models/detectors/train_loss.py:
+33-34`).
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -22,6 +25,10 @@ from hrfuser_tpu_torch.ops.boxes import delta2bbox
 from hrfuser_tpu_torch.ops.nms import NEG_INF, batched_nms, sort_desc
 
 Tensor = torch.Tensor
+
+# the RPN's proposal cfg in training (`train_cfg.rpn_proposal`)
+RPN_PROPOSAL_TRAIN = dict(nms_pre=2000, max_per_img=2000, nms_iou=0.7,
+                          min_bbox_size=0.0)
 
 
 class RPNHead(nn.Module):
@@ -86,3 +93,14 @@ def get_proposals(cls_scores: Sequence[Tensor], bbox_preds: Sequence[Tensor],
     boxes, out_scores, _, valid = batched_nms(
         proposals, scores, torch.cat(lvl_ids, 1), nms_iou, max_per_img)
     return Proposals(boxes, out_scores, valid)
+
+
+def train_proposals(cls_scores: Sequence[Tensor], bbox_preds: Sequence[Tensor],
+                    anchors: Sequence[Tensor], img_hw: Tensor,
+                    cfg: Optional[dict] = None) -> Proposals:
+    """Proposals of a training step (no gradient flows into the cascade),
+    `RPN_PROPOSAL_TRAIN` unless `cfg` overrides it."""
+    with torch.no_grad():
+        return get_proposals([c.detach() for c in cls_scores],
+                             [p.detach() for p in bbox_preds], anchors,
+                             img_hw, **(cfg or RPN_PROPOSAL_TRAIN))

@@ -5,8 +5,8 @@ Counterpart of `hrfuser_tpu.models.roi_heads.bbox_head`: flatten the 7x7
 RoI feature, two shared FC + ReLU, a (num_classes + 1)-way classifier and
 a class-agnostic 4-d regressor. `shared_fcs.0.weight` keeps the
 reference's CHW flatten order; the pool emits [N, 49, C] rows, so the
-weight is permuted once (cached) to that order instead of transposing the
-activations every call.
+weight is permuted to that order (once and cached in eval, differentiably
+on every call in training) instead of transposing the activations.
 """
 
 from __future__ import annotations
@@ -44,8 +44,9 @@ class Shared2FCBBoxHead(nn.Module):
             w = fc0.weight.reshape(fc0.out_features, c, -1).transpose(1, 2)
             return w.reshape(fc0.out_features, -1).to(dt), fc0.bias.to(dt)
 
-        w0, b0 = cached(fc0, ('qc_rows', dt), permuted,
-                        [fc0.weight, fc0.bias])
+        w0, b0 = (permuted() if fc0.training else
+                  cached(fc0, ('qc_rows', dt), permuted,
+                         [fc0.weight, fc0.bias]))
         x = F.relu(F.linear(roi_feats.flatten(-2), w0, b0))
         x = F.relu(linear(x, self.shared_fcs[1]))
         return (linear(x, self.fc_cls).float(),

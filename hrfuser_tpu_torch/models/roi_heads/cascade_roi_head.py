@@ -6,7 +6,9 @@ cascade_roi_head.py:288-411`): per stage RoIAlign + Shared2FC; between
 stages RoIs are refined by decoding the class-agnostic deltas; stage
 logits are averaged and softmaxed once, then multiclass NMS gives the
 fixed-size detection set. Every image of the batch runs at once; RoIs are
-[B, R, 4] with a validity mask.
+[B, R, 4] with a validity mask. `forward_stage` pools with kernel C in
+eval and with the one-hot formulation in training (`pool_method`, as the
+JAX head trains).
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ from torch import nn
 from hrfuser_tpu_torch.models.roi_heads.bbox_head import Shared2FCBBoxHead
 from hrfuser_tpu_torch.ops.boxes import delta2bbox
 from hrfuser_tpu_torch.ops.nms import multiclass_nms
-from hrfuser_tpu_torch.ops.roi_align import multilevel_roi_align
+from hrfuser_tpu_torch.ops.roi_align import (multilevel_roi_align,
+                                             multilevel_roi_align_onehot)
 
 Tensor = torch.Tensor
 
@@ -31,14 +34,19 @@ STAGE_STDS = ((0.1, 0.1, 0.2, 0.2), (0.05, 0.05, 0.1, 0.1),
 
 @dataclasses.dataclass(frozen=True)
 class RoIHeadCfg:
-    """Eval fields of `hrfuser_tpu`'s `RoIHeadCfg` (static 2x2 sampling;
-    the TPU pool-method knobs and training fields are left out)."""
+    """`hrfuser_tpu`'s `RoIHeadCfg` (static 2x2 sampling) without its TPU
+    eval-pool knobs: eval pools with kernel C, training with the one-hot
+    formulation (`pool_method`), whose einsum operands are rounded to
+    bfloat16 when `gather_bf16` is set."""
     num_classes: int
     num_stages: int = 3
+    stage_loss_weights: Tuple[float, ...] = (1.0, 0.5, 0.25)
     stage_stds: Tuple[Tuple[float, ...], ...] = STAGE_STDS
     fc_out_channels: int = 1024
     roi_size: int = 7
     sample_num: int = 2
+    pool_method: str = 'onehot'
+    gather_bf16: bool = True
     finest_scale: int = 56
     featmap_strides: Tuple[int, ...] = (4, 8, 16, 32)
     score_thr: float = 0.05
@@ -65,9 +73,17 @@ class CascadeRoIHead(nn.Module):
     def forward_stage(self, stage: int, feats: Sequence[Tensor],
                       rois: Tensor) -> Tuple[Tensor, Tensor]:
         cfg = self.cfg
-        pooled = multilevel_roi_align(
-            feats, rois.contiguous(), cfg.featmap_strides, cfg.roi_size,
-            cfg.sample_num, cfg.finest_scale)
+        if self.training:
+            if cfg.pool_method != 'onehot':
+                raise ValueError(f'training pools with the one-hot '
+                                 f'formulation, not {cfg.pool_method!r}')
+            pooled = multilevel_roi_align_onehot(
+                feats, rois, cfg.featmap_strides, cfg.roi_size,
+                cfg.sample_num, cfg.finest_scale, cfg.gather_bf16)
+        else:
+            pooled = multilevel_roi_align(
+                feats, rois.contiguous(), cfg.featmap_strides, cfg.roi_size,
+                cfg.sample_num, cfg.finest_scale)
         return self.bbox_head[stage](pooled)
 
     def decode_cascade(self, feats: Sequence[Tensor], proposals: Tensor,

@@ -1,9 +1,10 @@
 """Anchor generation (numpy, static shapes).
 
 Copy of `hrfuser_tpu.ops.anchors.AnchorGenerator` (the reference
-`mmdet/core/anchor/anchor_generator.py:131-195,318-390`): base anchors
+`mmdet/core/anchor/anchor_generator.py:131-195,318-450`): base anchors
 of size `stride * scale` per aspect ratio, centred at the cell origin,
-tiled row-major over each feature grid with the anchor index fastest.
+tiled row-major over each feature grid with the anchor index fastest;
+and each anchor's validity flag for a padded input.
 `tests/test_torch_configs.py` holds it bit-equal to the JAX original.
 """
 
@@ -46,4 +47,18 @@ class AnchorGenerator:
             shifts = np.stack([xx, yy, xx, yy], axis=-1).reshape(-1, 4)
             anchors = shifts[:, None, :] + self.base_anchors[lvl][None, :, :]
             out.append(anchors.reshape(-1, 4))
+        return out
+
+    def valid_flags(self, featmap_sizes: Sequence[Tuple[int, int]],
+                    pad_shape: Tuple[int, int]) -> List[np.ndarray]:
+        """Per-level [H*W*A] bool: the anchor's grid cell lies inside
+        ceil(pad_shape / stride) (`single_level_valid_flags`,
+        `anchor_generator.py:392-450`)."""
+        out = []
+        for lvl, (fh, fw) in enumerate(featmap_sizes):
+            s = self.strides[lvl]
+            vx = np.arange(fw) < min(int(np.ceil(pad_shape[1] / s)), fw)
+            vy = np.arange(fh) < min(int(np.ceil(pad_shape[0] / s)), fh)
+            valid = (vy[:, None] & vx[None, :]).reshape(-1)
+            out.append(np.repeat(valid, len(self.base_anchors[lvl])))
         return out

@@ -1,7 +1,7 @@
-"""Box math: IoU, delta decoding, clipping.
+"""Box math: IoU, delta coding, clipping.
 
 Torch counterpart of `hrfuser_tpu.ops.boxes` (the reference
-`mmdet/core/bbox/coder/delta_xywh_bbox_coder.py:164-260` and
+`mmdet/core/bbox/coder/delta_xywh_bbox_coder.py:118-260` and
 `iou2d_calculator.py`). Boxes are `[x1, y1, x2, y2]` float32; padded
 slots are zero boxes. Every function takes any leading batch dims.
 """
@@ -39,6 +39,22 @@ def clip_boxes(boxes: Tensor, img_hw: Tensor) -> Tensor:
                         torch.minimum(y1.clamp(min=0), h),
                         torch.minimum(x2.clamp(min=0), w),
                         torch.minimum(y2.clamp(min=0), h)], dim=-1)
+
+
+def bbox2delta(proposals: Tensor, gt: Tensor,
+               means: Sequence[float] = (0., 0., 0., 0.),
+               stds: Sequence[float] = (1., 1., 1., 1.)) -> Tensor:
+    """Encode gt boxes as (dx, dy, dw, dh) deltas of [..., N, 4] proposals
+    (`hrfuser_tpu/ops/boxes.py:51-81`): centres and sizes without the
+    legacy +1, zero-size proposals and gts guarded at 1e-6."""
+    pxy = (proposals[..., :2] + proposals[..., 2:]) * 0.5
+    pwh = (proposals[..., 2:] - proposals[..., :2]).clamp(min=1e-6)
+    gxy = (gt[..., :2] + gt[..., 2:]) * 0.5
+    gwh = (gt[..., 2:] - gt[..., :2]).clamp(min=1e-6)
+    deltas = torch.cat([(gxy - pxy) / pwh, torch.log(gwh / pwh)], dim=-1)
+    means = torch.tensor(means, dtype=deltas.dtype, device=deltas.device)
+    stds = torch.tensor(stds, dtype=deltas.dtype, device=deltas.device)
+    return (deltas - means) / stds
 
 
 def delta2bbox(rois: Tensor, deltas: Tensor,

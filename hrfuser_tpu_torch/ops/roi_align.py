@@ -8,7 +8,9 @@ the gather `multilevel_roi_align` elsewhere), and of the single-image
 channel vectors: C % 8 == 0 in bfloat16, C % 4 == 0 in float32, levels
 16-byte aligned) on CUDA tensors and its plain twin
 `multilevel_roi_align_plain` (the gather formulation of
-`hrfuser_tpu/ops/roi_align.py:157-192,282-315`) on CPU tensors. Static
+`hrfuser_tpu/ops/roi_align.py:157-192,282-315`) on CPU tensors.
+`multilevel_roi_align_onehot` is the training pool, plain torch on every
+device, as the JAX package trains through its one-hot formulation. Static
 2x2 samples per bin, aligned=True; the adaptive grid (`sample_num=0` in
 the JAX package) is not ported and raises. Features are NHWC per level
 [B, H_l, W_l, C]; RoIs [B, N, 4]; the result is [B, N, out*out, C] in the
@@ -101,6 +103,74 @@ def multilevel_roi_align_plain(feats: Sequence[Tensor], rois: Tensor,
         pooled = val.sum((2, 4)) / (sample_num * sample_num)
         outs.append(pooled.reshape(n, out_size * out_size, c))
     return torch.stack(outs).to(feats[0].dtype)
+
+
+def _axis_onehot(start: Tensor, bin_size: Tensor, size: int, out_size: int,
+                 sample_num: int, rnd) -> Tensor:
+    """Separable sampling matrix of one axis, [B, N, out, size]: the total
+    bilinear weight of feature row r in output bin p, with the grid
+    weights, both taps and the (-1, size) inside mask folded in
+    (`hrfuser_tpu/ops/roi_align.py:195-236`, static grid)."""
+    g = (torch.arange(sample_num, dtype=start.dtype, device=start.device)
+         + 0.5) / sample_num
+    p = torch.arange(out_size, dtype=start.dtype, device=start.device)
+    coord = start[..., None, None] + (p[:, None] + g) * bin_size[..., None,
+                                                                  None]
+    inside = (coord > -1.0) & (coord < float(size))
+    c = coord.clamp(0.0, float(size) - 1.0)
+    lo = torch.floor(c)
+    hi = (lo + 1.0).clamp(max=float(size) - 1.0)
+    w_hi = c - lo
+    w_lo = 1.0 - w_hi
+    w_lo = rnd(w_lo * inside / sample_num)[..., None]    # [B, N, out, g, 1]
+    w_hi = rnd(w_hi * inside / sample_num)[..., None]
+    rows = torch.arange(size, dtype=start.dtype, device=start.device)
+    w = (rows == lo[..., None]) * w_lo + (rows == hi[..., None]) * w_hi
+    return rnd(w.sum(-2))
+
+
+def multilevel_roi_align_onehot(feats: Sequence[Tensor], rois: Tensor,
+                                strides: Sequence[int], out_size: int = 7,
+                                sample_num: int = 2, finest_scale: int = 56,
+                                bf16_operands: bool = True) -> Tensor:
+    """RoIAlign as separable one-hot matmuls, the training pool
+    (`hrfuser_tpu/ops/roi_align.py:239-280`): per level, every RoI's
+    y-weights times the map, then its x-weights, the RoIs of other levels
+    masked to zero. Plain differentiable torch ops on any device; the
+    backward is two transposed matmuls instead of a scatter.
+
+    feats: per level [B, H_l, W_l, C]; rois [B, N, 4]. Returns float32
+    [B, N, out*out, C], bins in (y, x) order. `bf16_operands` rounds the
+    matmul operands to bfloat16 and multiplies in float32, which is what
+    JAX's bf16 einsum with `preferred_element_type=f32` computes
+    (`gather_bf16=True`); otherwise everything is float32.
+    """
+    if sample_num < 1:
+        raise ValueError(f'roi_align: sample_num={sample_num}; only a static '
+                         f'grid (sample_num > 0) is ported')
+
+    def rnd(t):
+        return t.to(torch.bfloat16).float() if bf16_operands else t
+
+    b, n, _ = rois.shape
+    lvl = map_roi_levels(rois, len(feats), finest_scale)
+    out = None
+    for li, f in enumerate(feats):
+        _, h, w, c = f.shape
+        scale = 1.0 / strides[li]
+        x1 = rois[..., 0] * scale - 0.5
+        y1 = rois[..., 1] * scale - 0.5
+        roi_w = rois[..., 2] * scale - 0.5 - x1
+        roi_h = rois[..., 3] * scale - 0.5 - y1
+        wy = _axis_onehot(y1, roi_h / out_size, h, out_size, sample_num, rnd)
+        wx = _axis_onehot(x1, roi_w / out_size, w, out_size, sample_num, rnd)
+        wy = wy * (lvl == li)[..., None, None]
+        tmp = torch.matmul(wy.reshape(b, n * out_size, h),
+                           rnd(f.float()).reshape(b, h, w * c))
+        tmp = rnd(tmp).reshape(b, n, out_size, w, c)     # [B, N, p, W, C]
+        lvl_out = torch.matmul(wx[:, :, None], tmp)      # [B, N, p, q, C]
+        out = lvl_out if out is None else out + lvl_out
+    return out.reshape(b, n, out_size * out_size, -1)
 
 
 def _launch(feats: Sequence[Tensor], rois: Tensor, strides: Sequence[int],

@@ -4,16 +4,17 @@ Port of `hrfuser_tpu/utils/checkpoint.py:22-93` (the mmcv
 CheckpointHook/resume semantics) with the JAX package's on-disk layout:
 
     ckpt_dir/step_{N}.pth         {'state_dict', 'optimizer' (optional),
-                                   'step', 'meta'}
+                                   'step', 'meta', 'extra' (optional)}
     ckpt_dir/step_{N}.meta.json   the meta dict, when there is one
     ckpt_dir/latest               'step_{N}', the newest checkpoint
 
-`load_weights` restores weights only (`load_from`), `load_state` weights,
-optimizer state and step (`resume_from`). Files are read with
-`torch.load(weights_only=True)`, which refuses pickled objects other than
-tensors and plain containers; such a file raises with the loader's
-reason and is never loaded unsafely. An orbax (JAX) checkpoint needs
-orbax, which the port does not use.
+`load_weights` restores weights only (`load_from`), `load_state`
+weights, optimizer state and step (`resume_from`); `checkpoint_extra`
+reads the `extra` dict a trainer saved beside them (its step counters).
+Files are read with `torch.load(weights_only=True)`, which refuses
+pickled objects other than tensors and plain containers; such a file
+raises with the loader's reason and is never loaded unsafely. An orbax
+(JAX) checkpoint needs orbax, which the port does not use.
 """
 
 from __future__ import annotations
@@ -39,15 +40,18 @@ def _cpu_state(state: Union[nn.Module, Dict[str, torch.Tensor]]):
 def save_checkpoint(ckpt_dir: str, step: int,
                     state: Union[nn.Module, Dict[str, torch.Tensor]],
                     optimizer: Optional[torch.optim.Optimizer] = None,
-                    meta: Optional[Dict] = None) -> str:
+                    meta: Optional[Dict] = None,
+                    extra: Optional[Dict] = None) -> str:
     """Write `step_{step}.pth` (weights on the CPU) and point `latest` at
-    it; returns its path."""
+    it; returns its path. `extra` is a dict of plain values."""
     os.makedirs(ckpt_dir, exist_ok=True)
     path = osp.join(osp.abspath(ckpt_dir), f'step_{step}.pth')
     payload = {'state_dict': _cpu_state(state), 'step': int(step),
                'meta': meta or {}}
     if optimizer is not None:
         payload['optimizer'] = optimizer.state_dict()
+    if extra is not None:
+        payload['extra'] = extra
     torch.save(payload, path)
     if meta:
         with open(osp.join(ckpt_dir, f'step_{step}.meta.json'), 'w') as f:
@@ -130,3 +134,8 @@ def load_state(ckpt_path: str, model: nn.Module,
                              f'state')
         optimizer.load_state_dict(obj['optimizer'])
     return int(obj['step'])
+
+
+def checkpoint_extra(ckpt_path: str) -> Dict:
+    """The `extra` dict saved with a checkpoint ({} if none)."""
+    return _read(ckpt_path).get('extra', {})

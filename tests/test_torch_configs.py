@@ -5,7 +5,7 @@ originals.
 carries its own config dataclasses, name lookup (`_bn` aliases, `.py`
 paths) and anchor generator. Every field the port keeps must equal the
 JAX config's; the fields it leaves out must be exactly the TPU routing
-knobs and training-only fields listed here.
+knobs listed here.
 """
 
 import dataclasses
@@ -30,15 +30,15 @@ NAMES = ['cascade_rcnn_hrfuser_t_1x_nus_r640_l_r_fusion',
 NOT_PORTED = {'cascade_rcnn_hrfuser_hrnet_w18_1x_nus_r640_l_r_fusion',
               'tiny_hrnet_fusion_test', 'micro_fusion_dryrun'}
 
-# TPU routing knobs and training-only fields the port does not carry
+# TPU routing knobs, the pre-neck fusion stage no preset sets and the
+# adaptive RoIAlign grid, which the port does not carry
 OMITTED = {
     'backbone.remat', 'backbone.cf_layout', 'backbone.chain_kernel',
-    'backbone.drop_path_rate', 'backbone.stage_d', 'backbone.fusion_d',
-    'roi.stage_loss_weights', 'roi.pool_method', 'roi.pool_method_eval',
-    'roi.pallas_variant', 'roi.gather_bf16', 'roi.max_grid',
+    'backbone.stage_d', 'backbone.fusion_d', 'roi.pool_method_eval',
+    'roi.pallas_variant', 'roi.max_grid',
 }
-OMITTED_IN_STAGES = {'drop_path_rates'}
-OMITTED_IN_FUSIONS = {'drop_path', 'proj_drop_rate'}
+OMITTED_IN_STAGES = set()
+OMITTED_IN_FUSIONS = set()
 
 
 def _compare(port, ref, path, omitted):
@@ -69,9 +69,8 @@ def test_config_fields_equal_jax(name):
     top = {o for o in omitted if o.count('.') <= 1}
     assert top == OMITTED
     assert stage_fields == OMITTED_IN_STAGES
-    fusion = jax_get_config(name).model.is_fusion
-    assert fusion_fields == (OMITTED_IN_FUSIONS if fusion else set())
-    assert get_config(name).is_fusion == fusion
+    assert fusion_fields == OMITTED_IN_FUSIONS
+    assert get_config(name).is_fusion == jax_get_config(name).model.is_fusion
 
 
 @pytest.mark.parametrize('name', NAMES)
@@ -81,6 +80,14 @@ def test_data_config_equals_jax(name):
     assert exp.model == get_config(name)
     assert (dataclasses.asdict(exp.data)
             == dataclasses.asdict(jax_get_config(name).data))
+
+
+@pytest.mark.parametrize('name', NAMES)
+def test_schedule_and_optimizer_equal_jax(name):
+    exp, ref = get_experiment(name), jax_get_config(name)
+    assert (dataclasses.asdict(exp.schedule)
+            == dataclasses.asdict(ref.schedule))
+    assert dataclasses.asdict(exp.optim) == dataclasses.asdict(ref.optim)
 
 
 @pytest.mark.parametrize('name', NAMES)

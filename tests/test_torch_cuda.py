@@ -452,3 +452,67 @@ def test_new_configs_forward_matches_cpu_twins(dev, name, hw):
         fc = cpu.model.forward_features(img, mods)[0]
     for a, b in zip(fg, fc, strict=True):
         torch.testing.assert_close(a.cpu(), b, atol=5e-3, rtol=1e-3)
+
+
+def _train_run(name, device, hw):
+    """One train step of `name` (drop rates 0, the full lr, random weights
+    drawn on the CPU from seed 0) on `device`: losses, gradients and
+    params after."""
+    import dataclasses
+    from hrfuser_tpu_torch.apis.inference import init_weights_
+    from hrfuser_tpu_torch.apis.train import (apply_gradients, batch_to,
+                                              create_train_state)
+    from hrfuser_tpu_torch.configs import get_experiment
+    from hrfuser_tpu_torch.configs.presets import without_drops
+    from hrfuser_tpu_torch.core.samplers import Draws
+    from hrfuser_tpu_torch.models.detectors.cascade_rcnn import CascadeRCNN
+    from hrfuser_tpu_torch.models.detectors.train_loss import forward_train
+    from hrfuser_tpu_torch.tools.train import synthetic_batches
+    exp = get_experiment(name)
+    model = CascadeRCNN(without_drops(exp.model))
+    init_weights_(model, torch.Generator().manual_seed(0))
+    state = create_train_state(
+        model.to(device), exp.optim,
+        dataclasses.replace(exp.schedule, warmup_iters=0, warmup_ratio=1.0),
+        100)
+    batch = batch_to(next(synthetic_batches(exp, 2, hw, pool=1)), device)
+    losses = forward_train(model, batch,
+                           Draws(torch.Generator().manual_seed(3)))
+    losses['loss'].backward()
+    grads = {n: p.grad.cpu().clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    apply_gradients(state)
+    return ({k: float(v.detach()) for k, v in losses.items()}, grads,
+            {n: p.detach().cpu() for n, p in model.named_parameters()},
+            state.schedule(0))
+
+
+def test_train_step_on_the_card_matches_cpu(dev):
+    """HRFuser-T at 128x192, batch 2, lr 3e-4: the card's train step vs the
+    CPU's on the same weights, batch and sampler draws (drawn on the CPU),
+    at `chip_smoke.py` phase 8b's float32 bars: every loss term at rtol
+    1e-3 (an accuracy within 3 of the 1,024 sampled RoIs), all gradients
+    together within relative L2 2e-2 and each within 1e-1 (the norm
+    floored at 1e-3 of the largest), params after the step within 2 x lr.
+    No kernel wrapper launches in training."""
+    name = 'cascade_rcnn_hrfuser_t_1x_nus_r640_l_r_fusion'
+    wrappers = (chain.window_self_attention, chain.window_cross_attention,
+                chain.cross_ffn, roi_align.multilevel_roi_align)
+    for fn in wrappers:
+        fn.launches = 0
+    lg, gg, pg, lr = _train_run(name, dev, (128, 192))
+    assert not any(fn.launches for fn in wrappers)
+    lc, gc, pc, _ = _train_run(name, 'cpu', (128, 192))
+    for k in lc:
+        tol = dict(abs=3 / 1024) if k.endswith('acc') else dict(rel=1e-3)
+        assert lg[k] == pytest.approx(lc[k], **tol), k
+    assert gg.keys() == gc.keys()
+    whole = (torch.cat([(gg[n] - gc[n]).flatten() for n in gc]).norm()
+             / torch.cat([gc[n].flatten() for n in gc]).norm())
+    assert whole < 2e-2
+    floor = 1e-3 * max(g.norm().item() for g in gc.values())
+    for n in gc:
+        rel = (gg[n] - gc[n]).norm().item() / max(gc[n].norm().item(), floor)
+        assert rel < 1e-1, (n, rel)
+    for n in pc:                 # and float32's rounding of the param
+        assert ((pg[n] - pc[n]).abs() - 1e-6 * pc[n].abs()).max() <= 2 * lr, n

@@ -3,8 +3,8 @@ or `cv2` (the card's machine has neither JAX nor `cv2`).
 
 Checked in a fresh interpreter (this test process has JAX loaded by
 `tests/conftest.py`) that runs the tiny fusion and camera-only slices,
-`inference_detector` and `run_inference` end to end on the CPU and
-imports the KITTI evaluation, and statically over every module
+`inference_detector`, `run_inference` and a training step end to end on
+the CPU and imports the KITTI evaluation, and statically over every module
 of the package and the scripts that drive it on the card. Its entry
 point runs on the card unless asked for the CPU.
 """
@@ -52,6 +52,17 @@ cam = init_detector('tiny_camera_test', 'cpu', seed=0)
 assert tuple(cam(img, None).boxes.shape) == (1, 20, 4)
 import hrfuser_tpu_torch.data.datasets.kitti2d
 import hrfuser_tpu_torch.evaluation.kitti_eval
+import torch
+from hrfuser_tpu_torch.apis.train import create_train_state, train_step
+from hrfuser_tpu_torch.configs import get_experiment
+from hrfuser_tpu_torch.models.detectors.cascade_rcnn import CascadeRCNN
+from hrfuser_tpu_torch.tools.train import synthetic_batches
+exp = get_experiment('tiny_fusion_test')
+state = create_train_state(CascadeRCNN(exp.model), exp.optim, exp.schedule,
+                           100)
+m = train_step(state, next(synthetic_batches(exp, 2, (64, 96))),
+               torch.Generator().manual_seed(0))
+assert bool(m['loss'].isfinite()) and state.applied == 1
 bad = sorted(m for m in sys.modules if m.split('.')[0] in {forbidden})
 assert not bad, bad
 print('ok')

@@ -55,8 +55,7 @@ def _kept(port, ref):
 
 def test_configs_agree_on_the_three_modalities(s):
     port = dataclasses.asdict(s.model.cfg)
-    assert port == _kept(port, dataclasses.asdict(s.jcfg)
-                         | {'roi': dataclasses.asdict(s.jcfg.roi)})
+    assert port == _kept(port, dataclasses.asdict(_jax_cfg()))
     assert s.model.cfg.backbone.num_fused_modalities == 3
     assert [c.in_channels for c in s.model.backbone.conv_a] == [3, 2, 1]
 

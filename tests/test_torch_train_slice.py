@@ -1,0 +1,319 @@
+"""The port's training step vs the JAX package's on the tiny configs.
+
+`tiny_fusion_test` (and `tiny_camera_test`) at 64x96, B = 2, f32 on the
+CPU: the JAX variables go through `state_dict_from_jax` into the port;
+drop path and `proj_drop` are set to 0 on both sides, the one-hot pool
+runs in f32 (`gather_bf16=False`) and the caps are small (200 / 100
+proposals, 32 RoIs a stage). The sampler's keys replay the JAX split
+chain (`train_loss.py:55,83,114`, `samplers.py:37-47`), so both packages
+sample the same rows. The JAX side runs un-jitted.
+
+Tolerances: every loss term at rtol 1e-4, but the cascade's box losses
+at 3e-4; the updated BatchNorm running statistics at 3e-5; each gradient
+within relative L2 1e-3 of JAX's (the norm floored as in
+`test_torch_train_layers.py`); params after one step within 2 x lr of
+JAX's (and 1e-6 relative, float32's rounding of the updated param: a
+gradient of opposite sign moves the param by +lr on one side and -lr on
+the other). The loosened bars are the reference's own float32 error:
+against the port run in float64 on this batch, JAX's s0.loss_bbox is off
+by 1.2e-4 and s1.loss_bbox by 9.5e-5 (the port's float32 by at most
+4.4e-5), as the stage stds (0.1 down to 0.033) amplify coordinate error,
+and the deepest running variances differ by up to 1.6e-5 relative. The gradients of the neck
+and the heads run here; those of the whole trunk and the one-step update
+(the un-jitted JAX backward through the trunk, ~3 min) are `slow`.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from hrfuser_tpu.apis.train import create_train_state as jax_create_state
+from hrfuser_tpu.configs import get_config as jax_get_config
+from hrfuser_tpu.core.targets import RCNN_TRAIN_CFGS as JAX_RCNN_CFGS
+from hrfuser_tpu.models import CascadeRCNN as JaxCascadeRCNN
+from hrfuser_tpu.models.detectors.train_loss import \
+    forward_train as jax_forward_train
+from hrfuser_tpu_torch.apis.train import (batch_to, create_train_state,
+                                          train_step)
+from hrfuser_tpu_torch.configs import get_experiment
+from hrfuser_tpu_torch.configs.presets import without_drops
+from hrfuser_tpu_torch.core.samplers import Draws
+from hrfuser_tpu_torch.core.targets import RCNN_TRAIN_CFGS
+from hrfuser_tpu_torch.models.detectors.cascade_rcnn import CascadeRCNN
+from hrfuser_tpu_torch.models.detectors.train_loss import forward_train
+from hrfuser_tpu_torch.utils.jax_weights import state_dict_from_jax
+from tests.oracles.random_variables import random_variables
+from tests.test_torch_train_layers import grad_floor, rel_l2
+
+B, H, W = 2, 64, 96
+PROPOSALS = dict(nms_pre=200, max_per_img=100, nms_iou=0.7,
+                 min_bbox_size=0.0)
+NUM = 32
+HEADS = ('neck', 'rpn_head', 'roi_head')
+LOSS_RTOL, BOX_RTOL, STATS_TOL, GRAD_REL = 1e-4, 3e-4, 3e-5, 1e-3
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _one_thread():
+    """One intra-op thread: the tensors are small, and the test workers
+    run side by side on the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+class JaxDraws(Draws):
+    """The sampler keys of JAX's `forward_train(..., rng)`: `rng` splits
+    into (drop, rpn, stage 0-2); each site's key splits per image, and
+    each `random_sample` splits its image key into the positive and
+    negative keys."""
+
+    def __init__(self, rng, batch):
+        super().__init__(torch.Generator().manual_seed(0))
+        _, rng_rpn, *rng_stages = jax.random.split(rng, 5)
+        self.keys = {'rpn': jax.random.split(rng_rpn, batch)}
+        self.keys.update({i: jax.random.split(k, batch)
+                          for i, k in enumerate(rng_stages)})
+
+    def uniforms(self, site, image, n, device):
+        kp, kn = jax.random.split(self.keys[site][image])
+        return tuple(torch.from_numpy(np.array(jax.random.uniform(k, (n,))))
+                     .to(device) for k in (kp, kn))
+
+
+def _batch(mod_channels):
+    rng = np.random.default_rng(11)
+    batch = dict(
+        img=rng.normal(0, 1, (B, H, W, 3)).astype(np.float32),
+        gt_boxes=np.asarray([[[10., 10., 40., 30.], [30., 20., 80., 60.],
+                              [5., 30., 60., 62.]],
+                             [[50., 8., 90., 40.], [12., 24., 44., 60.],
+                              [0., 0., 0., 0.]]], np.float32),
+        gt_labels=np.asarray([[0, 1, 4], [3, 2, 0]], np.int32),
+        gt_valid=np.asarray([[True, True, True], [True, True, False]]))
+    if mod_channels:
+        batch['mod_imgs'] = [rng.normal(0, 1, (B, H, W, c)).astype(np.float32)
+                             for c in mod_channels]
+    return batch
+
+
+def _jax_batch(batch):
+    return {k: ([jnp.asarray(m) for m in v] if isinstance(v, list)
+                else jnp.asarray(v)) for k, v in batch.items()}
+
+
+def _port_named(variables, cfg):
+    """A JAX {'params', 'batch_stats'} tree by port parameter name."""
+    return {k: v.numpy() for k, v in state_dict_from_jax(variables,
+                                                         cfg).items()}
+
+
+class TrainPair:
+    def __init__(self, name):
+        self.jcfg = without_drops(jax_get_config(name).model)
+        self.jcfg = dataclasses.replace(self.jcfg, roi=dataclasses.replace(
+            self.jcfg.roi, gather_bf16=False))
+        exp = get_experiment(name)
+        self.cfg = without_drops(exp.model)
+        self.cfg = dataclasses.replace(self.cfg, roi=dataclasses.replace(
+            self.cfg.roi, gather_bf16=False))
+        self.exp = dataclasses.replace(exp, model=self.cfg)
+        self.jdet = JaxCascadeRCNN(self.jcfg)
+        bb = self.cfg.backbone
+        self.batch = _batch(bb.mod_in_channels[:bb.num_fused_modalities])
+        jb = _jax_batch(self.batch)
+        self.jbatch = jb
+        self.variables = random_variables(
+            self.jdet, jb['img'][:1],
+            [m[:1] for m in jb['mod_imgs']] if 'mod_imgs' in jb else None,
+            False, seed=5)
+        self.rng = jax.random.PRNGKey(7)
+        self.jcaps = tuple(dataclasses.replace(c, num=NUM)
+                           for c in JAX_RCNN_CFGS)
+        self.caps = tuple(dataclasses.replace(c, num=NUM)
+                          for c in RCNN_TRAIN_CFGS)
+
+    def model(self):
+        m = CascadeRCNN(self.cfg)
+        m.load_state_dict(state_dict_from_jax(self.variables, self.cfg),
+                          strict=True)
+        return m.train()
+
+    def jax_loss(self, params):
+        return jax_forward_train(
+            self.jdet, {'params': params,
+                        'batch_stats': self.variables['batch_stats']},
+            self.jbatch, self.rng, PROPOSALS, self.jcaps)
+
+    def port_losses(self, model):
+        return forward_train(model, batch_to(self.batch, 'cpu'),
+                             JaxDraws(self.rng, B), PROPOSALS, self.caps)
+
+    def jax_grads(self, groups):
+        """JAX's gradients of the params under the top-level `groups` (the
+        rest held constant): the raw tree and the tree by port name."""
+        params = self.variables['params']
+
+        def f(sub):
+            return self.jax_loss({**params, **sub})[0]
+
+        g = jax.grad(f)({k: params[k] for k in groups})
+        full = {**jax.tree_util.tree_map(np.zeros_like, params), **g}
+        return full, _port_named(
+            {'params': full, 'batch_stats': self.variables['batch_stats']},
+            self.cfg)
+
+
+@pytest.fixture(scope='module')
+def fusion():
+    s = TrainPair('tiny_fusion_test')
+    s.jout = s.jax_loss(s.variables['params'])
+    s.torch_model = s.model()
+    s.losses = s.port_losses(s.torch_model)
+    s.losses['loss'].backward()
+    return s
+
+
+def _rtol(key):
+    return BOX_RTOL if key.endswith('.loss_bbox') else LOSS_RTOL
+
+
+def _loss_keys():
+    keys = ['loss_rpn_cls', 'loss_rpn_bbox', 'loss']
+    for i in range(3):
+        keys += [f's{i}.loss_cls', f's{i}.loss_bbox', f's{i}.acc']
+    return keys
+
+
+@pytest.mark.parametrize('key', _loss_keys())
+def test_loss_terms_match_jax(fusion, key):
+    want = float(fusion.jout[1][key])
+    got = float(fusion.losses[key].detach())
+    np.testing.assert_allclose(got, want, rtol=_rtol(key), atol=1e-7,
+                               err_msg=key)
+
+
+def test_batch_stats_updates_match_jax(fusion):
+    want = _port_named({'params': fusion.variables['params'],
+                        'batch_stats': fusion.jout[2]['batch_stats']},
+                       fusion.cfg)
+    sd = fusion.torch_model.state_dict()
+    keys = [k for k in want if k.endswith(('running_mean', 'running_var'))]
+    moved = 0
+    for k in keys:
+        np.testing.assert_allclose(sd[k].numpy(), want[k], rtol=STATS_TOL,
+                                   atol=STATS_TOL, err_msg=k)
+        before = np.asarray(state_dict_from_jax(
+            fusion.variables, fusion.cfg)[k])
+        moved += not np.array_equal(before, want[k])
+    assert moved > 100                    # the trunk's BNs all updated
+
+
+def test_head_gradients_match_jax(fusion):
+    _, want = fusion.jax_grads(HEADS)
+    params = dict(fusion.torch_model.named_parameters())
+    names = [n for n in params if n.split('.')[0] in HEADS]
+    assert len(names) > 20
+    floor = grad_floor(want[n] for n in names)
+    for n in names:
+        assert params[n].grad is not None, n
+        rel = rel_l2(params[n].grad.numpy(), want[n], floor)
+        assert rel < GRAD_REL, (n, rel)
+
+
+def test_camera_only_losses_match_jax():
+    s = TrainPair('tiny_camera_test')
+    _, want, _ = s.jax_loss(s.variables['params'])
+    got = s.port_losses(s.model())
+    for k in _loss_keys():
+        np.testing.assert_allclose(float(got[k].detach()), float(want[k]),
+                                   rtol=_rtol(k), atol=1e-7, err_msg=k)
+
+
+def test_train_step_reaches_no_kernel_and_refreshes_the_fold(
+        fusion, monkeypatch):
+    """A step reaches no kernel wrapper (the train route is picked by
+    `training`, not by device), and eval afterwards folds the updated
+    weights: `cached` keys on each tensor's version."""
+    from hrfuser_tpu_torch.models.roi_heads import cascade_roi_head
+    from hrfuser_tpu_torch.ops import chain
+    model = fusion.model()
+    state = create_train_state(model, fusion.exp.optim, fusion.exp.schedule,
+                               100)
+    blk = model.backbone.stage2[0].branches[0][0]
+    model.eval()
+    before = {k: v.clone() for k, v in blk.folded()['ffn'].items()}
+    model.train()
+    calls = []
+    for mod, name in ((chain, 'window_self_attention'),
+                      (chain, 'window_cross_attention'),
+                      (chain, 'cross_ffn'),
+                      (cascade_roi_head, 'multilevel_roi_align')):
+        monkeypatch.setattr(mod, name,
+                            lambda *a, _n=name, **k: calls.append(_n))
+    train_step(state, fusion.batch, draws=JaxDraws(fusion.rng, B),
+               rpn_proposal_cfg=PROPOSALS, rcnn_train_cfgs=fusion.caps)
+    monkeypatch.undo()
+    assert calls == [] and state.applied == 1 and state.step == 1
+    model.eval()
+    after = blk.folded()['ffn']
+    fresh = chain.fold_hrformer_block(blk)['ffn']
+    assert any(not torch.equal(before[k], after[k]) for k in after)
+    for k in fresh:
+        torch.testing.assert_close(after[k], fresh[k], rtol=0, atol=0)
+
+
+# the BN beside the HRFuser stage-2 transition's conv, which the forward
+# skips (`transition1[i][0]`); the JAX tree has no such parameter
+PORT_ONLY = 'backbone.transition1.0.1.'
+# the camera stem and stage 1, where JAX's float32 backward is off by up
+# to 2.3e-2 (relative L2): the gradient reaching them through the
+# transition's two convs is nearly removed by the BatchNorm backward (its
+# per-channel mean and projection), which amplifies the error of flax's
+# batch variance. The port's float32 gradients there are within 8e-5 of
+# its float64 ones, and the same front in isolation agrees with JAX to
+# 3e-6 (`test_camera_front_gradients_match_jax`).
+FRONT = ('backbone.conv', 'backbone.bn', 'backbone.layer1.')
+FRONT_REL = 3e-2
+
+
+@pytest.mark.slow
+def test_full_gradients_and_one_step_match_jax(fusion):
+    """Every gradient, the trunk's too; then the JAX step's AdamW update
+    (`apis/train.py`: `tx.update` of these gradients) against
+    `train_step` from the same weights and draws."""
+    jgrads, want = fusion.jax_grads(tuple(fusion.variables['params']))
+    params = {n: p for n, p in fusion.torch_model.named_parameters()
+              if not n.startswith(PORT_ONLY)}
+    floor = grad_floor(want[n] for n in params)
+    for n, p in params.items():
+        assert p.grad is not None, n
+        bar = FRONT_REL if n.startswith(FRONT) else GRAD_REL
+        assert rel_l2(p.grad.numpy(), want[n], floor) < bar, n
+
+    # the full lr 3e-4 from the first step, so 2 x lr exceeds float32's
+    # rounding of the params (warmup_iters 0 alone keeps lr x ratio)
+    optim = fusion.exp.optim
+    sched = dataclasses.replace(fusion.exp.schedule, warmup_iters=0,
+                                warmup_ratio=1.0)
+    jstate, tx = jax_create_state(fusion.jdet, fusion.variables, optim,
+                                  sched, 100)
+    updates, _ = tx.update(jgrads, jstate.opt_state, jstate.params)
+    want = _port_named({'params': optax.apply_updates(jstate.params,
+                                                      updates),
+                        'batch_stats': fusion.variables['batch_stats']},
+                       fusion.cfg)
+    model = fusion.model()
+    state = create_train_state(model, optim, sched, 100)
+    train_step(state, fusion.batch, draws=JaxDraws(fusion.rng, B),
+               rpn_proposal_cfg=PROPOSALS, rcnn_train_cfgs=fusion.caps)
+    lr = state.schedule(0)
+    for n, p in model.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), want[n], rtol=1e-6,
+                                   atol=2 * lr, err_msg=n)
