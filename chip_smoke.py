@@ -89,6 +89,32 @@ Phases, each printed on its own lines; any failure exits non-zero:
    amplified by the norm layers' backward in the random-weight trunk, and
    near-tied random-weight RPN scores that can swap a proposal.
 
+9. the data slice, on seeded synthetic folders in the converters'
+   formats written to a temporary directory: 9a the image decoders (the
+   libjpeg decoder cannot build on this machine, which has no libjpeg
+   headers, so a JPEG raises with the compiler's message and
+   the committed JPEG fixture is refused; PNG round trips of 8-bit
+   colour, grey and 16-bit 3-channel files bit-equal, and the committed
+   `cv2`-written PNG fixtures bit-equal to their committed `cv2`
+   decodes); 9b nuScenes dataset eval at full width: 16 samples of a
+   900x1600 camera PNG (PNG, since JPEG cannot be read here), uint16
+   lidar `rih` / radar `riv` 360x640 projections and a COCO json with the
+   config's classes, `python -m hrfuser_tpu_torch.tools.test` in process
+   on HRFuser-T r640, bf16, batch 8, weights from a checkpoint: launch
+   counts exactly 2 x one forward's, every COCO and recall metric finite,
+   images/s of the loader alone and of the whole run; 9c `tools.train`
+   from the same files, float32, batch 3, flip and modality drop live,
+   one epoch of `len(loader)` steps with the eval hook and a checkpoint
+   at its end: 0 kernel launches inside a step, the eval hook's counts
+   exact, then `--resume-from` continues the step count; ms a step
+   beside phase 8a's synthetic step, with and without the wait for the
+   next batch; 9d STF: 8 samples (1024x1920 camera PNG, lidar `yzi`,
+   radar `yzv` with channel 0 deleted, a grey gated image) in the four
+   weather test splits and the train split, `tools.test` on
+   `cascade_rcnn_hrfuser_t_1x_stf_r1248_4mod` (bf16, batch 8) with the
+   ten KITTI metrics finite and launch counts exact, then two train
+   steps through both crops.
+
 The last line is `{"ok": true, "device": {...}}`; the line before it
 lists each kernel's launches, error, times and bound as JSON.
 """
@@ -97,7 +123,10 @@ from __future__ import annotations
 
 import base64
 import json
+import os
+import pickle
 import re
+import shutil
 import struct
 import subprocess
 import sys
@@ -1056,11 +1085,12 @@ def phase_run_inference(state, smi):
 
 
 def _png(img):
-    """PNG bytes of a uint8 or uint16 BGR image, filter 0 (the card's
-    machine has no image encoder)."""
-    h, w, c = img.shape
+    """PNG bytes of a uint8 or uint16 BGR [H, W, 3] or grey [H, W] image,
+    filter 0 (the card's machine has no image encoder)."""
+    grey = img.ndim == 2
+    h, w = img.shape[:2]
     depth = 16 if img.dtype == np.uint16 else 8
-    rows = np.ascontiguousarray(img[..., ::-1]).astype(
+    rows = np.ascontiguousarray(img if grey else img[..., ::-1]).astype(
         '>u2' if depth == 16 else np.uint8).view(np.uint8).reshape(h, -1)
     data = np.concatenate([np.zeros((h, 1), np.uint8), rows], 1).tobytes()
 
@@ -1069,7 +1099,8 @@ def _png(img):
                 + struct.pack('>I', zlib.crc32(kind + body)))
 
     return (b'\x89PNG\r\n\x1a\n'
-            + chunk(b'IHDR', struct.pack('>IIBBBBB', w, h, depth, 2, 0, 0, 0))
+            + chunk(b'IHDR', struct.pack('>IIBBBBB', w, h, depth,
+                                         0 if grey else 2, 0, 0, 0))
             + chunk(b'IDAT', zlib.compress(data, 1)) + chunk(b'IEND', b''))
 
 
@@ -1356,7 +1387,7 @@ def _step_split(state, batch, gen):
           f'check {t_opt:.1f}')
 
 
-def phase_train(report, smi):
+def phase_train(report, smi, shared):
     print(f'== 8a. training: {CONFIG}, float32, batch 3 at {H}x{W}, '
           f'reference caps, drop path live')
     from hrfuser_tpu_torch.apis.inference import Detector
@@ -1393,7 +1424,7 @@ def phase_train(report, smi):
     print('  losses: ' + ' '.join(f'{v:.3f}' for v in losses))
     if ratio >= 0.7:
         raise AssertionError(f'overfit ratio {ratio:.3f} >= 0.7')
-    med = float(np.median(times[4:]))
+    med = shared['synthetic_step_ms'] = float(np.median(times[4:]))
     b = exp.schedule.samples_per_device
     print(f'  ms per step (steps 5-40): median {med:.1f}, min '
           f'{min(times[4:]):.1f}, max {max(times[4:]):.1f}; '
@@ -1498,6 +1529,339 @@ def phase_train_parity():
         raise AssertionError('card vs CPU params after one step')
 
 
+FIXTURES = 'tests/data'
+NUS_N, STF_N = 16, 8
+NUS_VAL = 'nuscenes_infos_val_mono3d.coco.json'
+NUS_TRAIN = 'nuscenes_infos_train_mono3d.coco.json'
+STF_TEST = ('dense_infos_test_clear.pkl', 'dense_infos_light_fog.pkl',
+            'dense_infos_dense_fog.pkl', 'dense_infos_snow.pkl')
+STF_SENSOR_HW = (768, 1280)          # the grid of STF's first crop
+
+
+def _write_png(path, img):
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, 'wb') as f:
+        f.write(_png(img))
+
+
+def _projection(rng, hw, c):
+    """uint16 projection: 0 m background, returns of -1 to 60 m on 30 % of
+    the pixels, quantized as the converters do."""
+    from hrfuser_tpu_torch.data.projection import quantize
+    m = quantize(np.zeros((*hw, c), np.float32))
+    hit = rng.random(hw) < 0.3
+    m[hit] = quantize(rng.uniform(-1., 60., (int(hit.sum()), c)))
+    return m
+
+
+def phase_decoders():
+    print('== 9a. data slice: image decoders')
+    from hrfuser_tpu_torch.data import native
+    from hrfuser_tpu_torch.data.pipelines.loading import imread
+    try:
+        native.lib()
+    except RuntimeError as e:
+        first = [ln for ln in str(e).splitlines() if 'error' in ln][:1]
+        print(f'  libjpeg decoder: does not build here '
+              f'({first[0].strip() if first else str(e)[:120]})')
+    else:
+        raise AssertionError('the libjpeg decoder built: this machine '
+                             'now has its headers, so phase 9a '
+                             'should hold JPEG decoding to the cv2 fixture')
+    try:
+        imread(f'{FIXTURES}/camera.jpg')
+    except RuntimeError as e:
+        print(f'  JPEG {FIXTURES}/camera.jpg refused: '
+              f'{str(e).splitlines()[0]}')
+    else:
+        raise AssertionError('a JPEG decoded without the native decoder')
+    want = np.load(f'{FIXTURES}/decoded_cv2.npz')
+    for name, flag, key in (('camera.png', 'color', 'camera_png'),
+                            ('grey.png', 'grayscale', 'grey_png'),
+                            ('sensor16.png', 'unchanged', 'sensor16_png')):
+        got = imread(f'{FIXTURES}/{name}', flag)
+        if got.dtype != want[key].dtype or not np.array_equal(got,
+                                                              want[key]):
+            raise AssertionError(f'{name}: differs from its cv2 decode')
+        print(f'  {name} ({flag}) {got.shape} {got.dtype}: bit-equal to '
+              f'its committed cv2 decode')
+    rng = np.random.default_rng(9)
+    with tempfile.TemporaryDirectory() as folder:
+        for label, img, flag in (
+                ('8-bit colour 900x1600', rng.integers(
+                    0, 256, (*RAW_HW, 3)).astype(np.uint8), 'color'),
+                ('8-bit grey 768x1280', rng.integers(
+                    0, 256, STF_SENSOR_HW).astype(np.uint8), 'grayscale'),
+                ('16-bit 3-channel 360x640', _projection(rng, GRID_HW, 3),
+                 'unchanged')):
+            path = f'{folder}/x.png'
+            _write_png(path, img)
+            t0 = time.perf_counter()
+            got = imread(path, flag)
+            ms = (time.perf_counter() - t0) * 1e3
+            if got.dtype != img.dtype or not np.array_equal(got, img):
+                raise AssertionError(f'PNG round trip {label}')
+            print(f'  PNG round trip {label}: bit-equal, read in '
+                  f'{ms:.1f} ms')
+
+
+def _nus_folder(root, rng, classes):
+    """`NUS_N` nuScenes samples: a 900x1600 camera PNG, lidar `rih` and
+    radar `riv` 360x640 projections, 2-6 boxes an image (one each of
+    COCO's small, medium and large sizes, then random ones), visibility
+    tokens 1-4; the json as the val and the train split."""
+    images, anns, lidar, radar = [], [], [], []
+    h, w = RAW_HW
+    for i in range(NUS_N):
+        cam = f'samples/CAM_FRONT/{i:04d}.png'
+        _write_png(f'{root}/{cam}',
+                   rng.integers(0, 256, (h, w, 3)).astype(np.uint8))
+        images.append(dict(file_name=cam, id=f'tok{i}', width=w, height=h))
+        sides = [20., 60., 200.] + list(rng.uniform(15, 400,
+                                                    rng.integers(0, 4)))
+        for j, side in enumerate(sides):
+            x, y = rng.uniform(0, [w - side, h - side])
+            anns.append(dict(image_id=f'tok{i}', id=100 * i + j,
+                             bbox=[x, y, side, side * 0.8],
+                             category_id=int(rng.integers(len(classes))),
+                             iscrowd=0, visibility_token=str(j % 4 + 1)))
+        for table, suffix, ch in ((lidar, 'l', 'rih'), (radar, 'r', 'riv')):
+            png = f'{ch}/{i:04d}.png'
+            _write_png(f'{root}/{png}', _projection(rng, GRID_HW, 3))
+            table.append({'id': f'tok{i}{suffix}', ch: dict(
+                file_name=png, pixel_scale_factor=100.0, shift=200.0,
+                empty_channels=[])})
+    coco = json.dumps(dict(
+        images=images, annotations=anns, lidar_projections=lidar,
+        radar_projections=radar,
+        categories=[dict(id=k, name=c) for k, c in enumerate(classes)]))
+    for split in (NUS_VAL, NUS_TRAIN):
+        with open(f'{root}/{split}', 'w') as f:
+            f.write(coco)
+
+
+def _checkpoint(config, folder):
+    """A checkpoint of `config`'s seed-0 random weights in `folder`."""
+    from hrfuser_tpu_torch import init_detector
+    from hrfuser_tpu_torch.utils.checkpoint import save_checkpoint
+    det = init_detector(config, 'cpu', seed=0)
+    save_checkpoint(folder, 0, det.model, meta={'config': config})
+    return folder
+
+
+def _launches():
+    return {k: fn.launches for k, fn in _counters().items()}
+
+
+def phase_dataset_eval(state, smi):
+    print(f'== 9b. data slice: nuScenes dataset eval, {CONFIG}, bf16, batch '
+          f'{BATCH}, {NUS_N} samples of {RAW_HW[0]}x{RAW_HW[1]}')
+    from hrfuser_tpu_torch import get_experiment
+    from hrfuser_tpu_torch.data.datasets.coco import CocoFusionDataset
+    from hrfuser_tpu_torch.data.loader import DetDataLoader
+    from hrfuser_tpu_torch.tools import test as test_cli
+    exp = get_experiment(CONFIG)
+    root = state['nus_root'] = tempfile.mkdtemp(prefix='nus_')
+    t0 = time.perf_counter()
+    _nus_folder(root, np.random.default_rng(10), exp.data.classes)
+    ckpt = _checkpoint(CONFIG, f'{root}/ckpt')
+    print(f'  wrote the folder and a checkpoint in '
+          f'{time.perf_counter() - t0:.1f} s')
+    ds = CocoFusionDataset(NUS_VAL, exp.data.classes, data_root=root,
+                           test_mode=True)
+    t0 = time.perf_counter()
+    n = sum(int(b['num_real']) for b in DetDataLoader(ds, exp.data, BATCH,
+                                                      train=False))
+    dt = time.perf_counter() - t0
+    print(f'  loader alone: {n} images in {dt * 1e3:.0f} ms, '
+          f'{n / dt:.1f} images/s (host: PNG decode, resize, normalize, '
+          f'pad)')
+    _reset_counts()
+    t0 = time.perf_counter()
+    metrics = test_cli.main([CONFIG, '--data-root', root, '--checkpoint',
+                             ckpt, '--batch-size', str(BATCH), '--dtype',
+                             'bf16', '--eval', 'bbox,proposal_fast',
+                             '--out', f'{root}/metrics.json'])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    _check_counts(_expected_launches(exp.model), NUS_N // BATCH,
+                  f'tools.test over {NUS_N} images')
+    want = {'mAP', 'mAP_50', 'mAP_75', 'mAP_s', 'mAP_m', 'mAP_l', 'AR@100',
+            'AR@300', 'AR@1000'}
+    bad = [k for k in want if not np.isfinite(metrics.get(k, np.nan))]
+    if bad:
+        raise AssertionError(f'metrics missing or not finite: {bad}')
+    print(f'  whole run (detector set-up, loading, inference, evaluation): '
+          f'{NUS_N} images in {dt:.2f} s, {NUS_N / dt:.1f} images/s on {smi}')
+    print('  metrics (random weights) ' + ', '.join(
+        f'{k} {metrics[k]:.4f}' for k in sorted(want)))
+
+
+def _timed_steps(run):
+    """Run `run()` with `apis.train.train_step` wrapped: (ms a step in
+    `train_step`, its kernel launches, ms from one step's start to the
+    next's: the step plus the wait for its batch)."""
+    from hrfuser_tpu_torch.apis import train as train_api
+    real = train_api.train_step
+    inside, launched, starts = [], [], []
+
+    def step(*args, **kw):
+        before = sum(_launches().values())
+        torch.cuda.synchronize()
+        starts.append(time.perf_counter())
+        out = real(*args, **kw)
+        torch.cuda.synchronize()
+        inside.append((time.perf_counter() - starts[-1]) * 1e3)
+        launched.append(sum(_launches().values()) - before)
+        return out
+
+    train_api.train_step = step
+    try:
+        run()
+    finally:
+        train_api.train_step = real
+    between = list(np.diff(starts) * 1e3)
+    return inside, launched, between
+
+
+def phase_dataset_train(state, smi):
+    print(f'== 9c. data slice: nuScenes training from the same files, '
+          f'{CONFIG}, float32, batch 3, flip and modality drop live')
+    from hrfuser_tpu_torch import get_experiment
+    from hrfuser_tpu_torch.tools import train as train_cli
+    exp = get_experiment(CONFIG)
+    root, wd = state['nus_root'], f'{state["nus_root"]}/work'
+    b = exp.schedule.samples_per_device
+    epoch = NUS_N // b
+    args = [CONFIG, '--data-root', root, '--work-dir', wd, '--log-interval',
+            '1', '--eval-interval-epochs', '1', '--ckpt-interval-epochs', '1']
+    _reset_counts()
+    inside, launched, between = _timed_steps(
+        lambda: train_cli.main(args + ['--max-iters', str(epoch)]))
+    counts = _launches()
+    print(f'  {len(inside)} steps (one epoch of len(loader) = {epoch}); '
+          f'kernel launches inside each step: {launched}')
+    if len(inside) != epoch or any(launched):
+        raise AssertionError('a train step launched an eval kernel')
+    with open(f'{wd}/train.log.json') as f:
+        log = [json.loads(line) for line in f]
+    losses = [r['loss'] for r in log if r['mode'] == 'train']
+    val = [r for r in log if r['mode'] == 'val']
+    if len(losses) != epoch or not np.isfinite(losses).all():
+        raise AssertionError(f'train losses {losses}')
+    if len(val) != 1 or not np.isfinite(val[0]['mAP']):
+        raise AssertionError(f'eval hook records {val}')
+    print('  losses ' + ' '.join(f'{v:.3f}' for v in losses)
+          + f'; eval hook at step {val[0]["iter"]}: mAP {val[0]["mAP"]:.4f}')
+    val_batches = -(-NUS_N // b)
+    _check_counts(_expected_launches(exp.model), val_batches,
+                  f'eval hook, {val_batches} float32 batches of {b}')
+    if not os.path.exists(f'{wd}/step_{epoch}.pth'):
+        raise AssertionError('no checkpoint at the end of the epoch')
+    steady = inside[1:]
+    print(f'  ms a step in train_step (steps 2-{epoch}): median '
+          f'{np.median(steady):.1f}; from one step to the next (the wait '
+          f'for the batch included): median {np.median(between[1:]):.1f}; '
+          f'phase 8a synthetic step: median '
+          f'{state["synthetic_step_ms"]:.1f}, on {smi}')
+    _, launched, _ = _timed_steps(lambda: train_cli.main(
+        args + ['--max-iters', str(epoch + 1), '--resume-from', wd]))
+    with open(f'{wd}/train.log.json') as f:
+        last = json.loads(f.readlines()[-1])
+    if launched != [0] or last['iter'] != epoch + 1 or not os.path.exists(
+            f'{wd}/step_{epoch + 1}.pth'):
+        raise AssertionError(f'resume: steps {launched}, last log {last}')
+    print(f'  --resume-from continued at step {epoch} to {epoch + 1}: '
+          f'loss {last["loss"]:.3f}')
+    shutil.rmtree(root)
+
+
+def _stf_folder(root, rng, data):
+    """`STF_N` STF samples: a 1024x1920 camera PNG; lidar `yzi` and radar
+    `yzv` (channel 0 empty) projections and a grey gated image on the
+    768x1280 grid of the first crop; per image one box of every class
+    inside the eval crop, taller than KITTI's easy gate (40 px), one more
+    random box and a `DontCare`; the infos as the four weather test
+    splits (two samples each) and the train split."""
+    ch, cw, oy, ox = data.eval_on_crop
+    infos = []
+    for i in range(STF_N):
+        cam = f'cam_stereo_left_lut/{i:05d}.png'
+        _write_png(f'{root}/{cam}', rng.integers(
+            0, 256, (*STF_RAW_HW, 3)).astype(np.uint8))
+        _write_png(f'{root}/gated_acc_wraped_grey/{cam}', rng.integers(
+            0, 256, STF_SENSOR_HW).astype(np.uint8))
+        proj = {}
+        for key, c in (('lidar_projections', 'yzi'),
+                       ('radar_projections', 'yzv')):
+            png = f'{c}/{i:05d}.png'
+            _write_png(f'{root}/{png}', _projection(rng, STF_SENSOR_HW, 3))
+            proj[key] = {c: dict(file_name=png, pixel_scale_factor=100.0,
+                                 shift=200.0, empty_channels=[])}
+        names = list(data.classes) + [data.classes[0], 'DontCare']
+        k = len(names)
+        xy = rng.uniform([ox + 20, oy + 20], [ox + cw - 200, oy + ch - 170],
+                         (k, 2))
+        boxes = np.concatenate([xy, xy + rng.uniform([40, 50], [150, 150],
+                                                     (k, 2))], 1)
+        infos.append({'image': {'image_path': cam,
+                                'image_shape': np.array(STF_RAW_HW)},
+                      'annos': {'name': np.array(names),
+                                'bbox': boxes.astype(np.float32),
+                                'truncated': np.zeros(k),
+                                'occluded': np.zeros(k)}, **proj})
+    per = STF_N // len(STF_TEST)
+    for j, split in enumerate(STF_TEST):
+        with open(f'{root}/{split}', 'wb') as f:
+            pickle.dump(infos[j * per:(j + 1) * per], f)
+    with open(f'{root}/dense_infos_train.pkl', 'wb') as f:
+        pickle.dump(infos, f)
+
+
+def phase_stf_dataset(smi):
+    print(f'== 9d. data slice: STF, {CONFIG_STF}, {STF_N} samples of '
+          f'{STF_RAW_HW[0]}x{STF_RAW_HW[1]}: eval on the crop, then two '
+          f'train steps through both crops')
+    from hrfuser_tpu_torch import get_experiment
+    from hrfuser_tpu_torch.tools import test as test_cli
+    from hrfuser_tpu_torch.tools import train as train_cli
+    exp = get_experiment(CONFIG_STF)
+    with tempfile.TemporaryDirectory() as root:
+        _stf_folder(root, np.random.default_rng(11), exp.data)
+        ckpt = _checkpoint(CONFIG_STF, f'{root}/ckpt')
+        _reset_counts()
+        t0 = time.perf_counter()
+        metrics = test_cli.main([CONFIG_STF, '--data-root', root,
+                                 '--checkpoint', ckpt, '--batch-size',
+                                 str(BATCH), '--dtype', 'bf16'])
+        dt = time.perf_counter() - t0
+        _check_counts(_expected_launches(exp.model), STF_N // BATCH,
+                      f'tools.test over the {len(STF_TEST)} STF test splits')
+        want = {f'{c}_2d_{d}' for c in exp.data.classes
+                for d in ('easy', 'moderate', 'hard')} | {'mAP_2d_moderate'}
+        if set(metrics) != want or not all(np.isfinite(v)
+                                           for v in metrics.values()):
+            raise AssertionError(f'KITTI metrics incomplete or not finite: '
+                                 f'{metrics}')
+        print(f'  {STF_N} images in {dt:.2f} s ({STF_N / dt:.1f} images/s, '
+              f'set-up and loading included) on {smi}; KITTI (random '
+              f'weights) ' + ', '.join(f'{k} {v:.4f}'
+                                       for k, v in sorted(metrics.items())))
+        inside, launched, _ = _timed_steps(lambda: train_cli.main([
+            CONFIG_STF, '--data-root', root, '--work-dir', f'{root}/work',
+            '--max-iters', '2', '--log-interval', '1']))
+        with open(f'{root}/work/train.log.json') as f:
+            losses = [json.loads(line)['loss'] for line in f]
+        if launched != [0, 0] or not np.isfinite(losses).all():
+            raise AssertionError(f'STF train: launches {launched}, losses '
+                                 f'{losses}')
+        print(f'  two train steps at batch '
+              f'{exp.schedule.samples_per_device}: losses '
+              + ' '.join(f'{v:.3f}' for v in losses)
+              + f', {", ".join(f"{t:.0f}" for t in inside)} ms, no kernel '
+              f'launch')
+
+
 def main():
     smi = phase_environment()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1535,8 +1899,12 @@ def main():
             'bf16, batch 8', record=False)),
         ('7b cpu', lambda: phase_cpu_check(CONFIG_CAM_T, '7b. HRFormer-T')),
         ('7c', lambda: phase_new_requests(smi)),
-        ('8a', lambda: phase_train(report, smi)),
+        ('8a', lambda: phase_train(report, smi, state)),
         ('8b', phase_train_parity),
+        ('9a', phase_decoders),
+        ('9b', lambda: phase_dataset_eval(state, smi)),
+        ('9c', lambda: phase_dataset_train(state, smi)),
+        ('9d', lambda: phase_stf_dataset(smi)),
     ]
     for name, run in phases:
         t1 = time.perf_counter()

@@ -23,7 +23,7 @@ from torch import nn
 from hrfuser_tpu_torch.configs import DataCfg, get_experiment
 from hrfuser_tpu_torch.data.device_pipeline import (make_device_preprocess,
                                                     resize_image, to_device)
-from hrfuser_tpu_torch.data.transforms import rescale_size
+from hrfuser_tpu_torch.data.pipelines.transforms import rescale_size
 from hrfuser_tpu_torch.models.detectors.cascade_rcnn import (CascadeRCNN,
                                                              predict)
 from hrfuser_tpu_torch.models.roi_heads.cascade_roi_head import Detections

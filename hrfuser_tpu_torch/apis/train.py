@@ -119,13 +119,25 @@ def create_train_state(model: nn.Module, optim: OptimCfg,
                       make_lr_schedule(optim, sched, steps_per_epoch))
 
 
+# what `forward_train` reads of a batch
+STEP_KEYS = ('img', 'mod_imgs', 'gt_boxes', 'gt_labels', 'gt_valid',
+             'img_shapes')
+
+
 def batch_to(batch: Dict, device) -> Dict:
-    """numpy arrays / tensors (and lists of them) -> tensors on `device`."""
+    """The arrays a train step reads (`STEP_KEYS`; numpy arrays or
+    tensors, `mod_imgs` a list of them) as tensors on `device`. The rest
+    of a loader batch (`metas`, `num_real`, `scale_factors`) stays on the
+    host, out of the result."""
     def move(x):
         return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x)
                                else x).to(device)
-    return {k: ([move(m) for m in v] if isinstance(v, (list, tuple))
-                else move(v)) for k, v in batch.items() if v is not None}
+    out = {}
+    for k in STEP_KEYS:
+        v = batch.get(k)
+        if v is not None:
+            out[k] = [move(m) for m in v] if k == 'mod_imgs' else move(v)
+    return out
 
 
 def _all_finite(grads: List[Tensor]) -> bool:

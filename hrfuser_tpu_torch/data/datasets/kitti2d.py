@@ -1,14 +1,15 @@
-"""SeeingThroughFog (STF) KITTI-2D dataset: the annotation half.
+"""SeeingThroughFog (STF) KITTI-2D dataset.
 
 Copy of `hrfuser_tpu/data/datasets/kitti2d.py:20-123` (the reference
-`Kitti2DDataset`, `mmdet/datasets/kitti2d_dataset.py:10-419`) without
-`sample`, file loading and the sampler's aspect-ratio `flag`, which come
-with the data slice (ROADMAP §1):
+`Kitti2DDataset`, `mmdet/datasets/kitti2d_dataset.py:10-419`):
 loads `dense_infos_*.pkl` (pickled lists of KITTI-style info dicts;
 several `ann_files`, the weather-split test set, are concatenated),
-maps class names, converts detections back to KITTI annos and gives the
-GT annos for evaluation with the `eval_on_crop` cropping (`:362-419`).
-`tests/test_torch_kitti.py` holds it equal to the JAX class.
+maps class names, gives the pipeline's per-sample dicts (`sample`: the
+camera, lidar, radar and gated files under `data_root`), converts
+detections back to KITTI annos and gives the GT annos for evaluation
+with the `eval_on_crop` cropping (`:362-419`).
+`tests/test_torch_kitti.py` and `tests/test_torch_data_datasets.py`
+hold it equal to the JAX class.
 """
 
 from __future__ import annotations
@@ -26,8 +27,10 @@ class Kitti2DDataset:
                  test_mode: bool = False):
         if isinstance(ann_files, str):
             ann_files = [ann_files]
+        self.data_root = data_root
         self.classes = list(classes)
         self.cat2label = {c: i for i, c in enumerate(self.classes)}
+        self.test_mode = test_mode
 
         self.data_infos: List[dict] = []
         for f in ann_files:
@@ -42,6 +45,11 @@ class Kitti2DDataset:
                 and not (len(info['annos']['name']) == 1
                          and info['annos']['name'][0] == 'ignore')]
 
+        self.flag = np.array(
+            [1 if info['image']['image_shape'][1]
+             / info['image']['image_shape'][0] > 1 else 0
+             for info in self.data_infos], np.uint8)
+
     def __len__(self) -> int:
         return len(self.data_infos)
 
@@ -54,6 +62,22 @@ class Kitti2DDataset:
             np.zeros((0, 4), np.float32)
         labels = np.array([self.cat2label[names[i]] for i in keep], np.int64)
         return dict(bboxes=boxes.astype(np.float32), labels=labels)
+
+    def sample(self, idx: int) -> dict:
+        info = self.data_infos[idx]
+        img_info = dict(filename=info['image']['image_path'])
+        results = dict(
+            img_info=img_info,
+            ann_info=self.get_ann_info(idx),
+            img_prefix=self.data_root,
+            lidar_prefix=self.data_root,
+            radar_prefix=self.data_root,
+            gated_prefix=self.data_root,
+            lidar_info=info.get('lidar_projections', {}),
+            radar_info=info.get('radar_projections', {}),
+            sample_idx=idx,
+        )
+        return results
 
     def detections_to_kitti(self, det_boxes, det_scores, det_labels,
                             det_valid) -> List[dict]:

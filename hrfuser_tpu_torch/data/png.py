@@ -10,7 +10,11 @@ raises `ValueError`.
 for these files: uint8 BGR [H, W, 3] (16-bit samples keep their high
 byte, grey is repeated into three channels). `unchanged=True` returns
 what `cv2.IMREAD_UNCHANGED` does, alpha dropped: the file's depth (uint8
-or uint16), [H, W] for grey, BGR [H, W, 3] otherwise.
+or uint16), [H, W] for grey, BGR [H, W, 3] otherwise. `grayscale=True`
+returns what `cv2.IMREAD_GRAYSCALE` does for a grey file: uint8 [H, W]
+(16-bit samples keep their high byte). A colour file raises there: cv2
+converts it to grey with libpng's fixed-point weights, which this
+decoder does not reproduce bit for bit.
 """
 
 from __future__ import annotations
@@ -94,7 +98,8 @@ def _unfilter_block(px, kinds, out, r0, r1, w):
     out[r0 + 1:r1 + 1] = buf[1:]
 
 
-def imdecode(data: bytes, unchanged: bool = False) -> np.ndarray:
+def imdecode(data: bytes, unchanged: bool = False,
+             grayscale: bool = False) -> np.ndarray:
     """Decode a PNG byte string (see the module docstring)."""
     if data[:2] == b'\xff\xd8':
         raise ValueError('JPEG payloads are not supported: send PNG (the '
@@ -117,6 +122,9 @@ def imdecode(data: bytes, unchanged: bool = False) -> np.ndarray:
                          f'only depths 8/16 and grey, RGB, RGBA decode')
     if interlace:
         raise ValueError('interlaced PNG is not supported')
+    if grayscale and color != 0:
+        raise ValueError('a colour PNG read as grey: only grey PNGs decode '
+                         'in grayscale mode')
     ch, nbytes = _CHANNELS[color], depth // 8
     bpp = ch * nbytes
     size = h * (1 + w * bpp)
@@ -136,5 +144,6 @@ def imdecode(data: bytes, unchanged: bool = False) -> np.ndarray:
         img = px.reshape(h, w, ch)
     img = img[..., :3]                                   # alpha dropped
     if ch == 1:
-        return img[..., 0].copy() if unchanged else np.repeat(img, 3, -1)
+        return (img[..., 0].copy() if unchanged or grayscale
+                else np.repeat(img, 3, -1))
     return np.ascontiguousarray(img[..., ::-1])          # RGB -> BGR

@@ -7,6 +7,10 @@ dropped and counted, missing and mis-shaped keys raise, and a file the
 safe loader refuses raises with its reason.
 """
 
+# before any test runs: `tests/test_stf_io.py` puts `tools/` (which holds
+# a `profile.py`) first on `sys.path`, and torch imports `cProfile`, and
+# through it `profile`, when it builds its first optimizer
+import cProfile  # noqa: F401
 import json
 import logging
 import os

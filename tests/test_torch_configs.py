@@ -25,7 +25,7 @@ NAMES = ['cascade_rcnn_hrfuser_t_1x_nus_r640_l_r_fusion',
          'cascade_rcnn_hrformer_b_1x_nus_r640',
          'cascade_rcnn_hrfuser_t_1x_stf_r1248_4mod',
          'cascade_rcnn_hrformer_t_1x_stf_c1248']
-# the JAX configs the port leaves out (ROADMAP §1 item 5; the multichip
+# the JAX configs the port leaves out (ROADMAP §1 item 6; the multichip
 # dry-run model), each with its `_bn` alias
 NOT_PORTED = {'cascade_rcnn_hrfuser_hrnet_w18_1x_nus_r640_l_r_fusion',
               'tiny_hrnet_fusion_test', 'micro_fusion_dryrun'}

@@ -1,5 +1,6 @@
 """Hand-written CUDA kernels vs their plain PyTorch twins, on the card;
-the serving path (preprocessing, `inference_detector`, checkpoints) on it.
+the serving path (preprocessing, `inference_detector`, checkpoints), the
+image decoders and a loader batch on it.
 
 Marked `cuda`: each test skips where `torch.cuda.is_available()` is
 False (this file imports no JAX, so it also runs where JAX is absent):
@@ -13,6 +14,8 @@ which rounds the operands to bf16 where the TPU kernels do (LN output,
 q/k/v, probabilities, head outputs, the GELU'd hidden maps) and
 accumulates in float32; the twins stay float32.
 """
+
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -516,3 +519,84 @@ def test_train_step_on_the_card_matches_cpu(dev):
         assert rel < 1e-1, (n, rel)
     for n in pc:                 # and float32's rounding of the param
         assert ((pg[n] - pc[n]).abs() - 1e-6 * pc[n].abs()).max() <= 2 * lr, n
+
+
+DATA = Path(__file__).resolve().parent / 'data'
+
+
+def _data_files():
+    """`tests/oracles/data_files.py`, loaded by path: `tests.oracles`
+    does not import on the card's machine under `--noconftest`."""
+    import importlib.util
+    path = Path(__file__).resolve().parent / 'oracles' / 'data_files.py'
+    spec = importlib.util.spec_from_file_location('data_files', path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_decoders_read_the_committed_fixtures(dev):
+    """On the card's machine: PNG through `data/png.py` bit-equal to the
+    committed `cv2` decodes; JPEG through the libjpeg decoder within a
+    mean |diff| of 0.5 of `cv2`'s, or, where libjpeg's headers are
+    missing (the card's machine has none), refused with the compiler's
+    message, never read another way."""
+    from hrfuser_tpu_torch.data import native
+    from hrfuser_tpu_torch.data.pipelines.loading import imread
+    want = np.load(DATA / 'decoded_cv2.npz')
+    for name, flag, key in (('camera.png', 'color', 'camera_png'),
+                            ('grey.png', 'grayscale', 'grey_png'),
+                            ('sensor16.png', 'unchanged', 'sensor16_png')):
+        got = imread(str(DATA / name), flag)
+        assert got.dtype == want[key].dtype
+        np.testing.assert_array_equal(got, want[key])
+    try:
+        native.lib()
+    except RuntimeError as e:
+        assert 'libjpeg' in str(e)
+        with pytest.raises(RuntimeError, match='libjpeg'):
+            imread(str(DATA / 'camera.jpg'))
+    else:
+        jpg = imread(str(DATA / 'camera.jpg')).astype(int)
+        assert np.abs(jpg - want['camera_jpg']).mean() < 0.5
+
+
+def test_a_loader_batch_through_the_bf16_detector(dev, tmp_path):
+    """A `DetDataLoader` test batch (PNG camera frames, uint16
+    projections) through `tiny_fusion_test` in bf16 on the card: every
+    kernel launches once per block (per stage for RoIAlign), the boxes
+    are finite and inside the 100x176 frame."""
+    import dataclasses
+
+    from hrfuser_tpu_torch.apis.test import run_inference
+    from hrfuser_tpu_torch.data.datasets.coco import CocoFusionDataset
+    from hrfuser_tpu_torch.data.loader import DetDataLoader
+    write_nuscenes = _data_files().write_nuscenes
+    det = init_detector('tiny_fusion_test', dev, seed=0,
+                        dtype=torch.bfloat16)
+    det.data = dataclasses.replace(det.data, img_scale=(96, 54),
+                                   classes=det.data.classes[:4])
+    write_nuscenes(tmp_path, 2, (100, 176), (54, 95), det.data.classes)
+    loader = DetDataLoader(CocoFusionDataset(
+        'ann.json', det.data.classes, data_root=str(tmp_path),
+        test_mode=True), det.data, 2, train=False)
+    bb = det.cfg.backbone
+    blocks = sum(s.num_modules * sum(s.num_blocks)
+                 for s in (bb.stage2, bb.stage3, bb.stage4))
+    blocks += bb.num_fused_modalities * sum(
+        s.num_modules * s.num_blocks[0] for s in (bb.stage_b, bb.stage_c))
+    fusions = sum(f.num_branches
+                  for f in (bb.fusion_a, bb.fusion_b, bb.fusion_c))
+    counters = _launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    results = run_inference(det, loader, progress=False)
+    assert {k: fn.launches for k, fn in counters.items()} == {
+        'window_attention_self': blocks,
+        'window_attention_cross': fusions * bb.num_fused_modalities,
+        'cross_ffn': blocks + fusions, 'roi_align': det.cfg.roi.num_stages}
+    assert len(results) == 2
+    for r in results:
+        assert np.isfinite(r['boxes']).all() and (r['boxes'] >= 0).all()
+        assert (r['boxes'][:, [0, 2]] <= 176 + 1e-3).all()
+        assert (r['boxes'][:, [1, 3]] <= 100 + 1e-3).all()

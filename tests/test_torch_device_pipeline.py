@@ -26,7 +26,8 @@ from hrfuser_tpu.data.pipelines.transforms import Normalize as JaxNormalize
 from hrfuser_tpu.data.pipelines.transforms import Pad as JaxPad
 from hrfuser_tpu.data.pipelines.transforms import Resize as JaxResize
 from hrfuser_tpu_torch.data import device_pipeline as dp
-from hrfuser_tpu_torch.data import norms, projection, transforms
+from hrfuser_tpu_torch.data import norms, projection
+from hrfuser_tpu_torch.data.pipelines import transforms
 
 RESIZE_ATOL = 2e-3
 NORM_ATOL = 1e-4

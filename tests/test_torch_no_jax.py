@@ -3,8 +3,9 @@ or `cv2` (the card's machine has neither JAX nor `cv2`).
 
 Checked in a fresh interpreter (this test process has JAX loaded by
 `tests/conftest.py`) that runs the tiny fusion and camera-only slices,
-`inference_detector`, `run_inference` and a training step end to end on
-the CPU and imports the KITTI evaluation, and statically over every module
+`inference_detector`, `run_inference`, a training step and a
+`DetDataLoader` over PNG files end to end on the CPU and imports the
+KITTI evaluation, and statically over every module
 of the package and the scripts that drive it on the card. Its entry
 point runs on the card unless asked for the CPU.
 """
@@ -63,6 +64,20 @@ state = create_train_state(CascadeRCNN(exp.model), exp.optim, exp.schedule,
 m = train_step(state, next(synthetic_batches(exp, 2, (64, 96))),
                torch.Generator().manual_seed(0))
 assert bool(m['loss'].isfinite()) and state.applied == 1
+import tempfile
+from hrfuser_tpu_torch.data.datasets.coco import CocoFusionDataset
+from hrfuser_tpu_torch.data.loader import DetDataLoader
+from tests.oracles.data_files import write_nuscenes
+with tempfile.TemporaryDirectory() as root:
+    data = dataclasses.replace(exp.data, img_scale=(96, 54),
+                               classes=exp.data.classes[:4])
+    write_nuscenes(root, 3, (100, 176), (54, 95), data.classes)
+    ds = CocoFusionDataset('ann.json', data.classes, data_root=root)
+    loader = DetDataLoader(ds, data, 2, train=True)
+    batch = next(iter(loader))
+    assert batch['img'].shape == (2, 64, 96, 3), batch['img'].shape
+    m = train_step(state, batch, torch.Generator().manual_seed(0))
+    assert bool(m['loss'].isfinite()) and state.applied == 2
 bad = sorted(m for m in sys.modules if m.split('.')[0] in {forbidden})
 assert not bad, bad
 print('ok')

@@ -2,7 +2,7 @@
 
 `python -m hrfuser_tpu_torch.tools.test --synthetic` (through `main`)
 writes the JAX CLI's JSON keys, on a fusion and a camera-only config, and
-refuses dataset mode with the slice it waits for; `tools.serve` on a
+its dataset mode names the split it reads; `tools.serve` on a
 thread answers /healthz, /predict and /predict_multi (uint16 sensor PNGs,
 dequantized on the device; none for a camera-only config; a grey PNG as
 one channel) with what `inference_detector` gives, 404 for unknown paths
@@ -51,9 +51,13 @@ def test_synthetic_cli_on_a_camera_only_config(tmp_path, capsys):
     assert 'img/s' in capsys.readouterr().out
 
 
-def test_dataset_mode_names_the_data_slice():
-    with pytest.raises(SystemExit, match='data slice'):
-        test_cli.main([NAME, '--device', 'cpu'])
+def test_dataset_mode_names_the_data_slice(tmp_path):
+    """Dataset mode reads the split the converters write under
+    `--data-root`; a root without it names the file it wants."""
+    with pytest.raises(FileNotFoundError,
+                       match='nuscenes_infos_val_mono3d.coco.json'):
+        test_cli.main([NAME, '--device', 'cpu', '--data-root',
+                       str(tmp_path)])
 
 
 @pytest.fixture(scope='module')

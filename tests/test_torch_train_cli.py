@@ -3,10 +3,14 @@
 A 4-step synthetic run writes its `train.log.json` lines (the JAX CLI's
 keys) and a checkpoint with the optimizer and the step counters;
 `--resume-from` continues at step 4 with its weights, optimizer state
-and counters; dataset mode refuses with the slice it waits for; the batches
+and counters; dataset mode names the split it reads; the batches
 are the JAX CLI's `synthetic_batches`, value for value.
 """
 
+# before any test runs: `tests/test_stf_io.py` puts `tools/` (which holds
+# a `profile.py`) first on `sys.path`, and torch imports `cProfile`, and
+# through it `profile`, when it builds its first optimizer
+import cProfile  # noqa: F401
 import json
 
 import numpy as np
@@ -60,9 +64,13 @@ def test_train_cli_logs_checkpoints_and_resumes(tmp_path, capsys):
     assert not torch.equal(resumed['state_dict'][w], ckpt['state_dict'][w])
 
 
-def test_dataset_mode_names_the_data_slice():
-    with pytest.raises(SystemExit, match='item 7'):
-        train_cli.main([NAME, '--device', 'cpu'])
+def test_dataset_mode_names_the_data_slice(tmp_path):
+    """Dataset mode reads the train split under `--data-root`; a root
+    without it names the file it wants."""
+    with pytest.raises(FileNotFoundError,
+                       match='nuscenes_infos_train_mono3d.coco.json'):
+        train_cli.main([NAME, '--device', 'cpu', '--data-root',
+                        str(tmp_path), '--work-dir', str(tmp_path / 'w')])
 
 
 def test_synthetic_batches_equal_the_jax_cli():

@@ -11,6 +11,10 @@ the JAX package's `apis/train.py` and optax.
   and the 26th NaN step in a row applied (NaN params on both sides).
 """
 
+# before any test runs: `tests/test_stf_io.py` puts `tools/` (which holds
+# a `profile.py`) first on `sys.path`, and torch imports `cProfile`, and
+# through it `profile`, when it builds its first optimizer
+import cProfile  # noqa: F401
 import jax
 import jax.numpy as jnp
 import numpy as np

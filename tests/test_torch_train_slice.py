@@ -23,6 +23,10 @@ and the heads run here; those of the whole trunk and the one-step update
 (the un-jitted JAX backward through the trunk, ~3 min) are `slow`.
 """
 
+# before any test runs: `tests/test_stf_io.py` puts `tools/` (which holds
+# a `profile.py`) first on `sys.path`, and torch imports `cProfile`, and
+# through it `profile`, when it builds its first optimizer
+import cProfile  # noqa: F401
 import dataclasses
 
 import jax
