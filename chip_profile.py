@@ -2,7 +2,7 @@
 checkout of the repository, in turns (other, this tree, this tree, other).
 
     python3 chip_profile.py [--parent DIR [DIR ...]] [--unchecked]
-                            [--configs T,B] [--out FILE]
+                            [--configs T,B,H] [--out FILE]
 
 Each DIR holds another checkout, e.g. the parent commit unpacked from
 `git archive` into `build/parent`, or a copy of this tree with one change
@@ -48,7 +48,8 @@ import torch
 
 HERE = Path(__file__).resolve().parent
 CONFIGS = {'T': 'cascade_rcnn_hrfuser_t_1x_nus_r640_l_r_fusion',
-           'B': 'cascade_rcnn_hrfuser_b_1x_nus_r640_l_r_fusion'}
+           'B': 'cascade_rcnn_hrfuser_b_1x_nus_r640_l_r_fusion',
+           'H': 'cascade_rcnn_hrfuser_hrnet_w18_1x_nus_r640_l_r_fusion'}
 STRIDES = (4, 8, 16, 32)
 
 
@@ -183,7 +184,7 @@ def main():
     ap.add_argument('--unchecked', action='store_true',
                     help='do not hold the other trees\' kernel C to its twin')
     ap.add_argument('--configs', default='T,B',
-                    help='detectors to profile: T, B (comma separated)')
+                    help='detectors to profile: T, B, H (comma separated)')
     ap.add_argument('--out', type=Path,
                     default=HERE / 'chiprun_out' / 'chip_profile.json')
     ap.add_argument('--worker-root', type=Path, help=argparse.SUPPRESS)

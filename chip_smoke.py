@@ -114,6 +114,27 @@ Phases, each printed on its own lines; any failure exits non-zero:
    `cascade_rcnn_hrfuser_t_1x_stf_r1248_4mod` (bf16, batch 8) with the
    ten KITTI metrics finite and launch counts exact, then two train
    steps through both crops.
+10. the rest of the model family: 10a the HRNet-based HRFuser
+   (`cascade_rcnn_hrfuser_hrnet_w18_1x_nus_r640_l_r_fusion`: BASIC conv
+   trunk and streams, MWCA fusion banks, widths 18-144) as phase 4, bf16
+   batches of 8 at 384x640 with exact launch counts (kernel A self 0,
+   cross 18, B 9, C 3 a forward: only the fusion banks hold transformer
+   blocks), latency and device busy / idle share; 10b its card vs CPU
+   neck features at batch 1, float32: the random-weight conv trunk grows
+   its maps to an RMS of about 6e3, so the card's are held to the CPU's
+   float64 maps within 3x the CPU float32's worst distance from them
+   over the pyramid (+ 5e-3); 10c its `train_step` at batch 3,
+   float32, 10 steps: finite losses, no kernel launch in a step, ms a
+   step, peak memory, then the weights serve a bf16 batch of 8 with exact
+   counts; 10d flip TTA on HRFuser-T r640 (`predict_tta_flip`,
+   `predict_aug_test_flip`), bf16 batches of 8 with exact counts (twice
+   one forward's: two `predict`s, or two forwards and one cascade decode
+   per view) and boxes inside the frame, then batch 1 float32 card vs CPU
+   at 128x192, the CPU run given the card's RPN proposals (detections
+   matched in any order); 10e a stage-D model at
+   HRFuser-T widths built by `backbone_cfg_from_extra` (`LidarStageD` =
+   stage C's dict, `ModFusionD` = fusion C's): exact counts of one
+   `predict`, card vs CPU neck features at batch 1, float32.
 
 The last line is `{"ok": true, "device": {...}}`; the line before it
 lists each kernel's launches, error, times and bound as JSON.
@@ -148,6 +169,8 @@ BATCH, H, W = 8, 384, 640
 CONFIG_STF = 'cascade_rcnn_hrfuser_t_1x_stf_r1248_4mod'
 CONFIG_CAM_T = 'cascade_rcnn_hrformer_t_1x_nus_r640'
 CONFIG_CAM_B = 'cascade_rcnn_hrformer_b_1x_nus_r640'
+CONFIG_HRNET = 'cascade_rcnn_hrfuser_hrnet_w18_1x_nus_r640_l_r_fusion'
+TTA_CPU_HW = (128, 192)              # flip TTA, card vs CPU at batch 1
 STF_HW = (384, 1248)                 # the STF grid; stride 32 is 12x39
 STF_CPU_HW = (192, 608)              # reduced, stride 32 still odd: 6x19
 STF_RAW_HW = (1024, 1920)            # STF's camera frame
@@ -761,21 +784,31 @@ def _inputs(cfg, batch, rng, hw=(H, W)):
 
 
 def _expected_launches(cfg):
+    """Each kernel's launches in one forward of `cfg`: A self and B once
+    per HRFormer block of a stream (camera stages 2-4; each modality's
+    stages B, C and D), counting HRFORMER stages only (a BASIC stage is
+    cuDNN convolutions); A cross once per modality of each fusion block
+    and B once per fusion block (banks A-D); C once per cascade stage."""
     bb = cfg.backbone
-    hr_blocks = sum(s.num_modules * sum(s.num_blocks)
-                    for s in (bb.stage2, bb.stage3, bb.stage4))
-    fusion_blocks = 0
-    if bb.num_fused_modalities:                  # camera-only: no streams
-        hr_blocks += bb.num_fused_modalities * sum(
-            s.num_modules * s.num_blocks[0] for s in (bb.stage_b,
-                                                      bb.stage_c))
-        fusion_blocks = sum(f.num_branches
-                            for f in (bb.fusion_a, bb.fusion_b, bb.fusion_c))
-    print(f'  per forward: {hr_blocks} HRFormer blocks, {fusion_blocks} '
-          f'fusion blocks')
+    nm = bb.num_fused_modalities
+
+    def blocks(stage):
+        if stage is None or stage.block != 'HRFORMER':
+            return 0
+        return stage.num_modules * sum(stage.num_blocks)
+
+    camera = [blocks(s) for s in (bb.stage2, bb.stage3, bb.stage4)]
+    streams = [blocks(s) for s in (bb.stage_b, bb.stage_c, bb.stage_d)]
+    banks = [f.num_branches for f in (bb.fusion_a, bb.fusion_b, bb.fusion_c,
+                                      bb.fusion_d) if f is not None]
+    hr_blocks = sum(camera) + nm * sum(streams)
+    fusion_blocks = sum(banks) if nm else 0
+    print(f'  per forward: {hr_blocks} HRFormer blocks (camera stages 2-4 '
+          f'{camera} + {nm} modalities x stages B-D {streams}), '
+          f'{fusion_blocks} fusion blocks (banks {banks}) x {nm} '
+          f'modalities, {cfg.roi.num_stages} cascade stages')
     return {'window_attention_self': hr_blocks,
-            'window_attention_cross': fusion_blocks
-            * bb.num_fused_modalities,
+            'window_attention_cross': fusion_blocks * nm,
             'cross_ffn': hr_blocks + fusion_blocks,
             'roi_align': cfg.roi.num_stages}
 
@@ -873,6 +906,49 @@ def phase_cpu_check(config, title, hw=(H, W)):
         print(f'  neck level {lvl} {tuple(b.shape)}: max_abs_err {err:.3e}')
         if not torch.allclose(a, b, atol=5e-3, rtol=1e-3):
             raise AssertionError(f'neck level {lvl}: GPU and CPU disagree')
+
+
+def phase_cpu_spread_check(config, title, hw=(H, W)):
+    """Card vs CPU where the features' scale sets float32's error: with
+    random weights and BN at its initial statistics a conv trunk's maps
+    grow to thousands (HRNet-W18: RMS about 5e3 at the neck), and the
+    CPU's own float32 forward then lies about 1e-5 of that from its
+    float64 one, above phase 5's 5e-3. So each of the card's float32
+    neck maps is held to the CPU's float64 one within three times the
+    CPU float32's worst distance from float64 over the pyramid (every
+    level comes from the same trunk), plus phase 5's 5e-3."""
+    print(f'== {title}: batch 1 float32 at {hw[0]}x{hw[1]}, GPU kernels '
+          f'vs CPU plain twins in float32 and float64')
+    import copy
+    from hrfuser_tpu_torch import init_detector
+    gpu = init_detector(config, 'cuda', seed=0)
+    cpu = init_detector(config, 'cpu', seed=0)
+    img, mods = _inputs(gpu.cfg, 1, np.random.default_rng(1), hw)
+    img, mods = torch.from_numpy(img), [torch.from_numpy(m) for m in mods]
+    with torch.no_grad():
+        fg = gpu.model.forward_features(img.cuda(),
+                                        [m.cuda() for m in mods])[0]
+        t0 = time.perf_counter()
+        fc = cpu.model.forward_features(img, mods)[0]
+        f64 = copy.deepcopy(cpu.model).double().forward_features(
+            img.double(), [m.double() for m in mods])[0]
+        print(f'  CPU forwards {time.perf_counter() - t0:.1f} s')
+    own = max((c.double() - d).abs().max().item()
+              for c, d in zip(fc, f64, strict=True))
+    bar = 3 * own + 5e-3
+    print(f'  CPU float32 vs float64, worst over the pyramid {own:.3e}: '
+          f'bar {bar:.3e}')
+    for lvl, (a, c, d) in enumerate(zip(fg, fc, f64, strict=True)):
+        a = a.cpu().double()
+        card = (a - d).abs().max().item()
+        print(f'  neck level {lvl} {tuple(c.shape)}: RMS '
+              f'{d.pow(2).mean().sqrt().item():.4g}; card vs CPU float32 '
+              f'{(a - c.double()).abs().max().item():.3e}; vs float64: '
+              f'card {card:.3e}, CPU float32 '
+              f'{(c.double() - d).abs().max().item():.3e}')
+        if card > bar:
+            raise AssertionError(f'neck level {lvl}: the card is further '
+                                 f'from float64 than the bar')
 
 
 def _request(rng):
@@ -1862,6 +1938,255 @@ def phase_stf_dataset(smi):
               f'launch')
 
 
+def phase_hrnet_train(smi, steps=10):
+    print(f'== 10c. training: {CONFIG_HRNET}, float32, batch 3 at {H}x{W}, '
+          f'{steps} steps, reference caps, fusion drop path live')
+    from hrfuser_tpu_torch.apis.inference import Detector
+    from hrfuser_tpu_torch.apis.train import train_step
+    from hrfuser_tpu_torch.tools.train import synthetic_batches
+    state, exp = _train_setup(CONFIG_HRNET, 'cuda', warmup=False)
+    batch = next(synthetic_batches(exp, exp.schedule.samples_per_device,
+                                   pool=1))
+    gen = torch.Generator('cuda').manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    losses, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        m = train_step(state, batch, gen)
+        losses.append(float(m['loss']))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    counts = {k: fn.launches for k, fn in _counters().items()}
+    print(f'  kernel launches over {steps} train steps: {counts}')
+    if any(counts.values()):
+        raise AssertionError('an HRNet train step launched an eval kernel')
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f'non-finite loss: {losses}')
+    med = float(np.median(times[2:]))
+    b = exp.schedule.samples_per_device
+    print('  losses: ' + ' '.join(f'{v:.3f}' for v in losses))
+    print(f'  ms per step (steps 3-{steps}): median {med:.1f}, min '
+          f'{min(times[2:]):.1f}, max {max(times[2:]):.1f}; '
+          f'{b / med * 1e3:.2f} images/s; peak memory '
+          f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {smi}')
+    busy, wall = _busy_ms(lambda: train_step(state, batch, gen), calls=2)
+    print(f'  under torch.profiler: {wall:.1f} ms a step, device busy '
+          + ('not measured' if busy is None else
+             f'{busy:.1f} ms, idle {1 - busy / wall:.1%}'))
+    det = Detector(state.model.eval(), exp.data, torch.device('cuda'),
+                   torch.bfloat16)
+    img, mods = _inputs(exp.model, BATCH, np.random.default_rng(0))
+    _reset_counts()
+    out = det(img, mods)
+    torch.cuda.synchronize()
+    _check_counts(_expected_launches(exp.model), 1,
+                  'trained weights, eval bf16 batch of 8')
+    if not (out.boxes.isfinite().all() and out.scores.isfinite().all()):
+        raise AssertionError('non-finite detections from trained weights')
+    del state, det
+    torch.cuda.empty_cache()
+
+
+def _tta_launches(cfg, fn_name):
+    """Launches of one flip-TTA call: `predict_tta_flip` runs `predict`
+    twice; `predict_aug_test_flip` runs two forwards (A and B) and
+    decodes the merged proposals once per view (C: 2 x the stages)."""
+    one = _expected_launches(cfg)
+    want = {k: 2 * n for k, n in one.items()}
+    if fn_name == 'predict_aug_test_flip':
+        want['roi_align'] = 2 * cfg.roi.num_stages
+    return want
+
+
+def _same_detections(got, want, cfg, label):
+    """Card vs CPU detections of image 0, in any order: each valid one
+    has a partner of its label within 1e-2 px (1e-3 relative) and score
+    5e-3 on the other device. A detection within 5e-3 of a cut (the
+    score threshold, or the last kept score of a full list) may be
+    missing on the other side: float32 differences move it across."""
+    tol = 5e-3
+    sides = []
+    for d in (got, want):
+        v = d.valid[0].cpu().numpy()
+        sides.append((d.boxes[0].float().cpu().numpy()[v],
+                      d.scores[0].float().cpu().numpy()[v],
+                      d.labels[0].cpu().numpy()[v]))
+    edge = cfg.roi.score_thr
+    for _, sc, _ in sides:
+        if len(sc) == cfg.roi.max_per_img:
+            edge = max(edge, float(sc.min()))
+    worst_box = worst_score = 0.0
+    at_edge = 0
+    for (b1, s1, l1), (b2, s2, l2) in (sides, sides[::-1]):
+        for box, sc, lb in zip(b1, s1, l1):
+            cand = ((l2 == lb) & (np.abs(s2 - sc) <= tol)
+                    & (np.abs(b2 - box) <= 1e-2 + 1e-3 * np.abs(box)).all(1))
+            if cand.any():
+                i = np.flatnonzero(cand)[np.argmin(
+                    np.abs(b2[cand] - box).max(1))]
+                worst_box = max(worst_box, float(np.abs(b2[i] - box).max()))
+                worst_score = max(worst_score, float(abs(s2[i] - sc)))
+            elif sc < edge + tol:
+                at_edge += 1
+            else:
+                same = l2 == lb
+                near = (np.abs(b2[same] - box).max(1).min() if same.any()
+                        else None)
+                raise AssertionError(
+                    f'{label}: a detection (label {lb}, score {sc:.4f}, box '
+                    f'{np.round(box, 2).tolist()}) has no partner on the '
+                    f'other device ({same.sum()} of its label there, the '
+                    f'nearest {near} px off; cut at {edge:.4f})')
+    print(f'  {label}: card {len(sides[0][1])} / CPU {len(sides[1][1])} '
+          f'detections matched, max box err {worst_box:.3e} px, max score '
+          f'err {worst_score:.3e}, {at_edge} unmatched within {tol:g} of '
+          f'a cut')
+
+
+class _SharedProposals:
+    """Inside `with`, the RPN proposals of the TTA functions' first run
+    (`record`) are handed, on the other device, to their second run: a
+    random-weight model's objectness scores crowd so that float32's
+    differences move proposals across the top-1000 cut, and the cascade
+    rescores the tail (as the slice tests, the comparison holds the rest
+    of the path on identical proposals; phase 5 holds the maps)."""
+
+    def __init__(self):
+        from hrfuser_tpu_torch.models.detectors import cascade_rcnn, tta
+        self.modules, self.real = (cascade_rcnn, tta), tta.rpn_proposals
+        self.saved, self.record = [], True
+
+    def __call__(self, cfg, feats, cls_scores, bbox_preds, img_shapes):
+        if self.record:
+            out = self.real(cfg, feats, cls_scores, bbox_preds, img_shapes)
+            self.saved.append(out)
+            return out
+        return type(self.saved[0])(*(t.to(img_shapes.device)
+                                     for t in self.saved.pop(0)))
+
+    def __enter__(self):
+        for m in self.modules:
+            m.rpn_proposals = self
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.modules:
+            m.rpn_proposals = self.real
+
+
+def phase_tta(smi):
+    print(f'== 10d. flip TTA on HRFuser-T r640: bf16 batches of {BATCH}, '
+          f'then batch 1 float32 card vs CPU at {TTA_CPU_HW[0]}x'
+          f'{TTA_CPU_HW[1]}')
+    from hrfuser_tpu_torch import init_detector
+    from hrfuser_tpu_torch.models import (predict_aug_test_flip,
+                                          predict_tta_flip)
+    fns = (predict_tta_flip, predict_aug_test_flip)
+    det = init_detector(CONFIG, 'cuda', seed=0, dtype=torch.bfloat16)
+    cfg = det.cfg
+    img, mods = _inputs(cfg, BATCH, np.random.default_rng(0))
+    x = torch.from_numpy(img).cuda().bfloat16()
+    ms = [torch.from_numpy(m).cuda().bfloat16() for m in mods]
+    for fn in fns:
+        with torch.no_grad():
+            fn(det.model, x, ms)                           # warm-up
+            torch.cuda.synchronize()
+            _reset_counts()
+            calls, times = 3, []
+            for _ in range(calls):
+                t0 = time.perf_counter()
+                out = fn(det.model, x, ms)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            _check_counts(_tta_launches(cfg, fn.__name__), calls,
+                          f'{fn.__name__}, {calls} batches')
+            busy, wall = _busy_ms(lambda: fn(det.model, x, ms))
+        m = cfg.roi.max_per_img
+        if tuple(out.boxes.shape) != (BATCH, m, 4):
+            raise AssertionError(f'{fn.__name__}: boxes {out.boxes.shape}')
+        for i in range(BATCH):
+            v = out.valid[i]
+            _check_frame(out.boxes[i][v].float().cpu().numpy(),
+                         fn.__name__, (H, W))
+        print(f'  {fn.__name__}: {int(out.valid.sum())} valid of '
+              f'{BATCH}x{m}, boxes inside {W}x{H}; latency per batch (ms) '
+              f'{", ".join(f"{t:.1f}" for t in times)}, median '
+              f'{sorted(times)[1]:.1f} on {smi}')
+        print(f'    under torch.profiler: {wall:.2f} ms a batch, device '
+              'busy ' + ('not measured' if busy is None else
+                         f'{busy:.2f} ms, idle {1 - busy / wall:.1%}'))
+    del det
+    gpu = init_detector(CONFIG, 'cuda', seed=0)
+    cpu = init_detector(CONFIG, 'cpu', seed=0)
+    img, mods = _inputs(cfg, 1, np.random.default_rng(1), TTA_CPU_HW)
+    img, mods = torch.from_numpy(img), [torch.from_numpy(m) for m in mods]
+    for fn in fns:
+        with torch.no_grad(), _SharedProposals() as shared:
+            got = fn(gpu.model, img.cuda(), [m.cuda() for m in mods])
+            shared.record = False
+            want = fn(cpu.model, img, mods)
+        _same_detections(got, want, cfg, f'{fn.__name__} card vs CPU, '
+                         f'the card\'s RPN proposals')
+    del gpu, cpu
+    torch.cuda.empty_cache()
+
+
+def _stage_d_extra(bb):
+    """A reference-style `extra` dict of backbone `bb` with a modality
+    stage D (stage C's dict) and a fusion bank D (fusion C's)."""
+    import dataclasses
+    d = dataclasses.asdict
+    return dict(stage1=d(bb.stage1), stage2=d(bb.stage2),
+                stage3=d(bb.stage3), stage4=d(bb.stage4),
+                LidarStageA=d(bb.stage_a), LidarStageB=d(bb.stage_b),
+                LidarStageC=d(bb.stage_c), LidarStageD=d(bb.stage_c),
+                ModFusionA=d(bb.fusion_a), ModFusionB=d(bb.fusion_b),
+                ModFusionC=d(bb.fusion_c), ModFusionD=d(bb.fusion_c))
+
+
+def phase_stage_d():
+    print(f'== 10e. pre-neck fusion stage D at HRFuser-T widths '
+          f'(backbone_cfg_from_extra): batch 1 float32 at {H}x{W}, card vs '
+          f'CPU, launch counts')
+    import copy
+    import dataclasses
+    from hrfuser_tpu_torch.apis.inference import init_weights_
+    from hrfuser_tpu_torch.configs import get_config
+    from hrfuser_tpu_torch.models import (CascadeRCNN,
+                                          backbone_cfg_from_extra, predict)
+    ref = get_config(CONFIG)
+    bb = backbone_cfg_from_extra(_stage_d_extra(ref.backbone),
+                                 ref.backbone.num_fused_modalities,
+                                 ref.backbone.mod_in_channels)
+    cfg = dataclasses.replace(ref, backbone=bb)
+    model = CascadeRCNN(cfg)
+    init_weights_(model, torch.Generator().manual_seed(0))
+    cpu = copy.deepcopy(model.eval())
+    gpu = model.cuda()
+    img, mods = _inputs(cfg, 1, np.random.default_rng(2))
+    img, mods = torch.from_numpy(img), [torch.from_numpy(m) for m in mods]
+    want = _expected_launches(cfg)
+    with torch.no_grad():
+        _reset_counts()
+        out = predict(gpu, img.cuda(), [m.cuda() for m in mods])
+        torch.cuda.synchronize()
+        _check_counts(want, 1, 'stage-D model, one predict')
+        if not (out.boxes.isfinite().all() and out.scores.isfinite().all()):
+            raise AssertionError('stage D: non-finite detections')
+        fg = gpu.forward_features(img.cuda(), [m.cuda() for m in mods])[0]
+        fc = cpu.forward_features(img, mods)[0]
+    for lvl, (a, c) in enumerate(zip(fg, fc, strict=True)):
+        a = a.cpu()
+        err = (a - c).abs().max().item()
+        print(f'  neck level {lvl} {tuple(c.shape)}: max_abs_err {err:.3e}')
+        if not torch.allclose(a, c, atol=5e-3, rtol=1e-3):
+            raise AssertionError(f'stage D, neck level {lvl}: card and CPU '
+                                 f'disagree')
+    del gpu, cpu
+    torch.cuda.empty_cache()
+
+
 def main():
     smi = phase_environment()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1905,6 +2230,14 @@ def main():
         ('9b', lambda: phase_dataset_eval(state, smi)),
         ('9c', lambda: phase_dataset_train(state, smi)),
         ('9d', lambda: phase_stf_dataset(smi)),
+        ('10a', lambda: phase_slice(
+            report, smi, CONFIG_HRNET, '10a. HRNet-W18 HRFuser r640 lidar + '
+            'radar, bf16, batch 8', record=False)),
+        ('10b', lambda: phase_cpu_spread_check(CONFIG_HRNET,
+                                               '10b. HRNet-W18 HRFuser')),
+        ('10c', lambda: phase_hrnet_train(smi)),
+        ('10d', lambda: phase_tta(smi)),
+        ('10e', phase_stage_d),
     ]
     for name, run in phases:
         t1 = time.perf_counter()

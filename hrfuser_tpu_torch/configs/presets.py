@@ -1,15 +1,14 @@
 """Model and data presets for the configurations the port runs.
 
-Copies of `hrfuser_tpu/configs/presets.py:40-141,187-231,238-252,
-301-325,361-416`: `DetectorCfg` (see `hr_config.py`), `DataCfg`,
-`ScheduleCfg` and `OptimCfg`. `get_config(name)` gives the model half,
-`get_experiment(name)` all four. As in the JAX package, every name has
-a `_bn` alias (one device computes the same batch statistics with BN and
-SyncBN) and a `.py` path resolves to its file name.
-`tests/test_torch_configs.py` holds each equal, field for field, to
-`hrfuser_tpu.configs.get_config(name)`.
+Copies of `hrfuser_tpu/configs/presets.py:40-252,301-416`: `DetectorCfg`
+(see `hr_config.py`), `DataCfg`, `ScheduleCfg` and `OptimCfg`.
+`get_config(name)` gives the model half, `get_experiment(name)` all
+four. As in the JAX package, every name has a `_bn` alias (one device
+computes the same batch statistics with BN and SyncBN) and a `.py` path
+resolves to its file name. `tests/test_torch_configs.py` holds each
+equal, field for field, to `hrfuser_tpu.configs.get_config(name)`.
 
-Not carried: the HRNet-based configs and `micro_fusion_dryrun`
+Not carried: `micro_fusion_dryrun`, the multichip dry-run model
 (ROADMAP §1).
 """
 
@@ -158,13 +157,54 @@ def hrfuser_backbone(channels: Tuple[int, ...] = (18, 36, 72, 144),
         **_hrformer_stages(channels, heads, stage3_modules)))
 
 
+def hrfuser_hrnet_backbone(channels: Tuple[int, ...] = (18, 36, 72, 144),
+                           heads: Tuple[int, ...] = (1, 2, 4, 8),
+                           num_modalities: int = 2,
+                           mod_in_channels: Tuple[int, ...] = (3, 3),
+                           blocks_per_branch: int = 4,
+                           stage_modules: Tuple[int, ...] = (1, 4, 3),
+                           fusion_drop_path: float = 0.2,
+                           proj_drop_rate: float = 0.1) -> HRBackboneCfg:
+    """HRNet-based HRFuser (`HRFuserHRNetBased`,
+    `hrfuser_hrnet_based.py:24-314`): a BASIC-block conv trunk and
+    modality streams with nearest-upsample conv fuse, and the same MWCA
+    fusion banks as the HRFormer-based variant. Defaults are HRNet-W18's
+    stage table."""
+    def cam_stage(n_br, nm):
+        return StageCfg(num_modules=nm, num_branches=n_br, block='BASIC',
+                        num_blocks=(blocks_per_branch,) * n_br,
+                        num_channels=channels[:n_br])
+
+    def mod_stage(nm):
+        return StageCfg(num_modules=nm, num_branches=1, block='BASIC',
+                        num_blocks=(blocks_per_branch,),
+                        num_channels=(channels[0],))
+
+    def fusion(n):
+        return FusionCfg(num_branches=n, num_channels=channels[:n],
+                         num_heads=heads[:n], window_sizes=(7,) * n,
+                         mlp_ratios=(4,) * n, drop_path=fusion_drop_path,
+                         proj_drop_rate=proj_drop_rate)
+
+    return HRBackboneCfg(
+        stage1=StageCfg(1, 1, 'BOTTLENECK', (4,), (64,)),
+        stage2=cam_stage(2, stage_modules[0]),
+        stage3=cam_stage(3, stage_modules[1]),
+        stage4=cam_stage(4, stage_modules[2]),
+        stage_a=StageCfg(1, 1, 'BOTTLENECK', (4,), (64,)),
+        stage_b=mod_stage(1), stage_c=mod_stage(1),
+        fusion_a=fusion(2), fusion_b=fusion(3), fusion_c=fusion(4),
+        num_fused_modalities=num_modalities,
+        mod_in_channels=tuple(mod_in_channels))
+
+
 def without_drops(model: DetectorCfg) -> DetectorCfg:
     """`model` with drop path and `proj_drop` off (deterministic training,
     for parity checks)."""
     bb = model.backbone
     fusions = {f: dataclasses.replace(getattr(bb, f), drop_path=0.0,
                                       proj_drop_rate=0.0)
-               for f in ('fusion_a', 'fusion_b', 'fusion_c')
+               for f in ('fusion_a', 'fusion_b', 'fusion_c', 'fusion_d')
                if getattr(bb, f) is not None}
     return dataclasses.replace(model, backbone=apply_stochastic_depth(
         dataclasses.replace(bb, drop_path_rate=0.0, **fusions)))
@@ -204,6 +244,13 @@ _REGISTRY: Dict[str, Callable[[], Tuple[DetectorCfg, DataCfg, ScheduleCfg,
         ScheduleCfg(samples_per_device=2), OptimCfg()),
     'cascade_rcnn_hrfuser_t_1x_nus_r640_l_r_fusion': lambda: (
         detector(hrfuser_backbone(), num_classes=10), _nus_data(),
+        ScheduleCfg(samples_per_device=3), OptimCfg(lr=3e-4)),
+    'tiny_hrnet_fusion_test': lambda: (
+        _tiny(hrfuser_hrnet_backbone(**_TINY, blocks_per_branch=1,
+                                     stage_modules=(1, 1, 1))),
+        _nus_data(), ScheduleCfg(samples_per_device=2), OptimCfg()),
+    'cascade_rcnn_hrfuser_hrnet_w18_1x_nus_r640_l_r_fusion': lambda: (
+        detector(hrfuser_hrnet_backbone(), num_classes=10), _nus_data(),
         ScheduleCfg(samples_per_device=3), OptimCfg(lr=3e-4)),
     'cascade_rcnn_hrfuser_b_1x_nus_r640_l_r_fusion': lambda: (
         detector(hrfuser_backbone(**_B, lidar_c_modules=4), num_classes=10),

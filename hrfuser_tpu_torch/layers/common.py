@@ -226,6 +226,29 @@ def conv3x3(cin: int, cout: int, stride: int = 1, groups: int = 1
                      bias=False)
 
 
+class BasicBlock(nn.Module):
+    """ResNet BasicBlock (`hrfuser_tpu/layers/common.py:244-268`),
+    expansion 1: 3x3 -> BN -> ReLU -> 3x3 -> BN, residual (+ a 1x1
+    downsample on a width change), ReLU."""
+    expansion = 1
+
+    def __init__(self, cin: int, planes: int):
+        super().__init__()
+        self.conv1 = conv3x3(cin, planes)
+        self.bn1 = nn.BatchNorm2d(planes)
+        self.conv2 = conv3x3(planes, planes)
+        self.bn2 = nn.BatchNorm2d(planes)
+        self.downsample = (nn.Sequential(nn.Conv2d(cin, planes, 1, bias=False),
+                                         nn.BatchNorm2d(planes))
+                           if cin != planes else None)
+
+    def forward(self, x: Tensor) -> Tensor:
+        idt = x if self.downsample is None else run_seq(self.downsample, x)
+        out = conv_bn(x, self.conv1, self.bn1, relu=True)
+        out = conv_bn(out, self.conv2, self.bn2)
+        return F.relu(out + idt)
+
+
 class Bottleneck(nn.Module):
     """ResNet Bottleneck (pytorch style: stride on the 3x3), expansion 4."""
     expansion = 4
@@ -251,18 +274,36 @@ class Bottleneck(nn.Module):
         return F.relu(out + idt)
 
 
-def res_layer(cin: int, planes: int, num_blocks: int) -> nn.Sequential:
-    """A run of Bottlenecks (`HRNet._make_layer`), NHWC in and out."""
-    blocks = [Bottleneck(cin, planes)]
-    blocks += [Bottleneck(planes * Bottleneck.expansion, planes)
+BLOCKS = {'BASIC': BasicBlock, 'BOTTLENECK': Bottleneck}
+
+
+def res_layer(block: str, cin: int, planes: int, num_blocks: int
+              ) -> nn.Sequential:
+    """A run of `block` ('BASIC' or 'BOTTLENECK') residual blocks, the
+    first downsampling on a width change (`HRNet._make_layer`,
+    `hrfuser_tpu/layers/common.py:299-321`), NHWC in and out."""
+    cls = BLOCKS[block]
+    blocks = [cls(cin, planes)]
+    blocks += [cls(planes * cls.expansion, planes)
                for _ in range(1, num_blocks)]
     return nn.Sequential(*blocks)
 
 
+def nearest_up(x: Tensor, factor: int) -> Tensor:
+    """Integer nearest-neighbour upsampling of an NHWC tensor (torch
+    `Upsample(mode='nearest')`): a broadcast view and one copy."""
+    b, h, w, c = x.shape
+    return x[:, :, None, :, None].expand(b, h, factor, w, factor, c) \
+        .reshape(b, h * factor, w * factor, c)
+
+
 def bilinear_resize(x: Tensor, out_hw: Tuple[int, int]) -> Tensor:
-    """Bilinear resize of an NHWC tensor, half-pixel centres
-    (`align_corners=False`, which `jax.image.resize` matches when
-    upsampling, the only use here)."""
+    """Bilinear resize of an NHWC tensor with half-pixel centres
+    (`align_corners=False`), as `jax.image.resize` does: antialiased
+    when a side shrinks (its default), which torch's `antialias=True`
+    matches."""
+    shrink = out_hw[0] < x.shape[1] or out_hw[1] < x.shape[2]
     y = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(out_hw),
-                      mode='bilinear', align_corners=False)
+                      mode='bilinear', align_corners=False,
+                      antialias=shrink)
     return y.permute(0, 2, 3, 1)

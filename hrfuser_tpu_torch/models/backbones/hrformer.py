@@ -43,7 +43,8 @@ class HRFormerBackbone(nn.Module):
         self.bn1 = nn.BatchNorm2d(64)
         self.conv2 = conv3x3(64, 64, 2)
         self.bn2 = nn.BatchNorm2d(64)
-        self.layer1 = res_layer(64, cfg.stage1.num_channels[0],
+        self.layer1 = res_layer(cfg.stage1.block, 64,
+                                cfg.stage1.num_channels[0],
                                 cfg.stage1.num_blocks[0])
         self.transition1 = Transition(cfg.stage1.out_channels,
                                       cfg.stage2.out_channels)

@@ -1,15 +1,20 @@
-"""HRFuser multi-modal fusion backbone (HRFormer-based), NHWC.
+"""HRFuser multi-modal fusion backbone, NHWC.
 
-Counterpart of `hrfuser_tpu.models.backbones.hrfuser` (the reference
-`mmdet/models/backbones/hrfuser_hrformer_based.py:331-628`). The camera
-follows the HRFormer trunk; each extra modality gets its own stem +
-Bottleneck stage A, then stays a single stride-4 branch through HRFormer
-stages B/C. Before every camera stage each modality is transitioned to
-every camera branch's width and fused into the camera feature by an
-`HRFuserFusionBlock`; modality stages consume the branch-0 transitioned
-feature. Parameter names are the reference's. In training the fusion
-blocks and modality stages run their blocks' eager forward instead of the
-eval chains (the JAX `resolve_chain(mode, train=True) -> False`).
+Counterpart of `hrfuser_tpu.models.backbones.hrfuser`: the reference's
+`HRFuserHRFormerBased` (`mmdet/models/backbones/hrfuser_hrformer_based.py:
+331-628`) and, through the stages' block types, `HRFuserHRNetBased`
+(`hrfuser_hrnet_based.py:24-314`). The camera follows the HRFormer or
+HRNet trunk; each extra modality gets its own stem + Bottleneck stage A,
+then stays a single stride-4 branch through stages B/C (HRFormer blocks
+or BASIC residual blocks). Before every camera stage each modality is
+transitioned to every camera branch's width and fused into the camera
+feature by an `HRFuserFusionBlock`; modality stages consume the branch-0
+transitioned feature. With `cfg.pre_neck_fusion`, a modality stage D,
+its transition and fusion bank D run on the stage-4 outputs, then a ReLU
+(`hrfuser_tpu/models/backbones/hrfuser.py:261-274`). Parameter names are
+the reference's. In training the fusion blocks and HRFormer stages run
+their blocks' eager forward instead of the eval chains (the JAX
+`resolve_chain(mode, train=True) -> False`).
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ from __future__ import annotations
 from typing import List
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from hrfuser_tpu_torch.layers.attention import HRFuserFusionBlock
@@ -53,17 +59,23 @@ class FusionBank(nn.ModuleList):
 
 
 class ModalityStage(nn.ModuleList):
-    """A single-branch HRFormer stage per modality. With no fuse layers
-    the whole stage is a block chain: all its modules' blocks run as one
-    `hrformer_chain` per stream (`hrfuser.py:123-145`)."""
+    """A single-branch stage per modality. An HRFormer stage has no fuse
+    layers, so in eval the whole stage is a block chain: all its
+    modules' blocks of all modalities run as one `hrformer_chain`
+    (`hrfuser.py:123-145`), stage D too (JAX runs D's blocks unchained,
+    `hrfuser.py:262`; the math is the same). A conv stage runs each
+    modality's `HRStage` (`hrfuser.py:146-152`)."""
 
     def __init__(self, stage: StageCfg, num_modalities: int):
-        assert stage.num_branches == 1 and stage.block == 'HRFORMER'
+        if stage.num_branches != 1:
+            raise ValueError(f'a modality stage has one branch, not '
+                             f'{stage.num_branches}')
         super().__init__([HRStage(stage) for _ in range(num_modalities)])
-        self.num_heads = stage.num_heads[0]
+        self.former = stage.block == 'HRFORMER'
+        self.num_heads = stage.num_heads[0] if self.former else None
 
     def forward(self, feats: List[Tensor]) -> List[Tensor]:
-        if self.training:
+        if self.training or not self.former:
             return [stage([f])[0] for stage, f in zip(self, feats)]
         blocks = [blk for per_mod in self for module in per_mod
                   for blk in module.branch_blocks(0)]
@@ -95,7 +107,8 @@ class HRFuserBackbone(nn.Module):
         self.bn1 = nn.BatchNorm2d(64)
         self.conv2 = conv3x3(64, 64, 2)
         self.bn2 = nn.BatchNorm2d(64)
-        self.layer1 = res_layer(64, cfg.stage1.num_channels[0],
+        self.layer1 = res_layer(cfg.stage1.block, 64,
+                                cfg.stage1.num_channels[0],
                                 cfg.stage1.num_blocks[0])
         # modality stems + stage A
         self.conv_a = nn.ModuleList([conv3x3(c, 64, 2)
@@ -104,7 +117,7 @@ class HRFuserBackbone(nn.Module):
         self.conv_b = nn.ModuleList([conv3x3(64, 64, 2) for _ in range(nm)])
         self.norm_b = nn.ModuleList([nn.BatchNorm2d(64) for _ in range(nm)])
         self.layer_a = nn.ModuleList([
-            res_layer(64, cfg.stage_a.num_channels[0],
+            res_layer(cfg.stage_a.block, 64, cfg.stage_a.num_channels[0],
                       cfg.stage_a.num_blocks[0]) for _ in range(nm)])
         # camera transitions + stages
         self.transition1 = Transition(cfg.stage1.out_channels,
@@ -128,6 +141,11 @@ class HRFuserBackbone(nn.Module):
         self.fusion_a = FusionBank(cfg.fusion_a, nm)
         self.fusion_b = FusionBank(cfg.fusion_b, nm)
         self.fusion_c = FusionBank(cfg.fusion_c, nm)
+        if cfg.pre_neck_fusion:
+            self.stage_d = ModalityStage(cfg.stage_d, nm)
+            self.transition_d = ModalityTransition(
+                cfg.stage_d.out_channels, cfg.fusion_d.num_channels, nm)
+            self.fusion_d = FusionBank(cfg.fusion_d, nm)
 
     def forward(self, x: Tensor, x_mods: List[Tensor]) -> List[Tensor]:
         """x: [B, H, W, 3]; x_mods: per-modality [B, H, W, C_k]. Returns
@@ -156,4 +174,10 @@ class HRFuserBackbone(nn.Module):
         # stage 4 (+ fusion C)
         xs = self.transition3(ys)
         m_br = self.transition_c(mods)
-        return self.stage4(self.fusion_c(xs, m_br))
+        ys = self.stage4(self.fusion_c(xs, m_br))
+        if not self.cfg.pre_neck_fusion:
+            return ys
+
+        # modality stage D + pre-neck fusion
+        m_br = self.transition_d(self.stage_d(m_br[0]))
+        return [F.relu(y) for y in self.fusion_d(ys, m_br)]

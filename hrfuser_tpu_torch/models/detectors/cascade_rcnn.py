@@ -109,6 +109,20 @@ def predict(model: CascadeRCNN, img: Tensor,
     Returns:
         `Detections` with a leading batch axis.
     """
+    img_shapes, scale_factors = default_shapes(img, img_shapes,
+                                               scale_factors)
+    feats, cls_scores, bbox_preds = model.forward_features(img, mod_imgs)
+    props = rpn_proposals(model.cfg, feats, cls_scores, bbox_preds,
+                          img_shapes)
+    return model.roi_head.simple_test(feats[:4], props.boxes, props.valid,
+                                      img_shapes, scale_factors)
+
+
+def default_shapes(img: Tensor, img_shapes: Optional[Tensor],
+                   scale_factors: Optional[Tensor]
+                   ) -> Tuple[Tensor, Tensor]:
+    """`img_shapes` [B, 2] (the padded shape when None) and
+    `scale_factors` [B, 4] (ones when None) for an NHWC batch."""
     b, h, w, _ = img.shape
     dev = img.device
     if img_shapes is None:
@@ -116,14 +130,17 @@ def predict(model: CascadeRCNN, img: Tensor,
                                   device=dev).expand(b, 2)
     if scale_factors is None:
         scale_factors = torch.ones((b, 4), dtype=torch.float32, device=dev)
-    cfg = model.cfg
-    feats, cls_scores, bbox_preds = model.forward_features(img, mod_imgs)
-    anchors = [torch.from_numpy(a).to(dev) for a in
+    return img_shapes, scale_factors
+
+
+def rpn_proposals(cfg: DetectorCfg, feats: Sequence[Tensor],
+                  cls_scores: Sequence[Tensor],
+                  bbox_preds: Sequence[Tensor], img_shapes: Tensor):
+    """The RPN's test-time proposals of a batch (`cfg.rpn_test`)."""
+    anchors = [torch.from_numpy(a).to(img_shapes.device) for a in
                cfg.anchor_generator().grid_anchors(
                    [tuple(f.shape[1:3]) for f in feats])]
     r = cfg.rpn_test
-    props = get_proposals(cls_scores, bbox_preds, anchors, img_shapes,
-                          r.nms_pre, r.max_per_img, r.nms_iou,
-                          r.min_bbox_size)
-    return model.roi_head.simple_test(feats[:4], props.boxes, props.valid,
-                                      img_shapes, scale_factors)
+    return get_proposals(cls_scores, bbox_preds, anchors, img_shapes,
+                         r.nms_pre, r.max_per_img, r.nms_iou,
+                         r.min_bbox_size)

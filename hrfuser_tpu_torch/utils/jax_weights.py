@@ -2,9 +2,11 @@
 
 `state_dict_from_jax(variables, cfg)` takes the JAX package's
 `{'params', 'batch_stats'}` tree (leaves convertible with `np.asarray`)
-and returns the state dict of `CascadeRCNN(cfg)`, fusion or camera-only
-(no modality subtrees). It is the inverse of
-`hrfuser_tpu.utils.pth_convert.convert_state_dict`: conv kernels HWIO ->
+and returns the state dict of `CascadeRCNN(cfg)`: fusion or camera-only
+(no modality subtrees), HRFormer- or HRNet-based (BASIC residual
+branches, conv fuse paths), with or without the pre-neck stage D. It is
+the inverse of `hrfuser_tpu.utils.pth_convert.convert_state_dict` (which
+has no stage D; forward parity holds that mapping): conv kernels HWIO ->
 OIHW, depthwise [kh, kw, 1, C] -> [C, 1, kh, kw], dense [in, out] ->
 [out, in]. The HRFuser stage-2 transition applies only its conv
 (`trans{i}_conv` in the JAX tree); the port keeps the reference's unused
@@ -86,10 +88,12 @@ class _Emitter:
 
     # ---- composite modules ------------------------------------------------
 
-    def res_layer(self, tp: str, path, num_blocks: int) -> None:
+    def res_layer(self, tp: str, path, num_blocks: int,
+                  block: str = 'BOTTLENECK') -> None:
+        convs = (1, 2, 3) if block == 'BOTTLENECK' else (1, 2)
         for i in range(num_blocks):
             bp = path + (f'block{i}',)
-            for j in (1, 2, 3):
+            for j in convs:
                 self.convnorm(f'{tp}.{i}.conv{j}', f'{tp}.{i}.bn{j}',
                               bp + (f'conv{j}',))
             if self.has(bp + ('downsample',)):
@@ -144,7 +148,12 @@ class _Emitter:
 
     def hr_module(self, tp: str, path, stage) -> None:
         nb = stage.num_branches
+        former = stage.block == 'HRFORMER'
         for i in range(nb):
+            if not former:
+                self.res_layer(f'{tp}.branches.{i}', path + (f'branch{i}',),
+                               stage.num_blocks[i], stage.block)
+                continue
             for j in range(stage.num_blocks[i]):
                 self.hrformer_block(f'{tp}.branches.{i}.{j}',
                                     path + (f'branch{i}_block{j}',))
@@ -157,6 +166,10 @@ class _Emitter:
                 if j > i:
                     self.convnorm(f'{base}.0', f'{base}.1', fp + ('proj',))
                 for k in range(i - j):
+                    if not former:
+                        self.convnorm(f'{base}.{k}.0', f'{base}.{k}.1',
+                                      fp + (f'step{k}',))
+                        continue
                     self.convnorm(f'{base}.{k}.0', f'{base}.{k}.1',
                                   fp + (f'step{k}_dw',))
                     self.convnorm(f'{base}.{k}.2', f'{base}.{k}.3',
@@ -190,7 +203,8 @@ def state_dict_from_jax(variables, cfg) -> Dict[str, Tensor]:
     B = ('backbone',)
     e.convnorm('backbone.conv1', 'backbone.bn1', B + ('stem', 'conv1'))
     e.convnorm('backbone.conv2', 'backbone.bn2', B + ('stem', 'conv2'))
-    e.res_layer('backbone.layer1', B + ('layer1',), bb.stage1.num_blocks[0])
+    e.res_layer('backbone.layer1', B + ('layer1',), bb.stage1.num_blocks[0],
+                bb.stage1.block)
     e.transition('backbone.transition1', B + ('transition1',),
                  bb.stage1.out_channels, bb.stage2.out_channels)
     e.transition('backbone.transition2', B + ('transition2',),
@@ -210,11 +224,13 @@ def state_dict_from_jax(variables, cfg) -> Dict[str, Tensor]:
         e.convnorm(f'backbone.conv_b.{k}', f'backbone.norm_b.{k}',
                    B + (f'stem_mod{k}', 'conv2'))
         e.res_layer(f'backbone.layer_a.{k}', B + (f'layer_a{k}',),
-                    bb.stage_a.num_blocks[0])
+                    bb.stage_a.num_blocks[0], bb.stage_a.block)
     # modality transitions, stages and fusion banks (none camera-only)
     streams = (('transition_a', 'stage_a', 'fusion_a'),
                ('transition_b', 'stage_b', 'fusion_b'),
                ('transition_c', 'stage_c', 'fusion_c')) if nm else ()
+    if nm and bb.pre_neck_fusion:
+        streams += (('transition_d', 'stage_d', 'fusion_d'),)
     for name, stage, fusion in streams:
         for k in range(nm):
             e.transition(f'backbone.{name}.{k}', B + (name, f'mod{k}'),

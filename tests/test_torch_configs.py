@@ -24,18 +24,18 @@ NAMES = ['cascade_rcnn_hrfuser_t_1x_nus_r640_l_r_fusion',
          'tiny_camera_test', 'cascade_rcnn_hrformer_t_1x_nus_r640',
          'cascade_rcnn_hrformer_b_1x_nus_r640',
          'cascade_rcnn_hrfuser_t_1x_stf_r1248_4mod',
-         'cascade_rcnn_hrformer_t_1x_stf_c1248']
-# the JAX configs the port leaves out (ROADMAP §1 item 6; the multichip
-# dry-run model), each with its `_bn` alias
-NOT_PORTED = {'cascade_rcnn_hrfuser_hrnet_w18_1x_nus_r640_l_r_fusion',
-              'tiny_hrnet_fusion_test', 'micro_fusion_dryrun'}
+         'cascade_rcnn_hrformer_t_1x_stf_c1248',
+         'cascade_rcnn_hrfuser_hrnet_w18_1x_nus_r640_l_r_fusion',
+         'tiny_hrnet_fusion_test']
+# the JAX config the port leaves out (the multichip dry-run model,
+# ROADMAP §1 item 8), with its `_bn` alias
+NOT_PORTED = {'micro_fusion_dryrun'}
 
-# TPU routing knobs, the pre-neck fusion stage no preset sets and the
-# adaptive RoIAlign grid, which the port does not carry
+# TPU routing knobs and the adaptive RoIAlign grid, which the port does
+# not carry
 OMITTED = {
     'backbone.remat', 'backbone.cf_layout', 'backbone.chain_kernel',
-    'backbone.stage_d', 'backbone.fusion_d', 'roi.pool_method_eval',
-    'roi.pallas_variant', 'roi.max_grid',
+    'roi.pool_method_eval', 'roi.pallas_variant', 'roi.max_grid',
 }
 OMITTED_IN_STAGES = set()
 OMITTED_IN_FUSIONS = set()

@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels vs their plain PyTorch twins, on the card;
 the serving path (preprocessing, `inference_detector`, checkpoints), the
-image decoders and a loader batch on it.
+HRNet-based configs and flip TTA (launch counts, card vs CPU), the image
+decoders and a loader batch on it.
 
 Marked `cuda`: each test skips where `torch.cuda.is_available()` is
 False (this file imports no JAX, so it also runs where JAX is absent):
@@ -392,22 +393,35 @@ def _launch_counters():
             'roi_align': roi_align.multilevel_roi_align}
 
 
+def _one_forward(cfg):
+    """Each kernel's launches in one forward: A self and B once per
+    HRFormer block of a stream (HRFORMER stages only), A cross once per
+    modality of each fusion block and B once per fusion block, C once
+    per cascade stage."""
+    bb = cfg.backbone
+    nm = bb.num_fused_modalities
+
+    def blocks(stage):
+        if stage is None or stage.block != 'HRFORMER':
+            return 0
+        return stage.num_modules * sum(stage.num_blocks)
+
+    hr = sum(blocks(s) for s in (bb.stage2, bb.stage3, bb.stage4))
+    hr += nm * sum(blocks(s) for s in (bb.stage_b, bb.stage_c, bb.stage_d))
+    fusions = sum(f.num_branches for f in (bb.fusion_a, bb.fusion_b,
+                                           bb.fusion_c, bb.fusion_d)
+                  if f is not None)
+    return {'window_attention_self': hr,
+            'window_attention_cross': fusions * nm,
+            'cross_ffn': hr + fusions, 'roi_align': cfg.roi.num_stages}
+
+
 def test_inference_detector_on_the_card(dev):
     """`tiny_fusion_test` from a raw 60x90 request: every kernel of the
     path launches once per block (per stage for RoIAlign), boxes land in
     the original frame."""
     det = init_detector('tiny_fusion_test', dev, seed=0)
-    bb = det.cfg.backbone
-    blocks = sum(s.num_modules * sum(s.num_blocks)
-                 for s in (bb.stage2, bb.stage3, bb.stage4))
-    blocks += bb.num_fused_modalities * sum(
-        s.num_modules * s.num_blocks[0] for s in (bb.stage_b, bb.stage_c))
-    fusions = sum(f.num_branches
-                  for f in (bb.fusion_a, bb.fusion_b, bb.fusion_c))
-    want = {'window_attention_self': blocks,
-            'window_attention_cross': fusions * bb.num_fused_modalities,
-            'cross_ffn': blocks + fusions,
-            'roi_align': det.cfg.roi.num_stages}
+    want = _one_forward(det.cfg)
     rng = np.random.default_rng(0)
     img = rng.integers(0, 256, (60, 90, 3)).astype(np.uint8)
     mods = [rng.integers(19900, 21000, (60, 90, 3)).astype(np.uint16)
@@ -422,6 +436,87 @@ def test_inference_detector_on_the_card(dev):
         assert (out['boxes'] >= 0).all()
         assert (out['boxes'][:, [0, 2]] <= 90 + 1e-3).all()
         assert (out['boxes'][:, [1, 3]] <= 60 + 1e-3).all()
+
+
+def _counted(fn):
+    counters = _launch_counters()
+    for c in counters.values():
+        c.launches = 0
+    with torch.no_grad():
+        out = fn()
+    return out, {k: c.launches for k, c in counters.items()}
+
+
+def test_hrnet_launches_only_the_fusion_kernels(dev):
+    """`tiny_hrnet_fusion_test` at 64x96: the BASIC trunk and streams run
+    no kernel, so a forward launches A cross 18, B 9 (nine fusion blocks,
+    two modalities) and C 3, and A self never."""
+    det = init_detector('tiny_hrnet_fusion_test', dev, seed=0)
+    rng = np.random.default_rng(0)
+    img = rng.normal(0, 1, (2, 64, 96, 3)).astype(np.float32)
+    mods = [rng.normal(0, 1, (2, 64, 96, 3)).astype(np.float32)
+            for _ in range(2)]
+    out, counts = _counted(lambda: det(img, mods))
+    assert counts == _one_forward(det.cfg) == {
+        'window_attention_self': 0, 'window_attention_cross': 18,
+        'cross_ffn': 9, 'roi_align': 3}
+    assert out.boxes.isfinite().all()
+
+
+def _matched(got, want, max_per_img, score_thr):
+    """Image 0's detections on two devices, in any order: each valid one
+    has a partner of its label within 1e-2 px (1e-3 relative) and score
+    5e-3, unless its score lies within 5e-3 of a cut (the threshold, or
+    the last kept score of a full list)."""
+    sides = [(d.boxes[0].cpu().numpy()[d.valid[0].cpu().numpy()],
+              d.scores[0].cpu().numpy()[d.valid[0].cpu().numpy()],
+              d.labels[0].cpu().numpy()[d.valid[0].cpu().numpy()])
+             for d in (got, want)]
+    edge = max([score_thr] + [float(sc.min()) for _, sc, _ in sides
+                              if len(sc) == max_per_img])
+    for (b1, s1, l1), (b2, s2, l2) in (sides, sides[::-1]):
+        for box, sc, lb in zip(b1, s1, l1):
+            ok = ((l2 == lb) & (np.abs(s2 - sc) <= 5e-3)
+                  & (np.abs(b2 - box) <= 1e-2 + 1e-3 * np.abs(box)).all(1))
+            assert ok.any() or sc < edge + 5e-3, (lb, sc)
+
+
+@pytest.mark.parametrize('fn_name', ['predict_tta_flip',
+                                     'predict_aug_test_flip'])
+def test_flip_tta_on_the_card_matches_cpu(dev, fn_name, monkeypatch):
+    """`tiny_fusion_test` at 64x96, batch 2, float32: launches exactly
+    twice one forward's (two `predict`s, or two forwards and one cascade
+    decode per view), and the detections match the CPU's when the CPU
+    run takes the card's RPN proposals (`chip_smoke.py` phase 10d: float32
+    moves random-weight proposals across the top-k cut)."""
+    from hrfuser_tpu_torch import models
+    from hrfuser_tpu_torch.models.detectors import cascade_rcnn, tta
+    fn = getattr(models, fn_name)
+    real, saved = tta.rpn_proposals, []
+
+    def shared(cfg, feats, cls_scores, bbox_preds, img_shapes):
+        if img_shapes.is_cuda:
+            saved.append(real(cfg, feats, cls_scores, bbox_preds,
+                              img_shapes))
+            return saved[-1]
+        return type(saved[0])(*(t.cpu() for t in saved.pop(0)))
+
+    for module in (cascade_rcnn, tta):
+        monkeypatch.setattr(module, 'rpn_proposals', shared)
+    gpu = init_detector('tiny_fusion_test', dev, seed=0)
+    cpu = init_detector('tiny_fusion_test', 'cpu', seed=0)
+    rng = np.random.default_rng(1)
+    img = torch.from_numpy(rng.normal(0, 1, (2, 64, 96, 3)).astype(
+        np.float32))
+    mods = [torch.from_numpy(rng.normal(0, 1, (2, 64, 96, 3)).astype(
+        np.float32)) for _ in range(2)]
+    got, counts = _counted(lambda: fn(gpu.model, img.to(dev),
+                                      [m.to(dev) for m in mods]))
+    assert counts == {k: 2 * n for k, n in _one_forward(gpu.cfg).items()}
+    with torch.no_grad():
+        want = fn(cpu.model, img, mods)
+    roi = gpu.cfg.roi
+    _matched(got, want, roi.max_per_img, roi.score_thr)
 
 
 def test_checkpoint_round_trip_on_the_card(dev, tmp_path):
@@ -455,6 +550,34 @@ def test_new_configs_forward_matches_cpu_twins(dev, name, hw):
         fc = cpu.model.forward_features(img, mods)[0]
     for a, b in zip(fg, fc, strict=True):
         torch.testing.assert_close(a.cpu(), b, atol=5e-3, rtol=1e-3)
+
+
+def test_hrnet_forward_matches_cpu_within_float32_spread(dev):
+    """HRNet-W18 HRFuser at 128x192, batch 1, float32: random weights
+    grow the conv trunk's maps to an RMS of thousands, where float32
+    itself errs by more than phase 5's 5e-3, so each neck level on the
+    card is held to the CPU's float64 forward within 3x the CPU float32's
+    worst distance from it over the pyramid, plus 5e-3 (`chip_smoke.py`
+    phase 10b)."""
+    import copy
+    name = 'cascade_rcnn_hrfuser_hrnet_w18_1x_nus_r640_l_r_fusion'
+    gpu = init_detector(name, dev, seed=0)
+    cpu = init_detector(name, 'cpu', seed=0)
+    rng = np.random.default_rng(0)
+    img = torch.from_numpy(rng.normal(0, 1, (1, 128, 192, 3)).astype(
+        np.float32))
+    mods = [torch.from_numpy(rng.normal(0, 1, (1, 128, 192, 3)).astype(
+        np.float32)) for _ in range(2)]
+    with torch.no_grad():
+        fg = gpu.model.forward_features(img.to(dev),
+                                        [m.to(dev) for m in mods])[0]
+        fc = cpu.model.forward_features(img, mods)[0]
+        f64 = copy.deepcopy(cpu.model).double().forward_features(
+            img.double(), [m.double() for m in mods])[0]
+    own = max((c.double() - d).abs().max().item()
+              for c, d in zip(fc, f64, strict=True))
+    for a, d in zip(fg, f64, strict=True):
+        assert (a.cpu().double() - d).abs().max().item() <= 3 * own + 5e-3
 
 
 def _train_run(name, device, hw):

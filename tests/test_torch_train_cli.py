@@ -64,6 +64,19 @@ def test_train_cli_logs_checkpoints_and_resumes(tmp_path, capsys):
     assert not torch.equal(resumed['state_dict'][w], ckpt['state_dict'][w])
 
 
+def test_train_cli_trains_the_hrnet_config(tmp_path):
+    """Two synthetic steps of `tiny_hrnet_fusion_test`: finite losses and
+    moved weights of the conv trunk."""
+    wd = tmp_path / 'hrnet'
+    train_cli.main(['tiny_hrnet_fusion_test'] + ARGS[1:]
+                   + ['--max-iters', '2', '--work-dir', str(wd)])
+    (rec,) = _log(wd / 'train.log.json')
+    assert rec['iter'] == 2 and np.isfinite(rec['loss'])
+    sd = torch.load(wd / 'step_2.pth', weights_only=True)['state_dict']
+    assert 'backbone.stage2.0.branches.0.0.conv2.weight' in sd
+    assert 'backbone.stage4.0.fuse_layers.0.3.0.weight' in sd
+
+
 def test_dataset_mode_names_the_data_slice(tmp_path):
     """Dataset mode reads the train split under `--data-root`; a root
     without it names the file it wants."""

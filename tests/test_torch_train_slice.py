@@ -1,7 +1,7 @@
 """The port's training step vs the JAX package's on the tiny configs.
 
-`tiny_fusion_test` (and `tiny_camera_test`) at 64x96, B = 2, f32 on the
-CPU: the JAX variables go through `state_dict_from_jax` into the port;
+`tiny_fusion_test` (and `tiny_camera_test`, `tiny_hrnet_fusion_test`) at
+64x96, B = 2, f32 on the CPU: the JAX variables go through `state_dict_from_jax` into the port;
 drop path and `proj_drop` are set to 0 on both sides, the one-hot pool
 runs in f32 (`gather_bf16=False`) and the caps are small (200 / 100
 proposals, 32 RoIs a stage). The sampler's keys replay the JAX split
@@ -233,6 +233,18 @@ def test_head_gradients_match_jax(fusion):
 
 def test_camera_only_losses_match_jax():
     s = TrainPair('tiny_camera_test')
+    _, want, _ = s.jax_loss(s.variables['params'])
+    got = s.port_losses(s.model())
+    for k in _loss_keys():
+        np.testing.assert_allclose(float(got[k].detach()), float(want[k]),
+                                   rtol=_rtol(k), atol=1e-7, err_msg=k)
+
+
+def test_hrnet_losses_match_jax():
+    """`tiny_hrnet_fusion_test`: BASIC conv trunk and streams with
+    batch-statistics BN, nearest-upsample fuse paths, the fusion banks'
+    eager blocks."""
+    s = TrainPair('tiny_hrnet_fusion_test')
     _, want, _ = s.jax_loss(s.variables['params'])
     got = s.port_losses(s.model())
     for k in _loss_keys():

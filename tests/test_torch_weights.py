@@ -148,26 +148,31 @@ MODALITY_KEYS = ('conv_a', 'norm_a', 'conv_b', 'norm_b', 'layer_a',
                  'stage_c', 'fusion_a', 'fusion_b', 'fusion_c')
 
 
+TINY_NAMES = {'camera': 'tiny_camera_test', 'hrnet': 'tiny_hrnet_fusion_test'}
+
+
 def _tiny_pair(kind):
-    """(JAX model cfg, port model cfg): `tiny_camera_test`, or
-    `tiny_fusion_test`'s widths with three modalities (3 / 2 / 1 input
-    channels), built from the same arguments on both sides."""
+    """(JAX model cfg, port model cfg): `tiny_camera_test`,
+    `tiny_hrnet_fusion_test`, or `tiny_fusion_test`'s widths with three
+    modalities (3 / 2 / 1 input channels), built from the same arguments
+    on both sides."""
     from hrfuser_tpu.configs import presets as jax_presets
     from hrfuser_tpu_torch.configs import presets
-    if kind == 'camera':
-        return jax_get_config('tiny_camera_test').model, get_config(
-            'tiny_camera_test')
+    if kind in TINY_NAMES:
+        return (jax_get_config(TINY_NAMES[kind]).model,
+                get_config(TINY_NAMES[kind]))
     jcfg = jax_get_config('tiny_fusion_test').model
     jcfg = dataclasses.replace(
         jcfg, backbone=jax_presets.hrfuser_backbone(**STF_TINY))
     return jcfg, presets._tiny(presets.hrfuser_backbone(**STF_TINY))
 
 
-@pytest.mark.parametrize('kind', ['camera', 'three_modalities'])
+@pytest.mark.parametrize('kind', ['camera', 'three_modalities', 'hrnet'])
 def test_bridge_round_trip_is_exact_for_new_trees(kind):
     """As `test_bridge_round_trip_is_exact`, for the camera-only tree (no
-    `stem_mod*`, `layer_a*`, modality stages or fusion banks) and the
-    three-modality tree."""
+    `stem_mod*`, `layer_a*`, modality stages or fusion banks), the
+    three-modality tree and the HRNet-based tree (BASIC residual
+    branches, conv fuse paths)."""
     jcfg, cfg = _tiny_pair(kind)
     x = jnp.zeros((1, 64, 96, 3), jnp.float32)
     mods = ([jnp.zeros((1, 64, 96, c), jnp.float32)
@@ -189,9 +194,49 @@ def test_bridge_round_trip_is_exact_for_new_trees(kind):
     if kind == 'camera':
         assert not any(k.split('/')[1].startswith(('stem_mod', 'layer_a'))
                        for k in names)
+    elif kind == 'hrnet':
+        assert ('backbone/stage4/module0/branch3/block0/conv2/conv/kernel'
+                in names)
+        assert 'backbone/stage_c/mod1/module0/branch0/block0/conv1/conv/' \
+            'kernel' in names
+        assert 'backbone/stage4/module0/fuse3_0/step2/conv/kernel' in names
+        assert model.backbone.stage4[0].fuse_layers[3][0][2][0].stride \
+            == (2, 2)
     else:
         assert 'backbone/stem_mod2/conv1/conv/kernel' in names
         assert model.backbone.conv_a[2].weight.shape == (64, 1, 3, 3)
+
+
+def test_hrnet_names_are_the_reference_names():
+    """The HRNet-based tree's names and shapes are the reference's, as
+    the oracle (BASIC branches, `nn.Upsample` in the up fuse paths)
+    spells them."""
+    name = 'tiny_hrnet_fusion_test'
+    cfg = get_config(name)
+    ours = CascadeRCNN(cfg).state_dict()
+    oracle_cfg = dataclasses.replace(
+        jax_get_config(name).model, neck_out_channels=cfg.neck_out_channels)
+    ref = TorchHRFuserDetector(oracle_cfg).state_dict()
+    assert set(ours) == set(ref)
+    for k, v in ref.items():
+        assert tuple(ours[k].shape) == tuple(v.shape), k
+
+
+def test_hrnet_w18_loads_strict_from_jax_variables():
+    """Full-width HRNet-W18 HRFuser: the JAX variables tree (shapes by
+    `jax.eval_shape`) carries over and loads strictly."""
+    name = 'cascade_rcnn_hrfuser_hrnet_w18_1x_nus_r640_l_r_fusion'
+    x = jnp.zeros((1, 64, 96, 3), jnp.float32)
+    v = random_variables(JaxCascadeRCNN(jax_get_config(name).model), x,
+                         [x, x], False, seed=8)
+    model = CascadeRCNN(get_config(name))
+    sd = state_dict_from_jax(v, model.cfg)
+    model.load_state_dict(sd, strict=True)
+    assert sd['backbone.stage3.3.branches.2.3.conv2.weight'].shape \
+        == (72, 72, 3, 3)
+    assert sd['backbone.stage4.2.fuse_layers.0.3.0.weight'].shape \
+        == (18, 144, 1, 1)
+    assert sd['backbone.layer_a.1.3.conv3.weight'].shape == (256, 64, 1, 1)
 
 
 def test_camera_only_names_are_the_reference_trunk():
