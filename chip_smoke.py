@@ -25,7 +25,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
    single-image RoIAlign entry with variants v4 and v8;
 4. the main path: `init_detector` on the full-width HRFuser-T r640
    lidar+radar config (random weights from seed 0), three bf16 batches of
-   8 at 384x640; checks the outputs and every kernel's launch count;
+   8 at 384x640; checks the outputs (shapes, finite values, at least
+   one detection in the batch) and every kernel's launch count;
 4b. the same for HRFuser-B (`cascade_rcnn_hrfuser_b_1x_nus_r640_l_r_
    fusion`, widths 78-624);
 5. HRFuser-T at batch 1 in float32 on the card (kernels) vs the CPU
@@ -114,24 +115,34 @@ Phases, each printed on its own lines; any failure exits non-zero:
    `cascade_rcnn_hrfuser_t_1x_stf_r1248_4mod` (bf16, batch 8) with the
    ten KITTI metrics finite and launch counts exact, then two train
    steps through both crops.
-10. the rest of the model family: 10a the HRNet-based HRFuser
+10. the rest of the model family, with weights from
+   `tests/oracles/card_checks.py:calibrate` (random, seed 0, then each
+   BatchNorm's statistics set to those of its input on the batch, and
+   the regression layers `rpn_reg` / `fc_reg` scaled by 0.1: at BN's
+   initial statistics HRNet-W18's residual trunk grows its maps to an RMS
+   of thousands and no detection survives): 10a the HRNet-based HRFuser
    (`cascade_rcnn_hrfuser_hrnet_w18_1x_nus_r640_l_r_fusion`: BASIC conv
    trunk and streams, MWCA fusion banks, widths 18-144) as phase 4, bf16
    batches of 8 at 384x640 with exact launch counts (kernel A self 0,
    cross 18, B 9, C 3 a forward: only the fusion banks hold transformer
-   blocks), latency and device busy / idle share; 10b its card vs CPU
-   neck features at batch 1, float32: the random-weight conv trunk grows
-   its maps to an RMS of about 6e3, so the card's are held to the CPU's
-   float64 maps within 3x the CPU float32's worst distance from them
-   over the pyramid (+ 5e-3); 10c its `train_step` at batch 3,
-   float32, 10 steps: finite losses, no kernel launch in a step, ms a
-   step, peak memory, then the weights serve a bf16 batch of 8 with exact
-   counts; 10d flip TTA on HRFuser-T r640 (`predict_tta_flip`,
-   `predict_aug_test_flip`), bf16 batches of 8 with exact counts (twice
-   one forward's: two `predict`s, or two forwards and one cascade decode
-   per view) and boxes inside the frame, then batch 1 float32 card vs CPU
-   at 128x192, the CPU run given the card's RPN proposals (detections
-   matched in any order); 10e a stage-D model at
+   blocks) and detections in the batch, latency and device busy / idle
+   share, then the batch's bf16 neck maps vs its float32 ones (relative
+   L2 a level, bar `BF16_MAP_REL`); 10a modules: one stage-4 `HRModule`
+   (BasicBlocks, BN folds, nearest and bilinear-fallback up paths,
+   stride-2 down paths) on the card in float32 and bf16 vs the CPU at
+   r640's branch shapes and at 95x159; 10b card vs CPU at batch 1,
+   float32: neck features at phase 5's tolerance, then `predict` whole on
+   each device, its RPN proposals matched at the decode tolerances
+   (0.15 px, 5e-3) and its detections at 1e-2 px (1e-3 relative), 5e-3;
+   10c its `train_step` at batch 3, float32, 40 steps: finite losses, no
+   kernel launch in a step, ms a step, peak memory, then the weights
+   serve the trained images as a bf16 batch of 8 with exact counts and
+   at least one detection; 10d flip TTA on HRFuser-T r640
+   (`predict_tta_flip`, `predict_aug_test_flip`), bf16 batches of 8 with
+   exact counts (twice one forward's: two `predict`s, or two forwards and
+   one cascade decode per view), detections, boxes inside the frame,
+   then batch 1 float32 card vs CPU at 128x192 as 10b (each view's
+   proposals and the fused detections); 10e a stage-D model at
    HRFuser-T widths built by `backbone_cfg_from_extra` (`LidarStageD` =
    stage C's dict, `ModFusionD` = fusion C's): exact counts of one
    `predict`, card vs CPU neck features at batch 1, float32.
@@ -143,6 +154,7 @@ lists each kernel's launches, error, times and bound as JSON.
 from __future__ import annotations
 
 import base64
+import functools
 import json
 import os
 import pickle
@@ -175,6 +187,10 @@ STF_HW = (384, 1248)                 # the STF grid; stride 32 is 12x39
 STF_CPU_HW = (192, 608)              # reduced, stride 32 still odd: 6x19
 STF_RAW_HW = (1024, 1920)            # STF's camera frame
 TOL = {torch.float32: 1e-3, torch.bfloat16: 0.05}
+# a whole model's bf16 neck maps vs its float32 ones (relative L2 a
+# level): bf16's rounding, amplified through a random-weight trunk, stays
+# well below it; a fold or upsample gone wrong moves the maps by O(1)
+BF16_MAP_REL = 0.25
 SRC_A = 'hrfuser_tpu_torch/csrc/window_attention.cu'
 SRC_B = 'hrfuser_tpu_torch/csrc/cross_ffn.cu'
 SRC_C = 'hrfuser_tpu_torch/csrc/roi_align.cu'
@@ -783,34 +799,35 @@ def _inputs(cfg, batch, rng, hw=(H, W)):
     return img, mods
 
 
+@functools.cache
+def _checks():
+    """`tests/oracles/card_checks.py` (launch counts, the detection and
+    proposal matchers, weight calibration), shared with
+    `tests/test_torch_cuda.py`; loaded by path, since `tests.oracles`
+    imports JAX, which this machine need not have."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'tests',
+                        'oracles', 'card_checks.py')
+    spec = importlib.util.spec_from_file_location('card_checks', path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def _expected_launches(cfg):
-    """Each kernel's launches in one forward of `cfg`: A self and B once
-    per HRFormer block of a stream (camera stages 2-4; each modality's
-    stages B, C and D), counting HRFORMER stages only (a BASIC stage is
-    cuDNN convolutions); A cross once per modality of each fusion block
-    and B once per fusion block (banks A-D); C once per cascade stage."""
-    bb = cfg.backbone
-    nm = bb.num_fused_modalities
+    """Each kernel's launches in one forward of `cfg`
+    (`card_checks.expected_launches`), printed with how they add up."""
+    want, how = _checks().expected_launches(cfg)
+    print(f'  per forward: {how}')
+    return want
 
-    def blocks(stage):
-        if stage is None or stage.block != 'HRFORMER':
-            return 0
-        return stage.num_modules * sum(stage.num_blocks)
 
-    camera = [blocks(s) for s in (bb.stage2, bb.stage3, bb.stage4)]
-    streams = [blocks(s) for s in (bb.stage_b, bb.stage_c, bb.stage_d)]
-    banks = [f.num_branches for f in (bb.fusion_a, bb.fusion_b, bb.fusion_c,
-                                      bb.fusion_d) if f is not None]
-    hr_blocks = sum(camera) + nm * sum(streams)
-    fusion_blocks = sum(banks) if nm else 0
-    print(f'  per forward: {hr_blocks} HRFormer blocks (camera stages 2-4 '
-          f'{camera} + {nm} modalities x stages B-D {streams}), '
-          f'{fusion_blocks} fusion blocks (banks {banks}) x {nm} '
-          f'modalities, {cfg.roi.num_stages} cascade stages')
-    return {'window_attention_self': hr_blocks,
-            'window_attention_cross': fusion_blocks * nm,
-            'cross_ffn': hr_blocks + fusion_blocks,
-            'roi_align': cfg.roi.num_stages}
+def _calibrated(model, img, mods):
+    """`card_checks.calibrate` on the card: BatchNorm statistics from this
+    f32 input, regression layers scaled by 0.1."""
+    _checks().calibrate(model, img, mods)
+    print('  weights calibrated (card_checks.calibrate): BatchNorm '
+          'statistics of this input, rpn_reg / fc_reg x 0.1')
 
 
 def _counters():
@@ -835,15 +852,22 @@ def _check_counts(want, calls, label):
                                  f'times, expected {calls * n}')
 
 
-def phase_slice(report, smi, config, title, record, hw=(H, W)):
+def phase_slice(report, smi, config, title, record, hw=(H, W),
+                calibrate=False, against_f32=False):
     """Drive `config` as a user would on an `hw` grid; check launches and
-    outputs."""
+    outputs. `calibrate`: weights from `card_checks.calibrate` on the
+    batch. `against_f32`: the batch's bf16 neck maps held to its float32
+    ones on the card within `BF16_MAP_REL` (relative L2 a level)."""
     print(f'== {title}')
     from hrfuser_tpu_torch import init_detector
     counters = _counters()
     det = init_detector(config, 'cuda', seed=0, dtype=torch.bfloat16)
     cfg = det.cfg
     img, mods = _inputs(cfg, BATCH, np.random.default_rng(0), hw)
+    x = torch.from_numpy(img).cuda()
+    xs = [torch.from_numpy(m).cuda() for m in mods]
+    if calibrate:
+        _calibrated(det.model, x, xs)
     det(img, mods)                                       # warm-up
     torch.cuda.synchronize()
     for fn in counters.values():
@@ -873,7 +897,11 @@ def phase_slice(report, smi, config, title, record, hw=(H, W)):
             raise AssertionError(f'{k}: shape {tuple(t.shape)} != {shape}')
     if not (out.boxes.isfinite().all() and out.scores.isfinite().all()):
         raise AssertionError('non-finite detections')
-    print(f'  detections ok: {int(out.valid.sum())} valid of {BATCH}x{m}')
+    per_image = out.valid.sum(1).tolist()
+    print(f'  detections: {sum(per_image)} valid of {BATCH}x{m} '
+          f'(per image {per_image})')
+    if not sum(per_image):
+        raise AssertionError('no detection in the whole batch')
     print(f'  latency per batch of {BATCH} at {hw[0]}x{hw[1]} (ms): '
           f'{", ".join(f"{t:.1f}" for t in times)}; median '
           f'{sorted(times)[len(times) // 2]:.1f} on {smi}')
@@ -881,24 +909,44 @@ def phase_slice(report, smi, config, title, record, hw=(H, W)):
     print(f'  under torch.profiler: {wall:.2f} ms a batch, device busy '
           + ('not measured' if busy is None else
              f'{busy:.2f} ms, idle {1 - busy / wall:.1%}'))
+    if against_f32:
+        with torch.no_grad():
+            fb = det.model.forward_features(
+                x.bfloat16(), [t.bfloat16() for t in xs])[0]
+            ff = det.model.forward_features(x, xs)[0]
+        for lvl, (b, f) in enumerate(zip(fb, ff, strict=True)):
+            rel = ((b.float() - f).norm() / f.norm()).item()
+            print(f'  bf16 vs float32 neck level {lvl}: relative L2 '
+                  f'{rel:.3e} (bar {BF16_MAP_REL:g}), RMS '
+                  f'{f.pow(2).mean().sqrt().item():.4g}')
+            if not rel <= BF16_MAP_REL:
+                raise AssertionError(f'neck level {lvl}: bf16 is {rel:.3f} '
+                                     f'from float32')
     del det
     torch.cuda.empty_cache()
 
 
-def phase_cpu_check(config, title, hw=(H, W)):
+def phase_cpu_check(config, title, hw=(H, W), calibrate=False):
+    """Batch 1 float32: the card's neck features vs the CPU's. With
+    `calibrate`, the weights come from `card_checks.calibrate` on the
+    card, are copied to the CPU, and `predict`'s RPN proposals and
+    detections are compared too, each device's path whole."""
     print(f'== {title}: batch 1 float32 at {hw[0]}x{hw[1]}, GPU kernels '
           f'vs CPU plain twins')
     from hrfuser_tpu_torch import init_detector
+    from hrfuser_tpu_torch.models import predict
     gpu = init_detector(config, 'cuda', seed=0)
     cpu = init_detector(config, 'cpu', seed=0)
     img, mods = _inputs(gpu.cfg, 1, np.random.default_rng(1), hw)
+    img, mods = torch.from_numpy(img), [torch.from_numpy(m) for m in mods]
+    if calibrate:
+        _calibrated(gpu.model, img.cuda(), [m.cuda() for m in mods])
+        cpu.model.load_state_dict(gpu.model.state_dict())
     with torch.no_grad():
-        fg = gpu.model.forward_features(
-            torch.from_numpy(img).cuda(),
-            [torch.from_numpy(m).cuda() for m in mods])[0]
+        fg = gpu.model.forward_features(img.cuda(),
+                                        [m.cuda() for m in mods])[0]
         t0 = time.perf_counter()
-        fc = cpu.model.forward_features(
-            torch.from_numpy(img), [torch.from_numpy(m) for m in mods])[0]
+        fc = cpu.model.forward_features(img, mods)[0]
         print(f'  CPU forward {time.perf_counter() - t0:.1f} s')
     for lvl, (a, b) in enumerate(zip(fg, fc)):
         a = a.cpu()
@@ -906,49 +954,18 @@ def phase_cpu_check(config, title, hw=(H, W)):
         print(f'  neck level {lvl} {tuple(b.shape)}: max_abs_err {err:.3e}')
         if not torch.allclose(a, b, atol=5e-3, rtol=1e-3):
             raise AssertionError(f'neck level {lvl}: GPU and CPU disagree')
+    if calibrate:
+        _same_paths(predict, gpu, cpu, img, mods, 'predict')
 
 
-def phase_cpu_spread_check(config, title, hw=(H, W)):
-    """Card vs CPU where the features' scale sets float32's error: with
-    random weights and BN at its initial statistics a conv trunk's maps
-    grow to thousands (HRNet-W18: RMS about 5e3 at the neck), and the
-    CPU's own float32 forward then lies about 1e-5 of that from its
-    float64 one, above phase 5's 5e-3. So each of the card's float32
-    neck maps is held to the CPU's float64 one within three times the
-    CPU float32's worst distance from float64 over the pyramid (every
-    level comes from the same trunk), plus phase 5's 5e-3."""
-    print(f'== {title}: batch 1 float32 at {hw[0]}x{hw[1]}, GPU kernels '
-          f'vs CPU plain twins in float32 and float64')
-    import copy
-    from hrfuser_tpu_torch import init_detector
-    gpu = init_detector(config, 'cuda', seed=0)
-    cpu = init_detector(config, 'cpu', seed=0)
-    img, mods = _inputs(gpu.cfg, 1, np.random.default_rng(1), hw)
-    img, mods = torch.from_numpy(img), [torch.from_numpy(m) for m in mods]
-    with torch.no_grad():
-        fg = gpu.model.forward_features(img.cuda(),
-                                        [m.cuda() for m in mods])[0]
-        t0 = time.perf_counter()
-        fc = cpu.model.forward_features(img, mods)[0]
-        f64 = copy.deepcopy(cpu.model).double().forward_features(
-            img.double(), [m.double() for m in mods])[0]
-        print(f'  CPU forwards {time.perf_counter() - t0:.1f} s')
-    own = max((c.double() - d).abs().max().item()
-              for c, d in zip(fc, f64, strict=True))
-    bar = 3 * own + 5e-3
-    print(f'  CPU float32 vs float64, worst over the pyramid {own:.3e}: '
-          f'bar {bar:.3e}')
-    for lvl, (a, c, d) in enumerate(zip(fg, fc, f64, strict=True)):
-        a = a.cpu().double()
-        card = (a - d).abs().max().item()
-        print(f'  neck level {lvl} {tuple(c.shape)}: RMS '
-              f'{d.pow(2).mean().sqrt().item():.4g}; card vs CPU float32 '
-              f'{(a - c.double()).abs().max().item():.3e}; vs float64: '
-              f'card {card:.3e}, CPU float32 '
-              f'{(c.double() - d).abs().max().item():.3e}')
-        if card > bar:
-            raise AssertionError(f'neck level {lvl}: the card is further '
-                                 f'from float64 than the bar')
+def _same_paths(fn, gpu, cpu, img, mods, label):
+    """`card_checks.same_runs`: `fn` on the card and on the CPU, nothing
+    shared, proposals and detections of image 0 matched."""
+    for what, r in _checks().same_runs(fn, gpu.model, cpu.model, img, mods,
+                                       gpu.cfg, label):
+        print(f'  {what}: card {r["got"]} / CPU {r["want"]} matched, max '
+              f'box err {r["box"]:.3e} px, max score err {r["score"]:.3e}, '
+              f'{r["at_cut"]} unmatched at a cut')
 
 
 def _request(rng):
@@ -1938,15 +1955,62 @@ def phase_stf_dataset(smi):
               f'launch')
 
 
-def phase_hrnet_train(smi, steps=10):
+def phase_hrnet_modules():
+    """One HRNet-W18 stage-4 `HRModule` (four BASIC branches of four
+    blocks, widths 18-144, the conv fuse paths: nearest upsample by 2, 4
+    and 8, stride-2 conv chains) on the card in float32 and bf16 vs the
+    CPU in float32, at r640's branch shapes and at an odd grid where
+    every up path takes the bilinear fallback (95x159: the 2x upsample of
+    48x80 is 96x160). Each branch's max error is held to `TOL` of its
+    largest value: four residual blocks and a sum of four paths carry a
+    bf16 rounding of the maps' largest values to every element."""
+    print('== 10a modules. HRNet-W18 stage-4 HRModule (BasicBlock, BN '
+          'folds, FuseUp, fuse_down): card float32 / bf16 vs CPU float32')
+    from hrfuser_tpu_torch.configs import get_config
+    from hrfuser_tpu_torch.models.backbones.hr_modules import HRModule
+    stage = get_config(CONFIG_HRNET).backbone.stage4
+    cpu = _randomize(HRModule(stage), torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    for hw in ((H // 4, W // 4), (95, 159)):
+        shapes, (h, w) = [], hw
+        for c in stage.num_channels:
+            shapes.append((2, h, w, c))
+            h, w = (h + 1) // 2, (w + 1) // 2
+        xs = [torch.randn(s, generator=g) for s in shapes]
+        with torch.no_grad():
+            want = cpu(xs)
+            gpu = _randomize(HRModule(stage), torch.Generator().manual_seed(
+                0)).cuda()
+            for dt in (torch.float32, torch.bfloat16):
+                got = gpu([x.cuda().to(dt) for x in xs])
+                for i, (a, b) in enumerate(zip(got, want, strict=True)):
+                    err = (a.float().cpu() - b).abs().max().item()
+                    top = b.abs().max().item()
+                    print(f'  {dt} branch {i} {tuple(b.shape)}: max_abs_err '
+                          f'{err:.3e}, largest value {top:.3g} (bar '
+                          f'{TOL[dt]:g} of it)')
+                    if not err <= TOL[dt] * top:
+                        raise AssertionError(f'HRModule branch {i}, {dt}: '
+                                             f'card and CPU disagree')
+
+
+def phase_hrnet_train(smi, steps=40):
+    """HRNet-W18 training from calibrated weights (`card_checks.calibrate`
+    on the batch), then the trained weights serve the images they were
+    trained on, which must hold detections: the steps are as many as
+    phase 8a takes, since a few leave the cascade calling every RoI
+    background."""
     print(f'== 10c. training: {CONFIG_HRNET}, float32, batch 3 at {H}x{W}, '
           f'{steps} steps, reference caps, fusion drop path live')
     from hrfuser_tpu_torch.apis.inference import Detector
     from hrfuser_tpu_torch.apis.train import train_step
-    from hrfuser_tpu_torch.tools.train import synthetic_batches
+    from hrfuser_tpu_torch.tools.train import overfit_ratio, synthetic_batches
     state, exp = _train_setup(CONFIG_HRNET, 'cuda', warmup=False)
     batch = next(synthetic_batches(exp, exp.schedule.samples_per_device,
                                    pool=1))
+    _calibrated(state.model, torch.from_numpy(batch['img']).cuda(),
+                [torch.from_numpy(m).cuda() for m in batch['mod_imgs']])
+    state.model.train()
     gen = torch.Generator('cuda').manual_seed(0)
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
@@ -1966,6 +2030,8 @@ def phase_hrnet_train(smi, steps=10):
     med = float(np.median(times[2:]))
     b = exp.schedule.samples_per_device
     print('  losses: ' + ' '.join(f'{v:.3f}' for v in losses))
+    print(f'  overfit ratio (mean of the last quarter over the first): '
+          f'{overfit_ratio(losses):.3f}')
     print(f'  ms per step (steps 3-{steps}): median {med:.1f}, min '
           f'{min(times[2:]):.1f}, max {max(times[2:]):.1f}; '
           f'{b / med * 1e3:.2f} images/s; peak memory '
@@ -1976,103 +2042,36 @@ def phase_hrnet_train(smi, steps=10):
              f'{busy:.1f} ms, idle {1 - busy / wall:.1%}'))
     det = Detector(state.model.eval(), exp.data, torch.device('cuda'),
                    torch.bfloat16)
-    img, mods = _inputs(exp.model, BATCH, np.random.default_rng(0))
+    pick = np.arange(BATCH) % b                  # the trained images, cycled
+    img, mods = batch['img'][pick], [m[pick] for m in batch['mod_imgs']]
     _reset_counts()
     out = det(img, mods)
     torch.cuda.synchronize()
     _check_counts(_expected_launches(exp.model), 1,
-                  'trained weights, eval bf16 batch of 8')
+                  f'trained weights, eval bf16 batch of {BATCH} (the '
+                  f'{b} trained images, cycled)')
     if not (out.boxes.isfinite().all() and out.scores.isfinite().all()):
         raise AssertionError('non-finite detections from trained weights')
+    hits = 0
+    for i in range(BATCH):
+        v = out.valid[i].cpu().numpy()
+        boxes = out.boxes[i].float().cpu().numpy()[v]
+        labels = out.labels[i].cpu().numpy()[v]
+        for gt, lb in zip(batch['gt_boxes'][pick[i]],
+                          batch['gt_labels'][pick[i]]):
+            lt = np.maximum(boxes[:, :2], gt[:2])
+            rb = np.minimum(boxes[:, 2:], gt[2:])
+            inter = np.prod(np.clip(rb - lt, 0, None), 1)
+            union = (np.prod(boxes[:, 2:] - boxes[:, :2], 1)
+                     + np.prod(gt[2:] - gt[:2]) - inter)
+            hits += int(((inter / union >= 0.5) & (labels == lb)).sum())
+    per_image = out.valid.sum(1).tolist()
+    print(f'  served: {sum(per_image)} detections (per image {per_image}), '
+          f'{hits} of them at IoU >= 0.5 with a trained box of their label')
+    if not sum(per_image):
+        raise AssertionError('the trained weights detect nothing')
     del state, det
     torch.cuda.empty_cache()
-
-
-def _tta_launches(cfg, fn_name):
-    """Launches of one flip-TTA call: `predict_tta_flip` runs `predict`
-    twice; `predict_aug_test_flip` runs two forwards (A and B) and
-    decodes the merged proposals once per view (C: 2 x the stages)."""
-    one = _expected_launches(cfg)
-    want = {k: 2 * n for k, n in one.items()}
-    if fn_name == 'predict_aug_test_flip':
-        want['roi_align'] = 2 * cfg.roi.num_stages
-    return want
-
-
-def _same_detections(got, want, cfg, label):
-    """Card vs CPU detections of image 0, in any order: each valid one
-    has a partner of its label within 1e-2 px (1e-3 relative) and score
-    5e-3 on the other device. A detection within 5e-3 of a cut (the
-    score threshold, or the last kept score of a full list) may be
-    missing on the other side: float32 differences move it across."""
-    tol = 5e-3
-    sides = []
-    for d in (got, want):
-        v = d.valid[0].cpu().numpy()
-        sides.append((d.boxes[0].float().cpu().numpy()[v],
-                      d.scores[0].float().cpu().numpy()[v],
-                      d.labels[0].cpu().numpy()[v]))
-    edge = cfg.roi.score_thr
-    for _, sc, _ in sides:
-        if len(sc) == cfg.roi.max_per_img:
-            edge = max(edge, float(sc.min()))
-    worst_box = worst_score = 0.0
-    at_edge = 0
-    for (b1, s1, l1), (b2, s2, l2) in (sides, sides[::-1]):
-        for box, sc, lb in zip(b1, s1, l1):
-            cand = ((l2 == lb) & (np.abs(s2 - sc) <= tol)
-                    & (np.abs(b2 - box) <= 1e-2 + 1e-3 * np.abs(box)).all(1))
-            if cand.any():
-                i = np.flatnonzero(cand)[np.argmin(
-                    np.abs(b2[cand] - box).max(1))]
-                worst_box = max(worst_box, float(np.abs(b2[i] - box).max()))
-                worst_score = max(worst_score, float(abs(s2[i] - sc)))
-            elif sc < edge + tol:
-                at_edge += 1
-            else:
-                same = l2 == lb
-                near = (np.abs(b2[same] - box).max(1).min() if same.any()
-                        else None)
-                raise AssertionError(
-                    f'{label}: a detection (label {lb}, score {sc:.4f}, box '
-                    f'{np.round(box, 2).tolist()}) has no partner on the '
-                    f'other device ({same.sum()} of its label there, the '
-                    f'nearest {near} px off; cut at {edge:.4f})')
-    print(f'  {label}: card {len(sides[0][1])} / CPU {len(sides[1][1])} '
-          f'detections matched, max box err {worst_box:.3e} px, max score '
-          f'err {worst_score:.3e}, {at_edge} unmatched within {tol:g} of '
-          f'a cut')
-
-
-class _SharedProposals:
-    """Inside `with`, the RPN proposals of the TTA functions' first run
-    (`record`) are handed, on the other device, to their second run: a
-    random-weight model's objectness scores crowd so that float32's
-    differences move proposals across the top-1000 cut, and the cascade
-    rescores the tail (as the slice tests, the comparison holds the rest
-    of the path on identical proposals; phase 5 holds the maps)."""
-
-    def __init__(self):
-        from hrfuser_tpu_torch.models.detectors import cascade_rcnn, tta
-        self.modules, self.real = (cascade_rcnn, tta), tta.rpn_proposals
-        self.saved, self.record = [], True
-
-    def __call__(self, cfg, feats, cls_scores, bbox_preds, img_shapes):
-        if self.record:
-            out = self.real(cfg, feats, cls_scores, bbox_preds, img_shapes)
-            self.saved.append(out)
-            return out
-        return type(self.saved[0])(*(t.to(img_shapes.device)
-                                     for t in self.saved.pop(0)))
-
-    def __enter__(self):
-        for m in self.modules:
-            m.rpn_proposals = self
-        return self
-
-    def __exit__(self, *exc):
-        for m in self.modules:
-            m.rpn_proposals = self.real
 
 
 def phase_tta(smi):
@@ -2086,8 +2085,10 @@ def phase_tta(smi):
     det = init_detector(CONFIG, 'cuda', seed=0, dtype=torch.bfloat16)
     cfg = det.cfg
     img, mods = _inputs(cfg, BATCH, np.random.default_rng(0))
-    x = torch.from_numpy(img).cuda().bfloat16()
-    ms = [torch.from_numpy(m).cuda().bfloat16() for m in mods]
+    x = torch.from_numpy(img).cuda()
+    ms = [torch.from_numpy(m).cuda() for m in mods]
+    _calibrated(det.model, x, ms)
+    x, ms = x.bfloat16(), [m.bfloat16() for m in ms]
     for fn in fns:
         with torch.no_grad():
             fn(det.model, x, ms)                           # warm-up
@@ -2099,7 +2100,7 @@ def phase_tta(smi):
                 out = fn(det.model, x, ms)
                 torch.cuda.synchronize()
                 times.append((time.perf_counter() - t0) * 1e3)
-            _check_counts(_tta_launches(cfg, fn.__name__), calls,
+            _check_counts(_checks().tta_launches(cfg, fn.__name__), calls,
                           f'{fn.__name__}, {calls} batches')
             busy, wall = _busy_ms(lambda: fn(det.model, x, ms))
         m = cfg.roi.max_per_img
@@ -2109,9 +2110,12 @@ def phase_tta(smi):
             v = out.valid[i]
             _check_frame(out.boxes[i][v].float().cpu().numpy(),
                          fn.__name__, (H, W))
-        print(f'  {fn.__name__}: {int(out.valid.sum())} valid of '
-              f'{BATCH}x{m}, boxes inside {W}x{H}; latency per batch (ms) '
-              f'{", ".join(f"{t:.1f}" for t in times)}, median '
+        per_image = out.valid.sum(1).tolist()
+        if not sum(per_image):
+            raise AssertionError(f'{fn.__name__}: no detection')
+        print(f'  {fn.__name__}: {sum(per_image)} valid of {BATCH}x{m} '
+              f'(per image {per_image}), boxes inside {W}x{H}; latency per '
+              f'batch (ms) {", ".join(f"{t:.1f}" for t in times)}, median '
               f'{sorted(times)[1]:.1f} on {smi}')
         print(f'    under torch.profiler: {wall:.2f} ms a batch, device '
               'busy ' + ('not measured' if busy is None else
@@ -2121,13 +2125,10 @@ def phase_tta(smi):
     cpu = init_detector(CONFIG, 'cpu', seed=0)
     img, mods = _inputs(cfg, 1, np.random.default_rng(1), TTA_CPU_HW)
     img, mods = torch.from_numpy(img), [torch.from_numpy(m) for m in mods]
+    _calibrated(gpu.model, img.cuda(), [m.cuda() for m in mods])
+    cpu.model.load_state_dict(gpu.model.state_dict())
     for fn in fns:
-        with torch.no_grad(), _SharedProposals() as shared:
-            got = fn(gpu.model, img.cuda(), [m.cuda() for m in mods])
-            shared.record = False
-            want = fn(cpu.model, img, mods)
-        _same_detections(got, want, cfg, f'{fn.__name__} card vs CPU, '
-                         f'the card\'s RPN proposals')
+        _same_paths(fn, gpu, cpu, img, mods, fn.__name__)
     del gpu, cpu
     torch.cuda.empty_cache()
 
@@ -2232,9 +2233,11 @@ def main():
         ('9d', lambda: phase_stf_dataset(smi)),
         ('10a', lambda: phase_slice(
             report, smi, CONFIG_HRNET, '10a. HRNet-W18 HRFuser r640 lidar + '
-            'radar, bf16, batch 8', record=False)),
-        ('10b', lambda: phase_cpu_spread_check(CONFIG_HRNET,
-                                               '10b. HRNet-W18 HRFuser')),
+            'radar, bf16, batch 8', record=False, calibrate=True,
+            against_f32=True)),
+        ('10a modules', phase_hrnet_modules),
+        ('10b', lambda: phase_cpu_check(CONFIG_HRNET, '10b. HRNet-W18 '
+                                        'HRFuser', calibrate=True)),
         ('10c', lambda: phase_hrnet_train(smi)),
         ('10d', lambda: phase_tta(smi)),
         ('10e', phase_stage_d),

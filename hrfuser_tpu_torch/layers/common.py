@@ -301,9 +301,10 @@ def bilinear_resize(x: Tensor, out_hw: Tuple[int, int]) -> Tensor:
     """Bilinear resize of an NHWC tensor with half-pixel centres
     (`align_corners=False`), as `jax.image.resize` does: antialiased
     when a side shrinks (its default), which torch's `antialias=True`
-    matches."""
+    matches; that one runs in float32 (the CPU has no bf16 kernel of
+    it)."""
     shrink = out_hw[0] < x.shape[1] or out_hw[1] < x.shape[2]
-    y = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(out_hw),
-                      mode='bilinear', align_corners=False,
-                      antialias=shrink)
-    return y.permute(0, 2, 3, 1)
+    y = F.interpolate((x.float() if shrink else x).permute(0, 3, 1, 2),
+                      size=tuple(out_hw), mode='bilinear',
+                      align_corners=False, antialias=shrink)
+    return y.permute(0, 2, 3, 1).to(x.dtype)

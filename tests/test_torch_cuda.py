@@ -393,27 +393,21 @@ def _launch_counters():
             'roi_align': roi_align.multilevel_roi_align}
 
 
+def _oracle(name):
+    """`tests/oracles/<name>.py`, loaded by path: `tests.oracles` does not
+    import on the card's machine under `--noconftest`."""
+    import importlib.util
+    path = Path(__file__).resolve().parent / 'oracles' / f'{name}.py'
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def _one_forward(cfg):
-    """Each kernel's launches in one forward: A self and B once per
-    HRFormer block of a stream (HRFORMER stages only), A cross once per
-    modality of each fusion block and B once per fusion block, C once
-    per cascade stage."""
-    bb = cfg.backbone
-    nm = bb.num_fused_modalities
-
-    def blocks(stage):
-        if stage is None or stage.block != 'HRFORMER':
-            return 0
-        return stage.num_modules * sum(stage.num_blocks)
-
-    hr = sum(blocks(s) for s in (bb.stage2, bb.stage3, bb.stage4))
-    hr += nm * sum(blocks(s) for s in (bb.stage_b, bb.stage_c, bb.stage_d))
-    fusions = sum(f.num_branches for f in (bb.fusion_a, bb.fusion_b,
-                                           bb.fusion_c, bb.fusion_d)
-                  if f is not None)
-    return {'window_attention_self': hr,
-            'window_attention_cross': fusions * nm,
-            'cross_ffn': hr + fusions, 'roi_align': cfg.roi.num_stages}
+    """Each kernel's launches in one forward (`card_checks`, as
+    `chip_smoke.py` counts them)."""
+    return _oracle('card_checks').expected_launches(cfg)[0]
 
 
 def test_inference_detector_on_the_card(dev):
@@ -463,60 +457,44 @@ def test_hrnet_launches_only_the_fusion_kernels(dev):
     assert out.boxes.isfinite().all()
 
 
-def _matched(got, want, max_per_img, score_thr):
-    """Image 0's detections on two devices, in any order: each valid one
-    has a partner of its label within 1e-2 px (1e-3 relative) and score
-    5e-3, unless its score lies within 5e-3 of a cut (the threshold, or
-    the last kept score of a full list)."""
-    sides = [(d.boxes[0].cpu().numpy()[d.valid[0].cpu().numpy()],
-              d.scores[0].cpu().numpy()[d.valid[0].cpu().numpy()],
-              d.labels[0].cpu().numpy()[d.valid[0].cpu().numpy()])
-             for d in (got, want)]
-    edge = max([score_thr] + [float(sc.min()) for _, sc, _ in sides
-                              if len(sc) == max_per_img])
-    for (b1, s1, l1), (b2, s2, l2) in (sides, sides[::-1]):
-        for box, sc, lb in zip(b1, s1, l1):
-            ok = ((l2 == lb) & (np.abs(s2 - sc) <= 5e-3)
-                  & (np.abs(b2 - box) <= 1e-2 + 1e-3 * np.abs(box)).all(1))
-            assert ok.any() or sc < edge + 5e-3, (lb, sc)
+def _calibrated_pair(name, hw):
+    """`name` with weights from `card_checks.calibrate` on a seeded batch-1
+    float32 input at `hw`, on the card and (copied) on the CPU, and that
+    input."""
+    gpu = init_detector(name, 'cuda', seed=0)
+    cpu = init_detector(name, 'cpu', seed=0)
+    rng = np.random.default_rng(1)
+    img = torch.from_numpy(rng.normal(0, 1, (1, *hw, 3)).astype(np.float32))
+    mods = [torch.from_numpy(rng.normal(0, 1, (1, *hw, c)).astype(
+        np.float32)) for c in gpu.cfg.backbone.mod_in_channels]
+    _oracle('card_checks').calibrate(gpu.model, img.cuda(),
+                                     [m.cuda() for m in mods])
+    cpu.model.load_state_dict(gpu.model.state_dict())
+    return gpu, cpu, img, mods
 
 
 @pytest.mark.parametrize('fn_name', ['predict_tta_flip',
                                      'predict_aug_test_flip'])
-def test_flip_tta_on_the_card_matches_cpu(dev, fn_name, monkeypatch):
+def test_flip_tta_on_the_card_matches_cpu(dev, fn_name):
     """`tiny_fusion_test` at 64x96, batch 2, float32: launches exactly
     twice one forward's (two `predict`s, or two forwards and one cascade
-    decode per view), and the detections match the CPU's when the CPU
-    run takes the card's RPN proposals (`chip_smoke.py` phase 10d: float32
-    moves random-weight proposals across the top-k cut)."""
+    decode per view); then at batch 1 with calibrated weights each view's
+    RPN proposals and the fused detections match the CPU's, each
+    device's path whole (`chip_smoke.py` phase 10d)."""
     from hrfuser_tpu_torch import models
-    from hrfuser_tpu_torch.models.detectors import cascade_rcnn, tta
     fn = getattr(models, fn_name)
-    real, saved = tta.rpn_proposals, []
-
-    def shared(cfg, feats, cls_scores, bbox_preds, img_shapes):
-        if img_shapes.is_cuda:
-            saved.append(real(cfg, feats, cls_scores, bbox_preds,
-                              img_shapes))
-            return saved[-1]
-        return type(saved[0])(*(t.cpu() for t in saved.pop(0)))
-
-    for module in (cascade_rcnn, tta):
-        monkeypatch.setattr(module, 'rpn_proposals', shared)
     gpu = init_detector('tiny_fusion_test', dev, seed=0)
-    cpu = init_detector('tiny_fusion_test', 'cpu', seed=0)
     rng = np.random.default_rng(1)
     img = torch.from_numpy(rng.normal(0, 1, (2, 64, 96, 3)).astype(
         np.float32))
     mods = [torch.from_numpy(rng.normal(0, 1, (2, 64, 96, 3)).astype(
         np.float32)) for _ in range(2)]
-    got, counts = _counted(lambda: fn(gpu.model, img.to(dev),
-                                      [m.to(dev) for m in mods]))
-    assert counts == {k: 2 * n for k, n in _one_forward(gpu.cfg).items()}
-    with torch.no_grad():
-        want = fn(cpu.model, img, mods)
-    roi = gpu.cfg.roi
-    _matched(got, want, roi.max_per_img, roi.score_thr)
+    _, counts = _counted(lambda: fn(gpu.model, img.to(dev),
+                                    [m.to(dev) for m in mods]))
+    checks = _oracle('card_checks')
+    assert counts == checks.tta_launches(gpu.cfg, fn_name)
+    gpu, cpu, img, mods = _calibrated_pair('tiny_fusion_test', (64, 96))
+    checks.same_runs(fn, gpu.model, cpu.model, img, mods, gpu.cfg, fn_name)
 
 
 def test_checkpoint_round_trip_on_the_card(dev, tmp_path):
@@ -552,32 +530,23 @@ def test_new_configs_forward_matches_cpu_twins(dev, name, hw):
         torch.testing.assert_close(a.cpu(), b, atol=5e-3, rtol=1e-3)
 
 
-def test_hrnet_forward_matches_cpu_within_float32_spread(dev):
-    """HRNet-W18 HRFuser at 128x192, batch 1, float32: random weights
-    grow the conv trunk's maps to an RMS of thousands, where float32
-    itself errs by more than phase 5's 5e-3, so each neck level on the
-    card is held to the CPU's float64 forward within 3x the CPU float32's
-    worst distance from it over the pyramid, plus 5e-3 (`chip_smoke.py`
-    phase 10b)."""
-    import copy
-    name = 'cascade_rcnn_hrfuser_hrnet_w18_1x_nus_r640_l_r_fusion'
-    gpu = init_detector(name, dev, seed=0)
-    cpu = init_detector(name, 'cpu', seed=0)
-    rng = np.random.default_rng(0)
-    img = torch.from_numpy(rng.normal(0, 1, (1, 128, 192, 3)).astype(
-        np.float32))
-    mods = [torch.from_numpy(rng.normal(0, 1, (1, 128, 192, 3)).astype(
-        np.float32)) for _ in range(2)]
+def test_hrnet_forward_matches_cpu(dev):
+    """HRNet-W18 HRFuser at 128x192, batch 1, float32, weights from
+    `card_checks.calibrate` (at BN's initial statistics its conv trunk's
+    maps grow to an RMS of thousands): neck features at phase 5's
+    tolerance, then `predict`'s proposals and detections, each device's
+    path whole (`chip_smoke.py` phase 10b)."""
+    from hrfuser_tpu_torch.models import predict
+    gpu, cpu, img, mods = _calibrated_pair(
+        'cascade_rcnn_hrfuser_hrnet_w18_1x_nus_r640_l_r_fusion', (128, 192))
     with torch.no_grad():
         fg = gpu.model.forward_features(img.to(dev),
                                         [m.to(dev) for m in mods])[0]
         fc = cpu.model.forward_features(img, mods)[0]
-        f64 = copy.deepcopy(cpu.model).double().forward_features(
-            img.double(), [m.double() for m in mods])[0]
-    own = max((c.double() - d).abs().max().item()
-              for c, d in zip(fc, f64, strict=True))
-    for a, d in zip(fg, f64, strict=True):
-        assert (a.cpu().double() - d).abs().max().item() <= 3 * own + 5e-3
+    for a, b in zip(fg, fc, strict=True):
+        torch.testing.assert_close(a.cpu(), b, atol=5e-3, rtol=1e-3)
+    _oracle('card_checks').same_runs(predict, gpu.model, cpu.model, img,
+                                     mods, gpu.cfg, 'predict')
 
 
 def _train_run(name, device, hw):
@@ -647,17 +616,6 @@ def test_train_step_on_the_card_matches_cpu(dev):
 DATA = Path(__file__).resolve().parent / 'data'
 
 
-def _data_files():
-    """`tests/oracles/data_files.py`, loaded by path: `tests.oracles`
-    does not import on the card's machine under `--noconftest`."""
-    import importlib.util
-    path = Path(__file__).resolve().parent / 'oracles' / 'data_files.py'
-    spec = importlib.util.spec_from_file_location('data_files', path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
-
-
 def test_decoders_read_the_committed_fixtures(dev):
     """On the card's machine: PNG through `data/png.py` bit-equal to the
     committed `cv2` decodes; JPEG through the libjpeg decoder within a
@@ -694,7 +652,7 @@ def test_a_loader_batch_through_the_bf16_detector(dev, tmp_path):
     from hrfuser_tpu_torch.apis.test import run_inference
     from hrfuser_tpu_torch.data.datasets.coco import CocoFusionDataset
     from hrfuser_tpu_torch.data.loader import DetDataLoader
-    write_nuscenes = _data_files().write_nuscenes
+    write_nuscenes = _oracle('data_files').write_nuscenes
     det = init_detector('tiny_fusion_test', dev, seed=0,
                         dtype=torch.bfloat16)
     det.data = dataclasses.replace(det.data, img_scale=(96, 54),
@@ -703,21 +661,12 @@ def test_a_loader_batch_through_the_bf16_detector(dev, tmp_path):
     loader = DetDataLoader(CocoFusionDataset(
         'ann.json', det.data.classes, data_root=str(tmp_path),
         test_mode=True), det.data, 2, train=False)
-    bb = det.cfg.backbone
-    blocks = sum(s.num_modules * sum(s.num_blocks)
-                 for s in (bb.stage2, bb.stage3, bb.stage4))
-    blocks += bb.num_fused_modalities * sum(
-        s.num_modules * s.num_blocks[0] for s in (bb.stage_b, bb.stage_c))
-    fusions = sum(f.num_branches
-                  for f in (bb.fusion_a, bb.fusion_b, bb.fusion_c))
     counters = _launch_counters()
     for fn in counters.values():
         fn.launches = 0
     results = run_inference(det, loader, progress=False)
-    assert {k: fn.launches for k, fn in counters.items()} == {
-        'window_attention_self': blocks,
-        'window_attention_cross': fusions * bb.num_fused_modalities,
-        'cross_ffn': blocks + fusions, 'roi_align': det.cfg.roi.num_stages}
+    assert ({k: fn.launches for k, fn in counters.items()}
+            == _one_forward(det.cfg))
     assert len(results) == 2
     for r in results:
         assert np.isfinite(r['boxes']).all() and (r['boxes'] >= 0).all()

@@ -141,6 +141,21 @@ def test_up_fuse_path_matches_flax(out_hw):
                                rtol=TOL)
 
 
+@pytest.mark.parametrize('out_hw', [(6, 8), (5, 7)])
+def test_up_fuse_path_runs_in_bf16(out_hw):
+    """bf16 through the integer path and the bilinear fallback (whose
+    antialiased resize runs in float32: the CPU has no bf16 kernel of
+    it): bf16 out, within 2e-2 of the float32 path's largest value."""
+    torch.manual_seed(0)
+    port = FuseUp(16, 8, 2, nearest=True).eval()
+    x = torch.from_numpy(_x((1, 3, 4, 16)))
+    with torch.no_grad():
+        want = port(x, out_hw)
+        got = port(x.bfloat16(), out_hw)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert (got.float() - want).abs().max() <= 2e-2 * want.abs().max()
+
+
 def test_down_fuse_path_matches_flax():
     """Two stride-2 3x3 + BN steps, ReLU between them, from 9x13 to 3x4."""
     x = _x((1, 9, 13, 8))

@@ -20,7 +20,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / 'hrfuser_tpu_torch'
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'hrfuser_tpu', 'cv2')
-SCRIPTS = [ROOT / 'chip_smoke.py', ROOT / 'chip_profile.py']
+SCRIPTS = [ROOT / 'chip_smoke.py', ROOT / 'chip_profile.py',
+           ROOT / 'tests' / 'oracles' / 'card_checks.py']
 
 _SCRIPT = """
 import sys
