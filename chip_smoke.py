@@ -146,6 +146,25 @@ Phases, each printed on its own lines; any failure exits non-zero:
    HRFuser-T widths built by `backbone_cfg_from_extra` (`LidarStageD` =
    stage C's dict, `ModFusionD` = fusion C's): exact counts of one
    `predict`, card vs CPU neck features at batch 1, float32.
+11. the offline preprocessing (no kernel: PyTorch on the card), on
+   seeded synthetic inputs from `tests/oracles/offline_data.py`, each
+   timed on the host clock with the card synchronised: 11a one nuScenes
+   sample through `tools/create_data.convert_sample` (a 34,720-point
+   lidar sweep and 5 radars x 125 returns into 6 cameras of 1600x900
+   on 640x360 grids, through a fake devkit DB), both splat modes card vs
+   CPU bit-equal, the 24 PNGs read back bit-equal, the COCO json of the
+   card's run identical to the CPU's, ms a sample with and without PNG
+   encode; 11b one STF frame (`tools/stf_projection.project_frame`,
+   110,000 HDL-64 points and 60 radar targets onto 1280x768), both
+   modes card vs CPU bit-equal, ms a frame; 11c the gated -> RGB warp of
+   one frame (`tools/stf_gated_warp.warp_frame`: three 720x1280 10-bit
+   slices from uncompressed TIFFs this phase writes, a 1024x1920
+   disparity, the ego offset, max-accumulate, the 768x1280 crop) card vs
+   CPU within one count, and the committed `cv2`-written LZW TIFFs
+   bit-equal to their committed decodes; 11d `homography_warp` of a
+   720x1280 frame onto 768x1280 card vs CPU (float32 within 1e-3,
+   integers within one count) and `homography_from_points` with 20 %
+   outliers card vs CPU within 1e-9.
 
 The last line is `{"ok": true, "device": {...}}`; the line before it
 lists each kernel's launches, error, times and bound as JSON.
@@ -160,7 +179,6 @@ import os
 import pickle
 import re
 import shutil
-import struct
 import subprocess
 import sys
 import tempfile
@@ -168,7 +186,6 @@ import threading
 import time
 import urllib.error
 import urllib.request
-import zlib
 
 import numpy as np
 import torch
@@ -800,18 +817,23 @@ def _inputs(cfg, batch, rng, hw=(H, W)):
 
 
 @functools.cache
-def _checks():
-    """`tests/oracles/card_checks.py` (launch counts, the detection and
-    proposal matchers, weight calibration), shared with
-    `tests/test_torch_cuda.py`; loaded by path, since `tests.oracles`
-    imports JAX, which this machine need not have."""
+def _oracle(name):
+    """`tests/oracles/<name>.py`, loaded by path (`tests.oracles` does not
+    import here under every runner): `card_checks` (launch counts, the
+    detection and proposal matchers, weight calibration) and
+    `offline_data` (the converters' synthetic inputs), shared with
+    `tests/test_torch_cuda.py`."""
     import importlib.util
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'tests',
-                        'oracles', 'card_checks.py')
-    spec = importlib.util.spec_from_file_location('card_checks', path)
+                        'oracles', f'{name}.py')
+    spec = importlib.util.spec_from_file_location(name, path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+def _checks():
+    return _oracle('card_checks')
 
 
 def _expected_launches(cfg):
@@ -1177,26 +1199,6 @@ def phase_run_inference(state, smi):
                                           'mAP_l', 'AR@100', 'AR@1000')))
 
 
-def _png(img):
-    """PNG bytes of a uint8 or uint16 BGR [H, W, 3] or grey [H, W] image,
-    filter 0 (the card's machine has no image encoder)."""
-    grey = img.ndim == 2
-    h, w = img.shape[:2]
-    depth = 16 if img.dtype == np.uint16 else 8
-    rows = np.ascontiguousarray(img if grey else img[..., ::-1]).astype(
-        '>u2' if depth == 16 else np.uint8).view(np.uint8).reshape(h, -1)
-    data = np.concatenate([np.zeros((h, 1), np.uint8), rows], 1).tobytes()
-
-    def chunk(kind, body):
-        return (struct.pack('>I', len(body)) + kind + body
-                + struct.pack('>I', zlib.crc32(kind + body)))
-
-    return (b'\x89PNG\r\n\x1a\n'
-            + chunk(b'IHDR', struct.pack('>IIBBBBB', w, h, depth,
-                                         0 if grey else 2, 0, 0, 0))
-            + chunk(b'IDAT', zlib.compress(data, 1)) + chunk(b'IEND', b''))
-
-
 def _by_thread(fn, calls=3):
     """Host ms of `fn` on this thread, each on a fresh thread (as the
     server's handlers run), and on one long-lived worker thread."""
@@ -1225,6 +1227,7 @@ def _by_thread(fn, calls=3):
 def phase_serve(state):
     print('== 6d. serving path: HTTP server on 127.0.0.1')
     from hrfuser_tpu_torch import inference_detector
+    from hrfuser_tpu_torch.data.png import imdecode, imencode
     from hrfuser_tpu_torch.tools import serve
     det, (img, mods) = state['det'], state['request']
     server = serve.make_server(det, '127.0.0.1', 0)
@@ -1241,8 +1244,7 @@ def phase_serve(state):
         except urllib.error.HTTPError as e:
             return e.code, json.loads(e.read())
 
-    pngs = [_png(img), *(_png(m) for m in mods)]
-    from hrfuser_tpu_torch.data.png import imdecode
+    pngs = [imencode(img), *(imencode(m) for m in mods)]
     t0 = time.perf_counter()
     imdecode(pngs[0])
     t1 = time.perf_counter()
@@ -1632,9 +1634,9 @@ STF_SENSOR_HW = (768, 1280)          # the grid of STF's first crop
 
 
 def _write_png(path, img):
+    from hrfuser_tpu_torch.data.png import imwrite
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    with open(path, 'wb') as f:
-        f.write(_png(img))
+    imwrite(path, img)
 
 
 def _projection(rng, hw, c):
@@ -2188,6 +2190,181 @@ def phase_stage_d():
     torch.cuda.empty_cache()
 
 
+def _host_ms(fn, runs=5):
+    """Median, min and max ms of `fn` over `runs` calls on the host clock,
+    the card synchronised before and after each."""
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times)), min(times), max(times)
+
+
+def _fmt(ms):
+    return f'{ms[0]:.1f} (min {ms[1]:.1f}, max {ms[2]:.1f})'
+
+
+def phase_offline_nuscenes(smi):
+    print('== 11a. offline preprocessing: one synthetic nuScenes sample '
+          '(34,720 lidar points, 5 radars x 125 returns, 6 cameras of '
+          '1600x900 onto 640x360 grids)')
+    from hrfuser_tpu_torch.data.nuscenes_export import export_2d_annotation
+    from hrfuser_tpu_torch.data.pipelines.loading import imread
+    from hrfuser_tpu_torch.tools.create_data import convert_sample
+    db, lidar, radars = _oracle('offline_data').nuscenes_sample(seed=0)
+
+    def run(device, mode='reference', out_dir=None):
+        return convert_sample(db, db.sample, lidar, radars, out_dir,
+                              device, mode)
+
+    for mode in ('reference', 'zbuffer'):
+        (_, gpu), (_, cpu) = run('cuda', mode), run('cpu', mode)
+        for cam in cpu:
+            for key in cpu[cam]:
+                if not np.array_equal(gpu[cam][key], cpu[cam][key]):
+                    raise AssertionError(f'11a {mode}: {cam} {key} card vs '
+                                         f'CPU differ')
+        drawn = sum(int((cpu[c][k][..., 0] != 20000).sum()) for c in cpu
+                    for k in ('rih', 'riv'))
+        print(f'  {mode}: 24 uint16 images card vs CPU bit-equal '
+              f'({drawn} lidar + radar pixels drawn)')
+    with tempfile.TemporaryDirectory() as root:
+        info, gpu = run('cuda', out_dir=root)
+        info_cpu, _ = run('cpu')
+        for cam in gpu:
+            for entry, group, key in (('lidar_img', 'rih', 'rih'),
+                                      ('lidar_img', 'xz0', 'xz0'),
+                                      ('radar_img', 'riv', 'riv'),
+                                      ('radar_img', 'xz0', 'rxz0')):
+                path = f'{root}/{info[entry][cam][group]["file_name"]}'
+                if not np.array_equal(imread(path, 'unchanged'),
+                                      gpu[cam][key]):
+                    raise AssertionError(f'11a: PNG round trip of {path}')
+        coco = export_2d_annotation(db, [info], f'{root}/card.json')
+        export_2d_annotation(db, [info_cpu], f'{root}/cpu.json')
+        with open(f'{root}/card.json', 'rb') as a, \
+                open(f'{root}/cpu.json', 'rb') as b:
+            if a.read() != b.read():
+                raise AssertionError('11a: COCO json card vs CPU differ')
+        print(f'  24 PNGs round trip bit-equal; COCO json identical card vs '
+              f'CPU ({len(coco["images"])} images, '
+              f'{len(coco["annotations"])} annotations)')
+        card = _host_ms(lambda: run('cuda'))
+        card_png = _host_ms(lambda: run('cuda', out_dir=root))
+        cpu_ms = _host_ms(lambda: run('cpu'), runs=3)
+    print(f'  ms per sample (host clock, synchronised; median of 5, CPU of '
+          f'3) on {smi}: card {_fmt(card)}, with PNG encode {_fmt(card_png)}'
+          f'; CPU {_fmt(cpu_ms)}')
+
+
+def phase_offline_stf(smi):
+    print('== 11b. offline preprocessing: one STF frame (110,000 HDL-64 '
+          'points, 60 radar targets onto 1280x768, `project_frame`)')
+    from hrfuser_tpu_torch.tools.stf_projection import project_frame
+    frame = _oracle('offline_data').stf_frame(np.random.default_rng(1))
+    for mode in ('reference', 'zbuffer'):
+        gpu = project_frame(*frame, mode=mode, device='cuda')
+        cpu = project_frame(*frame, mode=mode, device='cpu')
+        if not all(np.array_equal(g, c) for g, c in zip(gpu, cpu)):
+            raise AssertionError(f'11b {mode}: card vs CPU differ')
+        print(f'  {mode}: yzi and yzv card vs CPU bit-equal '
+              f'({int((cpu[0][..., 1] != 20000).sum())} lidar pixels, '
+              f'{int((cpu[1][0, :, 1] != 20000).sum())} radar columns)')
+    card = _host_ms(lambda: project_frame(*frame, device='cuda'))
+    cpu_ms = _host_ms(lambda: project_frame(*frame, device='cpu'), runs=3)
+    print(f'  ms per frame (host clock, synchronised; median of 5, CPU of 3) '
+          f'on {smi}: card {_fmt(card)}; CPU {_fmt(cpu_ms)}')
+
+
+def phase_offline_gated(smi):
+    print('== 11c. offline preprocessing: the gated -> RGB depth warp of one '
+          'frame (three 720x1280 10-bit slices from TIFFs, a 1024x1920 '
+          'disparity, ego offset, max-accumulate, crop to 768x1280)')
+    from hrfuser_tpu_torch.data import tiff
+    from hrfuser_tpu_torch.tools.stf_gated_warp import warp_frame
+    want = np.load(f'{FIXTURES}/decoded_tiff_cv2.npz')
+    for name in ('gated16_lzw.tiff', 'grey8_lzw.tiff'):
+        got = tiff.imread(f'{FIXTURES}/{name}')
+        ref = want[name.replace('.', '_')]
+        if got.dtype != ref.dtype or not np.array_equal(got, ref):
+            raise AssertionError(f'11c: {name} differs from its cv2 decode')
+        print(f'  {name} (cv2-written, LZW + predictor 2) {got.shape} '
+              f'{got.dtype}: bit-equal to its committed cv2 decode')
+    frame = 'f_00001'
+    with tempfile.TemporaryDirectory() as root:
+        slices = _oracle('offline_data').write_gated_frame(
+            root, frame, np.random.default_rng(2))
+        for i, img in enumerate(slices):
+            if not np.array_equal(tiff.imread(
+                    f'{root}/gated{i}_raw/{frame}.tiff'), img):
+                raise AssertionError(f'11c: gated{i} TIFF round trip')
+        print('  three uncompressed 720x1280 uint16 TIFFs round trip '
+              'bit-equal')
+        gpu = warp_frame(root, frame, 'cam_stereo_sgm', device='cuda')
+        cpu = warp_frame(root, frame, 'cam_stereo_sgm', device='cpu')
+        diff = np.abs(gpu.astype(np.int32) - cpu)
+        print(f'  768x1280 uint16 card vs CPU: {int((diff > 0).sum())} '
+              f'pixels differ, by at most {int(diff.max())} count '
+              f'(bar: none by more than 1); {(cpu > 0).mean():.1%} of the '
+              f'crop covered')
+        if diff.max() > 1 or gpu.shape != (768, 1280):
+            raise AssertionError('11c: card vs CPU differ')
+        card = _host_ms(lambda: warp_frame(root, frame, 'cam_stereo_sgm',
+                                           device='cuda'))
+        cpu_ms = _host_ms(lambda: warp_frame(root, frame, 'cam_stereo_sgm',
+                                             device='cpu'), runs=1)
+    print(f'  ms per frame (host clock, synchronised, TIFF reads included; '
+          f'median of 5, CPU one run) on {smi}: card {_fmt(card)}; CPU '
+          f'{cpu_ms[0]:.1f}')
+
+
+def phase_offline_homography(smi):
+    print('== 11d. offline preprocessing: `homography_warp` of a 720x1280 '
+          'gated frame onto the 768x1280 RGB crop, `homography_from_points` '
+          'with 20 % outliers')
+    from hrfuser_tpu_torch.data.gated_warp import (homography_from_points,
+                                                   homography_warp)
+    m = np.array([[1.02, 0.015, -12.5], [-0.01, 0.99, 8.25],
+                  [1.5e-5, -1e-5, 1.0]])
+    yy, xx = np.mgrid[0:720, 0:1280]
+    img = (300 + 200 * np.sin(xx / 40.0) * np.cos(yy / 33.0)).astype(
+        np.float32)
+    for label, src in (('float32', torch.from_numpy(img)),
+                       ('uint16-valued int32', torch.from_numpy(
+                           img.astype(np.int32)))):
+        gpu = homography_warp(src.cuda(), m, (1280, 768)).cpu()
+        cpu = homography_warp(src, m, (1280, 768))
+        diff = (gpu.double() - cpu.double()).abs()
+        print(f'  {label}: card vs CPU {int((diff > 0).sum())} '
+              f'pixels differ, max {diff.max().item():.3g} (bar: 1e-3 '
+              f'float32, 1 count integer)')
+        if diff.max().item() > (1e-3 if label == 'float32' else 1):
+            raise AssertionError(f'11d {label}: card vs CPU differ')
+    rng = np.random.default_rng(3)
+    pts = rng.uniform(0, 1200, (40, 2))
+    q = m @ np.vstack([pts.T, np.ones(40)])
+    dst = (q[:2] / q[2]).T
+    dst[:8] += rng.uniform(40, 90, (8, 2))
+    h_gpu = homography_from_points(torch.from_numpy(pts).cuda(),
+                                   torch.from_numpy(dst).cuda()).cpu()
+    h_cpu = homography_from_points(pts, dst)
+    err = (h_gpu - h_cpu).abs().max().item()
+    truth = np.abs(h_cpu.numpy() - m).max()
+    print(f'  homography_from_points: card vs CPU {err:.2e} (bar 1e-9), '
+          f'{truth:.2e} from the true H')
+    if err > 1e-9 or truth > 1e-6:
+        raise AssertionError('11d: homography_from_points')
+    src = torch.from_numpy(img).cuda()
+    card = _time_ms(lambda: homography_warp(src, m, (1280, 768)), iters=10)
+    cpu_ms = _host_ms(lambda: homography_warp(torch.from_numpy(img), m,
+                                              (1280, 768)), runs=1)
+    print(f'  homography_warp float32 on {smi}: card {card:.3f} ms '
+          f'(CUDA events, mean of 10); CPU {cpu_ms[0]:.1f} ms')
+
+
 def main():
     smi = phase_environment()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2241,6 +2418,10 @@ def main():
         ('10c', lambda: phase_hrnet_train(smi)),
         ('10d', lambda: phase_tta(smi)),
         ('10e', phase_stage_d),
+        ('11a', lambda: phase_offline_nuscenes(smi)),
+        ('11b', lambda: phase_offline_stf(smi)),
+        ('11c', lambda: phase_offline_gated(smi)),
+        ('11d', lambda: phase_offline_homography(smi)),
     ]
     for name, run in phases:
         t1 = time.perf_counter()

@@ -14,7 +14,8 @@ Port of `hrfuser_tpu/data/pipelines/loading.py:47-200` (the reference's
 The card's machine has no `cv2`, so `imread` picks a decoder by the
 file's extension: PNG through `data/png.py` (bit-equal to `cv2.imread`
 for 8- and 16-bit grey, RGB and RGBA files), JPEG through the libjpeg
-decoder of `data/native.py`. Nothing falls back to another decoder:
+decoder of `data/native.py`, TIFF (the STF gated raw frames, read
+unchanged) through `data/tiff.py`. Nothing falls back to another decoder:
 a file neither can read raises.
 """
 
@@ -25,7 +26,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from hrfuser_tpu_torch.data import native, png
+from hrfuser_tpu_torch.data import native, png, tiff
 
 FLAGS = ('color', 'unchanged', 'grayscale')
 
@@ -35,7 +36,7 @@ def imread(path: str, flag: str = 'color') -> np.ndarray:
     datasets hold: 'color' uint8 BGR [H, W, 3]; 'unchanged' the PNG's own
     depth, [H, W] grey or BGR [H, W, 3]; 'grayscale' uint8 [H, W] of a
     grey PNG (a colour file raises: see `data/png.py`). JPEG reads in
-    'color' only."""
+    'color' only, TIFF in 'unchanged' only (uint8 or uint16 [H, W])."""
     if flag not in FLAGS:
         raise ValueError(f'imread flag {flag!r}: one of {FLAGS}')
     if not osp.exists(path):
@@ -51,7 +52,13 @@ def imread(path: str, flag: str = 'color') -> np.ndarray:
             raise ValueError(f'{path}: JPEG reads in colour only, not '
                              f'{flag!r}')
         return native.decode_jpeg_bgr(path)
-    raise ValueError(f'{path}: only PNG and JPEG files are read')
+    if lower.endswith(('.tif', '.tiff')):
+        if flag != 'unchanged':
+            raise ValueError(f'{path}: TIFF reads unchanged only, not '
+                             f'{flag!r}')
+        return tiff.imread(path)
+    raise ValueError(f'{path}: only PNG and JPEG files are read, and TIFF '
+                     f'unchanged')
 
 
 class LoadImageFromFile:

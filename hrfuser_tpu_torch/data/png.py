@@ -1,7 +1,9 @@
-"""PNG decoding in numpy and `zlib`, in place of `cv2.imdecode`.
+"""PNG decoding and encoding in numpy and `zlib`, in place of
+`cv2.imdecode` / `cv2.imwrite`.
 
 The card's machine has no `cv2`, PIL or `torchvision`, so the server
-decodes its PNG payloads here. Supported: bit depths 8 and 16, colour
+decodes its PNG payloads here and the offline converters write their
+sensor images with `imwrite`. Supported: bit depths 8 and 16, colour
 types 0 (grey), 2 (RGB) and 6 (RGBA, alpha dropped), non-interlaced, the
 five scanline filters. Anything else (JPEG, palette, interlaced PNG)
 raises `ValueError`.
@@ -147,3 +149,37 @@ def imdecode(data: bytes, unchanged: bool = False,
         return (img[..., 0].copy() if unchanged or grayscale
                 else np.repeat(img, 3, -1))
     return np.ascontiguousarray(img[..., ::-1])          # RGB -> BGR
+
+
+def imencode(img: np.ndarray) -> bytes:
+    """PNG bytes of a uint8 or uint16 image, grey [H, W] or BGR
+    [H, W, 3], as `cv2.imencode('.png', img)` gives them up to the
+    compression: the file holds RGB, so `imdecode(imencode(x),
+    unchanged=True)` and `cv2.imdecode(..., IMREAD_UNCHANGED)` return
+    `x`. Scanline filter 0, zlib level 1 (cv2's default)."""
+    if img.dtype not in (np.uint8, np.uint16):
+        raise ValueError(f'PNG encodes uint8 or uint16, not {img.dtype}')
+    grey = img.ndim == 2
+    if not grey and not (img.ndim == 3 and img.shape[2] == 3):
+        raise ValueError(f'PNG encodes [H, W] or [H, W, 3], not '
+                         f'{list(img.shape)}')
+    h, w = img.shape[:2]
+    depth = 16 if img.dtype == np.uint16 else 8
+    rows = np.ascontiguousarray(img if grey else img[..., ::-1]).astype(
+        '>u2' if depth == 16 else np.uint8).view(np.uint8).reshape(h, -1)
+    data = np.concatenate([np.zeros((h, 1), np.uint8), rows], 1).tobytes()
+
+    def chunk(kind, body):
+        return (struct.pack('>I', len(body)) + kind + body
+                + struct.pack('>I', zlib.crc32(kind + body)))
+
+    return (SIGNATURE
+            + chunk(b'IHDR', struct.pack('>IIBBBBB', w, h, depth,
+                                         0 if grey else 2, 0, 0, 0))
+            + chunk(b'IDAT', zlib.compress(data, 1)) + chunk(b'IEND', b''))
+
+
+def imwrite(path: str, img: np.ndarray) -> None:
+    """Write `imencode(img)` to `path` (as `cv2.imwrite` of a PNG)."""
+    with open(path, 'wb') as f:
+        f.write(imencode(img))

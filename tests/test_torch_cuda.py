@@ -672,3 +672,121 @@ def test_a_loader_batch_through_the_bf16_detector(dev, tmp_path):
         assert np.isfinite(r['boxes']).all() and (r['boxes'] >= 0).all()
         assert (r['boxes'][:, [0, 2]] <= 176 + 1e-3).all()
         assert (r['boxes'][:, [1, 3]] <= 100 + 1e-3).all()
+
+
+def _crowded(rng, n, w, h, scale=2.5):
+    """Full-resolution pixels, a quarter of them on 24 target pixels and
+    a quarter exactly on half target pixels."""
+    uv = np.stack([rng.uniform(0, w * scale, n), rng.uniform(0, h * scale, n)])
+    k = n // 4
+    uv[:, :k] = np.stack([rng.integers(0, 6, k),
+                          rng.integers(0, 4, k)]) * scale
+    uv[:, k:2 * k] = (rng.integers(0, min(w, h), (2, k)) + 0.5) * scale
+    return uv
+
+
+@pytest.mark.parametrize('mode', ['reference', 'zbuffer'])
+def test_offline_splats_on_the_card_match_cpu(dev, mode):
+    """`splat_lidar`, `splat_radar_pillars`, `stf_splat` on the card:
+    bit-equal to the CPU (the winners come from `scatter_reduce`, not
+    from repeated-index writes)."""
+    from hrfuser_tpu_torch.data import projection as P
+    rng = np.random.default_rng(0)
+    w, h, n = 160, 96, 4000
+    uv = _crowded(rng, n, w, h)
+    d = rng.uniform(1, 80, n)
+    d[:500] = np.round(d[:500])
+    top = uv.copy()
+    top[1] -= rng.uniform(-20, 150, n)
+    cols = [torch.from_numpy(a) for a in (
+        uv, top, d, rng.uniform(0, 255, n).astype(np.float32),
+        rng.uniform(0, 20, n).astype(np.float32), rng.normal(0, 10, (3, n)))]
+    coords = torch.from_numpy(np.stack([rng.integers(0, w, n),
+                                        rng.integers(0, h, n)], 1) % [w, 7])
+    vals = torch.from_numpy(rng.normal(0, 20, (n, 3)))
+
+    def run(device):
+        c = [x.to(device) for x in cols]
+        out = [*P.splat_lidar(c[0], c[2], c[3], c[5], (w, h), 2.5, mode),
+               *P.splat_radar_pillars(c[0][:, :600], c[1][:, :600],
+                                      c[2][:600], c[3][:600], c[4][:600],
+                                      c[5][:, :600], (w, h), 2.5, mode)]
+        out += [P.stf_splat(coords.to(device), vals.to(device), (w, h),
+                            radar, mode) for radar in (False, True)]
+        return [o.cpu() for o in out]
+
+    for g, c in zip(run(dev), run('cpu')):
+        assert torch.equal(g, c)
+
+
+@pytest.mark.parametrize('mode', ['reference', 'zbuffer'])
+def test_offline_converters_on_the_card_match_cpu(dev, mode):
+    """`create_data.convert_sample` (six cameras, five radars) and
+    `stf_projection.project_frame` bit-equal card vs CPU."""
+    from hrfuser_tpu_torch.tools import create_data, stf_projection
+    offline = _oracle('offline_data')
+    db, lidar, radars = offline.nuscenes_sample(seed=1, n_lidar=4000,
+                                                n_radar=60)
+    _, got = create_data.convert_sample(db, db.sample, lidar, radars,
+                                        device=dev, mode=mode)
+    _, want = create_data.convert_sample(db, db.sample, lidar, radars,
+                                         device='cpu', mode=mode)
+    for cam in want:
+        for key in want[cam]:
+            np.testing.assert_array_equal(got[cam][key], want[cam][key])
+    frame = offline.stf_frame(np.random.default_rng(2), 20000, 60)
+    for g, c in zip(stf_projection.project_frame(*frame, mode=mode,
+                                                 device=dev),
+                    stf_projection.project_frame(*frame, mode=mode,
+                                                 device='cpu')):
+        np.testing.assert_array_equal(g, c)
+
+
+def test_warps_on_the_card_match_cpu(dev):
+    """`depth_warp`, `inverse_depth_warp` (float64 on both devices) and
+    `homography_warp` bit-equal card vs CPU; `homography_from_points`
+    (the same CPU-drawn hypotheses) within 1e-9."""
+    from hrfuser_tpu_torch.data import gated_warp as G
+    from hrfuser_tpu_torch.data.projection import transform_matrix
+    rng = np.random.default_rng(3)
+    img = torch.from_numpy(rng.uniform(0, 1023, (72, 128)).astype(np.float32))
+    depth = torch.from_numpy(rng.uniform(4, 60, (96, 160)).astype(np.float32))
+    k1 = np.array([[110., 0, 64], [0, 110., 36], [0, 0, 1]])
+    k2 = np.array([[130., 0, 80], [0, 130., 48], [0, 0, 1]])
+    t = transform_matrix([0.2, -0.1, 0.05], [0.999, 0.02, -0.03, 0.01])
+    off = G.ego_motion_offset(12.0, 7.0, 0.045)
+    m = np.array([[1.05, 0.03, -3.3], [-0.02, 0.97, 2.1], [1e-4, -2e-4, 1.]])
+    u16 = (img * 50).to(torch.int32)
+
+    def run(device):
+        out = G.depth_warp(img.to(device), depth.to(device)[:72, :128], k1,
+                           k2, t, (160, 96))
+        return [x.cpu() for x in (
+            *out, G.inverse_depth_warp(img.to(device), depth.to(device), k1,
+                                       k2, t, off),
+            G.homography_warp(img.to(device), m, (140, 80)),
+            G.homography_warp(u16.to(device), m, (140, 80)))]
+
+    for g, c in zip(run(dev), run('cpu')):
+        assert torch.equal(g, c)
+    src = rng.uniform(0, 200, (50, 2))
+    q = m @ np.vstack([src.T, np.ones(50)])
+    dst = (q[:2] / q[2]).T
+    dst[:10] += 60.0
+    h_gpu = G.homography_from_points(torch.from_numpy(src).to(dev),
+                                     torch.from_numpy(dst).to(dev))
+    h_cpu = G.homography_from_points(src, dst)
+    assert h_gpu.device.type == dev.type
+    torch.testing.assert_close(h_gpu.cpu(), h_cpu, atol=1e-9, rtol=0)
+
+
+def test_tiff_reader_reads_the_committed_cv2_fixtures(dev):
+    """On the card's machine (no `cv2`): the committed `cv2`-written LZW
+    TIFFs decode bit-equal to their committed `cv2` decodes."""
+    from hrfuser_tpu_torch.data import tiff
+    want = np.load(DATA / 'decoded_tiff_cv2.npz')
+    for name in ('gated16_lzw.tiff', 'grey8_lzw.tiff'):
+        got = tiff.imread(str(DATA / name))
+        ref = want[name.replace('.', '_')]
+        assert got.dtype == ref.dtype
+        np.testing.assert_array_equal(got, ref)

@@ -4,10 +4,12 @@ or `cv2` (the card's machine has neither JAX nor `cv2`).
 Checked in a fresh interpreter (this test process has JAX loaded by
 `tests/conftest.py`) that runs the tiny fusion and camera-only slices,
 `inference_detector`, `run_inference`, a training step and a
-`DetDataLoader` over PNG files end to end on the CPU and imports the
-KITTI evaluation, and statically over every module
-of the package and the scripts that drive it on the card. Its entry
-point runs on the card unless asked for the CPU.
+`DetDataLoader` over PNG files end to end on the CPU, the offline
+converters (one nuScenes sample on a fake DB, an STF frame, the inverse
+depth warp) on the CPU, and imports the KITTI evaluation, and
+statically over every module of the package and the scripts that drive
+it on the card. Its entry points run on the card unless asked for the
+CPU.
 """
 
 import ast
@@ -21,7 +23,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / 'hrfuser_tpu_torch'
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'hrfuser_tpu', 'cv2')
 SCRIPTS = [ROOT / 'chip_smoke.py', ROOT / 'chip_profile.py',
-           ROOT / 'tests' / 'oracles' / 'card_checks.py']
+           ROOT / 'tests' / 'oracles' / 'card_checks.py',
+           ROOT / 'tests' / 'oracles' / 'offline_data.py']
 
 _SCRIPT = """
 import sys
@@ -79,6 +82,20 @@ with tempfile.TemporaryDirectory() as root:
     assert batch['img'].shape == (2, 64, 96, 3), batch['img'].shape
     m = train_step(state, batch, torch.Generator().manual_seed(0))
     assert bool(m['loss'].isfinite()) and state.applied == 2
+from hrfuser_tpu_torch.data.gated_warp import inverse_depth_warp
+from hrfuser_tpu_torch.tools import create_data, stf_projection
+from tests.oracles.offline_data import nuscenes_sample, stf_frame
+db, lidar, radars = nuscenes_sample(seed=0, n_lidar=500, n_radar=10)
+info, imgs = create_data.convert_sample(db, db.sample, lidar, radars,
+                                        device='cpu')
+assert imgs['CAM_FRONT']['rih'].shape == (360, 640, 3), info
+yzi, yzv = stf_projection.project_frame(*stf_frame(rng, 2000, 10),
+                                        device='cpu')
+assert yzi.shape == yzv.shape == (768, 1280, 3)
+k = np.array([[20.0, 0, 16], [0, 20.0, 12], [0, 0, 1]])
+warped = inverse_depth_warp(torch.rand(24, 32), torch.full((24, 32), 5.0),
+                            k, k, np.eye(4))
+assert warped.shape == (24, 32, 1) and bool(warped.isfinite().all())
 bad = sorted(m for m in sys.modules if m.split('.')[0] in {forbidden})
 assert not bad, bad
 print('ok')
@@ -113,3 +130,16 @@ def test_init_detector_defaults_to_the_card():
     from hrfuser_tpu_torch import init_detector
     device = inspect.signature(init_detector).parameters['device'].default
     assert device == 'cuda'
+
+
+def test_offline_converters_default_to_the_card():
+    from hrfuser_tpu_torch.tools import (create_data, stf_gated_warp,
+                                         stf_projection)
+    for fn in (create_data.convert_sample, stf_projection.project_frame,
+               stf_gated_warp.warp_frame):
+        assert inspect.signature(fn).parameters['device'].default == 'cuda'
+    for tool, argv in ((create_data, ['nuscenes', '--root-path', 'r']),
+                       (stf_projection, ['--root', 'r', '--calib-root', 'c',
+                                         '--split', 's']),
+                       (stf_gated_warp, ['--root', 'r', '--split', 's'])):
+        assert tool.parse_args(argv).device == 'cuda'
