@@ -2,7 +2,7 @@
 checkout of the repository, in turns (other, this tree, this tree, other).
 
     python3 chip_profile.py [--parent DIR [DIR ...]] [--unchecked]
-                            [--configs T,B,H] [--out FILE]
+                            [--configs T,B,H] [--offline] [--out FILE]
 
 Each DIR holds another checkout, e.g. the parent commit unpacked from
 `git archive` into `build/parent`, or a copy of this tree with one change
@@ -26,6 +26,13 @@ this tree's (`chip_smoke.py`). Measured, bf16:
   7 calls after 2 warm-ups) and, under `torch.profiler` over 2 calls,
   wall and device busy time per call, idle share, kernel C's device time
   per call and the kernels with the most device time.
+- `offline` (with --offline, in place of the two above): one nuScenes
+  sample through the tree's `tools/create_data.convert_sample` on the
+  card (phase 11a's seeded sample): ms per sample (median of 7 after 2
+  warm-ups) with and without its 24 PNGs, the calls that wait for the
+  card (`torch.cuda.set_sync_debug_mode`), and under `torch.profiler`
+  one call's wall and device busy time, idle share, kernel count and
+  the kernels with the most device time.
 
 Without --parent only this tree is measured. Prints each turn as a JSON
 line, then a summary; writes all turns to FILE (default
@@ -146,6 +153,43 @@ def _model(smoke, config):
                 top=[(k[:90], ms[k], count[k] / calls) for k in top])
 
 
+def _offline(smoke):
+    """One nuScenes sample (`chip_smoke.py` phase 11a's) through the
+    tree's `convert_sample` on the card, reference mode."""
+    import tempfile
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from hrfuser_tpu_torch.tools.create_data import convert_sample
+    db, lidar, radars = smoke._oracle('offline_data').nuscenes_sample(seed=0)
+
+    def run(out_dir=None):
+        convert_sample(db, db.sample, lidar, radars, out_dir, 'cuda')
+
+    for _ in range(2):
+        run()
+    ms = smoke._host_ms(run, runs=7)
+    with tempfile.TemporaryDirectory() as root:
+        png_ms = smoke._host_ms(lambda: run(root), runs=7)
+    syncs = smoke._sync_count(run)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name, count = defaultdict(float), defaultdict(int)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] += e.time_range.elapsed_us() / 1e3
+            count[e.name] += 1
+    busy = sum(by_name.values())
+    top = sorted(by_name, key=by_name.get, reverse=True)[:6]
+    return dict(ms=ms[0], ms_range=ms[1:], png_ms=png_ms[0], syncs=syncs,
+                wall_ms=wall, busy_ms=busy, idle=1 - busy / wall,
+                kernels_per_call=sum(count.values()),
+                top=[(k[:90], by_name[k], count[k]) for k in top])
+
+
 def _worker(root, what, config, checked):
     sys.path.insert(0, str(root))
     import hrfuser_tpu_torch
@@ -155,7 +199,9 @@ def _worker(root, what, config, checked):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smoke = _smoke()
-    res = _roi(smoke, checked) if what == 'roi' else _model(smoke, config)
+    res = (_roi(smoke, checked) if what == 'roi'
+           else _offline(smoke) if what == 'offline'
+           else _model(smoke, config))
     print('RESULT ' + json.dumps(dict(root=str(root), what=what, **res)))
 
 
@@ -185,6 +231,8 @@ def main():
                     help='do not hold the other trees\' kernel C to its twin')
     ap.add_argument('--configs', default='T,B',
                     help='detectors to profile: T, B, H (comma separated)')
+    ap.add_argument('--offline', action='store_true',
+                    help='measure only the offline nuScenes conversion')
     ap.add_argument('--out', type=Path,
                     default=HERE / 'chiprun_out' / 'chip_profile.json')
     ap.add_argument('--worker-root', type=Path, help=argparse.SUPPRESS)
@@ -206,6 +254,23 @@ def main():
     print(smi, flush=True)
     roots = [*others, HERE, HERE, *others[::-1]] if others else [HERE]
     tag = {HERE: 'this tree', **{p: p.name for p in others}}
+    if args.offline:
+        runs = [_turn(r, 'offline') for r in roots]
+        print(f'== one nuScenes sample, reference mode ({smi})')
+        for r in runs:
+            print(f'  {tag[Path(r["root"])]}: {r["ms"]:.1f} ms (min '
+                  f'{r["ms_range"][0]:.1f}, max {r["ms_range"][1]:.1f}), '
+                  f'{r["png_ms"]:.1f} with PNGs; {r["syncs"]} synchronising '
+                  f'calls; profiled wall {r["wall_ms"]:.1f}, busy '
+                  f'{r["busy_ms"]:.2f}, idle {r["idle"]:.1%}, '
+                  f'{r["kernels_per_call"]} kernels')
+            for name, ms, n in r['top']:
+                print(f'    {ms:.3f} ms in {n} x {name}')
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps(dict(device=smi, runs=runs),
+                                       indent=1))
+        print(f'wrote {args.out}')
+        return
     runs = [_turn(r, 'roi', checked=r == HERE or not args.unchecked)
             for r in roots]
     configs = [CONFIGS[c] for c in args.configs.split(',') if c]

@@ -154,17 +154,19 @@ Phases, each printed on its own lines; any failure exits non-zero:
    on 640x360 grids, through a fake devkit DB), both splat modes card vs
    CPU bit-equal, the 24 PNGs read back bit-equal, the COCO json of the
    card's run identical to the CPU's, ms a sample with and without PNG
-   encode; 11b one STF frame (`tools/stf_projection.project_frame`,
+   encode, and the calls a sample that wait for the card; 11b one STF
+   frame (`tools/stf_projection.project_frame`,
    110,000 HDL-64 points and 60 radar targets onto 1280x768), both
    modes card vs CPU bit-equal, ms a frame; 11c the gated -> RGB warp of
    one frame (`tools/stf_gated_warp.warp_frame`: three 720x1280 10-bit
    slices from uncompressed TIFFs this phase writes, a 1024x1920
    disparity, the ego offset, max-accumulate, the 768x1280 crop) card vs
-   CPU within one count, and the committed `cv2`-written LZW TIFFs
-   bit-equal to their committed decodes; 11d `homography_warp` of a
-   720x1280 frame onto 768x1280 card vs CPU (float32 within 1e-3,
-   integers within one count) and `homography_from_points` with 20 %
-   outliers card vs CPU within 1e-9.
+   CPU within one count, timed again with the slices rewritten as `cv2`
+   writes them (LZW, predictor 2, strips of 3 rows), and the committed
+   `cv2`-written LZW TIFFs bit-equal to their committed decodes; 11d
+   `homography_warp` of a 720x1280 frame onto 768x1280 card vs CPU
+   (float32 within 1e-3, integers within one count) and
+   `homography_from_points` with 20 % outliers card vs CPU within 1e-9.
 
 The last line is `{"ok": true, "device": {...}}`; the line before it
 lists each kernel's launches, error, times and bound as JSON.
@@ -186,6 +188,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
+import warnings
 
 import numpy as np
 import torch
@@ -2257,7 +2260,22 @@ def phase_offline_nuscenes(smi):
         cpu_ms = _host_ms(lambda: run('cpu'), runs=3)
     print(f'  ms per sample (host clock, synchronised; median of 5, CPU of '
           f'3) on {smi}: card {_fmt(card)}, with PNG encode {_fmt(card_png)}'
-          f'; CPU {_fmt(cpu_ms)}')
+          f'; CPU {_fmt(cpu_ms)}; {_sync_count(lambda: run("cuda"))} '
+          f'synchronising calls a sample on the card')
+
+
+def _sync_count(fn):
+    """The calls of `fn` that wait for the card, as
+    `torch.cuda.set_sync_debug_mode` reports them."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        torch.cuda.set_sync_debug_mode('warn')
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+    return sum('synchroniz' in str(w.message) for w in caught)
 
 
 def phase_offline_stf(smi):
@@ -2316,9 +2334,28 @@ def phase_offline_gated(smi):
                                            device='cuda'))
         cpu_ms = _host_ms(lambda: warp_frame(root, frame, 'cam_stereo_sgm',
                                              device='cpu'), runs=1)
-    print(f'  ms per frame (host clock, synchronised, TIFF reads included; '
-          f'median of 5, CPU one run) on {smi}: card {_fmt(card)}; CPU '
-          f'{cpu_ms[0]:.1f}')
+        print(f'  uncompressed input: ms per frame (host clock, '
+              f'synchronised, TIFF reads included; median of 5, CPU one '
+              f'run) on {smi}: card {_fmt(card)}; CPU {cpu_ms[0]:.1f}')
+        # the same slices as cv2 writes them: LZW, predictor 2, 3-row strips
+        for i, img in enumerate(slices):
+            with open(f'{root}/gated{i}_raw/{frame}.tiff', 'wb') as f:
+                f.write(_oracle('offline_data').lzw_tiff_bytes(img, rows=3))
+        path = f'{root}/gated0_raw/{frame}.tiff'
+        size = os.path.getsize(path)
+        if not np.array_equal(tiff.imread(path), slices[0]):
+            raise AssertionError('11c: LZW TIFF round trip')
+        lzw = warp_frame(root, frame, 'cam_stereo_sgm', device='cuda')
+        if not np.array_equal(lzw, gpu):
+            raise AssertionError('11c: LZW input warps otherwise')
+        read = _host_ms(lambda: tiff.imread(path))
+        card_lzw = _host_ms(lambda: warp_frame(root, frame, 'cam_stereo_sgm',
+                                               device='cuda'))
+        cpu_lzw = _host_ms(lambda: warp_frame(root, frame, 'cam_stereo_sgm',
+                                              device='cpu'), runs=1)
+    print(f'  LZW input ({size} bytes a slice, the same '
+          f'crop as uncompressed): one slice read {_fmt(read)} ms; ms per '
+          f'frame card {_fmt(card_lzw)}; CPU {cpu_lzw[0]:.1f}')
 
 
 def phase_offline_homography(smi):

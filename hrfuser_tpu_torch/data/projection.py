@@ -90,11 +90,14 @@ def to_uint16(img: Tensor) -> np.ndarray:
 
 
 def apply_matrix(m, points: Tensor) -> Tensor:
-    """`m @ points` for a small host matrix `m` [R, K] and points [K, N]
-    on any device; `m` [R, K + 1] applies a homogeneous transform
-    (`(m @ [points; 1])[:R]`). Sums of elementwise products in column
-    order, so every device rounds alike."""
-    m = np.asarray(m, np.float64).tolist()
+    """`m @ points` for a small matrix `m` [R, K] and points [K, ...] on
+    any device; `m` [R, K + 1] applies a homogeneous transform
+    (`(m @ [points; 1])[:R]`). `m` is a host matrix, or a tensor
+    [R, K (+ 1), ...] whose trailing dimensions broadcast against a row
+    of points (a matrix per camera, per point). Sums of elementwise
+    products in column order, so every device rounds alike."""
+    if not torch.is_tensor(m):
+        m = np.asarray(m, np.float64).tolist()
     rows = []
     for row in m:
         acc = points[0] * row[0]
@@ -109,10 +112,11 @@ def apply_matrix(m, points: Tensor) -> Tensor:
 def project_to_image(points_cam: Tensor, intrinsic,
                      img_wh: Tuple[int, int], min_dist: float = 1.0
                      ) -> Tuple[Tensor, Tensor]:
-    """Pinhole projection of camera-frame points [3, N] with a host 3x3
-    `intrinsic`: (uv [2, N], mask [N]), the mask selecting points in
-    front (`z > min_dist`) and inside the image with a 1 px margin
-    (`map_pointcloud_to_image`)."""
+    """Pinhole projection of camera-frame points [3, ...] with a 3x3
+    `intrinsic` (see `apply_matrix`): (uv [2, ...], mask [...]), the
+    mask selecting points in front (`z > min_dist`) and inside the image
+    (`img_wh`: ints, or tensors broadcast against the points) with a
+    1 px margin (`map_pointcloud_to_image`)."""
     w, h = img_wh
     z = points_cam[2]
     uvw = apply_matrix(intrinsic, points_cam)
@@ -179,20 +183,26 @@ def _paint(win: Tensor, q: Tensor) -> Tensor:
 
 def splat_lidar(uv: Tensor, distances: Tensor, intensities: Tensor,
                 points_cam: Tensor, target_wh: Tuple[int, int] = (640, 360),
-                scale_factor: float = 2.5, mode: str = 'reference'
+                scale_factor: float = 2.5, mode: str = 'reference',
+                image: Optional[Tensor] = None, n_images: int = 1
                 ) -> Tuple[Tensor, Tensor]:
-    """Lidar points -> (rih, xz0) [H, W, 3] images.
+    """Lidar points -> (rih, xz0) [H, W, 3] images; given `image`, each
+    point's image index, [n_images, H, W, 3] (the images of several
+    cameras in one pass, each as if splatted alone).
 
     Channels: range, intensity, height (= -y_cam) and x_cam, z_cam, 0.
     """
     w, h = target_wh
     px = _prep_pixels(uv, scale_factor, target_wh)
     lin = px[:, 1] * w + px[:, 0]
-    win = _winners(lin, distances, h * w, mode)
+    if image is not None:
+        lin = lin + image * (h * w)
+    win = _winners(lin, distances, n_images * h * w, mode)
     q = torch.stack([_quantize(distances), _quantize(intensities),
                      _quantize(-points_cam[1]), _quantize(points_cam[0]),
                      _quantize(points_cam[2])], 1)
-    img = _paint(win, q).reshape(h, w, 5)
+    img = _paint(win, q).reshape(*(() if image is None else (n_images,)),
+                                 h, w, 5)
     bg = torch.full_like(img[..., :1], int(SCALE * SHIFT))
     return img[..., :3], torch.cat([img[..., 3:], bg], -1)
 
@@ -232,9 +242,11 @@ def _pillars_zbuffer(x: Tensor, top: Tensor, bot: Tensor, d: Tensor,
 def splat_radar_pillars(uv: Tensor, uv_top: Tensor, distances: Tensor,
                         rcs: Tensor, velocities: Tensor, points_cam: Tensor,
                         target_wh: Tuple[int, int] = (640, 360),
-                        scale_factor: float = 2.5, mode: str = 'reference'
+                        scale_factor: float = 2.5, mode: str = 'reference',
+                        image: Optional[Tensor] = None, n_images: int = 1
                         ) -> Tuple[Tensor, Tensor]:
-    """Radar points -> (riv, xz0) [H, W, 3] images of vertical pillars.
+    """Radar points -> (riv, xz0) [H, W, 3] images of vertical pillars;
+    given `image`, [n_images, H, W, 3] as `splat_lidar`.
 
     Each return is drawn down its column over the half-open rows
     [y_top, y) from its projected top endpoint (3 m up, computed by the
@@ -252,9 +264,13 @@ def splat_radar_pillars(uv: Tensor, uv_top: Tensor, distances: Tensor,
                      _quantize(points_cam[2])], 1)
     keep = torch.nonzero(px[:, 1] > top)[:, 0]
     x, top, bot = px[keep, 0], top[keep], px[keep, 1]
+    b = 0 if image is None else image[keep]
     if mode == 'zbuffer':
-        img = _pillars_zbuffer(x, top, bot, distances[keep], q[keep],
-                               target_wh)
+        # the images side by side: a column of image b is column b * W + x
+        img = _pillars_zbuffer(x + b * w, top, bot, distances[keep], q[keep],
+                               (n_images * w, h))
+        if image is not None:
+            img = img.reshape(h, n_images, w, 5).transpose(0, 1)
     else:
         lens = bot - top
         pillar = torch.repeat_interleave(
@@ -262,9 +278,12 @@ def splat_radar_pillars(uv: Tensor, uv_top: Tensor, distances: Tensor,
         first = torch.cumsum(lens, 0) - lens
         row = top[pillar] + torch.arange(pillar.numel(),
                                          device=keep.device) - first[pillar]
-        win = last_writer(row * w + x[pillar], h * w)
+        if image is not None:
+            row = row + b[pillar] * h
+        win = last_writer(row * w + x[pillar], n_images * h * w)
         win = torch.where(win < 0, -1, pillar[win.clamp_min(0)])
-        img = _paint(win, q[keep]).reshape(h, w, 5)
+        img = _paint(win, q[keep]).reshape(
+            *(() if image is None else (n_images,)), h, w, 5)
     bg = torch.full_like(img[..., :1], int(SCALE * SHIFT))
     return img[..., :3], torch.cat([img[..., 3:], bg], -1)
 

@@ -108,16 +108,17 @@ def decompand_image(raw: torch.Tensor) -> torch.Tensor:
     return lut[idx.long()]
 
 
-_LUT8 = ('8-bit LUT images need a Bayer demosaic, a LAB conversion and '
-         'CLAHE bit-exact to cv2, not ported yet (ROADMAP section 1, item '
-         '5: raw_to_lut8 / gated_raw_to_lut8 / --lut8)')
+LUT8_NOT_PORTED = (
+    '8-bit LUT images need a Bayer demosaic, a LAB conversion and CLAHE '
+    'bit-exact to cv2, not ported yet (ROADMAP section 1, item 5: '
+    'raw_to_lut8 / gated_raw_to_lut8 / --lut8)')
 
 
 def raw_to_lut8(raw_bayer, daytime: bool):
     """Raw 12-bit Bayer frame -> 8-bit BGR LUT image: not ported."""
-    raise NotImplementedError(_LUT8)
+    raise NotImplementedError(LUT8_NOT_PORTED)
 
 
 def gated_raw_to_lut8(raw):
     """Raw 10-bit gated frame -> 8-bit grey LUT image: not ported."""
-    raise NotImplementedError(_LUT8)
+    raise NotImplementedError(LUT8_NOT_PORTED)

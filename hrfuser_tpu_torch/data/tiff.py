@@ -7,7 +7,8 @@ predictor (tag 317 = 2), in strips of a few rows. This reader takes what
 such files need and no more: the first image of the file, grey (one
 sample a pixel, black is zero), 8 or 16 bits unsigned, in strips,
 uncompressed or LZW, predictor 1 or 2, either byte order. Anything else
-raises `ValueError` naming the tag and its value.
+raises `ValueError` naming the tag and its value. LZW is decoded in a few
+whole-array passes over all strips (`_lzw_expand`), not code by code.
 
 `imdecode(data)` returns uint8 or uint16 [H, W], as `cv2` does.
 """
@@ -15,7 +16,7 @@ raises `ValueError` naming the tag and its value.
 from __future__ import annotations
 
 import struct
-from typing import Dict, List
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -30,6 +31,12 @@ _TAG_NAMES = {256: 'ImageWidth', 257: 'ImageLength', 258: 'BitsPerSample',
 _ALLOWED = {258: (8, 16), 259: (1, 5), 262: (1,), 266: (1,), 277: (1,),
             284: (1,), 317: (1, 2), 339: (1,)}
 _CLEAR, _EOI = 256, 257
+# code k of a run (the codes after a Clear code) is 9 bits wide for
+# k < 254, then 10, 11, and 12 from k = 1790 on: libtiff widens one code
+# before the table needs it
+_RUN_WIDTHS = np.repeat(np.array([9, 10, 11, 12], np.int64),
+                        [254, 512, 1024, 2306])
+_TAIL_WIDTHS = np.full(4096, 12, np.int64)
 
 
 def _refuse(tag: int, value) -> ValueError:
@@ -61,40 +68,105 @@ def _tags(data: bytes, order: str) -> Dict[int, List[int]]:
     return tags
 
 
-def _lzw_decode(data: bytes, size: int) -> bytes:
-    """TIFF LZW (MSB-first codes of 9-12 bits, the width growing one code
-    early, as libtiff writes) into at most `size` bytes."""
-    out = bytearray()
-    table = [bytes([i]) for i in range(256)] + [b'', b'']
-    buf = data + b'\0\0\0'
-    nbits, pos, end = 9, 0, len(data) * 8
-    prev = b''
-    while pos + nbits <= end and len(out) < size:
-        i = pos >> 3
+def _lzw_runs(data: bytes) -> Tuple[List[np.ndarray],
+                                     Optional[Tuple[int, int]]]:
+    """Split one strip's LZW stream into runs of codes, each decoded with
+    a fresh table: the codes from the start or a Clear code up to the
+    next Clear code. Reading stops at the end-of-information code, at the
+    data's end, or at an invalid code (one past the table), which is
+    returned as (code, table size) beside the runs before it."""
+    buf = np.frombuffer(data + b'\0\0\0', np.uint8).astype(np.int64)
+    end = len(data) * 8
+    runs, run, pos, k0 = [], [], 0, 0
+    while True:
+        widths = _RUN_WIDTHS if k0 == 0 else _TAIL_WIDTHS
+        stops = pos + np.cumsum(widths)
+        n = int(np.searchsorted(stops, end, side='right'))
+        starts = stops[:n] - widths[:n]
+        i = starts >> 3
         word = (buf[i] << 16) | (buf[i + 1] << 8) | buf[i + 2]
-        code = (word >> (24 - nbits - (pos & 7))) & ((1 << nbits) - 1)
-        pos += nbits
-        if code == _CLEAR:
-            del table[258:]
-            nbits, prev = 9, b''
+        codes = ((word >> (24 - widths[:n] - (starts & 7)))
+                 & ((1 << widths[:n]) - 1))
+        # before code k of a run the table holds max(258, 257 + k)
+        # entries; a code may also name the entry it is about to make
+        k = k0 + np.arange(n)
+        invalid = (codes >= 258) & (codes > 257 + k)
+        hit = np.flatnonzero(invalid | (codes == _CLEAR) | (codes == _EOI))
+        t = int(hit[0]) if hit.size else n
+        run.append(codes[:t])
+        if t == n == len(widths):                 # the run goes on
+            pos, k0 = int(stops[-1]), k0 + n
             continue
-        if code == _EOI:
+        runs.append(np.concatenate(run))
+        if t == n or codes[t] == _EOI:
+            return runs, None
+        if invalid[t]:
+            return runs, (int(codes[t]), max(258, 257 + int(k[t])))
+        pos, run, k0 = int(stops[t]), [], 0      # Clear: a fresh table
+
+
+def _lzw_expand(runs: List[np.ndarray]) -> Tuple[np.ndarray, np.ndarray]:
+    """The bytes that runs of valid codes stand for, concatenated, and
+    each run's count of them.
+
+    Entry e >= 258 of a run's table is made at its code e - 257: the
+    string of code e - 258 and the first byte of the next one. So code k
+    naming it stands for a copy of code e - 258's output and the byte
+    after it, one byte longer, and every output byte is a literal
+    code's byte or a copy of an earlier one. Both chains (lengths
+    through the codes, bytes through their sources) are followed by
+    pointer doubling, a few whole-array passes in place of one Python
+    step per code.
+    """
+    sizes = np.array([len(r) for r in runs], np.int64)
+    codes = np.concatenate(runs) if runs else np.zeros(0, np.int64)
+    copy = codes >= 258
+    run_start = np.repeat(np.cumsum(sizes) - sizes, sizes)
+    parent = np.where(copy, codes - 258 + run_start, np.arange(codes.size))
+    length, p = copy.astype(np.int64), parent      # steps to p
+    while True:
+        pp = p[p]
+        if np.array_equal(pp, p):
             break
-        if code < len(table):
-            entry = table[code]
-            if prev:
-                table.append(prev + entry[:1])
-        elif code == len(table) and prev:
-            entry = prev + prev[:1]
-            table.append(entry)
-        else:
-            raise ValueError(f'corrupt TIFF LZW data: code {code} with '
-                             f'{len(table)} table entries')
-        out += entry
-        prev = entry
-        if len(table) + 1 >= 1 << nbits and nbits < 12:
-            nbits += 1
-    return bytes(out[:size])
+        length = length + length[p]
+        p = pp
+    length += 1
+    start = np.cumsum(length) - length
+    total = int(length.sum())
+    src = np.repeat(start[parent] - start, length) + np.arange(total)
+    while True:
+        ss = src[src]
+        if np.array_equal(ss, src):
+            break
+        src = ss
+    literal = np.zeros(total, np.uint8)
+    literal[start[~copy]] = codes[~copy]
+    ends = np.concatenate([[0], np.cumsum(length)])
+    return literal[src], np.diff(ends[np.concatenate([[0], np.cumsum(sizes)])])
+
+
+def _lzw_decode(strips: List[bytes], sizes: List[int]) -> List[np.ndarray]:
+    """TIFF LZW strips (MSB-first codes of 9-12 bits, the width growing
+    one code early, as libtiff writes) into at most `sizes` bytes each."""
+    runs, owner, bad = [], [], {}
+    for s, body in enumerate(strips):
+        r, b = _lzw_runs(body)
+        runs += r
+        owner += [s] * len(r)
+        if b is not None:
+            bad[s] = b
+    out, run_bytes = _lzw_expand(runs)
+    per_strip = np.bincount(np.array(owner, np.int64), run_bytes,
+                            len(strips)).astype(np.int64)
+    ends = np.cumsum(per_strip)
+    parts = []
+    for s, size in enumerate(sizes):
+        part = out[ends[s] - per_strip[s]:ends[s]]
+        if len(part) < size and s in bad:
+            raise ValueError(f'corrupt TIFF LZW data: code {bad[s][0]} '
+                             f'with {bad[s][1]} table entries')
+        parts.append(part[:size])
+    return parts
 
 
 def imdecode(data: bytes) -> np.ndarray:
@@ -134,18 +206,18 @@ def imdecode(data: bytes) -> np.ndarray:
         raise ValueError(f'TIFF with {len(offsets)} strip offsets and '
                          f'{len(counts)} byte counts for {h} rows of '
                          f'{rows}')
-    parts = []
-    for k, (off, count) in enumerate(zip(offsets, counts)):
-        want = min(rows, h - k * rows) * w * nbytes
-        body = data[off:off + count]
-        if compression == 5:
-            body = _lzw_decode(body, want)
+    wants = [min(rows, h - k * rows) * w * nbytes
+             for k in range(len(offsets))]
+    parts = [data[off:off + count] for off, count in zip(offsets, counts)]
+    parts = (_lzw_decode(parts, wants) if compression == 5
+             else [np.frombuffer(p, np.uint8) for p in parts])
+    for k, (body, want) in enumerate(zip(parts, wants)):
         if len(body) < want:
             raise ValueError(f'TIFF strip {k} holds {len(body)} of its '
                              f'{want} bytes')
-        parts.append(body[:want])
+    img = np.concatenate([p[:want] for p, want in zip(parts, wants)])
     dtype = np.dtype(np.uint8 if nbytes == 1 else order + 'u2')
-    img = np.frombuffer(b''.join(parts), dtype).reshape(h, w)
+    img = img.view(dtype).reshape(h, w)
     if tags.get(317, [1])[0] == 2:                  # horizontal differences
         return np.cumsum(img, axis=1, dtype=img.dtype.newbyteorder('='))
     return img.astype(img.dtype.newbyteorder('='))

@@ -35,7 +35,7 @@ from hrfuser_tpu_torch.data.gated_warp import (disparity_to_depth,
                                                inverse_depth_warp)
 from hrfuser_tpu_torch.data.pipelines.loading import imread
 from hrfuser_tpu_torch.data.stf_io import load_calib, load_split
-from hrfuser_tpu_torch.data.stf_lut import gated_raw_to_lut8
+from hrfuser_tpu_torch.data.stf_lut import LUT8_NOT_PORTED
 from hrfuser_tpu_torch.tools import resolve_device
 
 GATED_SLICES = ('gated0', 'gated1', 'gated2')
@@ -76,7 +76,7 @@ def warp_frame(root: str, frame: str, depth_folder: str,
     [768, 1280] at the RGB crop."""
     device = resolve_device(device)
     if use_lut8:
-        gated_raw_to_lut8(None)                   # raises: not ported
+        raise NotImplementedError(LUT8_NOT_PORTED)
     k_rgb, t_velo_to_rgb = load_calib(
         root, camera_calib='calib_cam_stereo_left.json')
     k_gated, t_velo_to_gated = load_calib(

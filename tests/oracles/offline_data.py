@@ -12,7 +12,9 @@ tests and `chip_smoke.py` phase 11 (which loads this file by path):
 - `stf_frame`: an HDL-64 scan, radar targets and an STF-like camera;
 - `write_gated_frame`: a folder for the gated-warp CLI (calib jsons and
   TF tree, disparity, CAN data, timestamps, three raw gated TIFFs);
-- `tiff_bytes`: an uncompressed grey TIFF in either byte order.
+- `tiff_bytes`: an uncompressed grey TIFF in either byte order;
+  `lzw_tiff_bytes` one in strips, LZW with the horizontal predictor, as
+  `cv2` writes them; `lzw_decode_plain` decodes LZW one code at a time.
 """
 
 import json
@@ -34,6 +36,9 @@ RADAR_POSE = {'RADAR_FRONT': ((3.41, 0.0, 0.5), 0),
               'RADAR_FRONT_RIGHT': ((2.42, -0.8, 0.5), -90),
               'RADAR_BACK_LEFT': ((-0.56, 0.6, 0.5), 170),
               'RADAR_BACK_RIGHT': ((-0.56, -0.6, 0.5), -170)}
+N_ANNS = 40
+RAW_HW = (720, 1280)               # a raw gated slice
+DISP_HW = (1024, 1920)             # the stereo disparity
 CATEGORIES = ['vehicle.car', 'vehicle.truck', 'human.pedestrian.adult',
               'movable_object.barrier', 'vehicle.bicycle',
               'movable_object.trafficcone', 'animal']
@@ -69,7 +74,7 @@ _OPTICAL = np.array([[0.0, 0.0, 1.0], [-1.0, 0.0, 0.0], [0.0, -1.0, 0.0]])
 class NuScenesDB:
     """One nuScenes-like sample (see the module docstring)."""
 
-    def __init__(self, seed=0, n_anns=40):
+    def __init__(self, seed=0):
         rng = np.random.default_rng(seed)
         self.tables = {k: {} for k in (
             'sample', 'sample_data', 'calibrated_sensor', 'ego_pose',
@@ -119,7 +124,7 @@ class NuScenesDB:
                                                    'name': a}
         self.velocity = {}
         anns = []
-        for j in range(n_anns):
+        for j in range(N_ANNS):
             rng_m = rng.uniform(3.0, 60.0)
             az = rng.uniform(-np.pi, np.pi)
             local = np.array([rng_m * np.cos(az), rng_m * np.sin(az),
@@ -231,20 +236,131 @@ def tiff_bytes(img, order='<'):
             + struct.pack(order + 'I', 0))
 
 
+def lzw_encode(data: bytes) -> bytes:
+    """TIFF LZW as libtiff writes it (MSB-first codes of 9-12 bits, a
+    Clear code first and when the table fills)."""
+    out, acc, nacc = bytearray(), 0, 0
+    nbits = 9
+
+    def emit(code):
+        nonlocal acc, nacc
+        acc, nacc = (acc << nbits) | code, nacc + nbits
+        while nacc >= 8:
+            nacc -= 8
+            out.append((acc >> nacc) & 0xFF)
+
+    def reset():
+        return {bytes([i]): i for i in range(256)}, 258
+
+    emit(256)
+    table, free = reset()
+    w = b''
+    for b in data:
+        wc = w + bytes([b])
+        if wc in table:
+            w = wc
+            continue
+        emit(table[w])
+        table[wc] = free
+        free += 1
+        if free == 4094:
+            emit(256)
+            table, free = reset()
+            nbits = 9
+        elif free > (1 << nbits) - 1:
+            nbits += 1
+        w = bytes([b])
+    if w:
+        emit(table[w])
+    emit(257)
+    if nacc:
+        out.append((acc << (8 - nacc)) & 0xFF)
+    return bytes(out)
+
+
+def lzw_tiff_bytes(img, order='<', rows=7):
+    """A TIFF of `img` in strips of `rows` rows, LZW with the horizontal
+    predictor, in byte order `order`."""
+    h, w = img.shape
+    diff = img.astype(img.dtype.newbyteorder('='))
+    diff = np.concatenate([diff[:, :1], np.diff(diff, axis=1)], 1).astype(
+        img.dtype.newbyteorder(order))
+    strips = [lzw_encode(diff[r:r + rows].tobytes())
+              for r in range(0, h, rows)]
+    offsets, pos = [], 8
+    for s in strips:
+        offsets.append(pos)
+        pos += len(s)
+    n = len(strips)
+    arrays = pos
+    tags = [(256, 4, 1, w), (257, 4, 1, h),
+            (258, 3, 1, img.dtype.itemsize * 8), (259, 3, 1, 5),
+            (262, 3, 1, 1), (273, 4, n, arrays if n > 1 else offsets[0]),
+            (277, 3, 1, 1), (278, 4, 1, rows),
+            (279, 4, n, arrays + 4 * n if n > 1 else len(strips[0])),
+            (317, 3, 1, 2)]                  # one strip: values inline
+    ifd = arrays + 8 * n
+    body = (b''.join(strips) + struct.pack(order + f'{n}I', *offsets)
+            + struct.pack(order + f'{n}I', *map(len, strips)))
+    entries = b''.join(
+        struct.pack(order + 'HHI', tag, kind, count)
+        + (struct.pack(order + 'HH', value, 0) if kind == 3
+           else struct.pack(order + 'I', value))
+        for tag, kind, count, value in tags)
+    return ((b'II' if order == '<' else b'MM')
+            + struct.pack(order + 'HI', 42, ifd) + body
+            + struct.pack(order + 'H', len(tags)) + entries
+            + struct.pack(order + 'I', 0))
+
+
+def lzw_decode_plain(data: bytes, size: int) -> bytes:
+    """TIFF LZW decoded one code at a time into at most `size` bytes: the
+    plain version of `data/tiff.py`'s whole-array decoder."""
+    out = bytearray()
+    table = [bytes([i]) for i in range(256)] + [b'', b'']
+    buf = data + b'\0\0\0'
+    nbits, pos, end = 9, 0, len(data) * 8
+    prev = b''
+    while pos + nbits <= end and len(out) < size:
+        i = pos >> 3
+        word = (buf[i] << 16) | (buf[i + 1] << 8) | buf[i + 2]
+        code = (word >> (24 - nbits - (pos & 7))) & ((1 << nbits) - 1)
+        pos += nbits
+        if code == 256:                                   # Clear
+            del table[258:]
+            nbits, prev = 9, b''
+            continue
+        if code == 257:                                   # end of data
+            break
+        if code < len(table):
+            entry = table[code]
+            if prev:
+                table.append(prev + entry[:1])
+        elif code == len(table) and prev:
+            entry = prev + prev[:1]
+            table.append(entry)
+        else:
+            raise ValueError(f'corrupt TIFF LZW data: code {code} with '
+                             f'{len(table)} table entries')
+        out += entry
+        prev = entry
+        if len(table) + 1 >= 1 << nbits and nbits < 12:
+            nbits += 1
+    return bytes(out[:size])
+
+
 def _tf(child, parent, t, q):
     return dict(child_frame_id=child, frame_id=parent, transform=dict(
         translation=dict(x=t[0], y=t[1], z=t[2]),
         rotation=dict(w=q[0], x=q[1], y=q[2], z=q[3])))
 
 
-def write_gated_frame(root, frame, rng, raw_hw=(720, 1280),
-                      disp_hw=(1024, 1920), write_tiff=None):
+def write_gated_frame(root, frame, rng):
     """A folder for `stf_gated_warp.warp_frame(root, frame,
     'cam_stereo_sgm')`: the stereo-left and gated calibrations (the gated
     camera 0.2 m beside the RGB camera, turned by 1 degree), a smooth
     disparity (5-60 m, a few NaNs), CAN speed and steering, slice
-    timestamps, and three 10-bit raw gated slices. `write_tiff(path,
-    img)` writes each slice (default: uncompressed, `tiff_bytes`).
+    timestamps, and three 10-bit raw gated slices in uncompressed TIFFs.
     Returns the three slices."""
     for sub in ('cam_stereo_sgm', 'gated0_raw', 'gated1_raw', 'gated2_raw',
                 'filtered_relevant_can_data/can_body_basic',
@@ -265,7 +381,7 @@ def write_gated_frame(root, frame, rng, raw_hw=(720, 1280),
              [0.0, f_px, wh[1] / 2 - 3.1, 0.0], [0.0, 0.0, 1.0, 0.0]]
         with open(os.path.join(root, name), 'w') as f:
             json.dump({'P': p}, f)
-    yy, xx = np.mgrid[0:disp_hw[0], 0:disp_hw[1]]
+    yy, xx = np.mgrid[0:DISP_HW[0], 0:DISP_HW[1]]
     depth = 12.0 + 40.0 * (0.5 + 0.5 * np.sin(xx / 150.0) * np.cos(yy / 90.0))
     disp = (2355.722801 * 0.202993 / depth).astype(np.float32)
     disp[rng.random(disp.shape) < 1e-3] = np.nan
@@ -282,17 +398,14 @@ def write_gated_frame(root, frame, rng, raw_hw=(720, 1280),
               'gated1': base + 45_000_000, 'gated2': base + 59_000_000}
     with open(os.path.join(root, 'timestamps.json'), 'w') as f:
         json.dump({s: {frame: f'{frame}_{t}'} for s, t in stamps.items()}, f)
-    yy, xx = np.mgrid[0:raw_hw[0], 0:raw_hw[1]]
+    yy, xx = np.mgrid[0:RAW_HW[0], 0:RAW_HW[1]]
     slices = []
     for i in range(3):
         img = (300 + 200 * np.sin(xx / (40.0 + 9 * i)) * np.cos(yy / 33.0)
-               + rng.normal(0, 30, raw_hw))
+               + rng.normal(0, 30, RAW_HW))
         img = np.clip(img, 0, 1023).astype(np.uint16)
-        path = os.path.join(root, f'gated{i}_raw', frame + '.tiff')
-        if write_tiff is None:
-            with open(path, 'wb') as f:
-                f.write(tiff_bytes(img))
-        else:
-            write_tiff(path, img)
+        with open(os.path.join(root, f'gated{i}_raw', frame + '.tiff'),
+                  'wb') as f:
+            f.write(tiff_bytes(img))
         slices.append(img)
     return slices

@@ -14,7 +14,8 @@ import pytest
 
 from hrfuser_tpu_torch.data import png, tiff
 from hrfuser_tpu_torch.data.pipelines.loading import imread
-from tests.oracles.offline_data import tiff_bytes
+from tests.oracles.offline_data import (lzw_decode_plain, lzw_encode,
+                                        lzw_tiff_bytes, tiff_bytes)
 
 DATA = Path(__file__).resolve().parent / 'data'
 
@@ -58,81 +59,6 @@ def _tiff_image(dtype, hw):
     return np.clip(img, 0, top).astype(dtype)
 
 
-def _lzw_encode(data: bytes) -> bytes:
-    """TIFF LZW as libtiff writes it (MSB-first codes of 9-12 bits, a
-    Clear code first and when the table fills)."""
-    out, acc, nacc = bytearray(), 0, 0
-    nbits = 9
-
-    def emit(code):
-        nonlocal acc, nacc
-        acc, nacc = (acc << nbits) | code, nacc + nbits
-        while nacc >= 8:
-            nacc -= 8
-            out.append((acc >> nacc) & 0xFF)
-
-    def reset():
-        return {bytes([i]): i for i in range(256)}, 258
-
-    emit(256)
-    table, free = reset()
-    w = b''
-    for b in data:
-        wc = w + bytes([b])
-        if wc in table:
-            w = wc
-            continue
-        emit(table[w])
-        table[wc] = free
-        free += 1
-        if free == 4094:
-            emit(256)
-            table, free = reset()
-            nbits = 9
-        elif free > (1 << nbits) - 1:
-            nbits += 1
-        w = bytes([b])
-    if w:
-        emit(table[w])
-    emit(257)
-    if nacc:
-        out.append((acc << (8 - nacc)) & 0xFF)
-    return bytes(out)
-
-
-def _lzw_tiff(img, order, rows=7):
-    """A TIFF of `img` in strips of `rows` rows, LZW with the horizontal
-    predictor, in byte order `order`."""
-    h, w = img.shape
-    diff = img.astype(img.dtype.newbyteorder('='))
-    diff = np.concatenate([diff[:, :1], np.diff(diff, axis=1)], 1).astype(
-        img.dtype.newbyteorder(order))
-    strips = [_lzw_encode(diff[r:r + rows].tobytes())
-              for r in range(0, h, rows)]
-    offsets, pos = [], 8
-    for s in strips:
-        offsets.append(pos)
-        pos += len(s)
-    n = len(strips)
-    arrays = pos
-    tags = [(256, 4, 1, w), (257, 4, 1, h),
-            (258, 3, 1, img.dtype.itemsize * 8), (259, 3, 1, 5),
-            (262, 3, 1, 1), (273, 4, n, arrays), (277, 3, 1, 1),
-            (278, 4, 1, rows), (279, 4, n, arrays + 4 * n), (317, 3, 1, 2)]
-    ifd = arrays + 8 * n
-    body = (b''.join(strips) + struct.pack(order + f'{n}I', *offsets)
-            + struct.pack(order + f'{n}I', *map(len, strips)))
-    entries = b''.join(
-        struct.pack(order + 'HHI', tag, kind, count)
-        + (struct.pack(order + 'HH', value, 0) if kind == 3
-           else struct.pack(order + 'I', value))
-        for tag, kind, count, value in tags)
-    return ((b'II' if order == '<' else b'MM')
-            + struct.pack(order + 'HI', 42, ifd) + body
-            + struct.pack(order + 'H', len(tags)) + entries
-            + struct.pack(order + 'I', 0))
-
-
 @pytest.mark.parametrize('compression', [5, 1])
 @pytest.mark.parametrize('dtype,hw', [(np.uint16, (96, 160)),
                                       (np.uint8, (48, 80)),
@@ -164,7 +90,7 @@ def test_tiff_reader_on_noise_with_table_resets(tmp_path):
 def test_tiff_byte_orders(order, dtype, tmp_path):
     img = _tiff_image(dtype, (30, 41))
     for name, data in (('raw', tiff_bytes(img, order)),
-                       ('lzw', _lzw_tiff(img, order))):
+                       ('lzw', lzw_tiff_bytes(img, order))):
         got = tiff.imdecode(data)
         assert got.dtype == np.dtype(dtype), name
         np.testing.assert_array_equal(got, img, err_msg=name)
@@ -173,6 +99,49 @@ def test_tiff_byte_orders(order, dtype, tmp_path):
             np.testing.assert_array_equal(
                 cv2.imread(str(tmp_path / 'x.tiff'), cv2.IMREAD_UNCHANGED),
                 img)
+
+
+@pytest.mark.parametrize('kind', ['noise', 'constant', 'ramp'])
+def test_tiff_reader_on_one_strip_of_many_table_runs(kind):
+    """The whole image in one LZW strip: Clear codes mid-strip (noise),
+    long runs of one byte (a code naming the entry it makes), repeats."""
+    rng = np.random.default_rng(4)
+    img = {'noise': rng.integers(0, 65536, (80, 120)),
+           'constant': np.full((80, 120), 777),
+           'ramp': np.arange(80 * 120).reshape(80, 120) % 37}[kind]
+    img = img.astype(np.uint16)
+    np.testing.assert_array_equal(
+        tiff.imdecode(lzw_tiff_bytes(img, rows=80)), img)
+
+
+@pytest.mark.parametrize('seed', range(4))
+def test_lzw_decoder_equals_the_plain_one(seed):
+    """On valid streams, cut ones, and random bytes, the whole-array
+    decoder returns what the one-code-at-a-time decoder returns, and
+    raises where it raises, with the same message."""
+    rng = np.random.default_rng(seed)
+    data = rng.integers(0, 4 + 60 * seed, 3000).astype(np.uint8).tobytes()
+    stream = lzw_encode(data)
+    cases = [(stream, 3000), (stream, 1234), (stream[:len(stream) // 2],
+                                              3000)]
+    cases += [(rng.integers(0, 256, int(rng.integers(1, 400))).astype(
+        np.uint8).tobytes(), int(rng.integers(1, 3000))) for _ in range(60)]
+    raised = 0
+    for body, size in cases:
+        try:
+            want, err = lzw_decode_plain(body, size), None
+        except ValueError as e:
+            want, err = None, str(e)
+        if err is None:
+            got = tiff._lzw_decode([body], [size])[0].tobytes()
+            assert got == want
+        else:
+            raised += 1
+            with pytest.raises(ValueError) as e:
+                tiff._lzw_decode([body], [size])
+            assert str(e.value) == err
+    assert lzw_decode_plain(stream, 3000) == data
+    assert 0 < raised < len(cases)
 
 
 def test_committed_cv2_fixtures_decode_bit_equal():

@@ -687,9 +687,9 @@ def _crowded(rng, n, w, h, scale=2.5):
 
 @pytest.mark.parametrize('mode', ['reference', 'zbuffer'])
 def test_offline_splats_on_the_card_match_cpu(dev, mode):
-    """`splat_lidar`, `splat_radar_pillars`, `stf_splat` on the card:
-    bit-equal to the CPU (the winners come from `scatter_reduce`, not
-    from repeated-index writes)."""
+    """`splat_lidar`, `splat_radar_pillars` (one image, and three in one
+    pass), `stf_splat` on the card: bit-equal to the CPU (the winners
+    come from `scatter_reduce`, not from repeated-index writes)."""
     from hrfuser_tpu_torch.data import projection as P
     rng = np.random.default_rng(0)
     w, h, n = 160, 96, 4000
@@ -704,13 +704,18 @@ def test_offline_splats_on_the_card_match_cpu(dev, mode):
     coords = torch.from_numpy(np.stack([rng.integers(0, w, n),
                                         rng.integers(0, h, n)], 1) % [w, 7])
     vals = torch.from_numpy(rng.normal(0, 20, (n, 3)))
+    image = torch.from_numpy(rng.integers(0, 3, n))
 
     def run(device):
         c = [x.to(device) for x in cols]
-        out = [*P.splat_lidar(c[0], c[2], c[3], c[5], (w, h), 2.5, mode),
-               *P.splat_radar_pillars(c[0][:, :600], c[1][:, :600],
-                                      c[2][:600], c[3][:600], c[4][:600],
-                                      c[5][:, :600], (w, h), 2.5, mode)]
+        out = []
+        for kw in ({}, dict(image=image.to(device), n_images=3)):
+            out += [*P.splat_lidar(c[0], c[2], c[3], c[5], (w, h), 2.5,
+                                   mode, **kw)]
+            kw = {k: v[:600] if k == 'image' else v for k, v in kw.items()}
+            out += [*P.splat_radar_pillars(
+                c[0][:, :600], c[1][:, :600], c[2][:600], c[3][:600],
+                c[4][:600], c[5][:, :600], (w, h), 2.5, mode, **kw)]
         out += [P.stf_splat(coords.to(device), vals.to(device), (w, h),
                             radar, mode) for radar in (False, True)]
         return [o.cpu() for o in out]

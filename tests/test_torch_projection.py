@@ -51,24 +51,23 @@ def test_half_pixels_round_to_even():
 
 @pytest.mark.parametrize('mode', MODES)
 def test_splat_lidar_bit_equal(mode):
-    rng = np.random.default_rng(0)
-    n = 2000
-    uv = _crowded_uv(rng, n)
-    d = rng.uniform(1, 80, n)
-    d[:300] = np.round(d[:300])                               # depth ties
-    inten = rng.uniform(0, 255, n).astype(np.float32)         # as devkit
-    pts = rng.normal(0, 10, (3, n))
-    want = J.splat_lidar(uv, d, inten, pts, (W, H), 2.5, mode)
-    got = P.splat_lidar(*_t(uv, d, inten, pts), (W, H), 2.5, mode)
+    args = _lidar_inputs(np.random.default_rng(0))
+    want = J.splat_lidar(*args, (W, H), 2.5, mode)
+    got = P.splat_lidar(*_t(*args), (W, H), 2.5, mode)
     for g, w in zip(got, want):
         assert g.dtype == torch.int32 and g.shape == (H, W, 3)
         np.testing.assert_array_equal(_u16(g), w)
 
 
-@pytest.mark.parametrize('mode', MODES)
-def test_splat_radar_pillars_bit_equal(mode):
-    rng = np.random.default_rng(1)
-    m = 300
+def _lidar_inputs(rng, n=2000):
+    uv = _crowded_uv(rng, n)
+    d = rng.uniform(1, 80, n)
+    d[:300] = np.round(d[:300])                               # depth ties
+    inten = rng.uniform(0, 255, n).astype(np.float32)         # as devkit
+    return uv, d, inten, rng.normal(0, 10, (3, n))
+
+
+def _pillar_inputs(rng, m=300):
     uv = _crowded_uv(rng, m)
     top = uv.copy()
     top[1] -= rng.uniform(-20, 150, m)           # some inverted or empty
@@ -81,14 +80,38 @@ def test_splat_radar_pillars_bit_equal(mode):
     d[:50] = np.round(d[:50] / 10) * 10
     rcs = rng.uniform(-10, 30, m).astype(np.float32)
     vel = rng.uniform(0, 20, m).astype(np.float32)
-    pts = rng.normal(0, 10, (3, m))
-    want = J.splat_radar_pillars(uv, top, d, rcs, vel, pts, (W, H), 2.5,
-                                 mode)
-    got = P.splat_radar_pillars(*_t(uv, top, d, rcs, vel, pts), (W, H), 2.5,
-                                mode)
+    return uv, top, d, rcs, vel, rng.normal(0, 10, (3, m))
+
+
+@pytest.mark.parametrize('mode', MODES)
+def test_splat_radar_pillars_bit_equal(mode):
+    args = _pillar_inputs(np.random.default_rng(1))
+    want = J.splat_radar_pillars(*args, (W, H), 2.5, mode)
+    got = P.splat_radar_pillars(*_t(*args), (W, H), 2.5, mode)
     assert (want[0] != 20000).sum() > 1000
     for g, w in zip(got, want):
         np.testing.assert_array_equal(_u16(g), w)
+
+
+@pytest.mark.parametrize('mode', MODES)
+@pytest.mark.parametrize('sensor', ['lidar', 'radar'])
+def test_splats_of_several_images_in_one_pass(sensor, mode):
+    """Points of three images in one call (`image`, `n_images`): each
+    image equal to JAX's splat of that image's points alone, in order."""
+    rng = np.random.default_rng(6)
+    args = (_lidar_inputs(rng) if sensor == 'lidar'
+            else _pillar_inputs(rng))
+    image = rng.integers(0, 3, args[0].shape[1])          # interleaved
+    splat = {'lidar': (J.splat_lidar, P.splat_lidar),
+             'radar': (J.splat_radar_pillars, P.splat_radar_pillars)}[sensor]
+    got = splat[1](*_t(*args), (W, H), 2.5, mode,
+                   image=torch.from_numpy(image), n_images=3)
+    for b in range(3):
+        part = [a[..., image == b] for a in args]
+        want = splat[0](*part, (W, H), 2.5, mode)
+        for g, w in zip(got, want):
+            assert g.shape == (3, H, W, 3)
+            np.testing.assert_array_equal(_u16(g[b]), w)
 
 
 def test_pillar_zbuffer_depends_on_order():
