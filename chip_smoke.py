@@ -45,8 +45,11 @@ Phases, each printed on its own lines; any failure exits non-zero:
    `evaluate_proposal_recall` on seeded ground truth, images/s; 6d the
    HTTP server on 127.0.0.1 (/healthz, /predict_multi with PNGs encoded
    here, its `latency_ms` beside the host's PNG, JSON and base64 decode
-   times, a JPEG refused with 400) and `inference_detector`'s time on
-   this thread, on fresh threads and on one worker thread;
+   times; /predict with the camera as a baseline JPEG from the oracle
+   encoder: 200, 2 JPEG kernel launches, the detections of a PNG payload
+   of its decoded pixels; a progressive JPEG refused with 400) and
+   `inference_detector`'s time on this thread, on fresh threads and on
+   one worker thread;
 3c. every kernel of the STF path vs its twin at the r1248 map shapes
    (HRFuser-T widths at 96x312x18, 48x156x36, 24x78x72, 12x39x144:
    kernel A self, A cross over three modalities accumulated as the
@@ -91,19 +94,27 @@ Phases, each printed on its own lines; any failure exits non-zero:
    near-tied random-weight RPN scores that can swap a proposal.
 
 9. the data slice, on seeded synthetic folders in the converters'
-   formats written to a temporary directory: 9a the image decoders (the
-   libjpeg decoder cannot build on this machine, which has no libjpeg
-   headers, so a JPEG raises with the compiler's message and
-   the committed JPEG fixture is refused; PNG round trips of 8-bit
-   colour, grey and 16-bit 3-channel files bit-equal, and the committed
-   `cv2`-written PNG fixtures bit-equal to their committed `cv2`
-   decodes); 9b nuScenes dataset eval at full width: 16 samples of a
-   900x1600 camera PNG (PNG, since JPEG cannot be read here), uint16
-   lidar `rih` / radar `riv` 360x640 projections and a COCO json with the
-   config's classes, `python -m hrfuser_tpu_torch.tools.test` in process
-   on HRFuser-T r640, bf16, batch 8, weights from a checkpoint: launch
-   counts exactly 2 x one forward's, every COCO and recall metric finite,
-   images/s of the loader alone and of the whole run; 9c `tools.train`
+   formats written to a temporary directory: 9a the image decoders (PNG
+   round trips of 8-bit colour, grey and 16-bit 3-channel files
+   bit-equal; the committed `cv2`-written PNG and JPEG fixtures (JPEG
+   at 4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1, with restart markers, grey)
+   bit-equal to their committed `cv2` decodes through `imread`, the
+   JPEG pixels made by the kernel; the JPEG kernel bit-equal to
+   `pixels_plain` on the card's own coefficients for each fixture and
+   for a 900x1600 4:2:0 frame from the oracle encoder, whose host
+   Huffman decode, coefficient copy, kernel (CUDA events, beside its
+   bound and its twin), `decode_jpeg` end to end, and `imread` beside
+   the `imread` of a PNG of the same pixels are timed); 9b nuScenes
+   dataset eval at full width: 16 samples of a 900x1600 camera JPEG
+   (baseline 4:2:0, from the oracle encoder, as nuScenes stores its
+   frames), uint16 lidar `rih` / radar `riv` 360x640 projections and a
+   COCO json with the config's classes; images/s of the loader alone over
+   the JPEG folder and over a PNG copy of the same pixels, then
+   `python -m hrfuser_tpu_torch.tools.test` in process on HRFuser-T
+   r640, bf16, batch 8, weights from a checkpoint: launch counts exactly
+   2 x one forward's and 2 JPEG kernel launches a frame, every COCO and
+   recall metric finite, images/s of the whole run and of the same run
+   over the PNG copy; 9c `tools.train`
    from the same files, float32, batch 3, flip and modality drop live,
    one epoch of `len(loader)` steps with the eval hook and a checkpoint
    at its end: 0 kernel launches inside a step, the eval hook's counts
@@ -214,6 +225,9 @@ BF16_MAP_REL = 0.25
 SRC_A = 'hrfuser_tpu_torch/csrc/window_attention.cu'
 SRC_B = 'hrfuser_tpu_torch/csrc/cross_ffn.cu'
 SRC_C = 'hrfuser_tpu_torch/csrc/roi_align.cu'
+SRC_JPEG = 'hrfuser_tpu_torch/csrc/jpeg_pixels.cu'
+# no TPU kernel: the JAX package decodes JPEG with libjpeg on the host
+REPLACES_JPEG = 'hrfuser_tpu/data/_native/loader.cpp:150'
 # every TPU pallas_call each kernel serves
 REPLACES_A = ['hrfuser_tpu/ops/pallas_chain.py:878',
               'hrfuser_tpu/ops/pallas_chain.py:670',
@@ -365,7 +379,7 @@ class Report:
     def add(self, name, source, replaces, err, ms=None, plain_ms=None,
             bound=None):
         """`bound`: (ms, 'bytes' or 'operations') of the timed call. No
-        single PyTorch call computes any of the three kernels' functions
+        single PyTorch call computes any of the kernels' functions
         (PERF.md gives the reasons), so `library_ms` stays null."""
         k = self.kernels.setdefault(name, dict(
             name=name, route='cuda', source=source, replaces=replaces,
@@ -1285,16 +1299,53 @@ def phase_serve(state):
               f'decode {(time.perf_counter() - t0) * 1e3:.1f} ms')
         print('  inference_detector ms by calling thread: '
               + _by_thread(lambda: inference_detector(det, img, mods)))
-        code, reply = call('/predict', b'\xff\xd8\xff\xe0\x00\x10JFIF\x00')
-        print(f'  POST /predict with a JPEG header: {code} {reply}')
-        if code != 400:
-            raise AssertionError('a JPEG payload was not refused with 400')
+        _serve_jpeg(call, img)
     finally:
         server.shutdown()
         server.server_close()
         thread.join(timeout=30)
     if thread.is_alive():
         raise AssertionError('server thread did not stop')
+
+
+def _serve_jpeg(call, img):
+    """/predict with the request's camera as a baseline JPEG: 200, two
+    JPEG kernel launches, and the detections of a PNG payload of the
+    decoded pixels; a progressive JPEG gets a 400 naming the mode."""
+    from hrfuser_tpu_torch.data import jpeg
+    from hrfuser_tpu_torch.data.png import imencode
+    enc = _oracle('jpeg_encoder')
+    data = enc.encode(*enc.image_coefficients(img, 90), img.shape[:2])
+    pixels = imencode(jpeg.decode_jpeg(data, 'cuda').cpu().numpy())
+    jpeg.pixels.launches = 0
+    code, by_jpeg = call('/predict', data)
+    launches = jpeg.pixels.launches
+    if code != 200:
+        raise AssertionError(f'/predict with a JPEG: {code} {by_jpeg}')
+    code, by_png = call('/predict', pixels)
+    if code != 200:
+        raise AssertionError(f'/predict with a PNG: {code} {by_png}')
+    print(f'  POST /predict, camera as a {len(data) / 1e3:.0f} kB JPEG: 200, '
+          f'{len(by_jpeg["labels"])} detections, latency_ms '
+          f'{by_jpeg["latency_ms"]} (JPEG decode included, {launches} '
+          f'JPEG kernel launches); as a {len(pixels) / 1e6:.1f} MB PNG of '
+          f'the decoded pixels: latency_ms {by_png["latency_ms"]}')
+    if launches != 2:
+        raise AssertionError(f'a JPEG request launched the JPEG kernel '
+                             f'{launches} times, expected 2')
+    same = (by_jpeg['labels'] == by_png['labels']
+            and np.allclose(by_jpeg['boxes'], by_png['boxes'], atol=0.01)
+            and np.allclose(by_jpeg['scores'], by_png['scores'], atol=1e-4))
+    print(f'  JPEG and PNG payloads of the same pixels detect the same: '
+          f'{same}')
+    if not same:
+        raise AssertionError('the JPEG payload detects other objects than '
+                             'the PNG of its pixels')
+    code, reply = call('/predict', data.replace(b'\xff\xc0', b'\xff\xc2',
+                                                1))
+    print(f'  POST /predict with a progressive JPEG: {code} {reply}')
+    if code != 400 or 'progressive' not in reply.get('error', ''):
+        raise AssertionError('a progressive JPEG was not refused with 400')
 
 
 def _stf_request(rng):
@@ -1652,27 +1703,43 @@ def _projection(rng, hw, c):
     return m
 
 
-def phase_decoders():
+def _jpeg_frame(rng, hw=RAW_HW, quality=90):
+    """A camera-like BGR frame (smooth ramps and noise) and its baseline
+    4:2:0 JPEG from the oracle encoder (`tests/oracles/jpeg_encoder.py`),
+    as nuScenes' camera frames are stored."""
+    enc = _oracle('jpeg_encoder')
+    h, w = hw
+    yy, xx = np.mgrid[0:h, 0:w]
+    img = np.stack([xx * 200 / w, yy * 200 / h, (xx + yy) * 100 / (h + w)],
+                   -1) + rng.integers(0, 40, (h, w, 3))
+    img = np.clip(img, 0, 255).astype(np.uint8)
+    return img, enc.encode(*enc.image_coefficients(img, quality), hw)
+
+
+# a JPEG frame's pixel work, counted from the kernel's arithmetic: an
+# 8x8 block's dequantisation and two 8-point passes (8 x (16 + 82) +
+# 8 x (82 + 24) integer operations), a pixel's sample fetch (8 a
+# full-size component, 40 a fancy-upsampled one) and colour conversion
+# and store (18); the card's integer rate is taken as its float32
+# CUDA-core peak (the measurement table has no integer rate)
+JPEG_OPS_BLOCK, JPEG_OPS_FULL, JPEG_OPS_FANCY, JPEG_OPS_PIXEL = 1632, 8, 40, 18
+
+
+def _jpeg_work(frame, coefs, out):
+    """(operations, bytes) of one frame through the kernel: the
+    coefficients and tables read once, the BGR written once."""
+    ops = JPEG_OPS_BLOCK * sum(frame.blocks)
+    per_pixel = JPEG_OPS_PIXEL + sum(
+        JPEG_OPS_FULL if frame.expand(i) == (1, 1) else JPEG_OPS_FANCY
+        for i in range(len(frame.comps)))
+    ops += per_pixel * frame.height * frame.width
+    return ops, _nbytes(coefs, out)
+
+
+def phase_decoders(report, smi):
     print('== 9a. data slice: image decoders')
-    from hrfuser_tpu_torch.data import native
+    from hrfuser_tpu_torch.data import jpeg
     from hrfuser_tpu_torch.data.pipelines.loading import imread
-    try:
-        native.lib()
-    except RuntimeError as e:
-        first = [ln for ln in str(e).splitlines() if 'error' in ln][:1]
-        print(f'  libjpeg decoder: does not build here '
-              f'({first[0].strip() if first else str(e)[:120]})')
-    else:
-        raise AssertionError('the libjpeg decoder built: this machine '
-                             'now has its headers, so phase 9a '
-                             'should hold JPEG decoding to the cv2 fixture')
-    try:
-        imread(f'{FIXTURES}/camera.jpg')
-    except RuntimeError as e:
-        print(f'  JPEG {FIXTURES}/camera.jpg refused: '
-              f'{str(e).splitlines()[0]}')
-    else:
-        raise AssertionError('a JPEG decoded without the native decoder')
     want = np.load(f'{FIXTURES}/decoded_cv2.npz')
     for name, flag, key in (('camera.png', 'color', 'camera_png'),
                             ('grey.png', 'grayscale', 'grey_png'),
@@ -1702,18 +1769,90 @@ def phase_decoders():
             print(f'  PNG round trip {label}: bit-equal, read in '
                   f'{ms:.1f} ms')
 
+    # JPEG: the committed cv2-written fixtures through imread (the host's
+    # Huffman decoding, the kernel on the card), bit-equal to cv2; the
+    # kernel against its twin on the same coefficients on the card
+    streams = {}
+    for key in sorted(k for k in want.files if k.endswith('jpg')
+                      or k.startswith('jpeg_')):
+        name = 'camera.jpg' if key == 'camera_jpg' else f'{key}.jpg'
+        got = imread(f'{FIXTURES}/{name}')
+        if not np.array_equal(got, want[key]):
+            raise AssertionError(f'{name}: differs from its cv2 decode')
+        with open(f'{FIXTURES}/{name}', 'rb') as f:
+            streams[name] = f.read()
+        print(f'  {name} {got.shape}: bit-equal to its committed cv2 decode')
+    img, data = _jpeg_frame(rng)
+    streams['oracle encoder 900x1600 4:2:0 q90'] = data
+    err = 0
+    for label, stream in streams.items():
+        frame, coefs = jpeg.decode_coefficients(stream)
+        c = torch.from_numpy(coefs).cuda()
+        got, plain = jpeg.pixels(c, frame), jpeg.pixels_plain(c, frame)
+        torch.cuda.synchronize()
+        diff = (got.int() - plain.int()).abs().max().item()
+        err = max(err, diff)
+        if diff:
+            raise AssertionError(f'{label}: the JPEG kernel differs from '
+                                 f'its twin by {diff}')
+    print(f'  JPEG kernel vs pixels_plain on the card, {len(streams)} '
+          f'streams (the fixtures and the 900x1600 frame): bit-equal')
+    frame, coefs = jpeg.decode_coefficients(data)
+    decoded = jpeg.decode_jpeg(data, 'cuda')
+    # the frame's +-20 noise, through 4:2:0 chroma and quality 90, comes
+    # back within 8.4 on average (the CPU decode of these bytes)
+    loss = (decoded.float() - torch.from_numpy(img).cuda().float()).abs(
+        ).mean().item()
+    print(f'  the 900x1600 frame decodes within {loss:.2f} of its image on '
+          f'average')
+    if loss > 12:
+        raise AssertionError('the 900x1600 frame decodes far from the '
+                             'image it encodes')
+    c = torch.from_numpy(coefs).cuda()
+    entropy = _host_ms(lambda: jpeg.decode_coefficients(data))
+    copy_ms = _time_ms(lambda: torch.from_numpy(coefs).to('cuda'))
+    ms = _time_ms(lambda: jpeg.pixels(c, frame), iters=50)
+    plain_ms = _time_ms(lambda: jpeg.pixels_plain(c, frame), iters=5,
+                        warmup=1)
+    ops, nbytes = _jpeg_work(frame, c, decoded)
+    bound = max((nbytes / HBM_BYTES_PER_S * 1e3, 'bytes'),
+                (ops / PEAK_FLOPS[torch.float32] * 1e3, 'operations'))
+    whole = _host_ms(lambda: jpeg.decode_jpeg(data, 'cuda'))
+    with tempfile.TemporaryDirectory() as folder:
+        with open(f'{folder}/x.jpg', 'wb') as f:
+            f.write(data)
+        _write_png(f'{folder}/x.png', decoded.cpu().numpy())
+        loader_jpeg = _host_ms(lambda: imread(f'{folder}/x.jpg'))
+        loader_png = _host_ms(lambda: imread(f'{folder}/x.png'))
+    print(f'  900x1600 4:2:0 frame ({len(data) / 1e3:.0f} kB, '
+          f'{sum(frame.blocks)} blocks) on {smi}:')
+    print(f'    host Huffman decode {_fmt(entropy)} ms; coefficient copy '
+          f'{copy_ms:.3f} ms ({coefs.nbytes / 1e6:.2f} MB, CUDA events)')
+    print(f'    kernel {ms:.4f} ms (2 launches, CUDA events, mean of 50), '
+          f'plain twin on the card {plain_ms:.3f} ms')
+    print(f'    bound {bound[0]:.4f} ms ({bound[1]}: {nbytes / 1e6:.2f} MB '
+          f'at 3.35 TB/s, {ops / 1e6:.0f} M integer operations at 67 T/s), '
+          f'{bound[0] / ms:.1%} of bound')
+    print(f'    decode_jpeg end to end {_fmt(whole)} ms; imread of the JPEG '
+          f'(side stream, copy back) {_fmt(loader_jpeg)} ms; imread of '
+          f'the PNG of the same pixels {_fmt(loader_png)} ms')
+    report.add('jpeg_pixels', SRC_JPEG, REPLACES_JPEG, float(err), ms,
+               plain_ms, bound)
+
 
 def _nus_folder(root, rng, classes):
-    """`NUS_N` nuScenes samples: a 900x1600 camera PNG, lidar `rih` and
-    radar `riv` 360x640 projections, 2-6 boxes an image (one each of
-    COCO's small, medium and large sizes, then random ones), visibility
-    tokens 1-4; the json as the val and the train split."""
+    """`NUS_N` nuScenes samples: a 900x1600 camera JPEG (baseline 4:2:0,
+    quality 90, from the oracle encoder, as nuScenes stores its frames),
+    lidar `rih` and radar `riv` 360x640 projections, 2-6 boxes an image
+    (one each of COCO's small, medium and large sizes, then random ones),
+    visibility tokens 1-4; the json as the val and the train split."""
     images, anns, lidar, radar = [], [], [], []
     h, w = RAW_HW
     for i in range(NUS_N):
-        cam = f'samples/CAM_FRONT/{i:04d}.png'
-        _write_png(f'{root}/{cam}',
-                   rng.integers(0, 256, (h, w, 3)).astype(np.uint8))
+        cam = f'samples/CAM_FRONT/{i:04d}.jpg'
+        os.makedirs(os.path.dirname(f'{root}/{cam}'), exist_ok=True)
+        with open(f'{root}/{cam}', 'wb') as f:
+            f.write(_jpeg_frame(rng)[1])
         images.append(dict(file_name=cam, id=f'tok{i}', width=w, height=h))
         sides = [20., 60., 200.] + list(rng.uniform(15, 400,
                                                     rng.integers(0, 4)))
@@ -1738,6 +1877,23 @@ def _nus_folder(root, rng, classes):
             f.write(coco)
 
 
+def _png_twin(root, twin):
+    """`root`'s val split with each camera JPEG replaced by a PNG of its
+    decoded pixels (the sensor folders linked): a yardstick for the
+    loader."""
+    from hrfuser_tpu_torch.data.pipelines.loading import imread
+    with open(f'{root}/{NUS_VAL}') as f:
+        coco = json.load(f)
+    for img in coco['images']:
+        name = img['file_name']
+        img['file_name'] = name[:-4] + '.png'
+        _write_png(f'{twin}/{img["file_name"]}', imread(f'{root}/{name}'))
+    for ch in ('rih', 'riv'):
+        os.symlink(f'{root}/{ch}', f'{twin}/{ch}')
+    with open(f'{twin}/{NUS_VAL}', 'w') as f:
+        json.dump(coco, f)
+
+
 def _checkpoint(config, folder):
     """A checkpoint of `config`'s seed-0 random weights in `folder`."""
     from hrfuser_tpu_torch import init_detector
@@ -1751,10 +1907,11 @@ def _launches():
     return {k: fn.launches for k, fn in _counters().items()}
 
 
-def phase_dataset_eval(state, smi):
+def phase_dataset_eval(state, smi, report):
     print(f'== 9b. data slice: nuScenes dataset eval, {CONFIG}, bf16, batch '
-          f'{BATCH}, {NUS_N} samples of {RAW_HW[0]}x{RAW_HW[1]}')
+          f'{BATCH}, {NUS_N} JPEG samples of {RAW_HW[0]}x{RAW_HW[1]}')
     from hrfuser_tpu_torch import get_experiment
+    from hrfuser_tpu_torch.data import jpeg
     from hrfuser_tpu_torch.data.datasets.coco import CocoFusionDataset
     from hrfuser_tpu_torch.data.loader import DetDataLoader
     from hrfuser_tpu_torch.tools import test as test_cli
@@ -1765,16 +1922,21 @@ def phase_dataset_eval(state, smi):
     ckpt = _checkpoint(CONFIG, f'{root}/ckpt')
     print(f'  wrote the folder and a checkpoint in '
           f'{time.perf_counter() - t0:.1f} s')
-    ds = CocoFusionDataset(NUS_VAL, exp.data.classes, data_root=root,
-                           test_mode=True)
-    t0 = time.perf_counter()
-    n = sum(int(b['num_real']) for b in DetDataLoader(ds, exp.data, BATCH,
-                                                      train=False))
-    dt = time.perf_counter() - t0
-    print(f'  loader alone: {n} images in {dt * 1e3:.0f} ms, '
-          f'{n / dt:.1f} images/s (host: PNG decode, resize, normalize, '
-          f'pad)')
+    twin = f'{root}/png_twin'
+    _png_twin(root, twin)
+    for label, folder in (('JPEG cameras', root), ('PNG of the same pixels',
+                                                   twin)) * 2:
+        ds = CocoFusionDataset(NUS_VAL, exp.data.classes, data_root=folder,
+                               test_mode=True)
+        t0 = time.perf_counter()
+        n = sum(int(b['num_real'])
+                for b in DetDataLoader(ds, exp.data, BATCH, train=False))
+        dt = time.perf_counter() - t0
+        print(f'  loader alone, {label}: {n} images in {dt * 1e3:.0f} ms, '
+              f'{n / dt:.1f} images/s (camera decode, resize, normalize, '
+              f'pad)')
     _reset_counts()
+    jpeg.pixels.launches = 0
     t0 = time.perf_counter()
     metrics = test_cli.main([CONFIG, '--data-root', root, '--checkpoint',
                              ckpt, '--batch-size', str(BATCH), '--dtype',
@@ -1784,6 +1946,12 @@ def phase_dataset_eval(state, smi):
     dt = time.perf_counter() - t0
     _check_counts(_expected_launches(exp.model), NUS_N // BATCH,
                   f'tools.test over {NUS_N} images')
+    print(f'  JPEG kernel launches: {jpeg.pixels.launches} (2 a frame)')
+    if jpeg.pixels.launches != 2 * NUS_N:
+        raise AssertionError(f'the JPEG kernel launched '
+                             f'{jpeg.pixels.launches} times, expected '
+                             f'{2 * NUS_N}')
+    report.kernels['jpeg_pixels']['launches'] = jpeg.pixels.launches
     want = {'mAP', 'mAP_50', 'mAP_75', 'mAP_s', 'mAP_m', 'mAP_l', 'AR@100',
             'AR@300', 'AR@1000'}
     bad = [k for k in want if not np.isfinite(metrics.get(k, np.nan))]
@@ -1793,6 +1961,14 @@ def phase_dataset_eval(state, smi):
           f'{NUS_N} images in {dt:.2f} s, {NUS_N / dt:.1f} images/s on {smi}')
     print('  metrics (random weights) ' + ', '.join(
         f'{k} {metrics[k]:.4f}' for k in sorted(want)))
+    t0 = time.perf_counter()
+    test_cli.main([CONFIG, '--data-root', twin, '--checkpoint', ckpt,
+                   '--batch-size', str(BATCH), '--dtype', 'bf16', '--eval',
+                   'bbox,proposal_fast', '--out', f'{twin}/metrics.json'])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    print(f'  the same run over the PNG copy: {NUS_N} images in {dt:.2f} s, '
+          f'{NUS_N / dt:.1f} images/s')
 
 
 def _timed_steps(run):
@@ -2441,8 +2617,8 @@ def main():
         ('7c', lambda: phase_new_requests(smi)),
         ('8a', lambda: phase_train(report, smi, state)),
         ('8b', phase_train_parity),
-        ('9a', phase_decoders),
-        ('9b', lambda: phase_dataset_eval(state, smi)),
+        ('9a', lambda: phase_decoders(report, smi)),
+        ('9b', lambda: phase_dataset_eval(state, smi, report)),
         ('9c', lambda: phase_dataset_train(state, smi)),
         ('9d', lambda: phase_stf_dataset(smi)),
         ('10a', lambda: phase_slice(

@@ -5,7 +5,7 @@ Port of `hrfuser_tpu/apis/test.py:27-157` (the reference's
 the test loader, run the detector, collect per-image detections on the
 host, then evaluate with the dataset's metric (COCO mAP for nuScenes,
 KITTI 2D AP with the GT cropped to the train-time frame for STF).
-Multi-GPU inference is ROADMAP §1 item 8.
+Multi-GPU inference is still to port (ROADMAP §1, "Multi-GPU").
 """
 
 from __future__ import annotations
@@ -44,7 +44,7 @@ def run_inference(detector: Detector, loader: Iterable[dict],
     if devices is not None and len(devices) > 1:
         raise NotImplementedError(
             'run_inference runs on one device; inference over several '
-            'GPUs is ROADMAP §1 item 8')
+            'GPUs is still to port (ROADMAP section 1, "Multi-GPU")')
     raw = make_raw_predictor(detector)
     results: List[dict] = []
     t0 = time.time()

@@ -38,12 +38,14 @@ from hrfuser_tpu_torch.data.pipelines.transforms import (Compose, Crop,
                                                          RandomFlip, Resize)
 
 
-def build_pipeline(cfg: DataCfg, train: bool, max_gts: int = 100) -> Compose:
-    """Train/test pipeline per dataset family (reference dataset configs)."""
+def build_pipeline(cfg: DataCfg, train: bool, max_gts: int = 100,
+                   device='cuda') -> Compose:
+    """Train/test pipeline per dataset family (reference dataset configs);
+    JPEG camera frames decode their pixels on `device`."""
     is_stf = cfg.dataset == 'stf'
     norm = norms.STF if is_stf else norms.NUS
     mods = list(cfg.modalities)
-    steps: List = [LoadImageFromFile()]
+    steps: List = [LoadImageFromFile(device=device)]
 
     if 'lidar' in mods:
         ch = 'yzi' if is_stf else 'rih'
@@ -98,18 +100,21 @@ class DetDataLoader:
     reference's `workers_per_gpu` analogue). An error in that thread is
     raised in the iterating one; an iteration left early stops the
     thread. The epoch counter advances when an iteration runs to its end.
+    JPEG camera frames decode their pixels on `device` (the card unless
+    the caller passes 'cpu'), on a stream of the loading thread's own.
     """
 
     def __init__(self, dataset, cfg: DataCfg, batch_size: int,
                  train: bool, seed: int = 0, max_gts: int = 100,
-                 drop_last: Optional[bool] = None, prefetch: int = 2):
+                 drop_last: Optional[bool] = None, prefetch: int = 2,
+                 device='cuda'):
         self.dataset = dataset
         self.cfg = cfg
         self.batch_size = batch_size
         self.train = train
         self.seed = seed
         self.epoch = 0
-        self.pipeline = build_pipeline(cfg, train, max_gts)
+        self.pipeline = build_pipeline(cfg, train, max_gts, device)
         self.modalities = list(cfg.modalities)
         self.drop_last = train if drop_last is None else drop_last
         self.prefetch = prefetch

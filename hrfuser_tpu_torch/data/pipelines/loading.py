@@ -13,30 +13,60 @@ Port of `hrfuser_tpu/data/pipelines/loading.py:47-200` (the reference's
 
 The card's machine has no `cv2`, so `imread` picks a decoder by the
 file's extension: PNG through `data/png.py` (bit-equal to `cv2.imread`
-for 8- and 16-bit grey, RGB and RGBA files), JPEG through the libjpeg
-decoder of `data/native.py`, TIFF (the STF gated raw frames, read
-unchanged) through `data/tiff.py`. Nothing falls back to another decoder:
-a file neither can read raises.
+for 8- and 16-bit grey, RGB and RGBA files), JPEG through `data/jpeg.py`
+(Huffman decoding on the host, the pixels on `device`; bit-equal to
+`cv2.imread` and the JAX package's libjpeg decoder), TIFF (the STF gated
+raw frames, read unchanged) through `data/tiff.py`. `imdecode` reads a
+camera payload, JPEG or PNG by its first bytes. Nothing falls back to
+another decoder: a file neither can read raises.
 """
 
 from __future__ import annotations
 
 import os.path as osp
+import threading
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
-from hrfuser_tpu_torch.data import native, png, tiff
+from hrfuser_tpu_torch.data import jpeg, png, tiff
 
 FLAGS = ('color', 'unchanged', 'grayscale')
 
+_streams = threading.local()
 
-def imread(path: str, flag: str = 'color') -> np.ndarray:
+
+def _own_stream(device: torch.device):
+    """This thread's side stream on `device`: a JPEG read for the loader
+    decodes there and waits for that stream alone, not for the model's
+    work queued on the default stream."""
+    streams = getattr(_streams, 'by_device', None)
+    if streams is None:
+        streams = _streams.by_device = {}
+    if device not in streams:
+        streams[device] = torch.cuda.Stream(device)
+    return streams[device]
+
+
+def read_jpeg(data: bytes, device='cuda') -> np.ndarray:
+    """A JPEG byte string as uint8 BGR [H, W, 3] on the host, its pixels
+    made on `device` (on a stream of this thread's own)."""
+    device = torch.device(device)
+    if device.type != 'cuda':
+        return jpeg.decode_jpeg(data, device).numpy()
+    with torch.cuda.stream(_own_stream(device)):
+        return jpeg.decode_jpeg(data, device).cpu().numpy()
+
+
+def imread(path: str, flag: str = 'color', device='cuda') -> np.ndarray:
     """What `cv2.imread(path, IMREAD_<FLAG>)` gives for the files the
     datasets hold: 'color' uint8 BGR [H, W, 3]; 'unchanged' the PNG's own
     depth, [H, W] grey or BGR [H, W, 3]; 'grayscale' uint8 [H, W] of a
     grey PNG (a colour file raises: see `data/png.py`). JPEG reads in
-    'color' only, TIFF in 'unchanged' only (uint8 or uint16 [H, W])."""
+    'color' only, its pixels made on `device` (`read_jpeg`); TIFF in
+    'unchanged' only (uint8 or uint16 [H, W]). PNG and TIFF decode on the
+    host whatever `device` says."""
     if flag not in FLAGS:
         raise ValueError(f'imread flag {flag!r}: one of {FLAGS}')
     if not osp.exists(path):
@@ -51,7 +81,8 @@ def imread(path: str, flag: str = 'color') -> np.ndarray:
         if flag != 'color':
             raise ValueError(f'{path}: JPEG reads in colour only, not '
                              f'{flag!r}')
-        return native.decode_jpeg_bgr(path)
+        with open(path, 'rb') as f:
+            return read_jpeg(f.read(), device)
     if lower.endswith(('.tif', '.tiff')):
         if flag != 'unchanged':
             raise ValueError(f'{path}: TIFF reads unchanged only, not '
@@ -61,18 +92,32 @@ def imread(path: str, flag: str = 'color') -> np.ndarray:
                      f'unchanged')
 
 
-class LoadImageFromFile:
-    """Camera image -> float32 BGR (`to_rgb` handled by Normalize)."""
+def imdecode(data: bytes, device='cuda') -> torch.Tensor:
+    """A camera payload, JPEG or PNG (told apart by their first bytes),
+    as uint8 BGR [H, W, 3] on `device`, what `cv2.imdecode(buf,
+    IMREAD_COLOR)` gives. A JPEG's pixels are made on `device` and stay
+    there; a PNG decodes on the host and is copied."""
+    if data[:2] == b'\xff\xd8':
+        return jpeg.decode_jpeg(data, device)
+    if data[:8] == png.SIGNATURE:
+        return torch.from_numpy(png.imdecode(data)).to(device)
+    raise ValueError('not a JPEG or PNG payload')
 
-    def __init__(self, to_float32: bool = True):
+
+class LoadImageFromFile:
+    """Camera image -> float32 BGR (`to_rgb` handled by Normalize); a
+    JPEG's pixels are made on `device`."""
+
+    def __init__(self, to_float32: bool = True, device='cuda'):
         self.to_float32 = to_float32
+        self.device = device
 
     def __call__(self, results: dict) -> dict:
         prefix = results.get('img_prefix') or ''
         rel = results['img_info'].get('filename',
                                       results['img_info'].get('file_name'))
         fname = osp.join(prefix, rel)
-        img = imread(fname)
+        img = imread(fname, device=self.device)
         if self.to_float32:
             img = img.astype(np.float32)
         results['filename'] = fname

@@ -5,8 +5,8 @@ The card's machine has no `cv2`, PIL or `torchvision`, so the server
 decodes its PNG payloads here and the offline converters write their
 sensor images with `imwrite`. Supported: bit depths 8 and 16, colour
 types 0 (grey), 2 (RGB) and 6 (RGBA, alpha dropped), non-interlaced, the
-five scanline filters. Anything else (JPEG, palette, interlaced PNG)
-raises `ValueError`.
+five scanline filters. Anything else (palette or interlaced PNG, or not
+a PNG at all) raises `ValueError`.
 
 `imdecode(data)` returns what `cv2.imdecode(buf, cv2.IMREAD_COLOR)` does
 for these files: uint8 BGR [H, W, 3] (16-bit samples keep their high
@@ -103,9 +103,6 @@ def _unfilter_block(px, kinds, out, r0, r1, w):
 def imdecode(data: bytes, unchanged: bool = False,
              grayscale: bool = False) -> np.ndarray:
     """Decode a PNG byte string (see the module docstring)."""
-    if data[:2] == b'\xff\xd8':
-        raise ValueError('JPEG payloads are not supported: send PNG (the '
-                         'server decodes PNG only)')
     if data[:8] != SIGNATURE:
         raise ValueError('not a PNG payload')
     header, idat = None, []

@@ -10,7 +10,7 @@ rectification. The LUTs are built on the host in numpy, as in JAX;
 `decompand_image` applies one by a gather on the image's device. Step
 3 (`raw_to_lut8`, `gated_raw_to_lut8`) needs a Bayer demosaic, a LAB
 conversion and CLAHE bit-exact to `cv2`'s, which the port does not have
-yet (ROADMAP §1 item 5): both raise.
+yet (ROADMAP §1, "The 8-bit LUT renderings"): both raise.
 
 The kneepoint tables are sensor facts from the reference
 (`process.py:23-36`, `decompand.py` usage).
@@ -110,8 +110,8 @@ def decompand_image(raw: torch.Tensor) -> torch.Tensor:
 
 LUT8_NOT_PORTED = (
     '8-bit LUT images need a Bayer demosaic, a LAB conversion and CLAHE '
-    'bit-exact to cv2, not ported yet (ROADMAP section 1, item 5: '
-    'raw_to_lut8 / gated_raw_to_lut8 / --lut8)')
+    'bit-exact to cv2, not ported yet (ROADMAP section 1, "The 8-bit LUT '
+    'renderings": raw_to_lut8 / gated_raw_to_lut8 / --lut8)')
 
 
 def raw_to_lut8(raw_bayer, daytime: bool):

@@ -13,8 +13,9 @@ concurrent calls would race on), and a PyTorch call on a thread that has
 not called before costs about 200 ms more on the card (measured by
 `chip_smoke.py` phase 6d).
 
-    POST /predict        body = PNG bytes (BGR camera image)
-    POST /predict_multi  json {"img": <b64 png>, "mods": [<b64 png>, ...]}
+    POST /predict        body = JPEG or PNG bytes (BGR camera image)
+    POST /predict_multi  json {"img": <b64 jpeg or png>,
+                               "mods": [<b64 png>, ...]}
                          (sensor PNGs in the config's modality order, as
                          stored offline: uint16 projections, dequantized
                          on the device, STF's radar with its empty
@@ -25,14 +26,18 @@ not called before costs about 200 ms more on the card (measured by
             "labels": [...], "class_names": [...], "latency_ms": t}
     GET  /healthz        -> {"status": "ok"}
 
-Payloads are decoded by `data/png.py`: PNG only. JPEG needs a decoder
-that the card's machine lacks (no `cv2`, PIL or `torchvision`), so a JPEG
-payload gets a 400 with the reason.
+Camera payloads are JPEG or PNG, as the JAX server's `cv2.imdecode`
+takes them (`data/pipelines/loading.imdecode`, picked by the first
+bytes). A JPEG is Huffman-decoded on the worker thread and its pixels
+are made on the detector's device, where the model reads them without a
+copy back to the host. Sensor payloads are PNG (`data/png.py`). A
+payload that does not decode (a progressive JPEG, say) gets a 400 with
+the reason.
 
     python -m hrfuser_tpu_torch.tools.serve \\
         cascade_rcnn_hrfuser_t_1x_nus_r640_l_r_fusion --dtype bf16 \\
         [--checkpoint CKPT] [--port 8500]
-    curl -X POST --data-binary @img.png localhost:8500/predict
+    curl -X POST --data-binary @img.jpg localhost:8500/predict
 """
 
 from __future__ import annotations
@@ -49,8 +54,16 @@ import numpy as np
 
 from hrfuser_tpu_torch.apis.inference import (inference_detector,
                                               init_detector)
-from hrfuser_tpu_torch.data.png import imdecode
+from hrfuser_tpu_torch.data.pipelines.loading import imdecode
+from hrfuser_tpu_torch.data.png import imdecode as png_decode
 from hrfuser_tpu_torch.tools.test import DTYPES
+
+
+def predict(detector, camera: bytes, mods):
+    """Decode a camera payload on the detector's device and detect;
+    runs on the worker thread."""
+    return inference_detector(detector, imdecode(camera, detector.device),
+                              mods)
 
 
 def build_handler(detector, worker: ThreadPoolExecutor):
@@ -84,21 +97,20 @@ def build_handler(detector, worker: ThreadPoolExecutor):
                 body = self.rfile.read(n)
                 t0 = time.time()
                 if self.path == '/predict':
-                    img, mods = imdecode(body), None
+                    img, mods = body, None
                 else:
                     req = json.loads(body)
-                    img = imdecode(base64.b64decode(req['img']))
+                    img = base64.b64decode(req['img'])
                     pngs, names = req.get('mods', []), modalities
                     if pngs and len(pngs) != len(names):
                         raise ValueError(
                             f'{len(pngs)} sensor images; the config takes '
                             f'{len(names)} ({", ".join(names)})')
                     mods = [_sensor(detector.data, name,
-                                    imdecode(base64.b64decode(m),
-                                             unchanged=True))
+                                    png_decode(base64.b64decode(m),
+                                               unchanged=True))
                             for name, m in zip(names, pngs)] or None
-                det = worker.submit(inference_detector, detector, img,
-                                    mods).result()
+                det = worker.submit(predict, detector, img, mods).result()
             except (ValueError, KeyError, TypeError) as e:
                 self._json(400, {'error': str(e)})
                 return

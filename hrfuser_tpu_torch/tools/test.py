@@ -76,7 +76,7 @@ def evaluate_dataset(args):
     exp = get_experiment(args.config)
     dataset = build_dataset(exp.data, args.data_root, 'test')
     loader = DetDataLoader(dataset, exp.data, args.batch_size or 1,
-                           train=False)
+                           train=False, device=args.device)
     if not args.checkpoint:
         print('[warn] no --checkpoint: evaluating random weights')
     det = init_detector(args.config, args.device, seed=0,

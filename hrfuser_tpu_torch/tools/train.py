@@ -128,7 +128,8 @@ def _evaluate(exp, model, args, batch_size, device):
     from hrfuser_tpu_torch.data.datasets import build_dataset
     from hrfuser_tpu_torch.data.loader import DetDataLoader
     val = build_dataset(exp.data, args.data_root, 'val')
-    loader = DetDataLoader(val, exp.data, batch_size, train=False)
+    loader = DetDataLoader(val, exp.data, batch_size, train=False,
+                           device=device)
     model.eval()
     try:
         results = run_inference(Detector(model, exp.data, device), loader)
@@ -167,7 +168,7 @@ def main(argv=None):
         from hrfuser_tpu_torch.data.loader import DetDataLoader
         dataset = build_dataset(exp.data, args.data_root, 'train')
         loader = DetDataLoader(dataset, exp.data, batch_size, train=True,
-                               seed=args.seed)
+                               seed=args.seed, device=device)
         steps_per_epoch = len(loader)
         if not steps_per_epoch:
             raise SystemExit(f'[train] {len(dataset)} training images make '

@@ -38,6 +38,8 @@ _SIGNATURES = {
     'hrf_cross_ffn_plan': ([_I] * 3 + [_IP] * 3, _L),
     'hrf_roi_align': ([_P] * 4 + [_I] * 8 + [_F] * 4 + [_P, _P]
                       + [_I] * 3 + [_F, _I, _P], _I),
+    'hrf_jpeg_idct': ([_P, _P, _IP, _I, _P], _I),
+    'hrf_jpeg_color': ([_P, _P, _IP] + [_I] * 4 + [_P], _I),
 }
 
 # returned by a launcher when no shared-memory plan fits (common.cuh)

@@ -80,7 +80,7 @@ def test_raw_and_preprocessed_batches_agree(det):
 
 
 def test_more_than_one_device_raises(det):
-    with pytest.raises(NotImplementedError, match='item 8'):
+    with pytest.raises(NotImplementedError, match='Multi-GPU'):
         port_test.run_inference(det, [_raw_batch(0)], progress=False,
                                 devices=['cuda:0', 'cuda:1'])
 

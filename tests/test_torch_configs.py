@@ -28,7 +28,7 @@ NAMES = ['cascade_rcnn_hrfuser_t_1x_nus_r640_l_r_fusion',
          'cascade_rcnn_hrfuser_hrnet_w18_1x_nus_r640_l_r_fusion',
          'tiny_hrnet_fusion_test']
 # the JAX config the port leaves out (the multichip dry-run model,
-# ROADMAP §1 item 8), with its `_bn` alias
+# ROADMAP §1 "Multi-GPU"), with its `_bn` alias
 NOT_PORTED = {'micro_fusion_dryrun'}
 
 # TPU routing knobs and the adaptive RoIAlign grid, which the port does

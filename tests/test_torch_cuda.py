@@ -617,12 +617,10 @@ DATA = Path(__file__).resolve().parent / 'data'
 
 
 def test_decoders_read_the_committed_fixtures(dev):
-    """On the card's machine: PNG through `data/png.py` bit-equal to the
-    committed `cv2` decodes; JPEG through the libjpeg decoder within a
-    mean |diff| of 0.5 of `cv2`'s, or, where libjpeg's headers are
-    missing (the card's machine has none), refused with the compiler's
-    message, never read another way."""
-    from hrfuser_tpu_torch.data import native
+    """On the card's machine: PNG through `data/png.py`, JPEG through
+    `data/jpeg.py` (the host's Huffman decoding, the pixel kernel on the
+    card), both bit-equal to the committed `cv2` decodes."""
+    from hrfuser_tpu_torch.data import jpeg
     from hrfuser_tpu_torch.data.pipelines.loading import imread
     want = np.load(DATA / 'decoded_cv2.npz')
     for name, flag, key in (('camera.png', 'color', 'camera_png'),
@@ -631,15 +629,99 @@ def test_decoders_read_the_committed_fixtures(dev):
         got = imread(str(DATA / name), flag)
         assert got.dtype == want[key].dtype
         np.testing.assert_array_equal(got, want[key])
-    try:
-        native.lib()
-    except RuntimeError as e:
-        assert 'libjpeg' in str(e)
-        with pytest.raises(RuntimeError, match='libjpeg'):
-            imread(str(DATA / 'camera.jpg'))
-    else:
-        jpg = imread(str(DATA / 'camera.jpg')).astype(int)
-        assert np.abs(jpg - want['camera_jpg']).mean() < 0.5
+    before = jpeg.pixels.launches
+    for key in JPEG_FIXTURES:
+        name = 'camera.jpg' if key == 'camera_jpg' else f'{key}.jpg'
+        np.testing.assert_array_equal(imread(str(DATA / name)), want[key])
+    assert jpeg.pixels.launches - before == 2 * len(JPEG_FIXTURES)
+
+
+JPEG_FIXTURES = ['camera_jpg', 'jpeg_444', 'jpeg_422', 'jpeg_420',
+                 'jpeg_440', 'jpeg_411', 'jpeg_restart', 'jpeg_grey']
+
+
+def _jpeg_streams():
+    """name -> JPEG bytes: the committed fixtures, seeded streams of
+    arbitrary coefficients (16-bit overflow included) from the oracle
+    encoder, and a 900x1600 4:2:0 frame."""
+    enc = _oracle('jpeg_encoder')
+    out = {k: (DATA / ('camera.jpg' if k == 'camera_jpg' else f'{k}.jpg')
+               ).read_bytes() for k in JPEG_FIXTURES}
+    rng = np.random.default_rng(0)
+    for name, factors in (('fuzz 420', (2, 2)), ('fuzz 440', (1, 2)),
+                          ('fuzz 411', (4, 1))):
+        grids = enc.block_grid((37, 53), enc._sampling(3, factors))
+        coefs = [rng.integers(-1023, 1024, (*g, 64))
+                 * (rng.random((*g, 64)) < 0.3) for g in grids]
+        for c in coefs:
+            c[rng.random(c.shape[:2]) < 0.25, 8:] = 0
+        quant = [rng.integers(1, 256, 64) for _ in grids]
+        out[name] = enc.encode(coefs, quant, (37, 53), factors, restart=2)
+    yy, xx = np.mgrid[0:900, 0:1600]
+    frame = np.clip(np.stack([xx / 8, yy / 4, (xx + yy) / 10], -1)
+                    + rng.integers(0, 60, (900, 1600, 3)), 0, 255)
+    out['900x1600 420'] = enc.encode(
+        *enc.image_coefficients(frame.astype(np.uint8), 90), (900, 1600))
+    return out
+
+
+@pytest.mark.parametrize('name', ['fixtures', 'fuzz', 'frame'])
+def test_jpeg_kernel_matches_its_twin(dev, name):
+    """The pixel kernel (two launches) equals `pixels_plain` on the same
+    coefficients on the card, bit for bit."""
+    from hrfuser_tpu_torch.data import jpeg
+    streams = {k: v for k, v in _jpeg_streams().items()
+               if (name == 'fixtures' and k in JPEG_FIXTURES)
+               or (name == 'fuzz' and k.startswith('fuzz'))
+               or (name == 'frame' and k.startswith('900'))}
+    assert streams
+    for key, data in streams.items():
+        frame, coefs = jpeg.decode_coefficients(data)
+        c = torch.from_numpy(coefs).to(dev)
+        before = jpeg.pixels.launches
+        got = jpeg.pixels(c, frame)
+        assert jpeg.pixels.launches - before == 2
+        torch.cuda.synchronize()
+        assert got.device.type == 'cuda' and got.dtype == torch.uint8
+        want = jpeg.pixels_plain(c, frame)
+        assert torch.equal(got, want), (key, (got != want).sum().item())
+        assert torch.equal(got.cpu(), jpeg.pixels_plain(c.cpu(), frame))
+
+
+def test_jpeg_kernel_refuses_what_it_cannot_take(dev):
+    from hrfuser_tpu_torch.data import jpeg
+    frame, coefs = jpeg.decode_coefficients(
+        (DATA / 'jpeg_420.jpg').read_bytes())
+    c = torch.from_numpy(coefs).to(dev)
+    with pytest.raises(ValueError, match='int16'):
+        jpeg.pixels(c.to(torch.int32), frame)
+    with pytest.raises(ValueError, match='int16'):
+        jpeg.pixels(c[:-64], frame)
+
+
+def test_loader_jpeg_reads_on_its_own_stream(dev):
+    """`imread` of a JPEG on the card decodes on the reading thread's own
+    stream (not the default one, which holds queued work here) and reads
+    what `cv2` reads."""
+    import threading
+
+    from hrfuser_tpu_torch.data.pipelines import loading
+    want = np.load(DATA / 'decoded_cv2.npz')['jpeg_420']
+    got = {}
+
+    def read():
+        got['img'] = loading.imread(str(DATA / 'jpeg_420.jpg'))
+        got['stream'] = loading._own_stream(torch.device(dev))
+
+    busy = torch.randn(4096, 4096, device=dev)
+    for _ in range(20):                         # queued on the default one
+        busy = busy @ busy / 64
+    t = threading.Thread(target=read)
+    t.start()
+    t.join()
+    np.testing.assert_array_equal(got['img'], want)
+    assert got['stream'] != torch.cuda.default_stream(dev)
+    torch.cuda.synchronize()
 
 
 def test_a_loader_batch_through_the_bf16_detector(dev, tmp_path):

@@ -3,7 +3,9 @@
 
 `tiny_fusion_test` (its 4 classes) over a 4-image nuScenes-style folder
 (`tests/oracles/data_files.py`: 100x176 PNG camera frames, uint16
-projections on the 54x95 grid), the config's `img_scale` cut to
+projections on the 54x95 grid), and over the same folder with `cv2`
+JPEG camera frames (decoded by the port's JPEG decoder on the CPU and
+by the JAX loader's `_imread`), the config's `img_scale` cut to
 (96, 54) so the model runs at 64x96. The same weights on both sides:
 the JAX variables tree, numpy-filled, carried over by
 `state_dict_from_jax` and read by the test CLI from a checkpoint. The
@@ -31,6 +33,7 @@ import cProfile  # noqa: F401
 import dataclasses
 import json
 
+import cv2
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -96,6 +99,19 @@ def root(tmp_path_factory):
                               (54, 95), classes, seed=1, splits=SPLITS))
 
 
+def _jpeg(path, bgr):
+    assert cv2.imwrite(path, bgr, [cv2.IMWRITE_JPEG_QUALITY, 90])
+
+
+@pytest.fixture(scope='module')
+def jpeg_root(tmp_path_factory):
+    """`root`'s samples with JPEG camera frames."""
+    classes = port_configs.get_experiment(NAME).data.classes[:4]
+    return str(write_nuscenes(tmp_path_factory.mktemp('nus_jpg'), 4,
+                              (100, 176), (54, 95), classes, seed=1,
+                              splits=SPLITS, ext='jpg', writer=_jpeg))
+
+
 @pytest.fixture(scope='module')
 def weights(tmp_path_factory):
     """(JAX module, variables, checkpoint dir of the same weights)."""
@@ -132,6 +148,16 @@ def _jax_results(root, module, variables, monkeypatch):
 
 def test_test_cli_matches_jax_run_inference(root, weights, small_grid,
                                             monkeypatch, tmp_path):
+    _cli_matches_jax(root, weights, monkeypatch, tmp_path)
+
+
+def test_test_cli_over_jpeg_cameras_matches_jax_run_inference(
+        jpeg_root, weights, small_grid, monkeypatch, tmp_path):
+    _cli_matches_jax(jpeg_root, weights, monkeypatch, tmp_path)
+
+
+def _cli_matches_jax(root, weights, monkeypatch, tmp_path):
+    """`tools.test` over `root` on the CPU equals the JAX dataset eval."""
     module, variables, ckpt = weights
     seen = []
 

@@ -1,7 +1,8 @@
 """The port's `DetDataLoader` against the JAX package's, on the CPU.
 
 Seeded synthetic folders in the converters' formats
-(`tests/oracles/data_files.py`): nuScenes with JPEG camera frames of
+(`tests/oracles/data_files.py`): nuScenes with JPEG camera frames
+(decoded by the port's JPEG decoder with `device='cpu'`) of
 100x176 brought to a 54x95 grid (`img_scale` (96, 54), a downsampling
 resize by 0.54) and STF at its real sizes (1024x1920 camera PNGs, both
 crops, the 384x1248 frame). Over two epochs, prefetch on and off, train
@@ -86,7 +87,7 @@ def _pair(folders, family, train, prefetch, batch=2, seed=3):
         pds = Kitti2DDataset('dense_infos_train.pkl', pdata.classes, **kw)
         jds = JaxKitti('dense_infos_train.pkl', jdata.classes, **kw)
     return (DetDataLoader(pds, pdata, batch, train, seed=seed,
-                          prefetch=prefetch),
+                          prefetch=prefetch, device='cpu'),
             JaxLoader(jds, jdata, batch, train, seed=seed, prefetch=prefetch))
 
 

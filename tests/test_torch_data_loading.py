@@ -1,15 +1,15 @@
-"""The port's file loading (`data/pipelines/loading.py`, `data/native.py`,
+"""The port's file loading (`data/pipelines/loading.py`, `data/jpeg.py`,
 `data/png.py`) against `cv2` and the JAX package, on the CPU.
 
 Files are written with `cv2` into a temporary folder, as the JAX data
 tests write theirs. Tolerances: PNG cameras, grey gated images and
 16-bit sensors bit-equal to `cv2.imread`; the dequantized sensors equal
 to the JAX step's (the same numpy arithmetic); JPEG bit-equal to the JAX
-package's native decoder (the same libjpeg here) and within a mean
-|diff| of 0.5 of `cv2`'s own decoder, the JAX test's bar
-(`tests/test_native_loader.py:56`). The committed fixtures of
-`tests/data/` (what `tests/test_torch_cuda.py` reads on the card) decode
-to their committed `cv2` arrays here too.
+package's native decoder and to `cv2.imread` (`tests/test_torch_jpeg.py`
+holds the decoder to both over many more files). JPEGs decode their
+pixels with `device='cpu'` here (the kernel's plain twin). The
+committed fixtures of `tests/data/` (what `tests/test_torch_cuda.py`
+reads on the card) decode to their committed `cv2` arrays here too.
 """
 
 import hashlib
@@ -22,7 +22,7 @@ import pytest
 
 from hrfuser_tpu.data import native as jax_native
 from hrfuser_tpu.data.pipelines import loading as jax_loading
-from hrfuser_tpu_torch.data import native
+from hrfuser_tpu_torch.data import jpeg
 from hrfuser_tpu_torch.data.pipelines import loading
 
 DATA = Path(__file__).resolve().parent / 'data'
@@ -89,59 +89,58 @@ def test_colour_png_read_as_grey_raises(files):
 
 def test_jpeg_reads_as_the_jax_native_decoder(files):
     path, img = files[1]['cam.jpg']
-    got = loading.imread(path)
+    got = loading.imread(path, device='cpu')
     assert got.dtype == np.uint8 and got.shape == img.shape
     np.testing.assert_array_equal(got, jax_native.decode_jpeg_bgr(path))
-    ref = cv2.imread(path)
-    assert np.abs(got.astype(int) - ref.astype(int)).mean() < 0.5
+    np.testing.assert_array_equal(got, cv2.imread(path))
     with pytest.raises(ValueError, match='colour only'):
-        loading.imread(path, 'grayscale')
+        loading.imread(path, 'grayscale', device='cpu')
 
 
 def test_a_file_that_is_not_a_jpeg_raises(tmp_path):
-    """libjpeg's error exit returns through the decoder's longjmp as an
-    `IOError`, not a crash of the process."""
+    """The entropy decoder's errors come back through its C interface as
+    an `IOError`, not a crash of the process."""
     bad = tmp_path / 'bad.jpg'
     bad.write_bytes(b'\x89PNG not a JPEG' * 8)
-    with pytest.raises(IOError, match='rc=2'):
-        native.jpeg_shape(str(bad))
-    with pytest.raises(IOError, match='rc=2'):
-        loading.imread(str(bad))
+    with pytest.raises(IOError, match='not a JPEG'):
+        jpeg.jpeg_shape(bad.read_bytes())
+    with pytest.raises(IOError, match='not a JPEG'):
+        loading.imread(str(bad), device='cpu')
 
 
 def test_a_cached_library_that_does_not_load_is_built_again(
         files, tmp_path, monkeypatch):
-    """A `build/` copied from a machine with another libjpeg holds a
-    library this one cannot load: it is rebuilt from the source."""
-    monkeypatch.setattr(native, 'BUILD_DIR', tmp_path / 'build')
-    monkeypatch.setattr(native, '_lib', None)
-    path = native.build()
+    """A `build/` copied from another machine may hold a library this one
+    cannot load: it is rebuilt from the source."""
+    monkeypatch.setattr(jpeg, 'BUILD_DIR', tmp_path / 'build')
+    monkeypatch.setattr(jpeg, '_lib', None)
+    path = jpeg.build()
     path.write_bytes(b'not a shared library')
     path, img = files[1]['cam.jpg']
-    np.testing.assert_array_equal(native.decode_jpeg_bgr(path),
+    np.testing.assert_array_equal(loading.imread(path, device='cpu'),
                                   jax_native.decode_jpeg_bgr(path))
-    assert native.build().read_bytes()[:4] == b'\x7fELF'
+    assert jpeg.build().read_bytes()[:4] == b'\x7fELF'
 
 
 def test_a_library_that_neither_loads_nor_builds_raises(tmp_path,
                                                          monkeypatch):
-    bad = tmp_path / 'loader.cpp'
+    bad = tmp_path / 'jpeg_entropy.cpp'
     bad.write_text('int broken( {\n')
-    monkeypatch.setattr(native, 'SOURCE', bad)
-    monkeypatch.setattr(native, 'BUILD_DIR', tmp_path / 'build')
-    monkeypatch.setattr(native, '_lib', None)
+    monkeypatch.setattr(jpeg, 'SOURCE', bad)
+    monkeypatch.setattr(jpeg, 'BUILD_DIR', tmp_path / 'build')
+    monkeypatch.setattr(jpeg, '_lib', None)
     tag = hashlib.sha256(bad.read_bytes()).hexdigest()[:16]
     (tmp_path / 'build').mkdir()
-    (tmp_path / 'build' / f'libhrfuser_loader_{tag}.so').write_bytes(b'x')
+    (tmp_path / 'build' / f'libhrfuser_jpeg_{tag}.so').write_bytes(b'x')
     with pytest.raises(RuntimeError, match='error'):
-        native.lib()
+        jpeg.lib()
 
 
 def test_missing_and_unknown_files_raise(files, tmp_path):
     with pytest.raises(FileNotFoundError):
         loading.imread(str(tmp_path / 'none.png'))
     with pytest.raises(IOError):
-        native.decode_jpeg_bgr(str(tmp_path / 'none.jpg'))
+        loading.imread(str(tmp_path / 'none.jpg'), device='cpu')
     bmp = tmp_path / 'x.bmp'
     bmp.write_bytes(b'BM')
     with pytest.raises(ValueError, match='PNG and JPEG'):
@@ -151,12 +150,12 @@ def test_missing_and_unknown_files_raise(files, tmp_path):
 
 
 def test_failed_build_raises_with_the_compiler_output(tmp_path, monkeypatch):
-    bad = tmp_path / 'loader.cpp'
+    bad = tmp_path / 'jpeg_entropy.cpp'
     bad.write_text('int broken( {\n')
-    monkeypatch.setattr(native, 'SOURCE', bad)
-    monkeypatch.setattr(native, 'BUILD_DIR', tmp_path / 'build')
+    monkeypatch.setattr(jpeg, 'SOURCE', bad)
+    monkeypatch.setattr(jpeg, 'BUILD_DIR', tmp_path / 'build')
     with pytest.raises(RuntimeError, match='error'):
-        native.build()
+        jpeg.build()
     assert not list((tmp_path / 'build').glob('*.so'))
 
 
@@ -169,8 +168,9 @@ def test_committed_fixtures_decode_as_cv2():
     np.testing.assert_array_equal(
         loading.imread(str(DATA / 'sensor16.png'), 'unchanged'),
         want['sensor16_png'])
-    jpg = loading.imread(str(DATA / 'camera.jpg')).astype(int)
-    assert np.abs(jpg - want['camera_jpg']).mean() < 0.5
+    np.testing.assert_array_equal(
+        loading.imread(str(DATA / 'camera.jpg'), device='cpu'),
+        want['camera_jpg'])
 
 
 def _same(a, b, path=''):
@@ -230,7 +230,8 @@ def test_loading_steps_equal_jax(files, case):
     cls, args, filename = STEPS[case]
     if cls == 'LoadStackedGatedImageFromFile':
         args = (('gated0_rect', 'gated1_rect', 'gated2_rect'), args[1])
-    got = getattr(loading, cls)(*args)(_results(root, filename))
+    port = dict(device='cpu') if cls == 'LoadImageFromFile' else {}
+    got = getattr(loading, cls)(*args, **port)(_results(root, filename))
     want = getattr(jax_loading, cls)(*args)(_results(root, filename))
     _same(got, want)
     key = {'LoadImageFromFile': 'img', 'LoadGatedImageFromFile': 'gated_img',

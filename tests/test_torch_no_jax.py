@@ -3,8 +3,9 @@ or `cv2` (the card's machine has neither JAX nor `cv2`).
 
 Checked in a fresh interpreter (this test process has JAX loaded by
 `tests/conftest.py`) that runs the tiny fusion and camera-only slices,
-`inference_detector`, `run_inference`, a training step and a
-`DetDataLoader` over PNG files end to end on the CPU, the offline
+`inference_detector`, `run_inference`, a training step, a JPEG decode
+(`data/jpeg.py`, the pixel kernel's twin) and a `DetDataLoader` over PNG
+and over JPEG files end to end on the CPU, the offline
 converters (one nuScenes sample on a fake DB, an STF frame, the inverse
 depth warp) on the CPU, and imports the KITTI evaluation, and
 statically over every module of the package and the scripts that drive
@@ -24,7 +25,8 @@ PKG = ROOT / 'hrfuser_tpu_torch'
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'hrfuser_tpu', 'cv2')
 SCRIPTS = [ROOT / 'chip_smoke.py', ROOT / 'chip_profile.py',
            ROOT / 'tests' / 'oracles' / 'card_checks.py',
-           ROOT / 'tests' / 'oracles' / 'offline_data.py']
+           ROOT / 'tests' / 'oracles' / 'offline_data.py',
+           ROOT / 'tests' / 'oracles' / 'jpeg_encoder.py']
 
 _SCRIPT = """
 import sys
@@ -77,11 +79,25 @@ with tempfile.TemporaryDirectory() as root:
                                classes=exp.data.classes[:4])
     write_nuscenes(root, 3, (100, 176), (54, 95), data.classes)
     ds = CocoFusionDataset('ann.json', data.classes, data_root=root)
-    loader = DetDataLoader(ds, data, 2, train=True)
+    loader = DetDataLoader(ds, data, 2, train=True, device='cpu')
     batch = next(iter(loader))
     assert batch['img'].shape == (2, 64, 96, 3), batch['img'].shape
     m = train_step(state, batch, torch.Generator().manual_seed(0))
     assert bool(m['loss'].isfinite()) and state.applied == 2
+from hrfuser_tpu_torch.data import jpeg
+from tests.oracles.jpeg_encoder import encode, image_coefficients
+def write_jpeg(path, bgr):
+    with open(path, 'wb') as f:
+        f.write(encode(*image_coefficients(bgr, 90), bgr.shape[:2]))
+with tempfile.TemporaryDirectory() as root:
+    write_nuscenes(root, 2, (100, 176), (54, 95), data.classes, ext='jpg',
+                   writer=write_jpeg)
+    ds = CocoFusionDataset('ann.json', data.classes, data_root=root)
+    batch = next(iter(DetDataLoader(ds, data, 2, train=False,
+                                    device='cpu')))
+    assert batch['img'].shape == (2, 64, 96, 3), batch['img'].shape
+    with open(root + '/samples/CAM_FRONT/0000.jpg', 'rb') as f:
+        assert jpeg.decode_jpeg(f.read(), 'cpu').shape == (100, 176, 3)
 from hrfuser_tpu_torch.data.gated_warp import inverse_depth_warp
 from hrfuser_tpu_torch.tools import create_data, stf_projection
 from tests.oracles.offline_data import nuscenes_sample, stf_frame
@@ -130,6 +146,16 @@ def test_init_detector_defaults_to_the_card():
     from hrfuser_tpu_torch import init_detector
     device = inspect.signature(init_detector).parameters['device'].default
     assert device == 'cuda'
+
+
+def test_image_loading_defaults_to_the_card():
+    from hrfuser_tpu_torch.data import jpeg
+    from hrfuser_tpu_torch.data.loader import DetDataLoader, build_pipeline
+    from hrfuser_tpu_torch.data.pipelines import loading
+    for fn in (jpeg.decode_jpeg, loading.imread, loading.imdecode,
+               loading.read_jpeg, loading.LoadImageFromFile, build_pipeline,
+               DetDataLoader):
+        assert inspect.signature(fn).parameters['device'].default == 'cuda'
 
 
 def test_offline_converters_default_to_the_card():

@@ -66,9 +66,11 @@ def test_decodes_like_cv2(kind, flt):
 
 
 def test_jpeg_raises():
+    """A JPEG is not a PNG payload (`data/pipelines/loading.imdecode`
+    sends JPEG bytes to the JPEG decoder)."""
     ok, buf = cv2.imencode('.jpg', _image('bgr8'))
     assert ok
-    with pytest.raises(ValueError, match='JPEG'):
+    with pytest.raises(ValueError, match='not a PNG'):
         imdecode(buf.tobytes())
 
 

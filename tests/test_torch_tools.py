@@ -5,8 +5,9 @@ writes the JAX CLI's JSON keys, on a fusion and a camera-only config, and
 its dataset mode names the split it reads; `tools.serve` on a
 thread answers /healthz, /predict and /predict_multi (uint16 sensor PNGs,
 dequantized on the device; none for a camera-only config; a grey PNG as
-one channel) with what `inference_detector` gives, 404 for unknown paths
-and 400 for a JPEG.
+one channel) with what `inference_detector` gives, a JPEG camera as the
+PNG of its decoded pixels, 404 for unknown paths and 400 for a JPEG mode
+the decoder refuses (progressive) or a body that is not JSON.
 """
 
 import base64
@@ -137,12 +138,36 @@ def test_predict_camera_only(server):
 
 
 def test_jpeg_gets_a_400(server):
+    """A progressive JPEG, which the decoder refuses, is a bad request."""
     _, url = server
-    ok, jpg = cv2.imencode('.jpg', _request()[0])
+    ok, jpg = cv2.imencode('.jpg', _request()[0],
+                           [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
     code, reply = _call(url + '/predict', jpg.tobytes())
-    assert code == 400 and 'JPEG' in reply['error']
+    assert code == 400 and 'progressive JPEG' in reply['error']
     code, _ = _call(url + '/predict_multi', b'not json')
     assert code == 400
+
+
+def test_a_jpeg_camera_answers_as_the_png_of_its_pixels(server):
+    """A baseline JPEG camera payload decodes (on the detector's device)
+    to what `cv2.imdecode` gives, and is answered as a PNG payload of
+    those pixels is, on both routes."""
+    _, url = server
+    img, mods = _request()
+    ok, jpg = cv2.imencode('.jpg', img, [cv2.IMWRITE_JPEG_QUALITY, 90])
+    pixels = _png(cv2.imdecode(jpg, cv2.IMREAD_COLOR))
+    sensors = [base64.b64encode(_png(m)).decode() for m in mods]
+    for route in ('/predict', '/predict_multi'):
+        replies = []
+        for camera in (jpg.tobytes(), pixels):
+            body = camera if route == '/predict' else json.dumps(
+                {'img': base64.b64encode(camera).decode(),
+                 'mods': sensors}).encode()
+            code, reply = _call(url + route, body)
+            assert code == 200, reply
+            reply.pop('latency_ms')
+            replies.append(reply)
+        assert replies[0] == replies[1], route
 
 
 @pytest.mark.parametrize('dtype', [np.uint8, np.uint16])
