@@ -178,6 +178,31 @@ Phases, each printed on its own lines; any failure exits non-zero:
    `homography_warp` of a 720x1280 frame onto 768x1280 card vs CPU
    (float32 within 1e-3, integers within one count) and
    `homography_from_points` with 20 % outliers card vs CPU within 1e-9.
+12. data parallelism (`hrfuser_tpu_torch/parallel/`) on HRFuser-T r640,
+   ranks spawned by `parallel.mesh.run_ranks` (each with a deadline) and
+   sharing this one card, so no figure here is a scaling result: 12a a
+   world of one rank on `nccl`, 20 float32 steps of
+   `make_sharded_train_step` at batch 3 (drop off, the reference caps),
+   each beside `train_step` from the same weights and optimizer state
+   on the same batch and draws (cuDNN deterministic): losses at rtol
+   1e-3 (accuracies within 3 RoIs), params within two AdamW updates
+   (2 x lr at the first step, the bias-corrected bound later), BN
+   statistics 1e-4, bit-equality reported; ms a step of both, the gradient
+   all-reduce's ms and buffer size, 0 eval-kernel launches; 12b two
+   `gloo` ranks on the card (CUDA tensors), 3 images each of a joined
+   batch of 6 whose last three have no valid GT, one step against one
+   process on the joined batch, held with a float64 trunk (losses 1e-3,
+   gradients 2e-2 together and 1e-1 each, params 2 x lr, the ranks' BN
+   statistics bit-identical) and shown in float32 (where a batch
+   layout's 1e-7 can swap a proposal), each beside one process's
+   float32 spread on the same batch in another row order; 12c sharded
+   `run_inference` over 9b's 16 JPEG samples (written again from its
+   seed; weights `card_checks.calibrate`d), bf16, global batch 8, at
+   world size 1 (`nccl`) and 2 (`gloo`): every image once in dataset
+   order on every rank, detections against one process at
+   `card_checks`' tolerances, each rank's samples and its kernel A / B /
+   C and JPEG launches exact, images/s; 12d `parallel/dryrun.py` with
+   two ranks on the card (`micro_fusion_dryrun`).
 
 The last line is `{"ok": true, "device": {...}}`; the line before it
 lists each kernel's launches, error, times and bound as JSON.
@@ -2578,6 +2603,279 @@ def phase_offline_homography(smi):
           f'(CUDA events, mean of 10); CPU {cpu_ms[0]:.1f} ms')
 
 
+PARALLEL_STEPS = 20                  # 12a: world size 1 vs train_step
+PARALLEL_DEADLINE_S = 420            # a spawned rank's deadline
+SHARED = '2 ranks sharing one H100'  # 12b-12d: no scaling result
+EVAL_COUNTERS = {
+    'window_attention_self': 'hrfuser_tpu_torch.ops.chain:'
+                             'window_self_attention',
+    'window_attention_cross': 'hrfuser_tpu_torch.ops.chain:'
+                              'window_cross_attention',
+    'cross_ffn': 'hrfuser_tpu_torch.ops.chain:cross_ffn',
+    'roi_align': 'hrfuser_tpu_torch.ops.roi_align:multilevel_roi_align',
+    'jpeg_pixels': 'hrfuser_tpu_torch.data.jpeg:pixels'}
+
+
+def _parallel_ranks():
+    """`tests/oracles/parallel_ranks.py` as a top-level module: the ranks
+    `run_ranks` spawns import its functions by name, and they inherit this
+    process's `sys.path`."""
+    oracles = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           'tests', 'oracles')
+    if oracles not in sys.path:
+        sys.path.insert(0, oracles)
+    import parallel_ranks
+    return parallel_ranks
+
+
+def _adamw_update_bound(t, betas):
+    """The largest |update| / lr of AdamW's t-th step over any gradient
+    history: by Cauchy-Schwarz on its moments, bias-corrected, 1 at the
+    first step and 1.16 at the 20th for betas (0.9, 0.999)."""
+    b1, b2 = betas
+    s = sum((b1 * b1 / b2) ** k for k in range(t))
+    return ((1 - b1) / np.sqrt(1 - b2) * np.sqrt(s)
+            * np.sqrt(1 - b2 ** t) / (1 - b1 ** t))
+
+
+def _held(m, bars, label):
+    """Print a step's `parallel_ranks.mismatch` figures beside `bars`;
+    raise where one is over."""
+    print(f'  {label}: losses {m["losses"]:.2e} (relative; bar '
+          f'{bars["losses"]:g}), accuracies {m["acc"]:.2e} (bar '
+          f'{bars["acc"]:.2e}), gradients together {m["together"]:.2e} '
+          f'(bar {bars["together"]:g}), worst one {m["each"]:.2e} '
+          f'({m["each_name"]}; bar {bars["each"]:g}), BN statistics '
+          f'{m["stats"]:.2e}, params {m["params"]:.2e} beyond 1e-6 of '
+          f'their size (bar {bars["params"]:g})')
+    over = [k for k in bars if m[k] > bars[k]]
+    if over:
+        raise AssertionError(f'{label}: {over} over their bars')
+
+
+def phase_parallel_step(smi):
+    pr = _parallel_ranks()
+    from hrfuser_tpu_torch import get_experiment
+    from hrfuser_tpu_torch.parallel.mesh import run_ranks
+    exp = get_experiment(CONFIG)
+    b = exp.schedule.samples_per_device
+    print(f'== 12a. data-parallel train step, world size 1 on nccl: {CONFIG} '
+          f'at {H}x{W}, float32, batch {b}, {PARALLEL_STEPS} steps, drop '
+          f'off, the reference caps, the same draws; each step beside '
+          f'`train_step` from the same weights and optimizer state')
+    (got,) = run_ranks(pr.paired_train_rank, 1, (
+        CONFIG, PARALLEL_STEPS, dict(device='cuda', caps={}, threads=4,
+                                     deterministic=True)),
+        timeout_s=PARALLEL_DEADLINE_S)
+    lr = got['lr']
+    worst, same = 0.0, 0
+    for i, (a, w) in enumerate(zip(got['sharded'], got['plain'])):
+        same += a == w
+        for k, v in w.items():
+            if k.endswith('acc'):
+                ok = abs(a[k] - v) * b * 512 <= 3
+            else:
+                err = abs(a[k] - v) / max(abs(v), 1e-6)
+                worst, ok = max(worst, err), err <= 1e-3
+            if not ok:
+                raise AssertionError(f'12a step {i + 1} {k}: sharded '
+                                     f'{a[k]} vs train_step {v}')
+    stats = max(got['stats'])
+    # the same weights and moments before each step: a near-zero gradient
+    # of opposite sign moves a param by up to one AdamW update each way
+    betas = exp.optim.betas
+    bars = [2 * lr * _adamw_update_bound(t + 1, betas)
+            for t in range(PARALLEL_STEPS)]
+    share = max(p / bar for p, bar in zip(got['params'], bars))
+    print(f'  {same} of {PARALLEL_STEPS} steps\' losses bit-equal, worst '
+          f'relative difference {worst:.2e} (bar 1e-3); after a step, '
+          f'params at most {max(got["params"]):.2e} beyond 1e-6 of their '
+          f'size, {share:.0%} of the step\'s bar (two AdamW updates: 2 x lr '
+          f'at step 1, {bars[-1]:.2e} at step {PARALLEL_STEPS}), BN '
+          f'statistics {stats:.2e} (bar 1e-4)'
+          + ('' if max(got['params']) <= 0 and same == PARALLEL_STEPS else
+             '; not bit-equal: the backward\'s atomics (HRFPN\'s bilinear '
+             'upsampling) sum in another order each run'))
+    if share > 1 or stats > 1e-4:
+        raise AssertionError('12a: params or BN statistics over their bars')
+    if got['launches']:
+        raise AssertionError(f'12a: the steps launched {got["launches"]} '
+                             f'eval kernels')
+    print(f'  eval kernel launches in the {2 * PARALLEL_STEPS} steps: 0')
+    print(f'  ms a step (steps 5-{PARALLEL_STEPS}, median, cuDNN '
+          f'deterministic): sharded {np.median(got["sharded_ms"][4:]):.1f},'
+          f' train_step {np.median(got["plain_ms"][4:]):.1f}; the gradient '
+          f'all-reduce {np.median(got["reduce_ms"][4:]):.2f} ms over a '
+          f'{got["buffer_mb"]:.1f} MB flat float32 buffer (flatten, nccl '
+          f'all-reduce, views; world size 1) on {smi}')
+
+
+def phase_parallel_joined(smi):
+    pr = _parallel_ranks()
+    from hrfuser_tpu_torch import get_experiment
+    from hrfuser_tpu_torch.core.samplers import KeyedDraws
+    from hrfuser_tpu_torch.parallel.mesh import run_ranks
+    exp = get_experiment(CONFIG)
+    print(f'== 12b. 2 ranks on the one card (gloo, CUDA tensors), global '
+          f'batch 6 (3 a rank; rank 1\'s images have no valid GT), one step '
+          f'against one process on the joined batch: held with a float64 '
+          f'trunk, then shown in float32 beside the float32 spread of one '
+          f'process on the batch in another row order')
+    bars = dict(losses=1e-3, acc=3 / (6 * 512), together=2e-2, each=1e-1,
+                params=2 * exp.optim.lr)
+    perm = np.array([3, 4, 5, 0, 1, 2])
+    for dtype in (torch.float64, torch.float32):
+        t0 = time.perf_counter()
+        name = str(dtype).split('.')[-1]
+        batch = pr.joined_batch(6, (H, W), exp.model.backbone.mod_in_channels,
+                                empty=(3, 4, 5))
+        if dtype == torch.float64:
+            batch = pr.in_float64(batch)
+        draws = pr.RecordingDraws(KeyedDraws(100))
+        want = pr.one_process_step(CONFIG, batch, draws, 'cuda', caps={},
+                                   dtype=dtype)
+        torch.cuda.empty_cache()
+        if dtype == torch.float32:
+            spread = pr.mismatch(pr.one_process_step(
+                CONFIG, pr.permuted(batch, perm),
+                pr.PermutedDraws(draws.table, perm), 'cuda', caps={}), want)
+            torch.cuda.empty_cache()
+            print(f'  {name}: one process on the batch in another row order: '
+                  f'losses {spread["losses"]:.2e}, accuracies '
+                  f'{spread["acc"]:.2e}, gradients together '
+                  f'{spread["together"]:.2e}, worst one {spread["each"]:.2e}'
+                  f', BN statistics {spread["stats"]:.2e}')
+        ranks = run_ranks(pr.sharded_train_rank, 2, (
+            CONFIG, [batch], [draws.table],
+            dict(device='cuda:0', backend='gloo', caps={}, threads=4,
+                 dtype=dtype)), timeout_s=PARALLEL_DEADLINE_S)
+        for r in ranks:
+            m = pr.mismatch(r, want)
+            label = f'{name}, rank {r["rank"]} vs one process'
+            if dtype == torch.float64:
+                _held(m, bars, label)
+            else:               # a proposal swap at a cut moves it by O(1e-2)
+                print(f'  {label} (not held: a batch layout\'s 1e-7 can '
+                      f'swap a proposal at the top-k / NMS cut, and the '
+                      f'sampler then picks other RoIs): losses '
+                      f'{m["losses"]:.2e}, accuracies {m["acc"]:.2e}, '
+                      f'gradients together {m["together"]:.2e}, worst one '
+                      f'{m["each"]:.2e}, BN statistics {m["stats"]:.2e}')
+        a, c = (r['stats'] for r in ranks)
+        if not all(np.array_equal(a[n], c[n]) for n in a):
+            raise AssertionError(f'12b {name}: the ranks\' BN running '
+                                 f'statistics differ')
+        if ranks[0]['losses'] != ranks[1]['losses']:
+            raise AssertionError(f'12b {name}: the ranks report different '
+                                 f'losses')
+        print(f'  {name}: BN running statistics bit-identical on the two '
+              f'ranks; the ranks\' first step {ranks[0]["ms"][0]:.1f} / '
+              f'{ranks[1]["ms"][0]:.1f} ms (a fresh process), its gradient '
+              f'all-reduce over gloo {ranks[0]["reduce_ms"][0]:.1f} ms for '
+              f'{ranks[0]["buffer_mb"]:.1f} MB; {time.perf_counter() - t0:.1f}'
+              f' s with set-up, {SHARED}, {smi}')
+
+
+def phase_parallel_eval(smi):
+    pr = _parallel_ranks()
+    cc = _checks()
+    from hrfuser_tpu_torch import get_experiment, init_detector
+    from hrfuser_tpu_torch.apis.test import run_inference
+    from hrfuser_tpu_torch.data.datasets.coco import CocoFusionDataset
+    from hrfuser_tpu_torch.data.loader import DetDataLoader
+    from hrfuser_tpu_torch.parallel.mesh import run_ranks
+    from hrfuser_tpu_torch.utils.checkpoint import save_checkpoint
+    exp = get_experiment(CONFIG)
+    print(f'== 12c. sharded evaluation: {CONFIG}, bf16, global batch {BATCH}, '
+          f'phase 9b\'s {NUS_N} JPEG samples (written again from its seed), '
+          f'world size 1 (nccl) and 2 (gloo, {SHARED}) against one process')
+    root = tempfile.mkdtemp(prefix='nus_')
+    _nus_folder(root, np.random.default_rng(10), exp.data.classes)
+    det = init_detector(CONFIG, 'cuda', seed=0)
+    img, mods = _inputs(exp.model, 2, np.random.default_rng(12))
+    _calibrated(det.model, torch.from_numpy(img).cuda(),
+                [torch.from_numpy(m).cuda() for m in mods])
+    ckpt = f'{root}/ckpt_calibrated'
+    save_checkpoint(ckpt, 0, det.model, meta={'config': CONFIG})
+    det = init_detector(CONFIG, 'cuda', seed=0, dtype=torch.bfloat16,
+                        checkpoint=ckpt)
+    ds = CocoFusionDataset(NUS_VAL, exp.data.classes, data_root=root,
+                           test_mode=True)
+    loader = DetDataLoader(ds, exp.data, BATCH, train=False)
+    run_inference(det, loader, progress=False)          # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = run_inference(det, loader, progress=False)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    print(f'  one process: {NUS_N} images in {dt:.2f} s, {NUS_N / dt:.1f} '
+          f'images/s (`run_inference` after a warm-up run, loading '
+          f'included) on {smi}')
+    del det
+    torch.cuda.empty_cache()
+    one, _ = cc.expected_launches(exp.model)
+    meta = want[0]['meta']              # boxes come in the original frame
+    scale = meta['img_shape'][1] / meta['ori_shape'][1]
+    tol = dict(cc.DETECTION_TOL, box=cc.DETECTION_TOL['box'] / scale)
+    for world, device, backend in ((1, 'cuda', None), (2, 'cuda:0', 'gloo')):
+        ranks = run_ranks(pr.sharded_eval_rank, world, (
+            CONFIG, root, BATCH, device, backend, 'bf16', ckpt, None, 4,
+            EVAL_COUNTERS, True), timeout_s=PARALLEL_DEADLINE_S)
+        k = BATCH // world
+        compared = at_cut = 0
+        for rank, r in enumerate(ranks):
+            mine = [b * BATCH + rank * k + i for b in range(NUS_N // BATCH)
+                    for i in range(k)]
+            if r['loaded'] != mine:
+                raise AssertionError(f'12c world {world} rank {rank} loaded '
+                                     f'{r["loaded"]}, not its rows {mine}')
+            got = r['results']
+            if [g['meta'] for g in got] != [w['meta'] for w in want]:
+                raise AssertionError(f'12c world {world} rank {rank}: the '
+                                     f'images are not those of one process, '
+                                     f'once each, in dataset order')
+            for i, (g, w) in enumerate(zip(got, want)):
+                sides = [(x['boxes'], x['scores'], x['labels'])
+                         for x in (g, w)]
+                cut = cc._cut(sides, exp.model.roi.score_thr,
+                              exp.model.roi.max_per_img)
+                res = cc.match(*sides, tol, cut,
+                               f'12c world {world} rank {rank} image {i}')
+                compared += res['got']
+                at_cut += res['at_cut']
+            want_launches = {n: r['batches'] * c for n, c in one.items()}
+            want_launches['jpeg_pixels'] = 2 * len(r['loaded'])
+            if r['launches'] != want_launches:
+                raise AssertionError(f'12c world {world} rank {rank}: '
+                                     f'launches {r["launches"]}, expected '
+                                     f'{want_launches}')
+        if not compared:
+            raise AssertionError(f'12c world {world}: no detection compared')
+        slowest = max(r['seconds'] for r in ranks)
+        print(f'  world size {world}: every rank holds the {NUS_N} images '
+              f'once in dataset order, {compared // world} detections a rank '
+              f'matched ({at_cut} missing at the score cut), each rank '
+              f'loaded only its {NUS_N // world} samples; launches a rank '
+              f'{ranks[0]["launches"]} over {ranks[0]["batches"]} forwards; '
+              f'{NUS_N / slowest:.1f} images/s (the slowest rank\'s '
+              f'`run_inference` after a warm-up run, loading included)'
+              + (f', {SHARED}' if world > 1 else '') + f' on {smi}')
+    shutil.rmtree(root)
+
+
+def phase_parallel_dryrun(smi):
+    print(f'== 12d. `parallel/dryrun.py`: micro_fusion_dryrun, one sharded '
+          f'train step and one sharded predict, {SHARED} (gloo)')
+    from hrfuser_tpu_torch.parallel.dryrun import dryrun
+    t0 = time.perf_counter()
+    loss, shape = dryrun(2, 'cuda:0', 'gloo', PARALLEL_DEADLINE_S)
+    if not np.isfinite(loss) or shape[0] != 2:
+        raise AssertionError(f'12d: loss {loss}, boxes {shape}')
+    print(f'  loss {loss:.4f}, joined boxes {shape}, '
+          f'{time.perf_counter() - t0:.1f} s with the ranks\' start-up, '
+          f'on {smi}')
+
+
 def main():
     smi = phase_environment()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2635,6 +2933,10 @@ def main():
         ('11b', lambda: phase_offline_stf(smi)),
         ('11c', lambda: phase_offline_gated(smi)),
         ('11d', lambda: phase_offline_homography(smi)),
+        ('12a', lambda: phase_parallel_step(smi)),
+        ('12b', lambda: phase_parallel_joined(smi)),
+        ('12c', lambda: phase_parallel_eval(smi)),
+        ('12d', lambda: phase_parallel_dryrun(smi)),
     ]
     for name, run in phases:
         t1 = time.perf_counter()

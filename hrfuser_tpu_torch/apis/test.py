@@ -1,17 +1,21 @@
 """Evaluation API: batched inference over a loader + metrics.
 
 Port of `hrfuser_tpu/apis/test.py:27-157` (the reference's
-`single_gpu_test`, `mmdet/apis/test.py:18-308`) for one device: iterate
-the test loader, run the detector, collect per-image detections on the
-host, then evaluate with the dataset's metric (COCO mAP for nuScenes,
-KITTI 2D AP with the GT cropped to the train-time frame for STF).
-Multi-GPU inference is still to port (ROADMAP §1, "Multi-GPU").
+`single_gpu_test` / `multi_gpu_test`, `mmdet/apis/test.py:18-308`):
+iterate the test loader, run the detector, collect per-image detections
+on the host, then evaluate with the dataset's metric (COCO mAP for
+nuScenes, KITTI 2D AP with the GT cropped to the train-time frame for
+STF). Over a data-parallel group each rank loads and predicts its own
+rows, and `parallel.mesh.collect_results` gives every rank every image
+once, in dataset order. (JAX's multi-process path feeds every process
+the whole dataset, `hrfuser_tpu/apis/test.py:53`; the port does not copy
+that defect.)
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, Iterable, List, Optional, Sequence
+from typing import Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
@@ -22,6 +26,7 @@ from hrfuser_tpu_torch.data.device_pipeline import make_raw_predictor
 from hrfuser_tpu_torch.evaluation.coco_map import evaluate_coco_map
 from hrfuser_tpu_torch.evaluation.kitti_eval import kitti_eval_2d
 from hrfuser_tpu_torch.evaluation.recall import fast_eval_recall
+from hrfuser_tpu_torch.parallel.mesh import Group, collect_results
 
 
 def _is_raw(img) -> bool:
@@ -30,7 +35,7 @@ def _is_raw(img) -> bool:
 
 def run_inference(detector: Detector, loader: Iterable[dict],
                   progress: bool = True,
-                  devices: Optional[Sequence] = None) -> List[dict]:
+                  group: Optional[Group] = None) -> List[dict]:
     """Run the detector over a loader; returns per-image dicts (boxes in
     original-image coordinates, scores, labels, meta).
 
@@ -40,11 +45,14 @@ def run_inference(detector: Detector, loader: Iterable[dict],
     images (uint16); `mod_imgs`, `img_shapes` [B, 2], `scale_factors`
     [B, 4], `metas`, and `num_real`, the leading rows that are real
     images (the rest pad the batch).
+
+    Over a `group` of several ranks, `loader` yields this rank's rows
+    (`DetDataLoader(..., rank, world_size)`), and every rank returns the
+    whole dataset's results in the order of their metas' `sample_idx`
+    (the dataset index).
     """
-    if devices is not None and len(devices) > 1:
-        raise NotImplementedError(
-            'run_inference runs on one device; inference over several '
-            'GPUs is still to port (ROADMAP section 1, "Multi-GPU")')
+    sharded = group is not None and group.world_size > 1
+    progress = progress and (group is None or group.rank == 0)
     raw = make_raw_predictor(detector)
     results: List[dict] = []
     t0 = time.time()
@@ -57,7 +65,13 @@ def run_inference(detector: Detector, loader: Iterable[dict],
             t.float().cpu().numpy() if t.is_floating_point()
             else t.cpu().numpy()
             for t in (out.boxes, out.scores, out.labels, out.valid))
-        for i in range(int(batch.get('num_real', len(img)))):
+        num_real = int(batch.get('num_real', len(img)))
+        if sharded and not all(isinstance(m, dict) and 'sample_idx' in m
+                               for m in batch['metas'][:num_real]):
+            raise ValueError("run_inference over several ranks orders the "
+                             "images by their metas' 'sample_idx', which "
+                             "this batch's metas lack")
+        for i in range(num_real):
             v = valid[i]
             results.append(dict(boxes=boxes[i][v], scores=scores[i][v],
                                 labels=labels[i][v],
@@ -67,6 +81,12 @@ def run_inference(detector: Detector, loader: Iterable[dict],
             print(f'\r[test] {len(results)} imgs ({rate:.1f} img/s)', end='')
     if progress:
         print()
+    if sharded:
+        results = sorted(collect_results(results, group),
+                         key=lambda r: r['meta']['sample_idx'])
+        idx = [r['meta']['sample_idx'] for r in results]
+        if len(set(idx)) != len(idx):
+            raise RuntimeError('two ranks returned the same image')
     return results
 
 

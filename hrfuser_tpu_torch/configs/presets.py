@@ -7,9 +7,6 @@ four. As in the JAX package, every name has a `_bn` alias (one device
 computes the same batch statistics with BN and SyncBN) and a `.py` path
 resolves to its file name. `tests/test_torch_configs.py` holds each
 equal, field for field, to `hrfuser_tpu.configs.get_config(name)`.
-
-Not carried: `micro_fusion_dryrun`, the multichip dry-run model
-(ROADMAP §1).
 """
 
 from __future__ import annotations
@@ -233,12 +230,56 @@ _B = dict(channels=(78, 156, 312, 624), heads=(2, 4, 8, 16),
           stage3_modules=4, drop_path_rate=0.4)
 _STF_SCHEDULE = dict(max_epochs=60, lr_steps=(40, 50))
 
+
+def _micro_fusion() -> DetectorCfg:
+    """The smallest fusion model that runs every train-step path (two
+    modalities, MWCA fusion before every stage, the 3-stage cascade): the
+    data-parallel dry run's model
+    (`hrfuser_tpu/configs/presets.py:255-298`). One module of one block a
+    stage; not a reference config."""
+    ch, heads = (8, 16, 24, 32), (1, 1, 1, 1)
+
+    def cam_stage(n):
+        return StageCfg(num_modules=1, num_branches=n, block='HRFORMER',
+                        num_blocks=(1,) * n, num_channels=ch[:n],
+                        num_heads=heads[:n], window_sizes=(7,) * n,
+                        mlp_ratios=(2,) * n)
+
+    def mod_stage():
+        return StageCfg(num_modules=1, num_branches=1, block='HRFORMER',
+                        num_blocks=(1,), num_channels=(ch[0],),
+                        num_heads=(1,), window_sizes=(7,), mlp_ratios=(2,))
+
+    def fusion(n):
+        return FusionCfg(num_branches=n, num_channels=ch[:n],
+                         num_heads=heads[:n], window_sizes=(7,) * n,
+                         mlp_ratios=(2,) * n)
+
+    model = detector(HRBackboneCfg(
+        stage1=StageCfg(1, 1, 'BOTTLENECK', (1,), (16,)),
+        stage2=cam_stage(2), stage3=cam_stage(3), stage4=cam_stage(4),
+        stage_a=StageCfg(1, 1, 'BOTTLENECK', (1,), (16,)),
+        stage_b=mod_stage(), stage_c=mod_stage(),
+        fusion_a=fusion(2), fusion_b=fusion(3), fusion_c=fusion(4),
+        num_fused_modalities=2, mod_in_channels=(3, 3)), num_classes=4)
+    return dataclasses.replace(
+        model,
+        roi=dataclasses.replace(model.roi, fc_out_channels=32,
+                                max_per_img=8),
+        rpn_test=dataclasses.replace(model.rpn_test, nms_pre=64,
+                                     max_per_img=32),
+        neck_out_channels=32)
+
+
 # name -> (model, data, schedule, optimizer)
 _REGISTRY: Dict[str, Callable[[], Tuple[DetectorCfg, DataCfg, ScheduleCfg,
                                         OptimCfg]]] = {
     'tiny_fusion_test': lambda: (
         _tiny(hrfuser_backbone(**_TINY)), _nus_data(),
         ScheduleCfg(samples_per_device=2), OptimCfg()),
+    'micro_fusion_dryrun': lambda: (
+        _micro_fusion(), _nus_data(), ScheduleCfg(samples_per_device=1),
+        OptimCfg()),
     'tiny_camera_test': lambda: (
         _tiny(hrformer_backbone(**_TINY)), _nus_data(modalities=()),
         ScheduleCfg(samples_per_device=2), OptimCfg()),

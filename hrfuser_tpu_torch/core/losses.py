@@ -43,7 +43,14 @@ def smooth_l1(pred: Tensor, target: Tensor, weights: Tensor, avg_factor,
     return _avg((loss * weights).sum(), avg_factor)
 
 
+def accuracy_parts(logits: Tensor, labels: Tensor, weights: Tensor):
+    """The weighted top-1 accuracy's numerator and denominator (each sums
+    over the ranks of a data-parallel step)."""
+    correct = (logits.argmax(-1) == labels).float()
+    return (correct * weights).sum(), weights.sum()
+
+
 def accuracy(logits: Tensor, labels: Tensor, weights: Tensor) -> Tensor:
     """Weighted top-1 accuracy (a logged metric, not a loss)."""
-    correct = (logits.argmax(-1) == labels).float()
-    return (correct * weights).sum() / weights.sum().clamp(min=1.0)
+    num, den = accuracy_parts(logits, labels, weights)
+    return num / den.clamp(min=1.0)

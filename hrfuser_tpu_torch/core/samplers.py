@@ -27,7 +27,8 @@ class Draws:
     of one `random_sample` call: `site` is 'rpn' or the cascade stage
     index, `image` the image in the batch. The keys are drawn on the
     generator's device and moved to `device`, so draws made on the CPU
-    give the same step on every device.
+    give the same step on every device. A data-parallel rank passes the
+    image's index in the joined batch (`KeyedDraws`).
     """
 
     def __init__(self, generator: Optional[torch.Generator] = None):
@@ -38,6 +39,25 @@ class Draws:
         g = self.generator
         u = torch.rand(2, n, generator=g, device=g.device).to(device)
         return u[0], u[1]
+
+
+class KeyedDraws(Draws):
+    """Draws whose sampler keys depend only on (`key`, site, image): a
+    data-parallel rank that passes its images' global indices gets the
+    keys the joined batch's images get, so no two ranks' images share
+    keys, and the ranks need not draw in step. Dropout and drop path
+    draw from `generator` (each rank's own)."""
+
+    def __init__(self, key: int, generator: Optional[torch.Generator] = None):
+        super().__init__(generator)
+        self.key = int(key)
+
+    def uniforms(self, site, image: int, n: int, device
+                 ) -> Tuple[Tensor, Tensor]:
+        site = 0 if site == 'rpn' else site + 1
+        seed = ((self.key * 1_000_003 + site) * 1_000_003 + image) % 2**63
+        u = torch.rand(2, n, generator=torch.Generator().manual_seed(seed))
+        return u[0].to(device), u[1].to(device)
 
 
 class SampleResult(NamedTuple):

@@ -10,7 +10,12 @@ files and seed the batches are the JAX loader's batches:
   * each sample's `results['rng']`: `default_rng((seed * 1_000_003 +
     epoch) * 1_000_003 + idx)`;
   * a short last batch (test mode) is padded by repeating its last
-    sample, and `num_real` says how many rows are real.
+    sample, and `num_real` says how many rows are real;
+  * rank r of N data-parallel ranks reads rows [r * B / N, (r + 1) * B /
+    N) of every global batch of B, and only those samples, so the ranks'
+    batches joined are the one-process loader's, row for row (a rank
+    pads its short last batch with its own last sample, and skips a
+    last batch that has no row of its own).
 
 The batch dict:
     img [B,H,W,3] float32 (normalized, padded), mod_imgs [list of
@@ -102,12 +107,18 @@ class DetDataLoader:
     thread. The epoch counter advances when an iteration runs to its end.
     JPEG camera frames decode their pixels on `device` (the card unless
     the caller passes 'cpu'), on a stream of the loading thread's own.
+    `batch_size` is the global batch; rank `rank` of `world_size` gets
+    `batch_size / world_size` rows of each.
     """
 
     def __init__(self, dataset, cfg: DataCfg, batch_size: int,
                  train: bool, seed: int = 0, max_gts: int = 100,
                  drop_last: Optional[bool] = None, prefetch: int = 2,
-                 device='cuda'):
+                 device='cuda', rank: int = 0, world_size: int = 1):
+        if batch_size % world_size or not 0 <= rank < world_size:
+            raise ValueError(f'a batch of {batch_size} over {world_size} '
+                             f'ranks (rank {rank})')
+        self.rank, self.world_size = rank, world_size
         self.dataset = dataset
         self.cfg = cfg
         self.batch_size = batch_size
@@ -120,10 +131,11 @@ class DetDataLoader:
         self.prefetch = prefetch
 
     def __len__(self):
-        n = len(self.dataset)
-        if self.drop_last:
-            return n // self.batch_size
-        return (n + self.batch_size - 1) // self.batch_size
+        """The batches this rank reads."""
+        n, bs = len(self.dataset), self.batch_size
+        ragged = not self.drop_last and n % bs > self.rank * (
+            bs // self.world_size)
+        return n // bs + ragged
 
     def _indices(self) -> np.ndarray:
         n = len(self.dataset)
@@ -140,12 +152,13 @@ class DetDataLoader:
 
     def _make_batches(self) -> Iterator[Dict[str, np.ndarray]]:
         idxs = self._indices()
-        bs = self.batch_size
+        bs, k = self.batch_size, self.batch_size // self.world_size
         for b in range(len(self)):
-            chunk = idxs[b * bs:(b + 1) * bs]
+            chunk = idxs[b * bs:(b + 1) * bs][self.rank * k:
+                                              (self.rank + 1) * k]
             samples = [self._load_one(i) for i in chunk]
             # pad a short final batch by repeating the last sample
-            while len(samples) < bs:
+            while len(samples) < k:
                 samples.append(samples[-1])
             yield self._collate(samples, real=len(chunk))
 

@@ -13,8 +13,8 @@ runs each conv with its BatchNorm folded in (running statistics, eps
 reach them, and BatchNorm normalizes with the batch statistics and
 updates its running statistics as flax's `nn.BatchNorm` does
 (`hrfuser_tpu/layers/common.py:33-55`): momentum 0.1 and the biased batch
-variance. `DropPath` and `Dropout` draw from the generator that
-`train_generator` installs.
+variance; inside `sync_batch_norm`, over every rank's batch. `DropPath`
+and `Dropout` draw from the generator that `train_generator` installs.
 """
 
 from __future__ import annotations
@@ -26,6 +26,8 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from hrfuser_tpu_torch.parallel.mesh import all_reduce_sum
 
 Tensor = torch.Tensor
 
@@ -134,10 +136,57 @@ def _bn_tensors(bn: nn.BatchNorm2d):
     return [bn.weight, bn.bias, bn.running_mean, bn.running_var]
 
 
+_SYNC = contextvars.ContextVar('sync_batch_norm', default=False)
+
+
+@contextlib.contextmanager
+def sync_batch_norm(group):
+    """Make training BatchNorm take its statistics over every rank of
+    `group` (a `parallel.mesh.Group`; SyncBN) while the `with` lasts. A
+    world of one rank changes nothing."""
+    token = _SYNC.set(group is not None and group.world_size > 1)
+    try:
+        yield
+    finally:
+        _SYNC.reset(token)
+
+
+def _synced_batch_norm(x: Tensor, bn: nn.BatchNorm2d) -> Tensor:
+    """`batch_norm_train` over the batch of every rank: the per-channel
+    sum, sum of squares and count, accumulated in float64 (as the CPU's
+    `F.batch_norm` accumulates), are summed over the ranks with a
+    differentiable all-reduce, so the gradient through the statistics
+    reaches every rank's inputs."""
+    c, f64 = x.shape[1], torch.float64
+    xa = x.to(torch.promote_types(x.dtype, torch.float32))
+    count = torch.full((1,), x.numel() // c, dtype=f64, device=x.device)
+    sums = all_reduce_sum(torch.cat([xa.sum((0, 2, 3), dtype=f64),
+                                     (xa * xa).sum((0, 2, 3), dtype=f64),
+                                     count]))
+    n = sums[-1]
+    mean = sums[:c] / n
+    var = (sums[c:2 * c] / n - mean * mean).clamp(min=0)
+    scale = bn.weight * torch.rsqrt(var + bn.eps)
+    shape = (1, c, 1, 1)
+    y = ((xa - mean.to(xa.dtype).view(shape)) * scale.to(xa.dtype).view(shape)
+         + bn.bias.to(xa.dtype).view(shape))
+    with torch.no_grad():
+        m = bn.momentum
+        bn.running_mean.mul_(1 - m).add_(mean.to(bn.running_mean.dtype),
+                                         alpha=m)
+        bn.running_var.mul_(1 - m).add_(var.to(bn.running_var.dtype),
+                                        alpha=m)
+        bn.num_batches_tracked.add_(1)
+    return y.to(x.dtype)
+
+
 def batch_norm_train(x: Tensor, bn: nn.BatchNorm2d) -> Tensor:
     """Training BatchNorm of an NCHW `x` with its batch statistics; the
     running statistics take the biased batch variance, as flax's do
-    (`nn.BatchNorm2d` would take the unbiased one)."""
+    (`nn.BatchNorm2d` would take the unbiased one). Inside
+    `sync_batch_norm` the statistics are those of every rank's batch."""
+    if _SYNC.get():
+        return _synced_batch_norm(x, bn)
     n = x.numel() // x.shape[1]
     batch_mean = torch.zeros_like(bn.running_mean)
     batch_var = torch.zeros_like(bn.running_var)

@@ -26,8 +26,18 @@ call, then one timed call.
     python -m hrfuser_tpu_torch.tools.test tiny_camera_test --synthetic \\
         --device cpu
 
-Both run on the card unless `--device cpu` is given. Not ported:
-`--show-dir` (the JAX CLI draws with `cv2`).
+    torchrun --nproc-per-node 8 -m hrfuser_tpu_torch.tools.test \\
+        cascade_rcnn_hrfuser_t_1x_nus_r640_l_r_fusion \\
+        --checkpoint work_dirs/.../latest --data-root data/nuscenes
+
+Both run on the card unless `--device cpu` is given. Under `torchrun`
+each rank joins the data-parallel group (`nccl` on the card, `gloo` with
+`--device cpu`): over a dataset each rank loads and predicts its rows of
+every batch, the batch defaults to the world size (`tools/test.py:112`
+in JAX), and every rank evaluates the collected results; `--synthetic`
+runs `parallel.api.make_sharded_predict` on the joined batch. Rank 0
+alone prints the metrics and writes `--out`. Not ported: `--show-dir`
+(the JAX CLI draws with `cv2`).
 """
 
 from __future__ import annotations
@@ -48,7 +58,8 @@ def parse_args(argv=None):
     p.add_argument('--checkpoint', default=None)
     p.add_argument('--data-root', default='')
     p.add_argument('--batch-size', type=int, default=None,
-                   help='default 2 with --synthetic, 1 over a dataset')
+                   help='the global batch: default 2 with --synthetic, the '
+                        'world size (1 without torchrun) over a dataset')
     p.add_argument('--synthetic', action='store_true')
     p.add_argument('--img-hw', type=int, nargs=2, default=None,
                    help='override input H W (synthetic mode)')
@@ -62,9 +73,9 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def evaluate_dataset(args):
-    """Dataset mode: run the test split through the detector and score
-    it; returns the metrics."""
+def evaluate_dataset(args, group=None):
+    """Dataset mode: run the test split through the detector (each rank
+    of `group` on its rows) and score it; returns the metrics."""
     from hrfuser_tpu_torch.apis.inference import init_detector
     from hrfuser_tpu_torch.apis.test import (evaluate,
                                              evaluate_proposal_recall,
@@ -73,19 +84,24 @@ def evaluate_dataset(args):
     from hrfuser_tpu_torch.data.datasets import build_dataset
     from hrfuser_tpu_torch.data.loader import DetDataLoader
 
+    rank, world = (0, 1) if group is None else (group.rank,
+                                                group.world_size)
+    say = print if rank == 0 else (lambda *a, **k: None)
+    device = args.device if group is None else group.device
     exp = get_experiment(args.config)
     dataset = build_dataset(exp.data, args.data_root, 'test')
-    loader = DetDataLoader(dataset, exp.data, args.batch_size or 1,
-                           train=False, device=args.device)
+    loader = DetDataLoader(dataset, exp.data, args.batch_size or world,
+                           train=False, device=device, rank=rank,
+                           world_size=world)
     if not args.checkpoint:
-        print('[warn] no --checkpoint: evaluating random weights')
-    det = init_detector(args.config, args.device, seed=0,
+        say('[warn] no --checkpoint: evaluating random weights')
+    det = init_detector(args.config, device, seed=0,
                         dtype=DTYPES[args.dtype], checkpoint=args.checkpoint)
     t0 = time.perf_counter()
-    results = run_inference(det, loader)
+    results = run_inference(det, loader, group=group)
     dt = time.perf_counter() - t0
-    print(f'[test] {len(results)} images in {dt:.1f} s '
-          f'({len(results) / dt:.1f} img/s, loading included)')
+    say(f'[test] {len(results)} images in {dt:.1f} s '
+        f'({len(results) / dt:.1f} img/s, loading included)')
     wanted = [m.strip() for m in args.eval_metrics.split(',') if m.strip()]
     metrics = {}
     if 'bbox' in wanted:
@@ -93,8 +109,8 @@ def evaluate_dataset(args):
     if 'proposal_fast' in wanted:
         metrics.update(evaluate_proposal_recall(results, dataset))
     for k, v in metrics.items():
-        print(f'{k}: {v:.4f}')
-    if args.out:
+        say(f'{k}: {v:.4f}')
+    if args.out and rank == 0:
         with open(args.out, 'w') as f:
             json.dump(metrics, f, indent=2)
     return metrics
@@ -102,12 +118,28 @@ def evaluate_dataset(args):
 
 def main(argv=None):
     args = parse_args(argv)
-    if not args.synthetic:
-        return evaluate_dataset(args)
-    from hrfuser_tpu_torch.apis.inference import init_detector
+    from hrfuser_tpu_torch.parallel.mesh import (launched_with_ranks,
+                                                 process_group)
+    run = synthetic if args.synthetic else evaluate_dataset
+    if not launched_with_ranks():
+        return run(args)
+    with process_group(args.device) as group:
+        return run(args, group)
 
-    det = init_detector(args.config, args.device, seed=0,
+
+def synthetic(args, group=None):
+    """Synthetic mode: one warm-up call and one timed call on seeded
+    inputs (over `group`, the joined batch through
+    `make_sharded_predict`)."""
+    from hrfuser_tpu_torch.apis.inference import init_detector
+    from hrfuser_tpu_torch.parallel.api import make_sharded_predict
+
+    lead = group is None or group.rank == 0
+    say = print if lead else (lambda *a, **k: None)
+    device = args.device if group is None else group.device
+    det = init_detector(args.config, device, seed=0,
                         dtype=DTYPES[args.dtype], checkpoint=args.checkpoint)
+    predict = det if group is None else make_sharded_predict(det, group)
     if args.img_hw:
         h, w = args.img_hw
     else:
@@ -121,21 +153,21 @@ def main(argv=None):
             for c in det.cfg.backbone.mod_in_channels]
 
     def call():
-        out = det(img, mods)
+        out = predict(img, mods)
         if det.device.type == 'cuda':
             torch.cuda.synchronize(det.device)
         return out
 
     t0 = time.perf_counter()
     call()
-    print(f'[synthetic] warm-up {time.perf_counter() - t0:.1f}s')
+    say(f'[synthetic] warm-up {time.perf_counter() - t0:.1f}s')
     t0 = time.perf_counter()
     out = call()
     dt = time.perf_counter() - t0
     nvalid = int(out.valid.sum())
-    print(f'[synthetic] {b} imgs in {dt * 1e3:.1f} ms '
-          f'({b / dt:.1f} img/s); {nvalid} detections')
-    if args.out:
+    say(f'[synthetic] {b} imgs in {dt * 1e3:.1f} ms '
+        f'({b / dt:.1f} img/s); {nvalid} detections')
+    if args.out and lead:
         with open(args.out, 'w') as f:
             json.dump({'synthetic_img_per_s': round(b / dt, 2),
                        'num_detections': nvalid}, f, indent=2)

@@ -32,8 +32,17 @@ the logged losses falls below 0.7 of the first.
         --max-iters 40 --overfit-check --log-interval 1
     python -m hrfuser_tpu_torch.tools.train tiny_fusion_test --synthetic \\
         --max-iters 4 --device cpu
+    torchrun --nproc-per-node 8 -m hrfuser_tpu_torch.tools.train \\
+        cascade_rcnn_hrfuser_t_1x_nus_r640_l_r_fusion --data-root data/nuscenes
 
-It runs on the card unless `--device cpu` is given.
+It runs on the card unless `--device cpu` is given. Under `torchrun`
+each rank joins the data-parallel group (`nccl` on the card, `gloo` with
+`--device cpu`) and trains with `parallel.api.make_sharded_train_step`:
+the global batch is `samples_per_device` times the world size, each rank
+reads its rows of it, and the step is the one-process step on the
+joined batch (`tools/train.py:124-127` in JAX). Rank 0 alone writes the
+log and the checkpoints; the eval hook runs sharded, and every rank
+evaluates the collected results.
 """
 
 from __future__ import annotations
@@ -120,19 +129,23 @@ def _dataset_batches(loader):
         yield from loader
 
 
-def _evaluate(exp, model, args, batch_size, device):
+def _evaluate(exp, model, args, batch_size, device, group=None):
     """Val metrics of `model`'s current weights (eval mode, float32,
-    through the kernels on the card); leaves it in training mode."""
+    through the kernels on the card), each rank of `group` predicting its
+    rows of every batch of `batch_size`; leaves it in training mode."""
     from hrfuser_tpu_torch.apis.inference import Detector
     from hrfuser_tpu_torch.apis.test import evaluate, run_inference
     from hrfuser_tpu_torch.data.datasets import build_dataset
     from hrfuser_tpu_torch.data.loader import DetDataLoader
     val = build_dataset(exp.data, args.data_root, 'val')
+    rank, world = (0, 1) if group is None else (group.rank,
+                                                group.world_size)
     loader = DetDataLoader(val, exp.data, batch_size, train=False,
-                           device=device)
+                           device=device, rank=rank, world_size=world)
     model.eval()
     try:
-        results = run_inference(Detector(model, exp.data, device), loader)
+        results = run_inference(Detector(model, exp.data, device), loader,
+                                group=group)
     finally:
         model.train()
     return evaluate(exp, results, val)
@@ -140,6 +153,16 @@ def _evaluate(exp, model, args, batch_size, device):
 
 def main(argv=None):
     args = parse_args(argv)
+    from hrfuser_tpu_torch.parallel.mesh import (launched_with_ranks,
+                                                 process_group)
+    if not launched_with_ranks():
+        return train(args)
+    with process_group(args.device) as group:
+        return train(args, group)
+
+
+def train(args, group=None):
+    """Train as `args` say; over a data-parallel `group` when given."""
     from hrfuser_tpu_torch.apis.inference import init_weights_
     from hrfuser_tpu_torch.apis.train import create_train_state, train_step
     from hrfuser_tpu_torch.configs import get_experiment
@@ -154,9 +177,14 @@ def main(argv=None):
             exp.schedule, samples_per_device=args.samples_per_device))
     work_dir = args.work_dir or os.path.join('work_dirs', exp.name)
     os.makedirs(work_dir, exist_ok=True)
-    device = torch.device(args.device)
-    batch_size = exp.schedule.samples_per_device
-    print(f'[train] {exp.name} on {device}: batch {batch_size}')
+    rank, world = (0, 1) if group is None else (group.rank,
+                                                group.world_size)
+    lead = rank == 0
+    say = print if lead else (lambda *a, **k: None)
+    device = torch.device(args.device) if group is None else group.device
+    batch_size = exp.schedule.samples_per_device * world
+    say(f'[train] {exp.name} on {device}: batch {batch_size}'
+        + (f' over {world} ranks ({group.backend})' if group else ''))
 
     if args.synthetic:
         steps_per_epoch = SYNTHETIC_STEPS_PER_EPOCH
@@ -168,46 +196,62 @@ def main(argv=None):
         from hrfuser_tpu_torch.data.loader import DetDataLoader
         dataset = build_dataset(exp.data, args.data_root, 'train')
         loader = DetDataLoader(dataset, exp.data, batch_size, train=True,
-                               seed=args.seed, device=device)
+                               seed=args.seed, device=device, rank=rank,
+                               world_size=world)
         steps_per_epoch = len(loader)
         if not steps_per_epoch:
             raise SystemExit(f'[train] {len(dataset)} training images make '
                              f'no batch of {batch_size}')
         batches = _dataset_batches(loader)
-        print(f'[train] {len(dataset)} images, {steps_per_epoch} steps an '
-              f'epoch')
+        say(f'[train] {len(dataset)} images, {steps_per_epoch} steps an '
+            f'epoch')
 
     model = CascadeRCNN(exp.model)
     init_weights_(model, torch.Generator().manual_seed(args.seed))
     if args.load_from:
         load_weights(args.load_from, model)
     model.to(device)
-    print(f'[train] {sum(p.numel() for p in model.parameters()) / 1e6:.1f}M '
-          f'params')
+    say(f'[train] {sum(p.numel() for p in model.parameters()) / 1e6:.1f}M '
+        f'params')
     state = create_train_state(model, exp.optim, exp.schedule,
                                steps_per_epoch)
     if args.resume_from:
         load_state(args.resume_from, model, state.optimizer)
         state.load_counters(checkpoint_extra(args.resume_from))
-        print(f'[train] resumed at step {state.step}')
-    gen = torch.Generator(device).manual_seed(args.seed + state.step)
+        say(f'[train] resumed at step {state.step}')
+    if group is None:
+        gen = torch.Generator(device).manual_seed(args.seed + state.step)
+
+        def step(batch):
+            return train_step(state, batch, gen)
+    else:
+        from hrfuser_tpu_torch.parallel.api import make_sharded_train_step
+        from hrfuser_tpu_torch.parallel.mesh import shard_rows
+        sharded = make_sharded_train_step(state, group,
+                                          seed=args.seed + state.step)
+
+        def step(batch):      # a synthetic batch is the joined one
+            return sharded(shard_rows(batch, group) if args.synthetic
+                           else batch)
     total = args.max_iters or steps_per_epoch * exp.schedule.max_epochs
     meta = dict(config=exp.name, classes=list(exp.data.classes))
     log_path = os.path.join(work_dir, 'train.log.json')
 
     def log_json(record):
-        with open(log_path, 'a') as f:
-            f.write(json.dumps(record) + '\n')
+        if lead:
+            with open(log_path, 'a') as f:
+                f.write(json.dumps(record) + '\n')
 
     def save():
-        save_checkpoint(work_dir, state.step, model, state.optimizer, meta,
-                        extra=state.counters())
+        if lead:
+            save_checkpoint(work_dir, state.step, model, state.optimizer,
+                            meta, extra=state.counters())
 
     ckpt_every = steps_per_epoch * args.ckpt_interval_epochs
     eval_every = steps_per_epoch * args.eval_interval_epochs
     loss_history, t_log, n_log = [], time.perf_counter(), 0
     while state.step < total:
-        metrics = train_step(state, next(batches), gen)
+        metrics = step(next(batches))
         n_log += 1
         if state.step % args.log_interval == 0 or state.step == total:
             m = {k: float(v) for k, v in metrics.items()}
@@ -215,8 +259,8 @@ def main(argv=None):
             dt, t_log = time.perf_counter() - t_log, time.perf_counter()
             ips = n_log * batch_size / max(dt, 1e-6)
             n_log = 0
-            print(f'[iter {state.step}/{total}] {ips:.1f} img/s '
-                  + ' '.join(f'{k}={v:.4f}' for k, v in sorted(m.items())))
+            say(f'[iter {state.step}/{total}] {ips:.1f} img/s '
+                + ' '.join(f'{k}={v:.4f}' for k, v in sorted(m.items())))
             log_json(dict(mode='train', iter=state.step,
                           imgs_per_sec=round(ips, 2), **m))
             if not np.isfinite(m['loss']):
@@ -224,17 +268,17 @@ def main(argv=None):
                                    f'{m["loss"]}')
         if ckpt_every and state.step % ckpt_every == 0 and state.step < total:
             save()
-            print(f'[ckpt] saved step {state.step} -> {work_dir}')
+            say(f'[ckpt] saved step {state.step} -> {work_dir}')
         if (eval_every and not args.synthetic
                 and state.step % eval_every == 0):
-            val = _evaluate(exp, model, args, batch_size, device)
-            print('[eval]', ' '.join(f'{k}={v:.4f}'
-                                     for k, v in sorted(val.items())))
+            val = _evaluate(exp, model, args, batch_size, device, group)
+            say('[eval]', ' '.join(f'{k}={v:.4f}'
+                                   for k, v in sorted(val.items())))
             log_json(dict(mode='val', iter=state.step, **val))
             t_log = time.perf_counter()
     batches.close()                 # stops the loader's prefetch thread
     save()
-    print(f'[done] {state.step} iters; checkpoint in {work_dir}')
+    say(f'[done] {state.step} iters; checkpoint in {work_dir}')
 
     if args.overfit_check:
         if len(loss_history) < 2:
@@ -242,8 +286,8 @@ def main(argv=None):
                              '(lower --log-interval or raise --max-iters)')
         ratio = overfit_ratio(loss_history)
         ok = ratio < 0.7
-        print(f'[overfit-check] first={loss_history[0]:.4f} '
-              f'ratio={ratio:.3f} -> {"PASS" if ok else "FAIL"}')
+        say(f'[overfit-check] first={loss_history[0]:.4f} '
+            f'ratio={ratio:.3f} -> {"PASS" if ok else "FAIL"}')
         if not ok:
             raise SystemExit(1)
 

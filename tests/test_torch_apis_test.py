@@ -2,7 +2,7 @@
 
 `run_inference` keeps `num_real` rows of each batch, answers raw uint8 /
 uint16 batches (preprocessed on the device) as the preprocessed ones,
-and refuses more than one device; `evaluate_nuscenes` and
+and over several ranks refuses metas without the dataset index; `evaluate_nuscenes` and
 `evaluate_proposal_recall` give the JAX package's numbers on the same
 results (to 1e-6); `evaluate` sends STF data to the KITTI evaluation.
 """
@@ -22,6 +22,7 @@ from hrfuser_tpu_torch.apis.inference import detections_of
 from hrfuser_tpu_torch.data.datasets.kitti2d import Kitti2DDataset
 from hrfuser_tpu_torch.data.device_pipeline import (make_device_preprocess,
                                                     to_device)
+from hrfuser_tpu_torch.parallel.mesh import Group
 
 NAME = 'tiny_fusion_test'
 B, H, W = 3, 64, 96
@@ -80,9 +81,13 @@ def test_raw_and_preprocessed_batches_agree(det):
 
 
 def test_more_than_one_device_raises(det):
-    with pytest.raises(NotImplementedError, match='Multi-GPU'):
+    """Over several ranks the collected images are put in dataset order
+    by their metas' `sample_idx`; metas without it raise. (The sharded
+    path itself: `test_torch_parallel_eval.py`.)"""
+    group = Group(0, 2, torch.device('cpu'), 'gloo')
+    with pytest.raises(ValueError, match="'sample_idx'"):
         port_test.run_inference(det, [_raw_batch(0)], progress=False,
-                                devices=['cuda:0', 'cuda:1'])
+                                group=group)
 
 
 class _StubDataset:

@@ -26,10 +26,9 @@ NAMES = ['cascade_rcnn_hrfuser_t_1x_nus_r640_l_r_fusion',
          'cascade_rcnn_hrfuser_t_1x_stf_r1248_4mod',
          'cascade_rcnn_hrformer_t_1x_stf_c1248',
          'cascade_rcnn_hrfuser_hrnet_w18_1x_nus_r640_l_r_fusion',
-         'tiny_hrnet_fusion_test']
-# the JAX config the port leaves out (the multichip dry-run model,
-# ROADMAP §1 "Multi-GPU"), with its `_bn` alias
-NOT_PORTED = {'micro_fusion_dryrun'}
+         'tiny_hrnet_fusion_test', 'micro_fusion_dryrun']
+# the JAX configs the port leaves out, with their `_bn` aliases
+NOT_PORTED = set()
 
 # TPU routing knobs and the adaptive RoIAlign grid, which the port does
 # not carry

@@ -877,3 +877,82 @@ def test_tiff_reader_reads_the_committed_cv2_fixtures(dev):
         ref = want[name.replace('.', '_')]
         assert got.dtype == ref.dtype
         np.testing.assert_array_equal(got, ref)
+
+
+def _parallel_ranks():
+    """`tests/oracles/parallel_ranks.py` as a top-level module: the ranks
+    `run_ranks` spawns import its functions by name, and inherit
+    `sys.path`."""
+    import sys
+    oracles = str(Path(__file__).resolve().parent / 'oracles')
+    if oracles not in sys.path:
+        sys.path.insert(0, oracles)
+    import parallel_ranks
+    return parallel_ranks
+
+
+PARALLEL_HW = (128, 192)
+HRFUSER_T = 'cascade_rcnn_hrfuser_t_1x_nus_r640_l_r_fusion'
+
+
+def test_sharded_step_world_of_one_on_nccl_is_train_step(dev):
+    """`make_sharded_train_step` in a world of one rank on `nccl` against
+    `train_step` on the card: HRFuser-T at 128x192, batch 2, drop rates
+    0, the reference caps, the same draws, lr 3e-4. Losses at rtol 1e-3,
+    params after the step within 2 x lr, BN statistics 1e-4 (relative to
+    1 + |max|), gradients together 2e-2; no eval kernel launches."""
+    pr = _parallel_ranks()
+    from hrfuser_tpu_torch.core.samplers import KeyedDraws
+    from hrfuser_tpu_torch.parallel.mesh import run_ranks
+    batch = pr.joined_batch(2, PARALLEL_HW, empty=())
+    draws = pr.RecordingDraws(KeyedDraws(0))
+    want = pr.one_process_step(HRFUSER_T, batch, draws, dev, caps={})
+    torch.cuda.empty_cache()
+    (got,) = run_ranks(pr.sharded_train_rank, 1, (
+        HRFUSER_T, [batch], [draws.table], dict(device='cuda', caps={})),
+        timeout_s=600)
+    m = pr.mismatch(got, want)
+    assert m['losses'] < 1e-3 and m['acc'] <= 3 / 1024, m
+    assert m['together'] < 2e-2 and m['stats'] < 1e-4, m
+    assert m['params'] <= 2 * 3e-4, m
+    assert got['launches'] == 0
+
+
+def test_two_ranks_sharing_the_card_on_gloo_equal_the_joined_batch(dev):
+    """Two `gloo` ranks on `cuda:0` (CUDA tensors), 2 images each of a
+    joined batch of 4 at 128x192 whose last two have no valid GT, against
+    one process on the joined batch: HRFuser-T with a float64 trunk (in
+    float32 a batch layout's 1e-7 can swap a proposal at the top-k / NMS
+    cut), `chip_smoke.py` phase 12b's bars: losses rtol 1e-3, gradients
+    2e-2 together and 1e-1 each, params 2 x lr; the ranks' BN running
+    statistics bit-identical."""
+    pr = _parallel_ranks()
+    from hrfuser_tpu_torch.core.samplers import KeyedDraws
+    from hrfuser_tpu_torch.parallel.mesh import run_ranks
+    batch = pr.in_float64(pr.joined_batch(4, PARALLEL_HW, empty=(2, 3)))
+    draws = pr.RecordingDraws(KeyedDraws(1))
+    want = pr.one_process_step(HRFUSER_T, batch, draws, dev, caps={},
+                               dtype=torch.float64)
+    torch.cuda.empty_cache()
+    ranks = run_ranks(pr.sharded_train_rank, 2, (
+        HRFUSER_T, [batch], [draws.table],
+        dict(device='cuda:0', backend='gloo', caps={},
+             dtype=torch.float64)), timeout_s=600)
+    for r in ranks:
+        m = pr.mismatch(r, want)
+        assert m['losses'] < 1e-3 and m['acc'] <= 3 / 2048, m
+        assert m['together'] < 2e-2 and m['each'] < 1e-1, m
+        assert m['params'] <= 2 * 3e-4, m
+    a, b = (r['stats'] for r in ranks)
+    assert all(np.array_equal(a[n], b[n]) for n in a)
+
+
+def test_nccl_refuses_two_ranks_on_one_gpu(dev):
+    """Two ranks on `cuda:0` under `nccl` raise (NCCL refuses a duplicate
+    GPU); `gloo` takes them."""
+    pr = _parallel_ranks()
+    from hrfuser_tpu_torch.parallel.mesh import run_ranks
+    with pytest.raises(RuntimeError, match='duplicate GPU'):
+        run_ranks(pr.join_rank, 2, ('cuda:0', 'nccl'), timeout_s=300)
+    got = run_ranks(pr.join_rank, 2, ('cuda:0', 'gloo'), timeout_s=300)
+    assert got == [(0, 'cuda:0', 'gloo'), (1, 'cuda:0', 'gloo')]

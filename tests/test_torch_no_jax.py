@@ -5,7 +5,8 @@ Checked in a fresh interpreter (this test process has JAX loaded by
 `tests/conftest.py`) that runs the tiny fusion and camera-only slices,
 `inference_detector`, `run_inference`, a training step, a JPEG decode
 (`data/jpeg.py`, the pixel kernel's twin) and a `DetDataLoader` over PNG
-and over JPEG files end to end on the CPU, the offline
+and over JPEG files end to end on the CPU, a one-rank
+`gloo` sharded train step and a sharded `run_inference`, the offline
 converters (one nuScenes sample on a fake DB, an STF frame, the inverse
 depth warp) on the CPU, and imports the KITTI evaluation, and
 statically over every module of the package and the scripts that drive
@@ -26,7 +27,8 @@ FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'hrfuser_tpu', 'cv2')
 SCRIPTS = [ROOT / 'chip_smoke.py', ROOT / 'chip_profile.py',
            ROOT / 'tests' / 'oracles' / 'card_checks.py',
            ROOT / 'tests' / 'oracles' / 'offline_data.py',
-           ROOT / 'tests' / 'oracles' / 'jpeg_encoder.py']
+           ROOT / 'tests' / 'oracles' / 'jpeg_encoder.py',
+           ROOT / 'tests' / 'oracles' / 'parallel_ranks.py']
 
 _SCRIPT = """
 import sys
@@ -98,6 +100,24 @@ with tempfile.TemporaryDirectory() as root:
     assert batch['img'].shape == (2, 64, 96, 3), batch['img'].shape
     with open(root + '/samples/CAM_FRONT/0000.jpg', 'rb') as f:
         assert jpeg.decode_jpeg(f.read(), 'cpu').shape == (100, 176, 3)
+from hrfuser_tpu_torch.parallel.api import make_sharded_train_step
+from hrfuser_tpu_torch.parallel.mesh import free_store, process_group
+store, address = free_store(1)
+with process_group('cpu', rank=0, world_size=1, address=address) as group:
+    state = create_train_state(CascadeRCNN(exp.model), exp.optim,
+                               exp.schedule, 100)
+    step = make_sharded_train_step(state, group)
+    m = step(next(synthetic_batches(exp, 2, (64, 96))))
+    assert bool(m['loss'].isfinite()) and state.applied == 1
+    with tempfile.TemporaryDirectory() as root:
+        write_nuscenes(root, 3, (100, 176), (54, 95), data.classes)
+        ds = CocoFusionDataset('ann.json', data.classes, data_root=root,
+                               test_mode=True)
+        loader = DetDataLoader(ds, data, 2, train=False, device='cpu',
+                               rank=0, world_size=1)
+        det.data = data
+        got = run_inference(det, loader, progress=False, group=group)
+        assert len(got) == 3, len(got)
 from hrfuser_tpu_torch.data.gated_warp import inverse_depth_warp
 from hrfuser_tpu_torch.tools import create_data, stf_projection
 from tests.oracles.offline_data import nuscenes_sample, stf_frame
