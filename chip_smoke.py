@@ -238,6 +238,7 @@ CONFIG_STF = 'cascade_rcnn_hrfuser_t_1x_stf_r1248_4mod'
 CONFIG_CAM_T = 'cascade_rcnn_hrformer_t_1x_nus_r640'
 CONFIG_CAM_B = 'cascade_rcnn_hrformer_b_1x_nus_r640'
 CONFIG_HRNET = 'cascade_rcnn_hrfuser_hrnet_w18_1x_nus_r640_l_r_fusion'
+CLI_EXPORT_CONFIG = 'tiny_fusion_test'   # phase 13c, the CLI at 384x640
 TTA_CPU_HW = (128, 192)              # flip TTA, card vs CPU at batch 1
 STF_HW = (384, 1248)                 # the STF grid; stride 32 is 12x39
 STF_CPU_HW = (192, 608)              # reduced, stride 32 still odd: 6x19
@@ -2876,6 +2877,183 @@ def phase_parallel_dryrun(smi):
           f'on {smi}')
 
 
+def phase_op_checks():
+    print('== 13a. the hrfuser:: ops on the card against their fake '
+          'implementations (`torch.library.opcheck`, '
+          '`tests/oracles/op_cases.py`)')
+    cases = _oracle('op_cases')
+    for dt in (torch.float32, torch.bfloat16):
+        for label in cases.LABELS:
+            op, args = cases.op_case(label, 'cuda', dt)
+            torch.library.opcheck(op, args)
+            print(f'  {label} {str(dt)[6:]}: schema, fake, dynamic-shape '
+                  f'trace ok')
+    _dispatch_cost()
+
+
+def _host_us(fn, calls=500):
+    """Host microseconds per call of `fn`, the card not waited on inside
+    the loop (at these small shapes the host, not the card, sets the
+    pace)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def _dispatch_cost():
+    """What the registered ops add to each kernel call on the host: a
+    call through the op beside the op's own launcher called directly, at
+    HRFuser-T's stride-32 map (12x20x144, bf16, batch 8)."""
+    from hrfuser_tpu_torch.layers.attention import HRFormerBlock
+    from hrfuser_tpu_torch.ops import chain
+    blk = _randomize(HRFormerBlock(144, 8), torch.Generator().manual_seed(0))
+    p = blk.cuda().folded()
+    x = torch.randn((BATCH, 12, 20, 144), device='cuda').bfloat16()
+    with torch.no_grad():
+        cases = {
+            'A': (lambda: chain.window_self_attention(x, p['attn'], 8),
+                  lambda: chain.launch_window_attention(x, None, x, None,
+                                                        p['attn'], 8)),
+            'B': (lambda: chain.cross_ffn(x, p['ffn']),
+                  lambda: chain.launch_cross_ffn(x, p['ffn']))}
+        for name, (op, direct) in cases.items():
+            us = [_host_us(f) for f in (op, direct, direct, op)]
+            print(f'  dispatch, kernel {name} at {BATCH}x12x20x144 bf16: '
+                  f'through the op {us[0]:.1f} / {us[3]:.1f} us a call, '
+                  f'its launcher alone {us[1]:.1f} / {us[2]:.1f} (host '
+                  f'clock, 500 calls each, in turns)')
+
+
+def _field_diffs(got, want):
+    return {k: (getattr(got, k).float() - getattr(want, k).float())
+            .abs().max().item() for k in got._fields}
+
+
+def _counted_calls(fn, xs, want, label, calls=3):
+    """A warm-up call of `fn(*xs)`, then `calls` timed ones with each
+    kernel's launches held to `calls` x `want`: (last output, ms each)."""
+    fn(*xs)
+    torch.cuda.synchronize()
+    _reset_counts()
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        out = fn(*xs)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    _check_counts(want, calls, label)
+    return out, times
+
+
+def phase_export(smi):
+    print(f'== 13b. export: `apis/export.export_predict` of HRFuser-T r640 '
+          f'lidar+radar, bf16, batch {BATCH}, saved, loaded and run on the '
+          f'card')
+    from hrfuser_tpu_torch import init_detector
+    from hrfuser_tpu_torch.apis.export import PredictModule, export_predict
+    det = init_detector(CONFIG, 'cuda', seed=0, dtype=torch.bfloat16)
+    img, mods = _inputs(det.cfg, BATCH, np.random.default_rng(0), (H, W))
+    xs = [torch.from_numpy(a).cuda() for a in (img, *mods)]
+    t0 = time.perf_counter()
+    program = export_predict(det, BATCH, (H, W))
+    export_s = time.perf_counter() - t0
+    consts = [t for t in program.constants.values()
+              if isinstance(t, torch.Tensor)]
+    ops = {}
+    for node in program.graph.nodes:
+        if node.op == 'call_function' and 'hrfuser' in str(node.target):
+            ops[str(node.target)] = ops.get(str(node.target), 0) + 1
+    print(f'  traced in {export_s:.1f} s (the eager warm-up call '
+          f'included): {len(program.graph.nodes)} graph nodes, '
+          f'{len(program.state_dict)} parameters, {len(consts)} constants '
+          f'({sum(t.numel() * t.element_size() for t in consts) / 1e6:.1f}'
+          f' MB); op calls {ops}')
+    root = tempfile.mkdtemp(prefix='export_')
+    try:
+        path = os.path.join(root, 'hrfuser_t_r640_bf16_b8.pt2')
+        t0 = time.perf_counter()
+        torch.export.save(program, path)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        run = torch.export.load(path).module()
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        print(f'  saved {os.path.getsize(path) / 1e6:.1f} MB in '
+              f'{save_s:.1f} s, loaded in {load_s:.1f} s')
+    finally:
+        shutil.rmtree(root)
+    eager = PredictModule(det)
+    want = _expected_launches(det.cfg)
+    with torch.no_grad():
+        (got, run_ms), (out, eager_ms) = (
+            _counted_calls(fn, xs, want, label)
+            for fn, label in ((run, 'loaded program'),
+                              (eager, 'eager predict')))
+        diffs = _field_diffs(got, out)
+        for k in ('labels', 'valid'):
+            if not torch.equal(getattr(got, k), getattr(out, k)):
+                raise AssertionError(f'13b: {k} of the loaded program differ '
+                                     f'from eager predict\'s')
+        bit = all(torch.equal(getattr(got, k), getattr(out, k))
+                  for k in got._fields)
+        print(f'  loaded vs eager on the same inputs: labels and valid '
+              f'equal; largest difference {diffs}; '
+              f'{"bit-equal" if bit else "not bit-equal"}')
+        if not (torch.allclose(got.boxes, out.boxes, atol=1e-2, rtol=1e-3)
+                and torch.allclose(got.scores, out.scores, atol=5e-3,
+                                   rtol=0)):
+            raise AssertionError('13b: loaded program off eager predict '
+                                 'beyond 1e-2 px + 1e-3 rel / 5e-3')
+        per_image = got.valid.sum(1).tolist()
+        if not all(torch.isfinite(getattr(got, k).float()).all()
+                   for k in ('boxes', 'scores')) or not sum(per_image):
+            raise AssertionError(f'13b: non-finite outputs or no detection '
+                                 f'({per_image})')
+        print(f'  detections: {sum(per_image)} valid of {BATCH}x'
+              f'{det.cfg.roi.max_per_img} (per image {per_image})')
+        for label, fn, ts in (('loaded program', run, run_ms),
+                              ('eager predict', eager, eager_ms)):
+            busy, wall = _busy_ms(lambda: fn(*xs))
+            print(f'  {label}: latency per batch of {BATCH} (ms) '
+                  f'{", ".join(f"{t:.1f}" for t in ts)}; median '
+                  f'{sorted(ts)[1]:.1f}; under torch.profiler {wall:.2f} ms '
+                  'a batch, device busy '
+                  + ('not measured' if busy is None else
+                     f'{busy:.2f} ms, idle {1 - busy / wall:.1%}')
+                  + f' on {smi}')
+    del det, program, run, eager
+    torch.cuda.empty_cache()
+
+
+def phase_export_cli(smi):
+    print(f'== 13c. `python -m hrfuser_tpu_torch.tools.export_model '
+          f'{CLI_EXPORT_CONFIG} --dtype bf16 --verify` as a subprocess on '
+          f'the card')
+    root = tempfile.mkdtemp(prefix='export_cli_')
+    try:
+        path = os.path.join(root, 'tiny.pt2')
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, '-m', 'hrfuser_tpu_torch.tools.export_model',
+             CLI_EXPORT_CONFIG, '--dtype', 'bf16', '--out', path,
+             '--verify'], capture_output=True, text=True, timeout=600,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        for line in proc.stdout.splitlines():
+            print('  ' + line)
+        if proc.returncode != 0 or 'verify ok' not in proc.stdout:
+            raise AssertionError(f'13c: the CLI exited {proc.returncode}:\n'
+                                 f'{proc.stderr[-3000:]}')
+        print(f'  {time.perf_counter() - t0:.1f} s with the process\'s '
+              f'start-up, on {smi}')
+    finally:
+        shutil.rmtree(root)
+
+
 def main():
     smi = phase_environment()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2937,6 +3115,9 @@ def main():
         ('12b', lambda: phase_parallel_joined(smi)),
         ('12c', lambda: phase_parallel_eval(smi)),
         ('12d', lambda: phase_parallel_dryrun(smi)),
+        ('13a', phase_op_checks),
+        ('13b', lambda: phase_export(smi)),
+        ('13c', lambda: phase_export_cli(smi)),
     ]
     for name, run in phases:
         t1 = time.perf_counter()

@@ -37,10 +37,21 @@ def cached(owner: nn.Module, tag, fn: Callable, tensors: Sequence[Tensor]):
 
     Recomputed when any of `tensors` moves, is replaced or is modified in
     place (`load_state_dict` copies in place, which bumps the version).
+    While a tracer runs (`torch.export`), the stored entry is returned as
+    it is, so its tensors enter the graph as constants; with none stored,
+    this raises: the caller runs the model once eagerly first
+    (`apis/export.py` does).
     """
+    store = owner.__dict__.setdefault('_cached', {})
+    if torch.compiler.is_compiling():
+        if tag not in store:
+            raise RuntimeError(
+                f'{type(owner).__name__}: no folded weights {tag!r} stored '
+                f'to trace with; run the model once eagerly, at the same '
+                f'device and dtype, before exporting it')
+        return store[tag][1]
     key = tuple((t.device, t.dtype, t.data_ptr(), t._version)
                 for t in tensors)
-    store = owner.__dict__.setdefault('_cached', {})
     hit = store.get(tag)
     if hit is None or hit[0] != key:
         with torch.no_grad():

@@ -18,6 +18,7 @@ from typing import NamedTuple, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils import _pytree
 
 from hrfuser_tpu_torch.models.roi_heads.bbox_head import Shared2FCBBoxHead
 from hrfuser_tpu_torch.ops.boxes import delta2bbox
@@ -59,6 +60,12 @@ class Detections(NamedTuple):
     scores: Tensor      # [B, max_per_img]
     labels: Tensor      # [B, max_per_img] int32, -1 padding
     valid: Tensor       # [B, max_per_img] bool
+
+
+# the name a saved `torch.export` program (`apis/export.py`) gives its
+# output type; loading one needs this registration
+_pytree._register_namedtuple(
+    Detections, serialized_type_name='hrfuser_tpu_torch.Detections')
 
 
 class CascadeRoIHead(nn.Module):

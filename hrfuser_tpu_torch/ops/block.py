@@ -17,8 +17,10 @@ port's modules (`layers.attention`), e.g. loaded from a JAX tree with
 `fusion_block_state_dict`. `interpret` is accepted and ignored (it selects
 the Pallas interpreter on the JAX side).
 
-On a CPU tensor each function runs its plain twin; on a CUDA tensor it
-launches its kernel or raises. `fused_window_attention.launches` and
+Each function reaches the kernels through the registered ops
+`hrfuser::window_attention` and `hrfuser::cross_ffn` (`ops/chain.py`):
+on a CPU tensor they run the plain twins; on a CUDA tensor they launch
+the kernels or raise. `fused_window_attention.launches` and
 `fused_cross_ffn.launches` count the launches, the block entries' included
 (they launch nothing of their own).
 """
@@ -98,20 +100,6 @@ def _crop(t: Tensor, pads, hw) -> Tensor:
     return t[:, pt:pt + h, pl:pl + w]
 
 
-def _slab_attention_plain(xq: Tensor, xkv: Tensor, res: Tensor,
-                          p: chain.Folded, num_heads: int, pads, hw,
-                          add_kv: bool) -> Tensor:
-    """Twin of kernel A on slabs: the real region through
-    `chain.window_attention_plain`, the ring as `res (+ xkv)`."""
-    kv = _crop(xkv, pads, hw)
-    inner = chain.window_attention_plain(
-        _crop(res, pads, hw), _crop(xq, pads, hw), p, num_heads, kv_src=kv,
-        z=kv if add_kv else None)
-    out = (res.float() + xkv.float()).to(res.dtype) if add_kv else res.clone()
-    _crop(out, pads, hw).copy_(inner)
-    return out
-
-
 def _check_slab(xq: Tensor, window: int, pads, hw) -> None:
     h, w = hw
     pt, pb, pl, pr = center_pad_shape(h, w, window, window)
@@ -126,20 +114,16 @@ def _check_slab(xq: Tensor, window: int, pads, hw) -> None:
 def _slab_attention(xq: Tensor, xkv: Tensor, res: Tensor, p: chain.Folded,
                     num_heads: int, window: int, pads, hw,
                     add_kv: bool) -> Tensor:
+    """Kernel A (`hrfuser::window_attention`) on a slab: self mode when
+    `xkv` is `xq` and LN_kv is LN_q."""
     _check_slab(xq, window, pads, hw)
-    if chain.on_cpu(xq):
-        return _slab_attention_plain(xq, xkv, res, p, num_heads, pads, hw,
-                                     add_kv)
-    if window != 7:
-        raise ValueError(f'window attention kernel: window {window}, '
-                         f'only 7 is supported')
-    out = chain.launch_window_attention(
-        xq, xkv, res, xkv if add_kv else None, p, num_heads,
-        padded_hw=tuple(hw))
-    fused_window_attention.launches += 1
-    return out
+    self_mode = xkv is xq and p['lnkv'] is p['lnq']
+    return chain.window_attention(
+        xq, None if self_mode else xkv, res, xkv if add_kv else None, p,
+        num_heads, 'block.fused_window_attention', padded_hw=tuple(hw))
 
 
+@chain.counts_launches('block.fused_window_attention')
 def fused_window_attention(xq: Tensor, xkv: Tensor, res: Tensor,
                            wq: Tensor, bq: Tensor, wk: Tensor, bk: Tensor,
                            wv: Tensor, bv: Tensor, wo: Tensor, bo: Tensor,
@@ -169,17 +153,11 @@ def fused_window_attention(xq: Tensor, xkv: Tensor, res: Tensor,
                            add_kv)
 
 
-fused_window_attention.launches = 0
-
-
 def _ffn(x: Tensor, p: chain.Folded) -> Tensor:
-    if chain.on_cpu(x):
-        return chain.cross_ffn_plain(x, p)
-    out = chain.launch_cross_ffn(x, p)
-    fused_cross_ffn.launches += 1
-    return out
+    return chain.ffn(x, p, 'block.fused_cross_ffn')
 
 
+@chain.counts_launches('block.fused_cross_ffn')
 def fused_cross_ffn(x: Tensor, ffn: nn.Module, norm: nn.LayerNorm, *,
                     interpret: bool = False) -> Tensor:
     """`x + CrossFFN(LN x)` with the BNs folded (`pallas_block.py:329`).
@@ -192,9 +170,6 @@ def fused_cross_ffn(x: Tensor, ffn: nn.Module, norm: nn.LayerNorm, *,
     p = cached(ffn, ('fold_cross_ffn', id(norm)),
                lambda: chain.fold_cross_ffn(norm, ffn.layers), deps)
     return _ffn(x, p)
-
-
-fused_cross_ffn.launches = 0
 
 
 def _check_heads(block: nn.Module, num_heads: int, window: int) -> None:

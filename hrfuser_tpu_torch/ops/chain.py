@@ -9,16 +9,23 @@ Counterpart of `hrfuser_tpu/ops/pallas_chain.py`. A block is two halves:
   * the CrossFFN half, served by kernel B (`csrc/cross_ffn.cu`) through
     `cross_ffn` (`x + CrossFFN(LN x)`).
 
-`hrformer_chain` and `fusion_chain` run whole chains through them. Each
-wrapper runs its plain PyTorch twin (`*_plain`, float32 math, output in
-the input's dtype) when its tensor lies on the CPU, and on a CUDA tensor
-launches its kernel or raises. Each keeps a launch count in
-`<wrapper>.launches`. `launch_window_attention` and `launch_cross_ffn`
-validate and launch without counting; the other ops modules' wrappers
-(`ops/block.py`, `ops/window_attention.py`) use them too and keep their
-own counts. `attention_plan` / `ffn_plan` report the shared-memory plan
-each kernel's host code picks for a width, and raise with the byte count
-when none fits.
+`hrformer_chain` and `fusion_chain` run whole chains through them.
+
+The kernels are reached only through two registered ops,
+`hrfuser::window_attention` (A) and `hrfuser::cross_ffn` (B)
+(`torch.library.custom_op`): on a CPU tensor an op runs its plain
+PyTorch twin (`*_plain`, float32 math, output in the input's dtype), on
+a CUDA tensor it launches its kernel or raises, and its fake
+implementation gives a tracer (`torch.export`) the output's shape, dtype
+and contiguous layout. An op takes the folded weights as tensors and the
+name of the entry whose `<wrapper>.launches` its CUDA implementation
+bumps (`counts_launches`), so an exported program's launches count as
+eager ones do. `launch_window_attention` and `launch_cross_ffn` validate
+and launch without counting; the other ops modules' entries
+(`ops/block.py`, `ops/window_attention.py`) call the same ops and keep
+their own counts. `attention_plan` / `ffn_plan` report the shared-memory
+plan each kernel's host code picks for a width, and raise with the byte
+count when none fits.
 
 The kernels take weights folded for eval (`fold_hrformer_block`,
 `fold_fusion_block`): the BatchNorms folded into the CrossFFN convs with
@@ -35,15 +42,15 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from hrfuser_tpu_torch.layers.common import fold_bn, layer_norm
-from hrfuser_tpu_torch.ops.window import (rpe_bias, window_partition,
-                                          window_reverse)
+from hrfuser_tpu_torch.ops.window import (center_pad_shape, rpe_bias,
+                                          window_partition, window_reverse)
 from hrfuser_tpu_torch.utils import cuda_build
 
 Tensor = torch.Tensor
@@ -164,20 +171,49 @@ def fold_fusion_block(blk) -> Dict[str, object]:
 
 
 # ---------------------------------------------------------------------------
-# plain twins (float32 math, output in the residual's dtype)
+# plain twins (float32 math, output in the activations' dtype)
 # ---------------------------------------------------------------------------
 
-def window_attention_plain(res: Tensor, q_src: Tensor, p: Folded,
+def _crop(t: Optional[Tensor], pads: Tuple[int, int], hw: Tuple[int, int]
+          ) -> Optional[Tensor]:
+    (pt, pl), (h, w) = pads, hw
+    return None if t is None else t[:, pt:pt + h, pl:pl + w]
+
+
+def window_attention_plain(res: Optional[Tensor], q_src: Tensor, p: Folded,
                            num_heads: int, kv_src: Optional[Tensor] = None,
-                           z: Optional[Tensor] = None) -> Tensor:
-    """`res (+ z) + Wo . MHA(q = LN_q(q_src), kv = LN_kv(kv_src))` over
-    centre-padded windows; `kv_src=None` is self-attention on q_src.
-    All maps NHWC [B, H, W, C]."""
-    b, h, w, c = res.shape
+                           z: Optional[Tensor] = None,
+                           padded_hw: Optional[Tuple[int, int]] = None,
+                           ln: bool = True) -> Tensor:
+    """`[res] [+ z] + Wo . MHA(q = LN_q(q_src), kv = LN_kv(kv_src))` over
+    centre-padded windows; `kv_src=None` is self-attention on q_src. All
+    maps NHWC [B, H, W, C]. `padded_hw=(H, W)`: the maps are centre-padded
+    slabs of a real H x W map, whose ring tokens get `[res] [+ z]`.
+    `ln=False` skips both LNs (pre-normed windows)."""
     ws = int(round(p['bias'].shape[-1] ** 0.5))
-    qw = window_partition(layer_norm(q_src, p['lnq'][0], p['lnq'][1]), ws)
-    kvw = qw if kv_src is None else window_partition(
-        layer_norm(kv_src, p['lnkv'][0], p['lnkv'][1]), ws)
+    dtype = q_src.dtype
+    if padded_hw is not None:
+        h, w = padded_hw
+        pt, _, pl, _ = center_pad_shape(h, w, ws, ws)
+        pads = (pt, pl)
+        inner = window_attention_plain(
+            _crop(res, pads, padded_hw), _crop(q_src, pads, padded_hw), p,
+            num_heads, _crop(kv_src, pads, padded_hw),
+            _crop(z, pads, padded_hw), ln=ln)
+        if z is None:
+            out = q_src.new_zeros(q_src.shape) if res is None else res.clone()
+        else:
+            out = ((0 if res is None else res.float()) + z.float()).to(dtype)
+        _crop(out, pads, padded_hw).copy_(inner)
+        return out
+    b, h, w, c = q_src.shape
+
+    def norm(t, key):
+        return layer_norm(t, p[key][0], p[key][1]) if ln else t.float()
+
+    qw = window_partition(norm(q_src, 'lnq'), ws)
+    kvw = qw if kv_src is None else window_partition(norm(kv_src, 'lnkv'),
+                                                     ws)
     wq, wk, wv = p['wqkv'].split(c, 1)
     bq, bk, bv = p['bqkv'].split(c)
     nw, n, _ = qw.shape
@@ -190,10 +226,12 @@ def window_attention_plain(res: Tensor, q_src: Tensor, p: Folded,
     attn = torch.softmax(q @ k.transpose(-1, -2) + p['bias'][None], -1)
     o = (attn @ v).transpose(1, 2).reshape(nw, n, c)
     y = window_reverse(o @ p['wo'] + p['bo'], b, h, w, ws)
-    out = res.float()
-    if z is not None:
+    if res is None and z is None:
+        return y.to(dtype)
+    out = res.float() if res is not None else z.float()
+    if res is not None and z is not None:
         out = out + z.float()
-    return (out + y).to(res.dtype)
+    return (out + y).to(dtype)
 
 
 def cross_ffn_plain(x: Tensor, p: Folded) -> Tensor:
@@ -207,17 +245,23 @@ def cross_ffn_plain(x: Tensor, p: Folded) -> Tensor:
 
 
 # ---------------------------------------------------------------------------
-# kernel wrappers
+# launchers (validate, launch, count nothing)
 # ---------------------------------------------------------------------------
+
+def check_device(x: Tensor) -> None:
+    """The kernels' ops serve CPU tensors (plain twin) and CUDA tensors
+    (kernel); raises for any other device."""
+    if x.device.type not in ('cpu', 'cuda'):
+        raise ValueError(f'unsupported device {x.device}')
+
 
 def on_cpu(x: Tensor) -> bool:
     """True for a CPU tensor (take the twin), False for a CUDA tensor
-    (launch the kernel); raises for any other device."""
-    if x.device.type == 'cpu':
-        return True
-    if x.device.type != 'cuda':
-        raise ValueError(f'unsupported device {x.device}')
-    return False
+    (launch the kernel); raises for any other device. For wrappers that
+    route by hand (`data/jpeg.py`); kernels A, B and C route through
+    their ops' dispatch."""
+    check_device(x)
+    return x.device.type == 'cpu'
 
 
 def _check_act(name: str, t: Tensor, like: Tensor) -> None:
@@ -299,7 +343,7 @@ def ffn_plan(c: int, hidden: int, dtype: torch.dtype = torch.float32
     return ('mma' if mma.value else 'scalar'), th.value, kh.value, nbytes
 
 
-def launch_window_attention(q_src: Tensor, kv_src: Tensor,
+def launch_window_attention(q_src: Tensor, kv_src: Optional[Tensor],
                             res: Optional[Tensor], z: Optional[Tensor],
                             p: Folded, num_heads: int,
                             padded_hw: Optional[Tuple[int, int]] = None,
@@ -308,11 +352,11 @@ def launch_window_attention(q_src: Tensor, kv_src: Tensor,
 
         out = [res] [+ z] + Wo . MHA(LN_q q_src, LN_kv kv_src) + bo
 
-    Self mode when `kv_src` is `q_src` and the two LNs are one tensor,
-    else cross mode. `padded_hw=(H, W)`: the maps are centre-padded slabs
-    of a real H x W map, and the ring tokens get `[res] [+ z]`. `ln=False`
-    skips both LNs (pre-normed windows). Validates and raises; counts
-    nothing (the public wrappers count their launches).
+    Self mode when `kv_src` is None (kv = q_src, LN_kv = LN_q), else cross
+    mode. `padded_hw=(H, W)`: the maps are centre-padded slabs of a real
+    H x W map, and the ring tokens get `[res] [+ z]`. `ln=False` skips
+    both LNs (pre-normed windows). Validates and raises; counts nothing
+    (`hrfuser::window_attention` counts its launches).
     """
     if q_src.dtype not in _ACT_DTYPES or q_src.dim() != 4:
         raise ValueError(f'window attention: NHWC float32/bfloat16 tensor '
@@ -326,6 +370,11 @@ def launch_window_attention(q_src: Tensor, kv_src: Tensor,
                                                -(-w // 7) * 7):
         raise ValueError(f'window attention: slab {hs}x{ws_} is not the '
                          f'centre-padded frame of {h}x{w}')
+    if p['bias'].shape[-1] != 49:
+        raise ValueError(f'window attention kernel: windows of '
+                         f'{p["bias"].shape[-1]} tokens; only 7x7 is '
+                         f'supported')
+    cross = kv_src is not None
     for name, t in (('q_src', q_src), ('kv_src', kv_src), ('res', res),
                     ('z', z)):
         if t is not None:
@@ -334,22 +383,22 @@ def launch_window_attention(q_src: Tensor, kv_src: Tensor,
                   bias=(num_heads, 49, 49))
     if ln:
         shapes.update(lnq=(2, c), lnkv=(2, c))
-    cross = kv_src.data_ptr() != q_src.data_ptr() or (
-        ln and p['lnkv'].data_ptr() != p['lnq'].data_ptr())
     mma = attention_plan(c, num_heads, cross, q_src.dtype)[0] == 'mma'
     packed = obuf = None
     if mma:
         kp, dp = _round_up(c, 64), _round_up(c // num_heads, 16)
         shapes.update(wqkv_p=(num_heads * 3 * dp, kp),
                       wo_p=(_round_up(c, 64), kp))
-        packed = (p['wqkv_p'].data_ptr(), p['wo_p'].data_ptr())
         nwin = -(-hs // 7) * -(-ws_ // 7)
         obuf = torch.empty((b * nwin * 49, _round_up(c, 8)),
                            dtype=torch.bfloat16, device=q_src.device)
     _check_params(p, shapes, q_src.device)
+    if mma:
+        packed = (p['wqkv_p'].data_ptr(), p['wo_p'].data_ptr())
+    kv = kv_src if cross else q_src
     out = torch.empty_like(q_src)
     cuda_build.check(cuda_build.lib().hrf_window_attention(
-        _ptr(res), q_src.data_ptr(), kv_src.data_ptr(), _ptr(z),
+        _ptr(res), q_src.data_ptr(), kv.data_ptr(), _ptr(z),
         out.data_ptr(), p['lnq'].data_ptr() if ln else None,
         p['lnkv'].data_ptr() if ln else None, p['wqkv'].data_ptr(),
         p['bqkv'].data_ptr(), p['wo'].data_ptr(), p['bo'].data_ptr(),
@@ -360,34 +409,9 @@ def launch_window_attention(q_src: Tensor, kv_src: Tensor,
     return out
 
 
-def window_self_attention(x: Tensor, p: Folded, num_heads: int) -> Tensor:
-    """HRFormerBlock attention half: `x + Wo . MHSA(LN1 x)` (kernel A)."""
-    if on_cpu(x):
-        return window_attention_plain(x, x, p, num_heads)
-    out = launch_window_attention(x, x, x, None, p, num_heads)
-    window_self_attention.launches += 1
-    return out
-
-
-window_self_attention.launches = 0
-
-
-def window_cross_attention(acc: Tensor, x: Tensor, z: Tensor, p: Folded,
-                           num_heads: int) -> Tensor:
-    """One fusion-block modality: `acc + z + Wo . MHCA(q = LN1 x,
-    kv = LN2 z)` with x the frozen camera feature (kernel A)."""
-    if on_cpu(acc):
-        return window_attention_plain(acc, x, p, num_heads, kv_src=z, z=z)
-    out = launch_window_attention(x, z, acc, z, p, num_heads)
-    window_cross_attention.launches += 1
-    return out
-
-
-window_cross_attention.launches = 0
-
-
 def launch_cross_ffn(x: Tensor, p: Folded) -> Tensor:
-    """Launch kernel B on NHWC `x`; validates and raises, counts nothing."""
+    """Launch kernel B on NHWC `x`; validates and raises, counts nothing
+    (`hrfuser::cross_ffn` counts its launches)."""
     if x.dtype not in _ACT_DTYPES or x.dim() != 4:
         raise ValueError(f'cross_ffn: NHWC float32/bfloat16 tensor '
                          f'expected, got {x.dtype} {tuple(x.shape)}')
@@ -415,16 +439,152 @@ def launch_cross_ffn(x: Tensor, p: Folded) -> Tensor:
     return out
 
 
-def cross_ffn(x: Tensor, p: Folded) -> Tensor:
-    """CrossFFN half: `x + CrossFFN(LN x)` (kernel B)."""
-    if on_cpu(x):
-        return cross_ffn_plain(x, p)
-    out = launch_cross_ffn(x, p)
-    cross_ffn.launches += 1
+# ---------------------------------------------------------------------------
+# registered ops: the only way to kernels A and B
+# ---------------------------------------------------------------------------
+
+# entry name -> the public wrapper whose `launches` the ops' CUDA
+# implementations bump (`counts_launches`)
+COUNTERS: Dict[str, Callable] = {}
+
+
+def counts_launches(entry: str):
+    """Decorator: the wrapper's `launches` counts the CUDA launches that
+    ops called with `entry` make (eager or from an exported program)."""
+    def register(fn):
+        fn.launches = 0
+        COUNTERS[entry] = fn
+        return fn
+    return register
+
+
+def count_launch(entry: str) -> None:
+    COUNTERS[entry].launches += 1
+
+
+_ATTN_KEYS = ('lnq', 'lnkv', 'wqkv', 'bqkv', 'wo', 'bo', 'bias', 'wqkv_p',
+              'wo_p')
+_FFN_KEYS = ('ln', 'w1', 'b1', 'wdw', 'bdw', 'w2', 'b2', 'w1_p', 'w2_p')
+
+
+def _folded(keys: Sequence[str], tensors: Sequence[Optional[Tensor]]
+            ) -> Folded:
+    return {k: t for k, t in zip(keys, tensors, strict=True)
+            if t is not None}
+
+
+@torch.library.custom_op('hrfuser::window_attention', mutates_args=(),
+                         device_types='cuda')
+def window_attention_op(
+        q_src: Tensor, kv_src: Optional[Tensor], res: Optional[Tensor],
+        z: Optional[Tensor], lnq: Optional[Tensor], lnkv: Optional[Tensor],
+        wqkv: Tensor, bqkv: Tensor, wo: Tensor, bo: Tensor, bias: Tensor,
+        wqkv_p: Optional[Tensor], wo_p: Optional[Tensor], num_heads: int,
+        padded_h: int, padded_w: int, entry: str) -> Tensor:
+    """Kernel A (`launch_window_attention`): the folded weights as
+    tensors (`lnq` None: no LN; `lnkv` None: LN_kv = LN_q), `padded_h`
+    0 for unpadded maps; one launch counted under `entry`."""
+    p = _folded(_ATTN_KEYS, (lnq, lnq if lnkv is None else lnkv, wqkv, bqkv,
+                             wo, bo, bias, wqkv_p, wo_p))
+    out = launch_window_attention(
+        q_src, kv_src, res, z, p, num_heads,
+        (padded_h, padded_w) if padded_h else None, ln=lnq is not None)
+    count_launch(entry)
     return out
 
 
-cross_ffn.launches = 0
+@window_attention_op.register_kernel('cpu')
+def _window_attention_cpu(q_src, kv_src, res, z, lnq, lnkv, wqkv, bqkv, wo,
+                          bo, bias, wqkv_p, wo_p, num_heads, padded_h,
+                          padded_w, entry):
+    del entry
+    p = _folded(_ATTN_KEYS, (lnq, lnkv, wqkv, bqkv, wo, bo, bias, wqkv_p,
+                             wo_p))
+    return window_attention_plain(
+        res, q_src, p, num_heads, kv_src, z,
+        (padded_h, padded_w) if padded_h else None,
+        ln=lnq is not None).contiguous()
+
+
+@window_attention_op.register_fake
+def _window_attention_fake(q_src, *args):
+    return torch.empty_like(q_src, memory_format=torch.contiguous_format)
+
+
+@torch.library.custom_op('hrfuser::cross_ffn', mutates_args=(),
+                         device_types='cuda')
+def cross_ffn_op(x: Tensor, ln: Tensor, w1: Tensor, b1: Tensor, wdw: Tensor,
+                 bdw: Tensor, w2: Tensor, b2: Tensor,
+                 w1_p: Optional[Tensor], w2_p: Optional[Tensor],
+                 entry: str) -> Tensor:
+    """Kernel B (`launch_cross_ffn`) on the folded weights as tensors; one
+    launch counted under `entry`."""
+    out = launch_cross_ffn(x, _folded(_FFN_KEYS, (ln, w1, b1, wdw, bdw, w2,
+                                                  b2, w1_p, w2_p)))
+    count_launch(entry)
+    return out
+
+
+@cross_ffn_op.register_kernel('cpu')
+def _cross_ffn_cpu(x, ln, w1, b1, wdw, bdw, w2, b2, w1_p, w2_p, entry):
+    del entry
+    p = _folded(_FFN_KEYS, (ln, w1, b1, wdw, bdw, w2, b2, w1_p, w2_p))
+    return cross_ffn_plain(x, p).contiguous()
+
+
+@cross_ffn_op.register_fake
+def _cross_ffn_fake(x, *args):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
+def window_attention(q_src: Tensor, kv_src: Optional[Tensor],
+                     res: Optional[Tensor], z: Optional[Tensor], p: Folded,
+                     num_heads: int, entry: str,
+                     padded_hw: Optional[Tuple[int, int]] = None,
+                     ln: bool = True) -> Tensor:
+    """`hrfuser::window_attention` on a `Folded` dict: the plain twin for
+    CPU tensors, kernel A for CUDA tensors (counted under `entry`).
+    `kv_src=None` is self mode; arguments as `launch_window_attention`."""
+    check_device(q_src)
+    ph, pw = padded_hw or (0, 0)
+    return window_attention_op(
+        q_src, kv_src, res, z, p['lnq'] if ln else None,
+        p['lnkv'] if ln and kv_src is not None else None, p['wqkv'],
+        p['bqkv'], p['wo'], p['bo'], p['bias'], p.get('wqkv_p'),
+        p.get('wo_p'), num_heads, ph, pw, entry)
+
+
+def ffn(x: Tensor, p: Folded, entry: str) -> Tensor:
+    """`hrfuser::cross_ffn` on a `Folded` dict: the plain twin for CPU
+    tensors, kernel B for CUDA tensors (counted under `entry`)."""
+    check_device(x)
+    return cross_ffn_op(x, *(p.get(k) for k in _FFN_KEYS), entry)
+
+
+# ---------------------------------------------------------------------------
+# the model path's wrappers
+# ---------------------------------------------------------------------------
+
+@counts_launches('window_self_attention')
+def window_self_attention(x: Tensor, p: Folded, num_heads: int) -> Tensor:
+    """HRFormerBlock attention half: `x + Wo . MHSA(LN1 x)` (kernel A)."""
+    return window_attention(x, None, x, None, p, num_heads,
+                            'window_self_attention')
+
+
+@counts_launches('window_cross_attention')
+def window_cross_attention(acc: Tensor, x: Tensor, z: Tensor, p: Folded,
+                           num_heads: int) -> Tensor:
+    """One fusion-block modality: `acc + z + Wo . MHCA(q = LN1 x,
+    kv = LN2 z)` with x the frozen camera feature (kernel A)."""
+    return window_attention(x, z, acc, z, p, num_heads,
+                            'window_cross_attention')
+
+
+@counts_launches('cross_ffn')
+def cross_ffn(x: Tensor, p: Folded) -> Tensor:
+    """CrossFFN half: `x + CrossFFN(LN x)` (kernel B)."""
+    return ffn(x, p, 'cross_ffn')
 
 
 # ---------------------------------------------------------------------------

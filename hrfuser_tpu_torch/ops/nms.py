@@ -34,9 +34,14 @@ def sort_desc(scores: Tensor) -> Tuple[Tensor, Tensor]:
     return torch.sort(scores, dim=-1, descending=True, stable=True)
 
 
-def _greedy_keep(sboxes: Tensor, valid: Tensor, iou_threshold: float,
-                 max_out: int) -> Tensor:
-    """Greedy keep mask over score-sorted boxes [B, N, 4], valid [B, N]."""
+@torch.library.custom_op('hrfuser::greedy_keep', mutates_args=())
+def greedy_keep(sboxes: Tensor, valid: Tensor, iou_threshold: float,
+                max_out: int) -> Tensor:
+    """Greedy keep mask over score-sorted boxes [B, N, 4], valid [B, N].
+
+    A registered op on every device: its block loop syncs with the host
+    (it stops at a fixed point and once `max_out` survive), so a tracer
+    records the op and steps over the loop."""
     b, n = valid.shape
     keep = valid.clone()
     idx = torch.arange(BLOCK, device=valid.device)
@@ -64,6 +69,11 @@ def _greedy_keep(sboxes: Tensor, valid: Tensor, iou_threshold: float,
         if bool((kept >= max_out).all()):
             break
     return keep
+
+
+@greedy_keep.register_fake
+def _greedy_keep_fake(sboxes, valid, iou_threshold, max_out):
+    return torch.empty_like(valid, memory_format=torch.contiguous_format)
 
 
 def _select(keep: Tensor, sscores: Tensor, max_out: int):
@@ -98,8 +108,8 @@ def batched_nms(boxes: Tensor, scores: Tensor, idxs: Tensor,
                        * (max_coord[:, None] + 1.0))[..., None]
     sscores, order = sort_desc(scores)
     sboxes = torch.gather(shifted, 1, order[..., None].expand(-1, -1, 4))
-    keep = _greedy_keep(sboxes, sscores > NEG_INF / 2, iou_threshold,
-                        max_out)
+    keep = greedy_keep(sboxes.detach(), sscores > NEG_INF / 2,
+                       iou_threshold, max_out)
     top_idx, top_scores, valid = _select(keep, sscores, max_out)
     src = torch.gather(order, 1, top_idx)
     out_boxes = torch.gather(boxes, 1, src[..., None].expand(-1, -1, 4))

@@ -19,11 +19,12 @@ features' dtype with bins in (y, x) row-major order.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import List, Sequence
 
 import torch
 
-from hrfuser_tpu_torch.ops.chain import on_cpu
+from hrfuser_tpu_torch.ops.chain import (check_device, count_launch,
+                                         counts_launches)
 from hrfuser_tpu_torch.utils import cuda_build
 
 Tensor = torch.Tensor
@@ -213,26 +214,59 @@ def _launch(feats: Sequence[Tensor], rois: Tensor, strides: Sequence[int],
     return out
 
 
+@torch.library.custom_op('hrfuser::roi_align', mutates_args=(),
+                         device_types='cuda')
+def roi_align_op(feats: List[Tensor], rois: Tensor, strides: List[int],
+                 out_size: int, sample_num: int, finest_scale: int,
+                 entry: str) -> Tensor:
+    """Kernel C (`_launch`); one launch counted under `entry`."""
+    out = _launch(feats, rois, strides, out_size, sample_num, finest_scale)
+    count_launch(entry)
+    return out
+
+
+@roi_align_op.register_kernel('cpu')
+def _roi_align_cpu(feats, rois, strides, out_size, sample_num, finest_scale,
+                   entry):
+    del entry
+    return multilevel_roi_align_plain(feats, rois, strides, out_size,
+                                      sample_num, finest_scale)
+
+
+@roi_align_op.register_fake
+def _roi_align_fake(feats, rois, strides, out_size, sample_num, finest_scale,
+                    entry):
+    b, n = rois.shape[:2]
+    return feats[0].new_empty((b, n, out_size * out_size,
+                               feats[0].shape[-1]))
+
+
+def _roi_align(feats: Sequence[Tensor], rois: Tensor, strides: Sequence[int],
+               out_size: int, sample_num: int, finest_scale: int,
+               entry: str) -> Tensor:
+    """`hrfuser::roi_align`: the plain twin for CPU tensors, kernel C for
+    CUDA tensors (counted under `entry`)."""
+    check_device(feats[0])
+    return roi_align_op(list(feats), rois, list(strides), out_size,
+                        sample_num, finest_scale, entry)
+
+
+@counts_launches('multilevel_roi_align')
 def multilevel_roi_align(feats: Sequence[Tensor], rois: Tensor,
                          strides: Sequence[int], out_size: int = 7,
                          sample_num: int = 2, finest_scale: int = 56
                          ) -> Tensor:
     """RoIAlign over 4 NHWC levels (kernel C on CUDA, plain on CPU)."""
-    if on_cpu(feats[0]):
-        return multilevel_roi_align_plain(feats, rois, strides, out_size,
-                                          sample_num, finest_scale)
-    out = _launch(feats, rois, strides, out_size, sample_num, finest_scale)
-    multilevel_roi_align.launches += 1
-    return out
+    return _roi_align(feats, rois, strides, out_size, sample_num,
+                      finest_scale, 'multilevel_roi_align')
 
-
-multilevel_roi_align.launches = 0
 
 # The TPU kernel's schedules (`pallas_roi_align.py` QP_VARIANTS): one
 # function, served here by one kernel.
 VARIANTS = ('v4', 'v7', 'v8')
 
 
+@counts_launches('multilevel_roi_align_pallas')
 def multilevel_roi_align_pallas(feats: Sequence[Tensor], rois: Tensor,
                                 strides: Sequence[int] = (4, 8, 16, 32),
                                 out_size: int = 7, sample_num: int = 2,
@@ -262,20 +296,12 @@ def multilevel_roi_align_pallas(feats: Sequence[Tensor], rois: Tensor,
     if sample_num <= 0:
         raise ValueError('multilevel_roi_align_pallas needs a static sample '
                          'grid (sample_num > 0)')
-    batched = [f[None] for f in feats]
-    if on_cpu(feats[0]):
-        out = multilevel_roi_align_plain(batched, rois[None], strides,
-                                         out_size, sample_num, finest_scale)
-    else:
-        out = _launch([f.contiguous() for f in batched],
-                      rois[None].contiguous(), strides, out_size,
-                      sample_num, finest_scale)
-        multilevel_roi_align_pallas.launches += 1
+    out = _roi_align([f[None].contiguous() for f in feats],
+                     rois[None].contiguous(), strides, out_size, sample_num,
+                     finest_scale, 'multilevel_roi_align_pallas')
     n, c = rois.shape[0], out.shape[-1]
     grid = out[0].reshape(n, out_size, out_size, c)
     if flat_out:
         return grid.transpose(1, 2).reshape(n, out_size * out_size, c)
     return grid
 
-
-multilevel_roi_align_pallas.launches = 0

@@ -6,11 +6,12 @@ Counterpart of `hrfuser_tpu/ops/pallas_attention.py:fused_window_attention`:
 
 on windows `[W, N, C]` that the caller has already partitioned and
 layer-normed, with a per-head bias [H, N, N] and the scale d^-0.5 applied
-to q. The result is pre-residual. On CUDA tensors it launches kernel A
-(`csrc/window_attention.cu`) in windows mode (no LN, no ring, no
-residual; the host folds d^-0.5 into Wq / bq); on CPU tensors it runs the
-plain twin `fused_window_attention_plain`. Launches are counted in
-`fused_window_attention.launches`.
+to q. The result is pre-residual. The host folds d^-0.5 into Wq / bq
+and calls `hrfuser::window_attention` (`ops/chain.py`) in windows mode
+(no LN, no ring, no residual): kernel A (`csrc/window_attention.cu`) on
+CUDA tensors, `chain.window_attention_plain` on CPU tensors.
+`fused_window_attention_plain` is the same function on the unfolded
+weights. Launches are counted in `fused_window_attention.launches`.
 
 The kernel takes 7x7 windows only, so N must be 49 (the window of every
 config); another N raises `ValueError` on every device.
@@ -61,6 +62,7 @@ def _fold(wq, wk, wv, wo, bq, bk, bv, bo, bias, num_heads) -> chain.Folded:
         bias=bias.to(f32).contiguous()), num_heads)
 
 
+@chain.counts_launches('window_attention.fused_window_attention')
 def fused_window_attention(x: Tensor, y: Tensor, wq: Tensor, wk: Tensor,
                            wv: Tensor, wo: Tensor, bq: Tensor, bk: Tensor,
                            bv: Tensor, bo: Tensor, bias: Tensor,
@@ -89,19 +91,9 @@ def fused_window_attention(x: Tensor, y: Tensor, wq: Tensor, wk: Tensor,
     if c % num_heads:
         raise ValueError(f'fused_window_attention: C={c} not divisible by '
                          f'{num_heads} heads')
-    if chain.on_cpu(x):
-        return fused_window_attention_plain(x, y, wq, wk, wv, wo, bq, bk,
-                                            bv, bo, bias, num_heads)
-    for name, t in (('x', x), ('y', y)):
-        if not t.is_contiguous():
-            raise ValueError(f'fused_window_attention: {name} must be '
-                             f'contiguous')
     p = _fold(wq, wk, wv, wo, bq, bk, bv, bo, bias, num_heads)
-    out = chain.launch_window_attention(
-        x.view(w, 7, 7, c), y.view(y.shape[0], 7, 7, c), None, None, p,
-        num_heads, ln=False)
-    fused_window_attention.launches += 1
+    out = chain.window_attention(
+        x.reshape(w, 7, 7, c), None if y is x else y.reshape(-1, 7, 7, c),
+        None, None, p, num_heads, 'window_attention.fused_window_attention',
+        ln=False)
     return out.view(w, n, c)
-
-
-fused_window_attention.launches = 0

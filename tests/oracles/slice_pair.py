@@ -129,11 +129,12 @@ class SlicePair:
                 torch.tensor([[self.h, self.w]]).float())
         return got, want, valid
 
-    def detections(self):
+    def detections(self, run=None):
         """(port, JAX) `Detections` of image 0: the port's whole
-        `predict`; JAX's `roi_test` on its proposals from its maps, the
-        body of its `predict` (`cascade_rcnn.py:167-182`) without running
-        the maps again."""
+        `predict` (or `run(img, *mods)`, e.g. an exported program); JAX's
+        `roi_test` on its proposals from its maps, the body of its
+        `predict` (`cascade_rcnn.py:167-182`) without running the maps
+        again."""
         (jfeats, _, _), props = self._jax_features[0], self.proposals[1]
         hw = (jnp.float32(self.h), jnp.float32(self.w))
         want = self.jdet.apply(self.variables, [f[0] for f in jfeats[:4]],
@@ -141,8 +142,9 @@ class SlicePair:
                                jnp.ones(4, jnp.float32), True,
                                method='roi_test')
         with torch.no_grad():
-            got = predict(self.model, torch.from_numpy(self.img),
-                          self._tmods())
+            got = (predict(self.model, torch.from_numpy(self.img),
+                           self._tmods()) if run is None else
+                   run(torch.from_numpy(self.img), *self._tmods()))
         return got, want
 
 
@@ -185,9 +187,17 @@ def check_decode(s):
                                rtol=0)
 
 
-def check_detections(s, score_tol=1e-4):
-    got, want = s.detections()
-    assert got.boxes.shape == (1, s.jcfg.roi.max_per_img, 4)
+def check_detections(s, score_tol=1e-4, run=None):
+    got, want = s.detections(run)
+    assert_detections_close(got, want, s.jcfg.roi.max_per_img, score_tol)
+
+
+def assert_detections_close(got, want, max_per_img, score_tol=1e-4):
+    """The port's batch-1 `Detections` (torch) against JAX's for image 0
+    (unbatched, or batched with `want.boxes.ndim == 3`)."""
+    if np.asarray(want.boxes).ndim == 3:
+        want = type(want)(*(np.asarray(t)[0] for t in want))
+    assert got.boxes.shape == (1, max_per_img, 4)
     valid = np.asarray(want.valid)
     assert valid.sum() > 0
     np.testing.assert_array_equal(got.valid[0].numpy(), valid)

@@ -283,8 +283,9 @@ def test_slab_attention_combinations_match_twin(dev, mode, add_kv):
     got = block.fused_window_attention(xq, xkv, res, *ws, lnq, lnkv,
                                        bias_full, **kw)
     p = block._fold_heads(*ws, lnq, lnkv, bias_full, 7, wp)
-    want = block._slab_attention_plain(xq, xkv, res, p, heads, (0, 1),
-                                       (h, w), add_kv)
+    want = chain.window_attention_plain(res, xq, p, heads, kv_src=xkv,
+                                        z=xkv if add_kv else None,
+                                        padded_hw=(h, w))
     _close(got, want, torch.float32)
 
 
@@ -956,3 +957,37 @@ def test_nccl_refuses_two_ranks_on_one_gpu(dev):
         run_ranks(pr.join_rank, 2, ('cuda:0', 'nccl'), timeout_s=300)
     got = run_ranks(pr.join_rank, 2, ('cuda:0', 'gloo'), timeout_s=300)
     assert got == [(0, 'cuda:0', 'gloo'), (1, 'cuda:0', 'gloo')]
+
+
+@pytest.mark.parametrize('dt', DTYPES)
+def test_ops_match_their_fakes_on_the_card(dev, dt):
+    """`torch.library.opcheck` of each `hrfuser::` op's CUDA
+    implementation (kernels A, B, C; NMS's keep loop) against its fake
+    one, at `tests/oracles/op_cases.py`'s small shapes."""
+    cases = _oracle('op_cases')
+    for label in cases.LABELS:
+        op, args = cases.op_case(label, dev, dt)
+        torch.library.opcheck(op, args)
+
+
+def test_exported_program_runs_on_the_card(dev, tmp_path):
+    """`tiny_fusion_test` exported on the card (bf16, batch 2, 64x96),
+    saved and loaded: a forward of the loaded program launches each
+    kernel as one eager forward does, and its detections equal eager
+    `predict`'s on the same inputs."""
+    from hrfuser_tpu_torch.apis.export import (PredictModule,
+                                               export_predict, input_shapes,
+                                               predict_inputs)
+    det = init_detector('tiny_fusion_test', dev, seed=0,
+                        dtype=torch.bfloat16)
+    torch.export.save(export_predict(det, 2, (64, 96)), tmp_path / 'm.pt2')
+    run = torch.export.load(tmp_path / 'm.pt2').module()
+    xs = predict_inputs(det, input_shapes(det, 2, (64, 96)),
+                        torch.Generator().manual_seed(0))
+    got, counts = _counted(lambda: run(*xs))
+    want, eager_counts = _counted(lambda: PredictModule(det)(*xs))
+    assert counts == eager_counts == _one_forward(det.cfg)
+    assert torch.equal(got.labels, want.labels)
+    assert torch.equal(got.valid, want.valid)
+    torch.testing.assert_close(got.boxes, want.boxes, atol=1e-2, rtol=1e-3)
+    torch.testing.assert_close(got.scores, want.scores, atol=5e-3, rtol=0)
