@@ -203,6 +203,34 @@ Phases, each printed on its own lines; any failure exits non-zero:
    `card_checks`' tolerances, each rank's samples and its kernel A / B /
    C and JPEG launches exact, images/s; 12d `parallel/dryrun.py` with
    two ranks on the card (`micro_fusion_dryrun`).
+13. model export: 13a `torch.library.opcheck` of the `hrfuser::` ops'
+   CUDA implementations against their fakes and the ops' host dispatch
+   cost; 13b `apis/export.export_predict` of HRFuser-T r640 bf16 batch
+   8, saved, loaded and run with exact launch counts beside eager
+   `predict`; 13c `tools/export_model.py` as a subprocess.
+14. the model tools: 14a `apis/flops.count_flops` of one bf16 batch of 8
+   on HRFuser-T and HRFuser-B r640 on the card: each kernel op's calls
+   equal that forward's launch counters, its FLOPs the formula of
+   `ops/flops.py` summed over its calls at their shapes
+   (`card_checks.kernel_op_flops`), no op of the path counting 0;
+   GFLOPs a batch and an image, and TFLOP/s with the share of the bf16
+   peak at phase 4 / 4b's median latency and device-busy time; then
+   HRFuser-T's float32 train step (batch 3) beside phase 8a's ms a step,
+   as a share of the float32 peak (TF32 off); 14b bf16 vs float32 drift
+   (`tools/numerics_drift.py`: one model under a float32 and a bf16
+   `Detector`, TF32 off for the float32 run): HRFuser-T overfit by
+   `numerics_drift.overfit`, what `--overfit-steps 40` runs (40 float32
+   steps, drop rates 0, the full lr from the first step), on one
+   synthetic batch of 4, measured on that batch as the tool measures
+   after `--overfit-steps`, then on its 4 seeded batches of 4; HRFuser-B
+   on random weights, 2 batches of 4; each `predict_pair`'s launches two
+   forwards', every dtype-keyed fold of its dtype, the JAX tool's report
+   lines; fails on a non-finite statistic or no matched detection on the
+   overfit batch (the drift itself is a report); 14c the tools through their
+   `main`: `get_flops --json` (its total equals 14a's), `print_config`,
+   `publish_model` of a checkpoint with an AdamW state written here
+   (the weights alone, bit-equal, under their digest) and
+   `numerics_drift --overfit-steps 2` on `tiny_fusion_test`.
 
 The last line is `{"ok": true, "device": {...}}`; the line before it
 lists each kernel's launches, error, times and bound as JSON.
@@ -211,7 +239,9 @@ lists each kernel's launches, error, times and bound as JSON.
 from __future__ import annotations
 
 import base64
+import contextlib
 import functools
+import io
 import json
 import os
 import pickle
@@ -239,6 +269,7 @@ CONFIG_CAM_T = 'cascade_rcnn_hrformer_t_1x_nus_r640'
 CONFIG_CAM_B = 'cascade_rcnn_hrformer_b_1x_nus_r640'
 CONFIG_HRNET = 'cascade_rcnn_hrfuser_hrnet_w18_1x_nus_r640_l_r_fusion'
 CLI_EXPORT_CONFIG = 'tiny_fusion_test'   # phase 13c, the CLI at 384x640
+DRIFT_OVERFIT_STEPS = 40             # phase 14b, as phase 8a trains
 TTA_CPU_HW = (128, 192)              # flip TTA, card vs CPU at batch 1
 STF_HW = (384, 1248)                 # the STF grid; stride 32 is 12x39
 STF_CPU_HW = (192, 608)              # reduced, stride 32 still odd: 6x19
@@ -323,23 +354,25 @@ def _bound(flops, nbytes, dt):
 
 def _attn_work(x, ps, dt, acts):
     """FLOPs, bytes and peak type of one kernel A call per folded weight
-    set in `ps` on maps like `x`: the model's T C (8C + 196) a call; the
-    activations `acts` (read or written once) and the weights the plan
-    reads."""
-    t, c = x.numel() // x.shape[-1], x.shape[-1]
+    set in `ps` on maps like `x`: T C (8C + 196) a call (`ops/flops.py`),
+    T the map's own tokens, not the ring that pads it to whole windows
+    (no output of the kernel's); the activations `acts` (read or written
+    once) and the weights the plan reads."""
+    from hrfuser_tpu_torch.ops.flops import window_attention_flops
     keys = ['lnq', 'lnkv', 'bqkv', 'bo', 'bias']
     keys += ['wqkv_p', 'wo_p'] if dt == torch.bfloat16 else ['wqkv', 'wo']
-    return (len(ps) * t * c * (8 * c + 196),
+    return (sum(window_attention_flops(x.shape, p['bias'].shape[-1],
+                                       padded=False) for p in ps),
             _nbytes(*acts, *(p[k] for p in ps for k in keys)), dt)
 
 
 def _ffn_work(x, p, dt, acts):
-    """FLOPs (16 P C^2 + 72 P C), bytes and peak type of one kernel B
-    call."""
-    n, c = x.numel() // x.shape[-1], x.shape[-1]
+    """FLOPs (16 P C^2 + 72 P C, `ops/flops.py`), bytes and peak type of
+    one kernel B call."""
+    from hrfuser_tpu_torch.ops.flops import cross_ffn_flops
     keys = ['ln', 'b1', 'wdw', 'bdw', 'b2']
     keys += ['w1_p', 'w2_p'] if dt == torch.bfloat16 else ['w1', 'w2']
-    return (16 * n * c * c + 72 * n * c,
+    return (cross_ffn_flops(x.shape, p['w1'].shape[1]),
             _nbytes(*acts, *(p[k] for k in keys)), dt)
 
 
@@ -348,6 +381,7 @@ def _roi_work(feats, rois, out):
     bytes, float32 and pixels of one kernel C call. The bytes are its
     output, its RoIs and the pyramid pixels whose taps these RoIs weight
     non-zero, each counted once (on the device)."""
+    from hrfuser_tpu_torch.ops.flops import roi_align_flops
     from hrfuser_tpu_torch.ops.roi_align import _axis_taps, map_roi_levels
     b, n, _ = rois.shape
     c, dev = feats[0].shape[-1], rois.device
@@ -373,7 +407,7 @@ def _roi_work(feats, rois, out):
     wt = wy[..., None, None] * wx[:, :, None, None]
     pixels = torch.unique(idx[wt != 0]).numel()
     nbytes = (pixels * c * feats[0].element_size() + _nbytes(rois, out))
-    return b * n * 196 * 4 * 2 * c, nbytes, torch.float32, pixels
+    return roi_align_flops(rois.shape, c), nbytes, torch.float32, pixels
 
 
 def _randomize(module, g):
@@ -668,6 +702,8 @@ def phase_kernels_wide(report):
     from hrfuser_tpu_torch.layers.common import layer_norm
     from hrfuser_tpu_torch.ops import (block, chain, roi_align,
                                        window_attention)
+    from hrfuser_tpu_torch.ops.flops import (cross_ffn_flops,
+                                             window_attention_flops)
     from hrfuser_tpu_torch.ops.window import window_partition
     g = torch.Generator().manual_seed(2)
     for (h, w, c, heads) in ((96, 160, 78, 2), (48, 80, 156, 4),
@@ -711,8 +747,7 @@ def phase_kernels_wide(report):
                 return out
 
             def windows_work(out):
-                t = xw.numel() // c
-                return (t * c * (8 * c + 196),
+                return (window_attention_flops((xw.shape[0], 7, 7, c)),
                         _nbytes(xw, yw, out, *wts, bias), dt)
 
             for name, src, rep, label, fk, fp, plan, work in (
@@ -753,8 +788,8 @@ def phase_kernels_wide(report):
               for _ in range(2)]
         tag = f'{h}x{w}x{c} heads={heads} B={BATCH} float32'
         # the model's FLOPs of one attention half and of the CrossFFN half
-        attn_flops = BATCH * h * w * c * (8 * c + 196)
-        ffn_flops = BATCH * h * w * (16 * c * c + 72 * c)
+        attn_flops = window_attention_flops((BATCH, h, w, c), padded=False)
+        ffn_flops = cross_ffn_flops((BATCH, h, w, c), 4 * c)
         with torch.no_grad():
             _check(report, 'window_attention_self', SRC_A, REPLACES_A,
                    f'block.fused_hrformer_block {tag}',
@@ -918,9 +953,10 @@ def _check_counts(want, calls, label):
 
 
 def phase_slice(report, smi, config, title, record, hw=(H, W),
-                calibrate=False, against_f32=False):
+                calibrate=False, against_f32=False, shared=None):
     """Drive `config` as a user would on an `hw` grid; check launches and
-    outputs. `calibrate`: weights from `card_checks.calibrate` on the
+    outputs; `shared[config]` keeps the median latency and the device busy
+    ms (phase 14a). `calibrate`: weights from `card_checks.calibrate` on the
     batch. `against_f32`: the batch's bf16 neck maps held to its float32
     ones on the card within `BF16_MAP_REL` (relative L2 a level)."""
     print(f'== {title}')
@@ -974,6 +1010,8 @@ def phase_slice(report, smi, config, title, record, hw=(H, W),
     print(f'  under torch.profiler: {wall:.2f} ms a batch, device busy '
           + ('not measured' if busy is None else
              f'{busy:.2f} ms, idle {1 - busy / wall:.1%}'))
+    if shared is not None:
+        shared[config] = (sorted(times)[len(times) // 2], busy)
     if against_f32:
         with torch.no_grad():
             fb = det.model.forward_features(
@@ -3054,6 +3092,243 @@ def phase_export_cli(smi):
         shutil.rmtree(root)
 
 
+def _entry_counts(res):
+    """`count_flops`' calls by counter entry, under `_counters()`' names."""
+    from hrfuser_tpu_torch.ops import chain
+    entry = {fn: e for e, fn in chain.COUNTERS.items()}
+    return {k: res['entries'].get(entry[fn], 0)
+            for k, fn in _counters().items()}
+
+
+def _counted_flops(det, x, xs, label):
+    """`count_flops` of one bf16 forward on the card, held to its launch
+    counters and to each op's formula call by call
+    (`card_checks.kernel_op_flops`); returns its result."""
+    from hrfuser_tpu_torch.apis.flops import count_flops
+    _reset_counts()
+    with _checks().kernel_op_flops() as rec:
+        res = count_flops(det.model, x, xs)
+    torch.cuda.synchronize()
+    _check_counts(_expected_launches(det.cfg), 1, label)
+    calls = _entry_counts(res)
+    counts = {k: fn.launches for k, fn in _counters().items()}
+    if calls != counts:
+        raise AssertionError(f'{label}: op calls {calls} != launches '
+                             f'{counts}')
+    for op, (n, flops) in rec.items():
+        if res['by_op'][op] != {'calls': n, 'flops': flops}:
+            raise AssertionError(f'{label}: {op} counted {res["by_op"][op]}, '
+                                 f'its formula over its calls {n} / {flops}')
+    zero = [op for op, v in res['by_op'].items()
+            if not v['flops'] and op != 'hrfuser.greedy_keep']
+    if zero or set(rec) != {'hrfuser.window_attention', 'hrfuser.cross_ffn',
+                            'hrfuser.roi_align'}:
+        raise AssertionError(f'{label}: ops that count 0: {zero}, kernel ops '
+                             f'{sorted(rec)}')
+    for op, v in res['by_op'].items():
+        print(f'    {op:26s} {v["calls"]:5d} calls {v["flops"] / 1e9:10.2f} '
+              f'GFLOPs')
+    return res
+
+
+def _rate(flops, ms, peak):
+    """`flops` done in `ms` as TFLOP/s and as a share of `peak` TFLOP/s."""
+    tflops = flops / ms / 1e9
+    return f'{tflops:.1f} TFLOP/s, {tflops / peak:.2%} of {peak:g}'
+
+
+def phase_flops(state, smi):
+    print(f'== 14a. FLOPs (`apis/flops.count_flops`): HRFuser-T and -B r640 '
+          f'bf16 batch {BATCH} forwards on the card, HRFuser-T\'s float32 '
+          f'train step')
+    from hrfuser_tpu_torch import init_detector
+    from hrfuser_tpu_torch.apis.flops import count_flops
+    peak = PEAK_FLOPS[torch.bfloat16] / 1e12
+    for config, label in ((CONFIG, 'HRFuser-T'), (CONFIG_B, 'HRFuser-B')):
+        det = init_detector(config, 'cuda', seed=0, dtype=torch.bfloat16)
+        img, mods = _inputs(det.cfg, BATCH, np.random.default_rng(0), (H, W))
+        x = torch.from_numpy(img).cuda().bfloat16()
+        xs = [torch.from_numpy(m).cuda().bfloat16() for m in mods]
+        res = _counted_flops(det, x, xs, f'{label} count_flops')
+        flops = res['flops']
+        state[f'flops_{config}'] = flops
+        ms, busy = state[config]
+        print(f'  {label}: {flops / 1e9:.2f} GFLOPs a batch of {BATCH}, '
+              f'{flops / 1e9 / BATCH:.2f} a {H}x{W} image; at phase '
+              f'4{"b" if config == CONFIG_B else ""}\'s {ms:.1f} ms a batch '
+              f'{_rate(flops, ms, peak)}; at its device-busy '
+              + ('not measured' if busy is None else
+                 f'{busy:.2f} ms {_rate(flops, busy, peak)}') + f' on {smi}')
+        del det
+        torch.cuda.empty_cache()
+    from hrfuser_tpu_torch.tools.train import synthetic_batches
+    train_state, exp = _train_setup(CONFIG, 'cuda', warmup=False)
+    b = exp.schedule.samples_per_device
+    batch = next(synthetic_batches(exp, b, pool=1))
+    _reset_counts()
+    res = count_flops(train_state.model, torch.from_numpy(batch['img']).cuda(),
+                      [torch.from_numpy(m).cuda() for m in batch['mod_imgs']],
+                      train=True)
+    if any(fn.launches for fn in _counters().values()) or res['entries']:
+        raise AssertionError('14a: the train count launched an eval kernel')
+    flops = res['flops']
+    step_ms = state['synthetic_step_ms']
+    print(f'  HRFuser-T train step (forward_train + backward, float32, batch '
+          f'{b}, one gt box an image): {flops / 1e9:.2f} GFLOPs, '
+          f'{flops / 1e9 / b:.2f} an image; at phase 8a\'s {step_ms:.1f} ms a '
+          f'step {_rate(flops, step_ms, PEAK_FLOPS[torch.float32] / 1e12)} '
+          f'(TF32 off) on {smi}')
+    for op, v in res['by_op'].items():
+        print(f'    {op:26s} {v["calls"]:5d} calls {v["flops"] / 1e9:10.2f} '
+              f'GFLOPs')
+    del train_state
+    torch.cuda.empty_cache()
+
+
+def _drift(config, det32, det16, batches, label):
+    """Each batch through `numerics_drift.predict_pair` (float32 with TF32
+    off, then bf16), each pair's launches held to two forwards'; the JAX
+    tool's report lines; returns the summary."""
+    from hrfuser_tpu_torch.tools import numerics_drift as nd
+    want = _expected_launches(det32.cfg)
+    pairs = []
+    t0 = time.perf_counter()
+    for i, (img, mods) in enumerate(batches):
+        _reset_counts()
+        pairs.append(nd.predict_pair(det32, det16, img, mods))
+        _check_counts(want, 2, f'{label} batch {i}, float32 + bf16')
+    secs = time.perf_counter() - t0
+    print(f'  folds held to their dtype: {nd.check_folds(det32.model)}')
+    b = len(batches[0][0])
+    stats = nd.drift_stats(pairs, 50)
+    for line in nd.report_lines(stats, config, len(batches), b, (H, W), 50):
+        print('  ' + line)
+    s = nd.summary(stats)
+    print(f'  {len(batches)} batches x 2 dtypes in {secs:.1f} s; summary '
+          f'{json.dumps(s)}')
+    # NaN where there is nothing to reduce (no match, no image with a
+    # detection in both runs) is no fault
+    data = {'box': s['matched'], 'score': s['matched'],
+            'churn': len(stats['churns'])}
+    bad = [k for k, v in s.items()
+           if data.get(k.split('_')[0], 1) and not np.isfinite(v)]
+    if bad:
+        raise AssertionError(f'{label}: non-finite statistics {bad}')
+    return s
+
+
+def phase_drift(state, smi):
+    print('== 14b. bf16 vs float32 drift (`tools/numerics_drift.py`): one '
+          'model, two Detectors, the JAX tool\'s matching and lines')
+    from hrfuser_tpu_torch.tools import numerics_drift as nd
+    det32, det16 = nd.detector_pair(CONFIG, 'cuda')
+    t0 = time.perf_counter()
+    _reset_counts()
+    batch = nd.overfit(det32, CONFIG, DRIFT_OVERFIT_STEPS, 4, (H, W),
+                       log=lambda line: print('  ' + line))
+    torch.cuda.synchronize()
+    if any(fn.launches for fn in _counters().values()):
+        raise AssertionError('14b: the overfit launched an eval kernel')
+    # 14c publishes these weights
+    state['overfit_t'] = {k: v.detach().cpu().clone()
+                          for k, v in det32.model.state_dict().items()}
+    print(f'  HRFuser-T r640: `numerics_drift.overfit`, as '
+          f'--overfit-steps {DRIFT_OVERFIT_STEPS} runs it, on one synthetic '
+          f'batch of 4 in {time.perf_counter() - t0:.1f} s; drift on that '
+          f'batch, as the tool measures after --overfit-steps')
+    s = _drift(CONFIG, det32, det16, [batch], 'HRFuser-T overfit, its batch')
+    if not s['matched']:
+        raise AssertionError('14b: no matched detection on the overfit '
+                             'weights\' batch')
+    print('  the same weights on the JAX tool\'s default batches: 4 of 4 '
+          '(default_rng(100 + i))')
+    _drift(CONFIG, det32, det16, nd.eval_batches(det32, 4, 4, (H, W)),
+           'HRFuser-T overfit, seeded batches')
+    del det32, det16
+    det32, det16 = nd.detector_pair(CONFIG_B, 'cuda')
+    print('  HRFuser-B r640 on random weights (seed 0): 2 batches of 4; its '
+          'rank churn is near 1 by construction (near-uniform scores whose '
+          'NMS survivors rounding decides), its box and score deltas and '
+          'valid counts are the report')
+    _drift(CONFIG_B, det32, det16, nd.eval_batches(det32, 2, 4, (H, W)),
+           'HRFuser-B random')
+    del det32, det16
+    torch.cuda.empty_cache()
+
+
+def _main_output(main, argv):
+    """What `main(argv)` prints."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(argv)
+    return buf.getvalue()
+
+
+def phase_model_tools(state, smi):
+    print('== 14c. the tools through their main: get_flops, print_config, '
+          'publish_model, numerics_drift --overfit-steps')
+    from hrfuser_tpu_torch.apis.train import make_optimizer
+    from hrfuser_tpu_torch.configs import get_experiment
+    from hrfuser_tpu_torch.models.detectors.cascade_rcnn import CascadeRCNN
+    from hrfuser_tpu_torch.tools import (get_flops, numerics_drift,
+                                         print_config, publish_model)
+    from hrfuser_tpu_torch.utils.checkpoint import (load_weights,
+                                                    save_checkpoint)
+    out = json.loads(_main_output(get_flops.main, [
+        CONFIG, '--batch', str(BATCH), '--img-hw', str(H), str(W), '--bf16',
+        '--json']))
+    print(f'  get_flops --json: {json.dumps(out)}')
+    if out['gflops_total'] != state[f'flops_{CONFIG}'] / 1e9:
+        raise AssertionError(f'14c: get_flops {out["gflops_total"]} GFLOPs, '
+                             f'14a {state[f"flops_{CONFIG}"] / 1e9}')
+    text = _main_output(print_config.main, [CONFIG]).splitlines()
+    print(f'  print_config: {len(text)} lines, ' + ' | '.join(text[:3]))
+    if text[0] != f'name: {CONFIG}' or 'model:' not in text:
+        raise AssertionError('14c: print_config printed no config tree')
+    exp = get_experiment(CONFIG)
+    sd = state['overfit_t']
+    model = CascadeRCNN(exp.model)
+    model.load_state_dict(sd)
+    opt = make_optimizer(model, exp.optim)
+    for p in model.parameters():
+        p.grad = torch.ones_like(p)
+    opt.step()                          # an AdamW state to drop
+    root = tempfile.mkdtemp(prefix='publish_')
+    try:
+        ckpt = save_checkpoint(os.path.join(root, 'work'), 40, sd, opt,
+                               meta={'config': CONFIG}, extra={'applied': 40})
+        line = _main_output(publish_model.main,
+                            [ckpt, os.path.join(root, 'hrfuser_t')])
+        path = line.split('[publish] ')[1].strip()
+        payload = torch.load(path, weights_only=True)
+        got = payload['state_dict']
+        digest = publish_model.digest(got)
+        same = list(got) == list(sd) and all(torch.equal(got[k], v)
+                                             for k, v in sd.items())
+        loaded = load_weights(path, CascadeRCNN(exp.model)).state_dict()
+        print(f'  publish_model: {os.path.basename(path)}, '
+              f'{os.path.getsize(path) / 1e6:.1f} MB (checkpoint '
+              f'{os.path.getsize(ckpt) / 1e6:.1f} MB), keys '
+              f'{sorted(payload)}, bit-equal {same}')
+        if ('optimizer' in payload or not same
+                or not path.endswith(f'-{digest}.pth')
+                or not all(torch.equal(loaded[k], v) for k, v in sd.items())):
+            raise AssertionError('14c: publish_model did not keep the '
+                                 'weights alone under their digest')
+    finally:
+        shutil.rmtree(root)
+    t0 = time.perf_counter()
+    lines = _main_output(numerics_drift.main, [
+        '--config', CLI_EXPORT_CONFIG, '--batch', '2', '--overfit-steps',
+        '2']).splitlines()
+    for line in lines:
+        print('  ' + line)
+    print(f'  numerics_drift {CLI_EXPORT_CONFIG} --overfit-steps 2: '
+          f'{time.perf_counter() - t0:.1f} s on {smi}')
+    if not lines[-1].startswith('valid-count delta'):
+        raise AssertionError('14c: numerics_drift printed no report')
+
+
 def main():
     smi = phase_environment()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3068,10 +3343,10 @@ def main():
         ('3c', lambda: phase_kernels_r1248(report)),
         ('4', lambda: phase_slice(
             report, smi, CONFIG, '4. main path: HRFuser-T r640 lidar+radar, '
-            'bf16, batch 8', record=True)),
+            'bf16, batch 8', record=True, shared=state)),
         ('4b', lambda: phase_slice(
             report, smi, CONFIG_B, '4b. HRFuser-B r640 lidar+radar, bf16, '
-            'batch 8', record=False)),
+            'batch 8', record=False, shared=state)),
         ('5', lambda: phase_cpu_check(CONFIG, '5. HRFuser-T')),
         ('5b', lambda: phase_cpu_check(CONFIG_B, '5b. HRFuser-B')),
         ('6a', lambda: phase_preprocess(state)),
@@ -3118,6 +3393,9 @@ def main():
         ('13a', phase_op_checks),
         ('13b', lambda: phase_export(smi)),
         ('13c', lambda: phase_export_cli(smi)),
+        ('14a', lambda: phase_flops(state, smi)),
+        ('14b', lambda: phase_drift(state, smi)),
+        ('14c', lambda: phase_model_tools(state, smi)),
     ]
     for name, run in phases:
         t1 = time.perf_counter()

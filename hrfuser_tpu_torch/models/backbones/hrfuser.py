@@ -147,6 +147,15 @@ class HRFuserBackbone(nn.Module):
                 cfg.stage_d.out_channels, cfg.fusion_d.num_channels, nm)
             self.fusion_d = FusionBank(cfg.fusion_d, nm)
 
+    def unused_parameters(self) -> List[nn.Parameter]:
+        """The reference's BatchNorms beside the stage-2 transition convs
+        of existing branches, which `forward` never reads (it runs the
+        conv only, `conv_only_on_existing`); JAX's tree has none."""
+        n = len(self.cfg.stage1.out_channels)
+        return [p for m in list(self.transition1)[:n]
+                if isinstance(m, nn.Sequential)
+                for p in m[1].parameters()]
+
     def forward(self, x: Tensor, x_mods: List[Tensor]) -> List[Tensor]:
         """x: [B, H, W, 3]; x_mods: per-modality [B, H, W, C_k]. Returns
         one NHWC map per camera branch (strides 4, 8, 16, 32)."""

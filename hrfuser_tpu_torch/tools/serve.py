@@ -147,13 +147,19 @@ def _sensor(data, name: str, img: np.ndarray) -> np.ndarray:
     return img if img.dtype == np.uint16 else img.astype(np.float32)
 
 
-def warm_up(detector) -> float:
-    """One request at the model grid before traffic; returns seconds."""
+def warm_up(detector, input_hw=None) -> float:
+    """One `predict` on zeros at the model grid before traffic; returns
+    seconds. The grid is `input_hw` (the JAX server's `--input-hw`, the
+    shape it initialises at) or the config's `img_scale`, padded to its
+    divisor, as a request's images are."""
     w, h = detector.data.img_scale
+    d = detector.data.pad_divisor
+    h, w = (-(-v // d) * d for v in input_hw or (h, w))
+    bb = detector.cfg.backbone
     t0 = time.time()
-    inference_detector(detector, np.zeros((h, w, 3), np.uint8),
-                       [np.zeros((h, w, c), np.float32)
-                        for c in detector.cfg.backbone.mod_in_channels])
+    detector(np.zeros((1, h, w, 3), np.float32),
+             [np.zeros((1, h, w, c), np.float32)
+              for c in bb.mod_in_channels[:bb.num_fused_modalities]])
     return time.time() - t0
 
 
@@ -169,12 +175,13 @@ class Server(ThreadingHTTPServer):
         self.worker.shutdown()
 
 
-def make_server(detector, host: str = '127.0.0.1',
-                port: int = 8500) -> Server:
+def make_server(detector, host: str = '127.0.0.1', port: int = 8500,
+                input_hw=None) -> Server:
     """The server, bound, its worker warmed up by one request
-    (`warm_up_s`), not yet serving (`serve_forever`)."""
+    (`warm_up_s`, `warm_up`), not yet serving (`serve_forever`)."""
     server = Server((host, port), detector)
-    server.warm_up_s = server.worker.submit(warm_up, detector).result()
+    server.warm_up_s = server.worker.submit(warm_up, detector,
+                                            input_hw).result()
     return server
 
 
@@ -186,12 +193,14 @@ def main(argv=None):
     ap.add_argument('--port', type=int, default=8500)
     ap.add_argument('--device', default='cuda')
     ap.add_argument('--dtype', choices=sorted(DTYPES), default='f32')
+    ap.add_argument('--input-hw', type=int, nargs=2, default=None,
+                    help='model grid of the warm-up call')
     args = ap.parse_args(argv)
 
     detector = init_detector(args.config, args.device,
                              dtype=DTYPES[args.dtype],
                              checkpoint=args.checkpoint)
-    server = make_server(detector, args.host, args.port)
+    server = make_server(detector, args.host, args.port, args.input_hw)
     print(f'[serve] warm-up request in {server.warm_up_s:.1f}s; '
           f'{len(detector.data.classes)} classes')
     print(f'[serve] listening on http://{args.host}:{args.port} '

@@ -2,8 +2,9 @@
 
 Each kernel's launches in one forward of a config (and in one flip-TTA
 call), a matcher of detections or RPN proposals computed on two devices,
-a recorder of the RPN proposals a call makes, and random weights
-calibrated on an input so that these comparisons see real detections.
+a recorder of the RPN proposals a call makes, random weights calibrated
+on an input so that these comparisons see real detections, and a
+recorder of the kernel ops' calls with each call's FLOPs.
 Imports torch and numpy only, and is loaded by path (`tests.oracles`
 imports JAX, which the card's machine lacks).
 
@@ -51,6 +52,41 @@ def expected_launches(cfg):
             'window_attention_cross': fusion_blocks * nm,
             'cross_ffn': hr_blocks + fusion_blocks,
             'roi_align': cfg.roi.num_stages}, how
+
+
+# `hrfuser::` kernel op -> its FLOPs from its arguments
+# (`hrfuser_tpu_torch/ops/flops.py`'s formulas, applied call by call)
+def _kernel_formulas():
+    from hrfuser_tpu_torch.ops import flops
+    return {
+        'hrfuser.window_attention': lambda a: flops.window_attention_flops(
+            a[0].shape, a[10].shape[-1]),
+        'hrfuser.cross_ffn': lambda a: flops.cross_ffn_flops(
+            a[0].shape, a[2].shape[1]),
+        'hrfuser.roi_align': lambda a: flops.roi_align_flops(
+            a[1].shape, a[0][0].shape[-1], a[3], a[4])}
+
+
+@contextlib.contextmanager
+def kernel_op_flops():
+    """Records each `hrfuser::` kernel op call made inside: yields
+    {op: [calls, FLOPs]}, each call's FLOPs from the formula of
+    `ops/flops.py` at that call's shapes (independent of the formulas'
+    registration with `torch.utils.flop_counter`)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    formulas, seen = _kernel_formulas(), {}
+
+    class Recorder(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = str(func._overloadpacket)
+            if name in formulas:
+                rec = seen.setdefault(name, [0, 0])
+                rec[0] += 1
+                rec[1] += formulas[name](args)
+            return out
+    with Recorder():
+        yield seen
 
 
 def tta_launches(cfg, fn_name):

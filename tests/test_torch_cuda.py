@@ -991,3 +991,31 @@ def test_exported_program_runs_on_the_card(dev, tmp_path):
     assert torch.equal(got.valid, want.valid)
     torch.testing.assert_close(got.boxes, want.boxes, atol=1e-2, rtol=1e-3)
     torch.testing.assert_close(got.scores, want.scores, atol=5e-3, rtol=0)
+
+
+def test_flop_count_calls_are_the_launches(dev):
+    """`apis/flops.count_flops` of a bf16 forward on the card (the kernels
+    launch under `FlopCounterMode`): each kernel op's calls equal that
+    forward's launch counters, its FLOPs the formula of `ops/flops.py`
+    summed over its calls at their shapes, and no op of the path counts
+    0 (`chip_smoke.py` phase 14a at full width)."""
+    from hrfuser_tpu_torch.apis.flops import count_flops
+    det = init_detector('tiny_fusion_test', dev, seed=0,
+                        dtype=torch.bfloat16)
+    rng = np.random.default_rng(0)
+    img, *mods = (torch.from_numpy(rng.normal(0, 1, (2, 64, 96, 3)).astype(
+        np.float32)).to(dev, torch.bfloat16) for _ in range(3))
+    checks = _oracle('card_checks')
+    with checks.kernel_op_flops() as rec:
+        (got, counts) = _counted(lambda: count_flops(det.model, img, mods))
+    assert counts == _one_forward(det.cfg)
+    by_op = got['by_op']
+    for op, (calls, flops) in rec.items():
+        assert by_op[op] == {'calls': calls, 'flops': flops}, op
+        assert flops > 0
+    assert (by_op['hrfuser.window_attention']['calls']
+            == counts['window_attention_self']
+            + counts['window_attention_cross'])
+    assert by_op['hrfuser.cross_ffn']['calls'] == counts['cross_ffn']
+    assert by_op['hrfuser.roi_align']['calls'] == counts['roi_align']
+    assert by_op['hrfuser.greedy_keep']['flops'] == 0

@@ -8,7 +8,8 @@ Checked in a fresh interpreter (this test process has JAX loaded by
 and over JPEG files end to end on the CPU, a one-rank
 `gloo` sharded train step and a sharded `run_inference`, the offline
 converters (one nuScenes sample on a fake DB, an STF frame, the inverse
-depth warp) on the CPU, and imports the KITTI evaluation, and
+depth warp) on the CPU, and imports the KITTI evaluation and the model
+tools (FLOP count, drift, `print_config`, `publish_model`), and
 statically over every module of the package and the scripts that drive
 it on the card. Its entry points run on the card unless asked for the
 CPU.
@@ -72,6 +73,11 @@ state = create_train_state(CascadeRCNN(exp.model), exp.optim, exp.schedule,
 m = train_step(state, next(synthetic_batches(exp, 2, (64, 96))),
                torch.Generator().manual_seed(0))
 assert bool(m['loss'].isfinite()) and state.applied == 1
+from hrfuser_tpu_torch.apis.flops import count_params
+from hrfuser_tpu_torch.tools import (get_flops, numerics_drift, print_config,
+                                     publish_model)
+assert count_params(det.model) > 0
+assert print_config.to_tree(exp)['model']['roi']['max_grid'] == 4
 import tempfile
 from hrfuser_tpu_torch.data.datasets.coco import CocoFusionDataset
 from hrfuser_tpu_torch.data.loader import DetDataLoader

@@ -7,7 +7,8 @@ thread answers /healthz, /predict and /predict_multi (uint16 sensor PNGs,
 dequantized on the device; none for a camera-only config; a grey PNG as
 one channel) with what `inference_detector` gives, a JPEG camera as the
 PNG of its decoded pixels, 404 for unknown paths and 400 for a JPEG mode
-the decoder refuses (progressive) or a body that is not JSON.
+the decoder refuses (progressive) or a body that is not JSON; `--input-hw`
+sets the grid of the warm-up call.
 """
 
 import base64
@@ -269,3 +270,33 @@ def test_requests_with_the_wrong_sensor_channels_raise(server):
                        'mods': [base64.b64encode(_png(mods[0])).decode()]})
     code, reply = _call(url + '/predict_multi', body.encode())
     assert code == 400 and 'sensor images' in reply['error']
+
+
+def test_serve_takes_input_hw(monkeypatch):
+    """`--input-hw H W` (the JAX server's init shape) is accepted: the
+    warm-up call runs `predict` on that grid, padded to /32."""
+    det = init_detector(NAME, 'cpu', seed=0)
+    shapes = []
+    real = type(det).__call__
+
+    def call(self, img, mods, *args):
+        shapes.append((tuple(img.shape), [tuple(m.shape) for m in mods]))
+        return real(self, img, mods, *args)
+    monkeypatch.setattr(type(det), '__call__', call)
+    assert serve.warm_up(det, (60, 90)) > 0
+    assert shapes == [((1, 64, 96, 3), [(1, 64, 96, 3)] * 2)]
+
+    class Stub:
+        warm_up_s = 0.0
+
+        def serve_forever(self):
+            pass
+
+        def server_close(self):
+            pass
+    seen = {}
+    monkeypatch.setattr(serve, 'init_detector', lambda *a, **k: det)
+    monkeypatch.setattr(serve, 'make_server', lambda d, host, port, hw: (
+        seen.update(hw=hw), Stub())[1])
+    serve.main([NAME, '--device', 'cpu', '--input-hw', '60', '90'])
+    assert seen['hw'] == [60, 90]
