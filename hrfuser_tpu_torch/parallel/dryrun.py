@@ -9,13 +9,15 @@ seed 0 as `init_detector` draws them. Each rank checks a finite loss and
 the joined batch's detections (`boxes.shape[0] == n`, finite scores);
 rank 0 prints its progress as the JAX dry run does.
 
-    python -m hrfuser_tpu_torch.parallel.dryrun --ranks 2 --device cpu
+    python -m hrfuser_tpu_torch.parallel.dryrun --ranks 2
     python -m hrfuser_tpu_torch.parallel.dryrun --ranks 2 --device cuda:0 \\
         --backend gloo          # two ranks sharing one card
+    python -m hrfuser_tpu_torch.parallel.dryrun --ranks 2 --device cpu
 
-`--device cpu` spawns `gloo` ranks on the CPU; `cuda` puts rank r on
-`cuda:r` (`nccl`), and `cuda:k` puts every rank on card k, which only
-`gloo` accepts.
+The default, `cuda`, puts rank r on `cuda:r` (`nccl`) and needs a card
+a rank: with fewer it raises before any rank starts, and never falls
+back to the CPU. `cuda:k` puts every rank on card k, which only `gloo`
+accepts; `--device cpu` spawns `gloo` ranks on the CPU.
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ def dryrun_batch(b: int) -> dict:
         gt_valid=np.ones((b, 2), bool))
 
 
-def dryrun_rank(rank, world_size, address, device='cpu', backend=None):
+def dryrun_rank(rank, world_size, address, device='cuda', backend=None):
     """One rank of the dry run; returns (loss, joined boxes' shape)."""
     from hrfuser_tpu_torch.apis.inference import Detector, init_weights_
     from hrfuser_tpu_torch.apis.train import create_train_state
@@ -104,16 +106,32 @@ def dryrun_rank(rank, world_size, address, device='cpu', backend=None):
         return loss, tuple(dets.boxes.shape)
 
 
-def dryrun(n: int, device='cpu', backend=None,
+def check_cards(n: int, device) -> None:
+    """Raise unless `device` can hold `n` ranks: `cuda` needs `n` cards
+    (rank r on `cuda:r`), `cuda:k` needs card k."""
+    device = torch.device(device)
+    if device.type != 'cuda':
+        return
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    need = n if device.index is None else device.index + 1
+    if have < need:
+        raise RuntimeError(
+            f'dry run on {device} with {n} ranks needs {need} CUDA '
+            f'device(s), {have} available; for ranks sharing one card pass '
+            f'--device cuda:0 --backend gloo, for the CPU --device cpu')
+
+
+def dryrun(n: int, device='cuda', backend=None,
            timeout_s: float = DEFAULT_TIMEOUT_S):
     """The dry run on `n` spawned ranks; rank 0's (loss, boxes' shape)."""
+    check_cards(n, device)
     return run_ranks(dryrun_rank, n, (device, backend), timeout_s)[0]
 
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     p.add_argument('--ranks', type=int, default=2)
-    p.add_argument('--device', default='cpu')
+    p.add_argument('--device', default='cuda')
     p.add_argument('--backend', default=None, choices=['nccl', 'gloo'])
     args = p.parse_args(argv)
     return dryrun(args.ranks, args.device, args.backend)

@@ -149,6 +149,26 @@ def test_clis_under_a_two_rank_launch(root, one_process, tmp_path):
 
 
 def test_two_rank_dryrun():
-    loss, shape = dryrun(2, timeout_s=DEADLINE_S)
+    loss, shape = dryrun(2, device='cpu', timeout_s=DEADLINE_S)
     assert np.isfinite(loss)
     assert shape == (2, 8, 4)
+
+
+def test_dryrun_defaults_to_the_card(monkeypatch):
+    """Left at its default the dry run asks for a card a rank; with none
+    it raises before spawning, naming the shared-card route, and never
+    runs its ranks on the CPU."""
+    import inspect
+
+    from hrfuser_tpu_torch.parallel import dryrun as module
+    for fn in (module.dryrun, module.dryrun_rank):
+        assert inspect.signature(fn).parameters['device'].default == 'cuda'
+    spawned = []
+    monkeypatch.setattr(module, 'run_ranks',
+                        lambda *a, **k: spawned.append(a))
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='--device cuda:0 --backend gloo'):
+        module.dryrun(2)
+    with pytest.raises(RuntimeError, match='--device cuda:0 --backend gloo'):
+        module.main(['--ranks', '2'])
+    assert spawned == []
