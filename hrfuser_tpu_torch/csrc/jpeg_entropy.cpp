@@ -1,6 +1,7 @@
 // Host half of the JPEG decoder: marker parsing and Huffman decoding of
 // baseline and extended sequential JPEG (SOF0, SOF1), 8-bit, 1 or 3
-// components. No JPEG library is linked.
+// components. No JPEG library is linked. The same tables also serve the
+// host half of the JPEG writer (hrf_jpeg_encode_scan, at the end).
 //
 // It turns a byte stream into each component's quantised DCT coefficients
 // (int16, natural order, [block rows, block cols, 64] over the
@@ -36,7 +37,10 @@
 //   hrf_jpeg_decode(data, n, out, out_len, err, errlen): out = every
 //     component's coefficients, one after the other, then ncomp x 64
 //     quantisation values (natural order); out_len counts int16 values.
-// Both return 0, or 1 with a message in err.
+//   hrf_jpeg_encode_scan(blocks, nmcu, per_mcu, comp, out, cap, written,
+//     err, errlen): Huffman-code one interleaved baseline scan with the
+//     standard tables of Annex K.3 (see there).
+// All return 0, or 1 with a message in err.
 
 #include <cstdint>
 #include <cstdio>
@@ -615,6 +619,104 @@ int report(const char* msg, char* err, int errlen) {
   return 1;
 }
 
+
+// -- the writer's entropy coder ---------------------------------------------
+
+// Huffman code and length of every symbol of a table (Annex C.2)
+struct HuffCodes {
+  uint16_t code[256] = {};
+  uint8_t len[256] = {};
+
+  explicit HuffCodes(const HuffSpec& spec) {
+    int p = 0;
+    uint32_t code_value = 0;
+    for (int l = 1; l <= 16; l++) {
+      for (int i = 0; i < spec.bits[l]; i++, p++) {
+        code[spec.vals[p]] = (uint16_t)code_value++;
+        len[spec.vals[p]] = (uint8_t)l;
+      }
+      code_value <<= 1;
+    }
+  }
+};
+
+// MSB-first bits into bytes, a 0x00 stuffed after each 0xFF (jchuff.c)
+struct BitWriter {
+  uint8_t* out;
+  long cap;
+  long n = 0;
+  uint64_t acc = 0;
+  int bits = 0;
+
+  void byte(uint8_t b) {
+    if (n + 2 > cap) fail("JPEG output buffer too small");
+    out[n++] = b;
+    if (b == 0xFF) out[n++] = 0;
+  }
+
+  void put(uint32_t value, int len) {
+    if (!len) return;
+    acc = (acc << len) | (value & ((1u << len) - 1));
+    bits += len;
+    while (bits >= 8) {
+      bits -= 8;
+      byte((uint8_t)(acc >> bits));
+    }
+    acc &= (1ull << bits) - 1;
+  }
+
+  // pad the last byte with one bits, as libjpeg's flush_bits does
+  void flush() {
+    if (bits) put(0x7F, 8 - bits);
+  }
+};
+
+// the magnitude category of a value (its bit count)
+int category(int v) {
+  int a = v < 0 ? -v : v, nbits = 0;
+  while (a) {
+    nbits++;
+    a >>= 1;
+  }
+  return nbits;
+}
+
+struct Encoder {
+  HuffCodes dc[2] = {HuffCodes(standard_table(false, 0)),
+                     HuffCodes(standard_table(false, 1))};
+  HuffCodes ac[2] = {HuffCodes(standard_table(true, 0)),
+                     HuffCodes(standard_table(true, 1))};
+
+  // one block in zigzag order (jchuff.c encode_one_block)
+  void block(BitWriter& w, const int16_t* zz, int& last_dc, int t) {
+    int diff = zz[0] - last_dc;
+    last_dc = zz[0];
+    int nbits = category(diff);
+    if (nbits > 11) fail("a DC difference out of range");
+    w.put(dc[t].code[nbits], dc[t].len[nbits]);
+    w.put(diff < 0 ? diff - 1 : diff, nbits);
+    int run = 0;
+    for (int k = 1; k < 64; k++) {
+      int v = zz[k];
+      if (!v) {
+        run++;
+        continue;
+      }
+      while (run > 15) {
+        w.put(ac[t].code[0xF0], ac[t].len[0xF0]);
+        run -= 16;
+      }
+      nbits = category(v);
+      if (nbits > 10) fail("an AC coefficient out of range");
+      int sym = (run << 4) + nbits;
+      w.put(ac[t].code[sym], ac[t].len[sym]);
+      w.put(v < 0 ? v - 1 : v, nbits);
+      run = 0;
+    }
+    if (run) w.put(ac[t].code[0], ac[t].len[0]);
+  }
+};
+
 }  // namespace
 
 extern "C" int hrf_jpeg_info(const uint8_t* data, long n, int* info,
@@ -663,5 +765,33 @@ extern "C" int hrf_jpeg_decode(const uint8_t* data, long n, int16_t* out,
     return 0;
   } catch (const Error& e) {
     return report(e.what(), err, errlen);
+  }
+}
+
+// One interleaved baseline scan: `blocks` holds nmcu * per_mcu blocks of
+// 64 quantised coefficients in zigzag order, MCU by MCU; comp[j] names
+// the component (0 luma, 1 and 2 chroma) of the MCU's j-th block, which
+// picks its DC predictor and its Annex K.3 table (luma or chroma). No
+// restart markers. Writes the entropy-coded bytes, stuffed and padded,
+// to out (cap bytes) and their count to *written.
+extern "C" int hrf_jpeg_encode_scan(const int16_t* blocks, long nmcu,
+                                    int per_mcu, const int* comp,
+                                    uint8_t* out, long cap, long* written,
+                                    char* err, int errlen) {
+  try {
+    Encoder e;
+    BitWriter w{out, cap};
+    int last_dc[3] = {0, 0, 0};
+    for (int j = 0; j < per_mcu; j++)
+      if (comp[j] < 0 || comp[j] > 2) fail("component index out of range");
+    for (long m = 0; m < nmcu; m++)
+      for (int j = 0; j < per_mcu; j++)
+        e.block(w, blocks + 64 * (m * per_mcu + j), last_dc[comp[j]],
+                comp[j] ? 1 : 0);
+    w.flush();
+    *written = w.n;
+    return 0;
+  } catch (const Error& ex) {
+    return report(ex.what(), err, errlen);
   }
 }

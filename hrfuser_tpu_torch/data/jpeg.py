@@ -1,5 +1,5 @@
-"""JPEG decoding without a JPEG library: Huffman on the host, pixels on
-the card.
+"""JPEG decoding and encoding without a JPEG library: Huffman on the
+host, pixels on the card.
 
 The port's JPEG decoder, in place of libjpeg (which the JAX package's
 loader links, `hrfuser_tpu/data/native.py`, and which `cv2` bundles):
@@ -31,6 +31,22 @@ keeps the SIMD code's answer, which is what the JAX package's decoder
 and `cv2` give (tests/test_torch_jpeg.py). Progressive, lossless,
 hierarchical, arithmetic-coded, 12-bit and 2- or 4-component files raise
 `JpegError` naming the mode.
+
+The writer, `imencode(img)` / `imwrite(path, img)`, gives the bytes
+`cv2.imencode('.jpg', img)` gives with its defaults (libjpeg-turbo:
+quality 95, 4:2:0, ISLOW, the standard Huffman tables): a JFIF 1.01
+APP0, the IJG quality scaling of the Annex K tables, SOF0 with Y 2x2 and
+Cb / Cr 1x1 (one 1x1 component for a grey image), the four Annex K.3
+Huffman tables, one interleaved scan, no restart markers. Its pixel
+stage runs as integer tensor ops on the image's device
+(`encode_blocks`): libjpeg's fixed-point RGB -> YCbCr (`jccolor.c`), the
+right and bottom edges replicated to whole MCUs (`jcprepct.c`, with the
+dummy blocks `jccoefct.c` makes), h2v2 downsampling with the
+alternating bias 1, 2 (`jcsample.c`), the ISLOW forward DCT
+(`jfdctint.c`) and libjpeg-turbo's reciprocal division by `q << 3`
+(`jcdctmgr.c`). Its entropy stage, DC differences, AC run lengths, byte
+stuffing and 1-bit padding, is `hrf_jpeg_encode_scan` in
+`csrc/jpeg_entropy.cpp`, on the host.
 
 The host library is built with `g++ -O3 -shared -fPIC` into `build/` at
 the repository root at first use, named by a hash of the source. Nothing
@@ -64,6 +80,9 @@ _SIGNATURES = {
                       ctypes.c_int],
     'hrf_jpeg_decode': [ctypes.c_char_p, ctypes.c_long, _P, ctypes.c_long,
                         ctypes.c_char_p, ctypes.c_int],
+    'hrf_jpeg_encode_scan': [_P, ctypes.c_long, ctypes.c_int, _P, _P,
+                             ctypes.c_long, _P, ctypes.c_char_p,
+                             ctypes.c_int],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -386,3 +405,270 @@ def decode_jpeg(data: bytes, device='cuda') -> Tensor:
     and the pixels are made there."""
     frame, coefs = decode_coefficients(data)
     return pixels(torch.from_numpy(coefs).to(device), frame)
+
+
+# -- the writer ---------------------------------------------------------------
+
+QUALITY = 95                      # cv2.IMWRITE_JPEG_QUALITY's default
+# natural (row-major) index of each zigzag position
+ZIGZAG = (0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19,
+          26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28, 35, 42, 49,
+          56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51, 58, 59, 52,
+          45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63)
+# Annex K.1's quantisation tables, natural order
+LUMA_Q = (16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+          14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+          18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113,
+          92, 49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100,
+          103, 99)
+CHROMA_Q = (17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+            24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99
+            ) + (99,) * 32
+# Annex K.3's Huffman tables as DHT bodies: class/id, 16 counts, symbols
+_DHT = (
+    bytes([0x00, 0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0,
+           *range(12)]),
+    bytes.fromhex(
+        '10000201030302040305050404000001'
+        '7d01020300041105122131410613516107227114328191a1082342b1c11552d1'
+        'f02433627282090a161718191a25262728292a3435363738393a434445464748'
+        '494a535455565758595a636465666768696a737475767778797a838485868788'
+        '898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4'
+        'c5c6c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7'
+        'f8f9fa'),
+    bytes([0x01, 0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0,
+           *range(12)]),
+    bytes.fromhex(
+        '11000201020404030407050404000102'
+        '770001020311040521310612415107617113223281081442'
+        '91a1b1c109233352f0156272d10a162434e125f11718191a262728292a353637'
+        '38393a434445464748494a535455565758595a636465666768696a7374757677'
+        '78797a82838485868788898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3'
+        'b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2e3e4e5e6e7e8'
+        'e9eaf2f3f4f5f6f7f8f9fa'))
+# libjpeg's FIX(x) of the RGB -> YCbCr weights (SCALEBITS 16)
+_FIX = {k: int(v * 65536 + 0.5) for k, v in (
+    ('0.299', 0.299), ('0.587', 0.587), ('0.114', 0.114),
+    ('0.16874', 0.16874), ('0.33126', 0.33126), ('0.5', 0.5),
+    ('0.41869', 0.41869), ('0.08131', 0.08131))}
+
+
+def quality_tables(quality: int = QUALITY) -> Tuple[np.ndarray, np.ndarray]:
+    """The IJG quality scaling of the Annex K tables (`jcparam.c`,
+    baseline: clamped to 1-255), luma and chroma, natural order."""
+    quality = min(max(int(quality), 1), 100)
+    scale = 5000 // quality if quality < 50 else 200 - quality * 2
+    return tuple(np.clip((np.asarray(t) * scale + 50) // 100, 1, 255)
+                 for t in (LUMA_Q, CHROMA_Q))
+
+
+def _reciprocals(quant: np.ndarray) -> np.ndarray:
+    """libjpeg-turbo's `compute_reciprocal` for the ISLOW divisors
+    `quant << 3` (16-bit DCTELEM): [3, 64] int64 of reciprocal,
+    correction and shift; x -> sign(x) * (((|x| + corr) * recip) >>
+    (shift + 16))."""
+    out = np.zeros((3, 64), np.int64)
+    for i, q in enumerate(np.asarray(quant).ravel()):
+        d = int(q) << 3
+        r = 16 + d.bit_length() - 1
+        fq, fr = divmod(1 << r, d)
+        c = d // 2
+        if fr == 0:
+            fq >>= 1
+            r -= 1
+        elif fr <= d // 2:
+            c += 1
+        else:
+            fq += 1
+        out[:, i] = fq, c, r - 16
+    return out
+
+
+def _descale(x: Tensor, n: int) -> Tensor:
+    return (x + (1 << (n - 1))) >> n
+
+
+def _fdct_1d(d, first: bool):
+    """One 8-point pass of `jfdctint.c` (CONST_BITS 13, PASS1_BITS 2):
+    rows (`first`, left scaled up by 4) or columns (scaled by 8 overall)."""
+    tmp0, tmp7 = d[0] + d[7], d[0] - d[7]
+    tmp1, tmp6 = d[1] + d[6], d[1] - d[6]
+    tmp2, tmp5 = d[2] + d[5], d[2] - d[5]
+    tmp3, tmp4 = d[3] + d[4], d[3] - d[4]
+    tmp10, tmp13 = tmp0 + tmp3, tmp0 - tmp3
+    tmp11, tmp12 = tmp1 + tmp2, tmp1 - tmp2
+    n = 11 if first else 15
+    o = [None] * 8
+    if first:
+        o[0], o[4] = (tmp10 + tmp11) << 2, (tmp10 - tmp11) << 2
+    else:
+        o[0], o[4] = _descale(tmp10 + tmp11, 2), _descale(tmp10 - tmp11, 2)
+    z1 = (tmp12 + tmp13) * 4433
+    o[2] = _descale(z1 + tmp13 * 6270, n)
+    o[6] = _descale(z1 - tmp12 * 15137, n)
+    z1, z2 = tmp4 + tmp7, tmp5 + tmp6
+    z3, z4 = tmp4 + tmp6, tmp5 + tmp7
+    z5 = (z3 + z4) * 9633
+    tmp4, tmp5, tmp6, tmp7 = (tmp4 * 2446, tmp5 * 16819, tmp6 * 25172,
+                              tmp7 * 12299)
+    z1, z2 = z1 * -7373, z2 * -20995
+    z3, z4 = z3 * -16069 + z5, z4 * -3196 + z5
+    o[7] = _descale(tmp4 + z1 + z3, n)
+    o[5] = _descale(tmp5 + z2 + z4, n)
+    o[3] = _descale(tmp6 + z2 + z3, n)
+    o[1] = _descale(tmp7 + z1 + z4, n)
+    return o
+
+
+def forward_dct(samples: Tensor) -> Tensor:
+    """ISLOW forward DCT of uint8 sample blocks [..., 8, 8] (centred on
+    128): int64 coefficients [..., 8, 8], scaled up by 8."""
+    x = samples.to(torch.int64) - 128
+    rows = torch.stack(_fdct_1d(x.unbind(-1), True), -1)
+    return torch.stack(_fdct_1d(rows.unbind(-2), False), -2)
+
+
+def quantize(coefs: Tensor, quant: np.ndarray) -> Tensor:
+    """Divide [..., 64] DCT coefficients (natural order) by `quant << 3`
+    as libjpeg-turbo does (`_reciprocals`): int64."""
+    recip, corr, shift = (torch.as_tensor(v, device=coefs.device)
+                          for v in _reciprocals(quant))
+    mag = ((coefs.abs() + corr) * recip) >> (shift + 16)
+    return torch.where(coefs < 0, -mag, mag)
+
+
+def _replicate(plane: Tensor, rows: int, cols: int) -> Tensor:
+    """`plane` grown to [rows, cols] by repeating its last row and
+    column (`expand_bottom_edge` / `expand_right_edge`)."""
+    h, w = plane.shape
+    r = torch.arange(rows, device=plane.device).clamp(max=h - 1)
+    c = torch.arange(cols, device=plane.device).clamp(max=w - 1)
+    return plane.index_select(0, r).index_select(1, c)
+
+
+def _blocks(plane: Tensor, quant: np.ndarray) -> Tensor:
+    """A padded sample plane [8R, 8C] -> quantised blocks [R, C, 64]."""
+    rows, cols = plane.shape[0] // 8, plane.shape[1] // 8
+    b = plane.reshape(rows, 8, cols, 8).transpose(1, 2)
+    return quantize(forward_dct(b).reshape(rows, cols, 64), quant)
+
+
+def encode_blocks(img: Tensor, quality: int = QUALITY):
+    """The pixel stage of `imencode` on `img`'s device: BGR uint8
+    [H, W, 3] (or grey [H, W]) -> (int16 [MCUs * per_mcu, 64] quantised
+    blocks in zigzag order, MCU by MCU; each MCU block's component).
+    Colour is 4:2:0: an MCU holds Y's 2x2 blocks, then Cb, then Cr."""
+    luma_q, chroma_q = quality_tables(quality)
+    h, w = img.shape[:2]
+    zigzag = torch.as_tensor(ZIGZAG, device=img.device)
+    if img.dim() == 2:
+        y = _replicate(img, -(-h // 8) * 8, -(-w // 8) * 8)
+        blocks = _blocks(y, luma_q).reshape(-1, 64)
+        return blocks[:, zigzag].to(torch.int16), (0,)
+    px = img.to(torch.int64)
+    b, g, r = px[..., 0], px[..., 1], px[..., 2]
+    f = _FIX
+    half, offset = 1 << 15, 128 << 16
+    planes = [
+        (f['0.299'] * r + f['0.587'] * g + f['0.114'] * b + half) >> 16,
+        (-f['0.16874'] * r - f['0.33126'] * g + f['0.5'] * b + offset
+         + half - 1) >> 16,
+        (f['0.5'] * r - f['0.41869'] * g - f['0.08131'] * b + offset
+         + half - 1) >> 16]
+    mrows, mcols = -(-h // 16), -(-w // 16)
+    # luma: real blocks over its own grid, then the MCU grid's dummies
+    hb, wb = -(-h // 8), -(-w // 8)
+    lum = _blocks(_replicate(planes[0], hb * 8, wb * 8), luma_q)
+    grid = torch.zeros((2 * mrows, 2 * mcols, 64), dtype=torch.int64,
+                       device=img.device)
+    grid[:hb, :wb] = lum
+    if wb % 2:                  # right dummies: DC of the block to the left
+        grid[:hb, wb, 0] = grid[:hb, wb - 1, 0]
+    if hb % 2:                  # bottom dummies: DC of the MCU's top right
+        grid[hb, :, 0] = grid[hb - 1, 1::2, 0].repeat_interleave(2)
+    # chroma: the input edge-replicated to whole 2x2 pairs and MCU width,
+    # summed in pairs with the bias 1, 2, 1, 2 along the row, then its
+    # last row repeated to the MCU height
+    bias = 1 + torch.arange(mcols * 8, device=img.device) % 2
+    chroma = []
+    for plane in planes[1:]:
+        p = _replicate(plane, -(-h // 2) * 2, mcols * 16)
+        s = p.reshape(p.shape[0] // 2, 2, mcols * 8, 2).sum((1, 3))
+        sub = _replicate((s + bias) >> 2, mrows * 8, mcols * 8)
+        chroma.append(_blocks(sub, chroma_q))
+    mcu = torch.cat([
+        grid.reshape(mrows, 2, mcols, 2, 64).permute(0, 2, 1, 3, 4).reshape(
+            mrows, mcols, 4, 64),
+        chroma[0][:, :, None], chroma[1][:, :, None]], 2)
+    blocks = mcu.reshape(-1, 64)[:, zigzag]
+    return blocks.to(torch.int16), (0, 0, 0, 0, 1, 2)
+
+
+def _segment(marker: int, body: bytes) -> bytes:
+    return bytes([0xFF, marker]) + (len(body) + 2).to_bytes(2, 'big') + body
+
+
+def headers(height: int, width: int, grey: bool,
+            quality: int = QUALITY) -> bytes:
+    """SOI through SOS, as libjpeg writes them for `cv2.imwrite`."""
+    luma_q, chroma_q = quality_tables(quality)
+    zz = list(ZIGZAG)
+    out = b'\xff\xd8' + _segment(0xE0, b'JFIF\x00\x01\x01\x00\x00\x01\x00'
+                                 b'\x01\x00\x00')
+    tables = [luma_q] if grey else [luma_q, chroma_q]
+    for i, t in enumerate(tables):
+        out += _segment(0xDB, bytes([i]) + bytes(int(v) for v in t[zz]))
+    comps = [(1, 0x11, 0)] if grey else [(1, 0x22, 0), (2, 0x11, 1),
+                                        (3, 0x11, 1)]
+    frame = bytes([8]) + height.to_bytes(2, 'big') + width.to_bytes(2, 'big')
+    frame += bytes([len(comps)]) + b''.join(bytes(c) for c in comps)
+    out += _segment(0xC0, frame)
+    for body in _DHT[:2 if grey else 4]:
+        out += _segment(0xC4, body)
+    scan = bytes([len(comps)]) + b''.join(
+        bytes([c[0], 0x00 if c[2] == 0 else 0x11]) for c in comps)
+    return out + _segment(0xDA, scan + b'\x00\x3f\x00')
+
+
+def encode_scan(blocks: np.ndarray, comps) -> bytes:
+    """The entropy-coded segment of int16 zigzag blocks [n, 64], MCU by
+    MCU (`comps[j]`: the component of an MCU's j-th block), on the host."""
+    blocks = np.ascontiguousarray(blocks, np.int16)
+    per_mcu = len(comps)
+    comp = (ctypes.c_int * per_mcu)(*comps)
+    cap = 420 * len(blocks) + 64
+    out = np.empty(cap, np.uint8)
+    written = ctypes.c_long(0)
+    err = ctypes.create_string_buffer(256)
+    if lib().hrf_jpeg_encode_scan(blocks.ctypes.data,
+                                  len(blocks) // per_mcu, per_mcu, comp,
+                                  out.ctypes.data, cap,
+                                  ctypes.byref(written), err, len(err)):
+        raise JpegError(_error(err))
+    return out[:written.value].tobytes()
+
+
+def imencode(img, quality: int = QUALITY, device='cuda') -> bytes:
+    """JPEG bytes of a uint8 BGR [H, W, 3] or grey [H, W] image, equal to
+    `cv2.imencode('.jpg', img)[1]` (tests/test_torch_jpeg_encode.py). A
+    tensor's pixels are coded on its device, an array's on `device`; the
+    blocks come back in one copy and are Huffman-coded here."""
+    if not isinstance(img, Tensor):
+        img = torch.from_numpy(np.ascontiguousarray(img)).to(device)
+    if img.dtype != torch.uint8 or not (
+            img.dim() == 2 or (img.dim() == 3 and img.shape[2] == 3)):
+        raise ValueError(f'JPEG encodes uint8 [H, W] or [H, W, 3], not '
+                         f'{img.dtype} {list(img.shape)}')
+    h, w = img.shape[:2]
+    if not (0 < h < 65536 and 0 < w < 65536):
+        raise ValueError(f'a JPEG frame of {h}x{w}')
+    blocks, comps = encode_blocks(img, quality)
+    return (headers(h, w, img.dim() == 2, quality)
+            + encode_scan(blocks.cpu().numpy(), comps) + b'\xff\xd9')
+
+
+def imwrite(path: str, img, quality: int = QUALITY, device='cuda') -> None:
+    """Write `imencode(img)` to `path` (as `cv2.imwrite` of a .jpg)."""
+    data = imencode(img, quality, device)
+    with open(path, 'wb') as f:
+        f.write(data)

@@ -18,7 +18,10 @@ for 8- and 16-bit grey, RGB and RGBA files), JPEG through `data/jpeg.py`
 `cv2.imread` and the JAX package's libjpeg decoder), TIFF (the STF gated
 raw frames, read unchanged) through `data/tiff.py`. `imdecode` reads a
 camera payload, JPEG or PNG by its first bytes. Nothing falls back to
-another decoder: a file neither can read raises.
+another decoder: a file neither can read raises. `imwrite` picks the
+encoder by the extension, as `cv2.imwrite` does: JPEG through
+`data/jpeg.py` (pixels on the image's device, bytes equal to `cv2`'s),
+PNG through `data/png.py`.
 """
 
 from __future__ import annotations
@@ -102,6 +105,23 @@ def imdecode(data: bytes, device='cuda') -> torch.Tensor:
     if data[:8] == png.SIGNATURE:
         return torch.from_numpy(png.imdecode(data)).to(device)
     raise ValueError('not a JPEG or PNG payload')
+
+
+def imwrite(path: str, img, device='cuda') -> None:
+    """`cv2.imwrite(path, img)` for a .jpg / .jpeg (`jpeg.imwrite`, the
+    pixels coded on a tensor's device or on `device`) or a .png
+    (`png.imwrite`, on the host) file; uint8 [H, W] or BGR [H, W, 3], or
+    uint16 for PNG."""
+    lower = path.lower()
+    if lower.endswith(('.jpg', '.jpeg')):
+        jpeg.imwrite(path, img, device=device)
+    elif lower.endswith('.png'):
+        if isinstance(img, torch.Tensor):
+            img = img.cpu().numpy()
+        png.imwrite(path, img)
+    else:
+        raise ValueError(f'{path}: only .jpg, .jpeg and .png files are '
+                         f'written')
 
 
 class LoadImageFromFile:

@@ -7,10 +7,28 @@ frames; the published `cam_stereo_left_lut` images come from (1) a
 piecewise-linear decompanding LUT to 16-bit linear, (2) a day/night
 tone-mapping LUT, (3) Bayer demosaic + 8-bit shift + CLAHE +
 rectification. The LUTs are built on the host in numpy, as in JAX;
-`decompand_image` applies one by a gather on the image's device. Step
-3 (`raw_to_lut8`, `gated_raw_to_lut8`) needs a Bayer demosaic, a LAB
-conversion and CLAHE bit-exact to `cv2`'s, which the port does not have
-yet (ROADMAP §1, "The 8-bit LUT renderings"): both raise.
+`decompand_image` applies one by a gather on the image's device.
+
+Step 3 (`raw_to_lut8`, `gated_raw_to_lut8`, minus rectification as in
+JAX) runs as integer and float32 tensor ops on the image's device, each
+routine equal bit for bit to the `cv2` call JAX makes, as measured
+against the sandbox's `cv2` 5.0 (`tests/test_torch_stf_lut8.py`; no
+`cv2` source was consulted):
+  * `bayer_gb_to_bgr` = `cvtColor(raw, COLOR_BAYER_GB2BGR)` on uint16,
+    its bilinear demosaic: green on even (row + column), blue on odd
+    rows; `(a + b + 1) >> 1` and `(a + b + c + d + 2) >> 2` averages; the
+    border copies its inner neighbour (columns, then rows).
+  * `bgr_to_lab` / `lab_to_bgr` = `COLOR_BGR2LAB` / `COLOR_LAB2BGR` on
+    uint8, `cv2`'s fixed-point paths: the sRGB gamma table, the
+    cube-root table (2^15 scale), the D65 matrices at 2^12, and back
+    through fixed-point L -> (Y, f(Y)) and a/b -> X, Z tables at 2^14
+    and a 4096-entry inverse gamma table; both hold on all 2^24 inputs.
+  * `clahe(img, clip)` = `createCLAHE(clip, (8, 8)).apply(img)`: tile
+    histograms (BORDER_REFLECT_101 padding of both sides when either is
+    not a multiple of 8), the clip limit `max(int(clip * area / 256),
+    1)`, the excess spread as `cv2` spreads it, a float32 LUT scale, and
+    bilinear interpolation between tile LUTs in float32, one rounding an
+    operation, as `cv2`'s SSE build computes it (no fused multiply-add).
 
 The kneepoint tables are sensor facts from the reference
 (`process.py:23-36`, `decompand.py` usage).
@@ -108,17 +126,254 @@ def decompand_image(raw: torch.Tensor) -> torch.Tensor:
     return lut[idx.long()]
 
 
-LUT8_NOT_PORTED = (
-    '8-bit LUT images need a Bayer demosaic, a LAB conversion and CLAHE '
-    'bit-exact to cv2, not ported yet (ROADMAP section 1, "The 8-bit LUT '
-    'renderings": raw_to_lut8 / gated_raw_to_lut8 / --lut8)')
+def _as_int32(img, device) -> torch.Tensor:
+    """An image as int32 on its device (a numpy array on `device`); int16
+    is read as the bits of uint16."""
+    if not isinstance(img, torch.Tensor):
+        arr = np.asarray(img)
+        return torch.from_numpy(arr.astype(np.int32)).to(device)
+    out = img.to(torch.int32)
+    return out & 0xFFFF if img.dtype == torch.int16 else out
 
 
-def raw_to_lut8(raw_bayer, daytime: bool):
-    """Raw 12-bit Bayer frame -> 8-bit BGR LUT image: not ported."""
-    raise NotImplementedError(LUT8_NOT_PORTED)
+def _lut(table: np.ndarray, idx: torch.Tensor) -> torch.Tensor:
+    """table[idx] on idx's device, int32; an index outside the table
+    raises."""
+    if idx.numel() and not 0 <= int(idx.min()) <= int(idx.max()) < len(
+            table):
+        raise ValueError(f'values {int(idx.min())}..{int(idx.max())} index '
+                         f'a table of {len(table)} entries')
+    t = torch.from_numpy(np.asarray(table).astype(np.int32)).to(idx.device)
+    return t[idx.long()]
 
 
-def gated_raw_to_lut8(raw):
-    """Raw 10-bit gated frame -> 8-bit grey LUT image: not ported."""
-    raise NotImplementedError(LUT8_NOT_PORTED)
+# -- CLAHE ------------------------------------------------------------------
+
+def _reflect101(n: int, size: int) -> np.ndarray:
+    """Indices 0..n-1 of a BORDER_REFLECT_101 extension of `size`."""
+    idx = np.arange(n)
+    if size == 1:
+        return np.zeros(n, np.int64)
+    period = 2 * (size - 1)
+    idx = idx % period
+    return np.where(idx < size, idx, period - idx)
+
+
+def clahe(img, clip_limit: float, tiles=(8, 8), device='cuda'
+          ) -> torch.Tensor:
+    """`cv2.createCLAHE(clip_limit, tiles).apply(img)` for a uint8 [H, W]
+    image, as uint8 on the image's device (see the module docstring)."""
+    src = _as_int32(img, device)
+    h, w = src.shape
+    tx, ty = tiles
+    if h % ty or w % tx:
+        rows = _reflect101(h + ty - h % ty, h)
+        cols = _reflect101(w + tx - w % tx, w)
+        padded = src[torch.as_tensor(rows, device=src.device)][
+            :, torch.as_tensor(cols, device=src.device)]
+    else:
+        padded = src
+    th, tw = padded.shape[0] // ty, padded.shape[1] // tx
+    area = th * tw
+    limit = max(int(clip_limit * area / 256), 1) if clip_limit > 0 else 0
+    # one 256-bin histogram a tile
+    by_tile = (padded.reshape(ty, th, tx, tw).permute(0, 2, 1, 3)
+               .reshape(ty * tx, area))
+    offsets = torch.arange(ty * tx, device=src.device)[:, None] * 256
+    hist = torch.bincount((by_tile + offsets).reshape(-1),
+                          minlength=ty * tx * 256).reshape(ty * tx, 256)
+    if limit:
+        excess = (hist - limit).clamp(min=0).sum(1, keepdim=True)
+        hist = hist.clamp(max=limit) + excess // 256
+        residual = excess % 256
+        step = (256 // residual.clamp(min=1)).clamp(min=1)
+        bins = torch.arange(256, device=src.device)[None]
+        hist = hist + ((residual > 0) & (bins % step == 0)
+                       & (bins // step < residual)).to(hist.dtype)
+    scale = torch.tensor(np.float32(255) / np.float32(area),
+                         device=src.device)
+    luts = torch.round(hist.cumsum(1).to(torch.float32) * scale).clamp(
+        0, 255).reshape(ty, tx, 256)
+
+    def coords(n, size, tiles_n):
+        inv = torch.tensor(np.float32(1) / np.float32(size),
+                           device=src.device)
+        f = torch.arange(n, device=src.device, dtype=torch.float32) * inv \
+            - 0.5
+        lo = torch.floor(f)
+        frac = f - lo
+        lo = lo.to(torch.int64)
+        return lo.clamp(min=0), (lo + 1).clamp(max=tiles_n - 1), frac, \
+            1 - frac
+
+    y1, y2, ya, ya1 = coords(h, th, ty)
+    x1, x2, xa, xa1 = coords(w, tw, tx)
+    v = src.long()
+
+    def at(ys, xs):
+        return luts[ys[:, None], xs[None, :], v]
+
+    res = ((at(y1, x1) * xa1 + at(y1, x2) * xa) * ya1[:, None]
+           + (at(y2, x1) * xa1 + at(y2, x2) * xa) * ya[:, None])
+    return torch.round(res).clamp(0, 255).to(torch.uint8)
+
+
+# -- Bayer demosaic -----------------------------------------------------------
+
+def bayer_gb_to_bgr(raw, device='cuda') -> torch.Tensor:
+    """`cv2.cvtColor(raw, COLOR_BAYER_GB2BGR)` of a Bayer frame [H, W]
+    (uint16 values; int16 tensors are read as their bits), as int32
+    [H, W, 3] on its device. H and W are at least 3."""
+    s = _as_int32(raw, device)
+    h, w = s.shape
+    if h < 3 or w < 3:
+        raise ValueError(f'a Bayer frame of {h}x{w}: at least 3x3')
+    c = s[1:-1, 1:-1]
+    up, down, left, right = s[:-2, 1:-1], s[2:, 1:-1], s[1:-1, :-2], \
+        s[1:-1, 2:]
+    cross = (up + down + left + right + 2) >> 2
+    diag = (s[:-2, :-2] + s[:-2, 2:] + s[2:, :-2] + s[2:, 2:] + 2) >> 2
+    vert = (up + down + 1) >> 1
+    hor = (left + right + 1) >> 1
+    yy = torch.arange(1, h - 1, device=s.device)[:, None]
+    xx = torch.arange(1, w - 1, device=s.device)[None, :]
+    green = (yy + xx) % 2 == 0
+    blue_row = yy % 2 == 1
+    b = torch.where(green, torch.where(blue_row, hor, vert),
+                    torch.where(blue_row, c, diag))
+    r = torch.where(green, torch.where(blue_row, vert, hor),
+                    torch.where(blue_row, diag, c))
+    g = torch.where(green, c, cross)
+    inner = torch.stack([b, g, r], -1)
+    rows = torch.cat([inner[:, :1], inner, inner[:, -1:]], 1)
+    return torch.cat([rows[:1], rows, rows[-1:]], 0)
+
+
+# -- Lab ----------------------------------------------------------------------
+
+_LAB = {}
+
+
+def _srgb(x: np.ndarray) -> np.ndarray:
+    return np.where(x <= 0.04045, x / 12.92, ((x + 0.055) / 1.055) ** 2.4)
+
+
+def _srgb_inv(x: np.ndarray) -> np.ndarray:
+    return np.where(x <= 0.0031308, x * 12.92,
+                    1.055 * x ** (1 / 2.4) - 0.055)
+
+
+# sRGB (D65) <-> XYZ and the D65 white point
+RGB2XYZ = np.array([[0.412453, 0.357580, 0.180423],
+                    [0.212671, 0.715160, 0.072169],
+                    [0.019334, 0.119193, 0.950227]])
+XYZ2RGB = np.array([[3.240479, -1.53715, -0.498535],
+                    [-0.969256, 1.875991, 0.041556],
+                    [0.055648, -0.204043, 1.057311]])
+D65 = np.array([0.950456, 1.0, 1.088754])
+# cube-root table entries that `cv2` rounds the other way (its float32
+# evaluation lands on .5), found by comparing all 2^24 colours
+_CBRT_FIXES = {49: -1, 628: 1}
+
+
+def lab_tables() -> dict:
+    """The fixed-point tables of `bgr_to_lab` / `lab_to_bgr` (host)."""
+    if _LAB:
+        return _LAB
+    i = np.arange(256)
+    _LAB['gamma'] = np.round(255 * 8 * _srgb(i / 255)).astype(np.int64)
+    x = np.arange(256 * 3 // 2 * 8) / (255 * 8)
+    cbrt = np.round(2 ** 15 * np.where(x < 216 / 24389,
+                                       x * 841 / 108 + 16 / 116,
+                                       np.cbrt(x))).astype(np.int64)
+    for k, d in _CBRT_FIXES.items():
+        cbrt[k] += d
+    _LAB['cbrt'] = cbrt
+    _LAB['to_xyz'] = np.round(4096 * RGB2XYZ / D65[:, None]).astype(
+        np.int64)
+    # back: L -> (Y, f(Y)) at 2^14, a/b -> X, Z at 2^14, XYZ -> RGB at 2^12
+    base = 1 << 14
+    li = i * 100 / 255
+    small = li <= 8
+    y_lin = li / 903.3
+    fy = (li + 16) / 116
+    _LAB['y'] = np.round(base * np.where(small, y_lin, fy ** 3)).astype(
+        np.int64)
+    _LAB['fy'] = np.round(base * np.where(
+        small, 7.787 * y_lin + 16 / 116, fy)).astype(np.int64)
+    v = np.arange(base * 9 // 4) + _AB_MIN
+    _LAB['xz'] = np.where(v <= 3390, np.trunc(v * 108 / 841) - 290,
+                          (((v * v) >> 14) * v) >> 14).astype(np.int64)
+    _LAB['to_rgb'] = np.round(4096 * XYZ2RGB * D65[None, :]).astype(
+        np.int64)
+    _LAB['inv_gamma'] = np.round(255 * _srgb_inv(np.arange(4096) / 4096)
+                                 ).astype(np.int64)
+    return _LAB
+
+
+_AB_MIN = -8145
+
+
+def _descale(x: torch.Tensor, n: int) -> torch.Tensor:
+    return (x + (1 << (n - 1))) >> n
+
+
+def bgr_to_lab(img, device='cuda') -> torch.Tensor:
+    """`cv2.cvtColor(img, COLOR_BGR2LAB)` of uint8 BGR [H, W, 3]: uint8
+    Lab (L * 255 / 100, a + 128, b + 128) on the image's device."""
+    t = lab_tables()
+    px = _as_int32(img, device)
+    b, g, r = (_lut(t['gamma'], px[..., k]) for k in range(3))
+    m = t['to_xyz']
+    f = [_lut(t['cbrt'], _descale(r * int(m[k, 0]) + g * int(m[k, 1])
+                                  + b * int(m[k, 2]), 12)) for k in range(3)]
+    lightness = _descale(296 * f[1] - 1336934, 15)
+    a = _descale(500 * (f[0] - f[1]) + (128 << 15), 15)
+    bb = _descale(200 * (f[1] - f[2]) + (128 << 15), 15)
+    return torch.stack([lightness, a, bb], -1).clamp(0, 255).to(torch.uint8)
+
+
+def lab_to_bgr(lab, device='cuda') -> torch.Tensor:
+    """`cv2.cvtColor(lab, COLOR_LAB2BGR)` of uint8 Lab [H, W, 3]: uint8
+    BGR on the image's device."""
+    t = lab_tables()
+    px = _as_int32(lab, device).long()
+    lightness, a, b = px[..., 0], px[..., 1], px[..., 2]
+    y = _lut(t['y'], lightness).long()
+    fy = _lut(t['fy'], lightness).long()
+    adiv = ((5 * a * 53687 + (1 << 7)) >> 13) - 4194
+    bdiv = ((b * 41943 + (1 << 4)) >> 9) - 10484
+    x = _lut(t['xz'], fy + adiv - _AB_MIN).long()
+    z = _lut(t['xz'], fy - bdiv - _AB_MIN).long()
+    m = t['to_rgb']
+    out = [_lut(t['inv_gamma'], _descale(
+        x * int(m[k, 0]) + y * int(m[k, 1]) + z * int(m[k, 2]), 14
+    ).clamp(0, 4095)) for k in (2, 1, 0)]
+    return torch.stack(out, -1).to(torch.uint8)
+
+
+# -- the 8-bit LUT images -------------------------------------------------------
+
+def raw_to_lut8(raw_bayer, daytime: bool, device='cuda') -> torch.Tensor:
+    """Raw 12-bit Bayer frame [H, W] -> 8-bit BGR LUT image [H, W, 3]
+    uint8 on its device (`Rectify_image.process_lut`, minus rectification
+    which needs the per-camera calib): decompand, day or night tone LUT,
+    GB demosaic, >> 8, Lab, CLAHE 2.0 on L and 0.5 on a and b, back to
+    BGR."""
+    tabs = luts()
+    lin = _lut(tabs['decompand'], _as_int32(raw_bayer, device))
+    toned = _lut(tabs['daytime'] if daytime else tabs['nighttime'], lin)
+    img8 = (bayer_gb_to_bgr(toned) >> 8).to(torch.uint8)
+    lab = bgr_to_lab(img8)
+    lab = torch.stack([clahe(lab[..., 0], 2.0), clahe(lab[..., 1], 0.5),
+                       clahe(lab[..., 2], 0.5)], -1)
+    return lab_to_bgr(lab)
+
+
+def gated_raw_to_lut8(raw, device='cuda') -> torch.Tensor:
+    """Raw 10-bit gated frame [H, W] -> 8-bit grey LUT image [H, W]
+    uint8 on its device (`process_rect_lut_gated8`, minus rectification):
+    gated tone LUT, >> 2, CLAHE 2.0 with 8x8 tiles."""
+    img = (_lut(luts()['gated'], _as_int32(raw, device)) >> 2).to(
+        torch.uint8)
+    return clahe(img, 2.0)

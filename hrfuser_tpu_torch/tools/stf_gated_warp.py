@@ -9,11 +9,14 @@ bilinearly to 1024x1920 by `data/device_pipeline.resize_image`) and
 ego-motion compensation (vehicle speed and steering heading times each
 slice's capture delay), max-accumulated, truncated to uint16 and written
 as grey PNGs to `gated_acc_wraped_grey/` at the reference's RGB crop
-(768x1280 at (202, 280)). `--lut8` (8-bit tone-mapped slices) is not
-ported yet and raises.
+(768x1280 at (202, 280)). With `--lut8` each slice is first tone-mapped
+to 8 bits on the card (`data/stf_lut.gated_raw_to_lut8`: gated LUT,
+>> 2, CLAHE 2.0), and the warp is truncated to uint8 (as the JAX tool's
+`astype(np.uint8)`).
 
     python -m hrfuser_tpu_torch.tools.stf_gated_warp --root data/dense \\
-        --split splits/all.txt --depth-folder cam_stereo_sgm [--device cpu]
+        --split splits/all.txt --depth-folder cam_stereo_sgm [--lut8] \\
+        [--device cpu]
 
 It runs on the card unless `--device cpu` is given.
 """
@@ -35,7 +38,7 @@ from hrfuser_tpu_torch.data.gated_warp import (disparity_to_depth,
                                                inverse_depth_warp)
 from hrfuser_tpu_torch.data.pipelines.loading import imread
 from hrfuser_tpu_torch.data.stf_io import load_calib, load_split
-from hrfuser_tpu_torch.data.stf_lut import LUT8_NOT_PORTED
+from hrfuser_tpu_torch.data.stf_lut import gated_raw_to_lut8
 from hrfuser_tpu_torch.tools import resolve_device
 
 GATED_SLICES = ('gated0', 'gated1', 'gated2')
@@ -72,11 +75,9 @@ def _slice_delays(root: str, frame: str):
 
 def warp_frame(root: str, frame: str, depth_folder: str,
                use_lut8: bool = False, device='cuda') -> np.ndarray:
-    """Warp + accumulate one frame's gated slices: the uint16 grey image
-    [768, 1280] at the RGB crop."""
+    """Warp + accumulate one frame's gated slices: the grey image
+    [768, 1280] at the RGB crop, uint16 (uint8 with `use_lut8`)."""
     device = resolve_device(device)
-    if use_lut8:
-        raise NotImplementedError(LUT8_NOT_PORTED)
     k_rgb, t_velo_to_rgb = load_calib(
         root, camera_calib='calib_cam_stereo_left.json')
     k_gated, t_velo_to_gated = load_calib(
@@ -103,15 +104,19 @@ def warp_frame(root: str, frame: str, depth_folder: str,
 
     acc = None
     for g in GATED_SLICES:
-        raw = imread(osp.join(root, f'{g}_raw', frame + '.tiff'),
-                     'unchanged')
+        raw = torch.from_numpy(imread(
+            osp.join(root, f'{g}_raw', frame + '.tiff'),
+            'unchanged').astype(np.int32)).to(device)
+        img = gated_raw_to_lut8(raw) if use_lut8 else raw
         out = inverse_depth_warp(
-            torch.from_numpy(raw.astype(np.int32)).to(device), depth,
+            img, depth,
             k_gated, k_rgb, t_rgb_to_gated,
             ego_offset=ego_motion_offset(speed, steer, delays[g]))[..., 0]
         acc = out if acc is None else torch.maximum(acc, out)
-    acc = acc[CROP[0]:CROP[1], CROP[2]:CROP[3]].to(torch.int32)
-    return acc.cpu().numpy().astype(np.uint16)
+    acc = acc[CROP[0]:CROP[1], CROP[2]:CROP[3]]
+    if use_lut8:
+        return acc.to(torch.uint8).cpu().numpy()
+    return acc.to(torch.int32).cpu().numpy().astype(np.uint16)
 
 
 def parse_args(argv=None):
@@ -123,8 +128,7 @@ def parse_args(argv=None):
                     choices=['cam_stereo_sgm', 'psmnet_sweden'])
     ap.add_argument('--out-folder', default='gated_acc_wraped_grey')
     ap.add_argument('--lut8', action='store_true',
-                    help='tone-map slices to 8-bit before warping (not '
-                         'ported: raises)')
+                    help='tone-map slices to 8-bit before warping')
     ap.add_argument('--device', default='cuda')
     return ap.parse_args(argv)
 

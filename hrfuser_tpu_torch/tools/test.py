@@ -36,8 +36,17 @@ each rank joins the data-parallel group (`nccl` on the card, `gloo` with
 every batch, the batch defaults to the world size (`tools/test.py:112`
 in JAX), and every rank evaluates the collected results; `--synthetic`
 runs `parallel.api.make_sharded_predict` on the joined batch. Rank 0
-alone prints the metrics and writes `--out`. Not ported: `--show-dir`
-(the JAX CLI draws with `cv2`).
+alone prints the metrics and writes `--out`.
+
+`--show-dir DIR` (`tools/test.py:141-165`): after evaluation each
+result's original image (`meta['filename']`, under the dataset's
+`img_prefix` or `--data-root`) is read again, its detections scoring at
+least `--show-score-thr` are drawn on it on the card
+(`utils/visualization.draw_detections`), and it is written under its
+own basename, a JPEG for nuScenes' `.jpg` frames and a PNG for STF's
+(`data/pipelines/loading.imwrite`, the JPEG's pixels coded on the card).
+A result without a filename or with an unreadable file is skipped.
+Under `torchrun` rank 0 alone writes: every rank holds every result.
 """
 
 from __future__ import annotations
@@ -70,7 +79,42 @@ def parse_args(argv=None):
                    help='comma-separated metrics: bbox and/or '
                         'proposal_fast (reference --eval; '
                         '`mmdet/datasets/coco.py:331-351,485-486`)')
+    p.add_argument('--show-dir', default=None,
+                   help='render detections onto the original images and '
+                        'write them here (reference --show-dir)')
+    p.add_argument('--show-score-thr', type=float, default=0.3)
     return p.parse_args(argv)
+
+
+def show_results(results, dataset, classes, show_dir: str, data_root: str,
+                 score_thr: float = 0.3, device='cuda') -> int:
+    """Draw each result's detections on its original image and write it
+    to `show_dir` under the image's basename; returns the count written
+    (the JAX CLI's `--show-dir` loop)."""
+    import os
+    import os.path as osp
+
+    from hrfuser_tpu_torch.data.pipelines.loading import imread, imwrite
+    from hrfuser_tpu_torch.utils.visualization import draw_detections
+
+    os.makedirs(show_dir, exist_ok=True)
+    prefix = getattr(dataset, 'img_prefix', data_root)
+    drawn = 0
+    for r in results:
+        fname = (r['meta'] or {}).get('filename')
+        if not fname:
+            continue
+        path = fname if osp.isabs(fname) else osp.join(prefix, fname)
+        try:
+            img = imread(path, 'color', device=device)
+        except (OSError, ValueError):
+            continue
+        vis = draw_detections(img, r['boxes'], r['labels'], r['scores'],
+                              class_names=classes, score_thr=score_thr,
+                              device=device)
+        imwrite(osp.join(show_dir, osp.basename(fname)), vis, device=device)
+        drawn += 1
+    return drawn
 
 
 def evaluate_dataset(args, group=None):
@@ -113,6 +157,10 @@ def evaluate_dataset(args, group=None):
     if args.out and rank == 0:
         with open(args.out, 'w') as f:
             json.dump(metrics, f, indent=2)
+    if args.show_dir and rank == 0:
+        n = show_results(results, dataset, exp.data.classes, args.show_dir,
+                         args.data_root, args.show_score_thr, device)
+        say(f'[show] wrote {n} visualizations to {args.show_dir}')
     return metrics
 
 

@@ -22,6 +22,7 @@ Tolerances, measured here:
 """
 
 import importlib.util
+import os
 from pathlib import Path
 
 import cv2
@@ -264,19 +265,20 @@ def _jax_tool():
 def test_warp_frame_equals_the_jax_tool(tmp_path):
     """One frame at full size: three 720x1280 slices (uncompressed TIFFs,
     which both `cv2` and `data/tiff.py` read), a 1024x1920 disparity; the
-    768x1280 crop equal to the JAX CLI's."""
+    768x1280 crop equal to the JAX CLI's, from the raw slices (uint16)
+    and from their 8-bit LUT images (`--lut8`, uint8)."""
     rng = np.random.default_rng(5)
     write_gated_frame(str(tmp_path), 'f_00001', rng)
-    want = _jax_tool().warp_frame(str(tmp_path), 'f_00001', 'cam_stereo_sgm')
-    got = stf_gated_warp.warp_frame(str(tmp_path), 'f_00001',
-                                    'cam_stereo_sgm', device='cpu')
-    assert got.dtype == np.uint16 and got.shape == (768, 1280)
-    np.testing.assert_array_equal(got, want)
-    assert (want > 0).mean() > 0.8
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        stf_gated_warp.warp_frame(str(tmp_path), 'f_00001',
-                                  'cam_stereo_sgm', use_lut8=True,
-                                  device='cpu')
+    jax_tool = _jax_tool()
+    for lut8, dtype in ((False, np.uint16), (True, np.uint8)):
+        want = jax_tool.warp_frame(str(tmp_path), 'f_00001',
+                                   'cam_stereo_sgm', use_lut8=lut8)
+        got = stf_gated_warp.warp_frame(str(tmp_path), 'f_00001',
+                                        'cam_stereo_sgm', use_lut8=lut8,
+                                        device='cpu')
+        assert got.dtype == dtype and got.shape == (768, 1280)
+        np.testing.assert_array_equal(got, want)
+        assert (want > 0).mean() > 0.8
 
 
 def test_warp_frame_refuses_a_missing_card():
@@ -284,3 +286,36 @@ def test_warp_frame_refuses_a_missing_card():
         pytest.skip('a CUDA device is present')
     with pytest.raises(RuntimeError, match='no CUDA device'):
         stf_gated_warp.warp_frame('r', 'f', 'cam_stereo_sgm')
+
+
+def test_what_reaches_the_model_from_each_converter_mode(tmp_path):
+    """The STF gated chain, converter to loader: `write_gated_frame` ->
+    the port's `warp_frame` (uint16, or `--lut8`) -> `png.imwrite` ->
+    `LoadGatedImageFromFile` (`'grayscale'`, as both packages read it).
+    A uint16 PNG keeps its high byte only: the 10-bit warp (0-1023)
+    reaches the model as at most 4 grey levels; the `--lut8` PNG reaches
+    it with its 8-bit levels intact."""
+    from hrfuser_tpu_torch.data import png
+    from hrfuser_tpu_torch.data.pipelines.loading import (
+        LoadGatedImageFromFile)
+    write_gated_frame(str(tmp_path), 'f_00001', np.random.default_rng(0))
+    seen = {}
+    for lut8 in (False, True):
+        warped = stf_gated_warp.warp_frame(str(tmp_path), 'f_00001',
+                                           'cam_stereo_sgm', use_lut8=lut8,
+                                           device='cpu')
+        folder = 'lut8' if lut8 else 'grey16'
+        os.makedirs(tmp_path / folder, exist_ok=True)
+        png.imwrite(str(tmp_path / folder / 'f_00001.png'), warped)
+        out = LoadGatedImageFromFile(folder)(
+            {'gated_prefix': str(tmp_path),
+             'img_info': {'filename': 'f_00001.png'}})
+        loaded = out['gated_img'][..., 0]
+        seen[folder] = (len(np.unique(warped)), len(np.unique(loaded)))
+        if lut8:
+            np.testing.assert_array_equal(loaded, warped)
+        else:
+            np.testing.assert_array_equal(loaded, warped >> 8)
+    print(f'distinct values (warp, loaded): {seen}')
+    assert seen['grey16'][0] > 400 and seen['grey16'][1] <= 4
+    assert seen['lut8'][1] == seen['lut8'][0] > 100

@@ -219,8 +219,15 @@ def test_decompand_image_refuses_values_off_the_lut():
 
 
 def test_lut8_images_raise_naming_the_roadmap_item():
-    raw = np.zeros((4, 4), np.uint16)
-    for fn in (lambda: stf_lut.raw_to_lut8(raw, True),
-               lambda: stf_lut.gated_raw_to_lut8(raw)):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            fn()
+    """The roadmap item ("The 8-bit LUT renderings") is done: the two
+    functions that raised now return JAX's images (the full comparison
+    is `tests/test_torch_stf_lut8.py`)."""
+    raw = np.random.default_rng(2).integers(0, 1024, (12, 20)).astype(
+        np.uint16)
+    np.testing.assert_array_equal(
+        stf_lut.raw_to_lut8(raw, True, device='cpu').numpy(),
+        jax_lut.raw_to_lut8(raw, True))
+    np.testing.assert_array_equal(
+        stf_lut.gated_raw_to_lut8(raw, device='cpu').numpy(),
+        jax_lut.gated_raw_to_lut8(raw))
+    assert not hasattr(stf_lut, 'LUT8_NOT_PORTED')
