@@ -231,6 +231,23 @@ Phases, each printed on its own lines; any failure exits non-zero:
    `publish_model` of a checkpoint with an AdamW state written here
    (the weights alone, bit-equal, under their digest) and
    `numerics_drift --overfit-steps 2` on `tiny_fusion_test`.
+15. the image renderings (no kernel: integer and float32 PyTorch ops on
+   the card), each card run held bit-equal to the CPU port on the same
+   seeded inputs and timed (CUDA events, or the host clock with the card
+   synchronised): 15a `data/stf_lut.py`'s CLAHE (clip 2.0 and 0.5), GB
+   demosaic and both Lab directions, `gated_raw_to_lut8` of a 720x1280
+   frame and `raw_to_lut8` (daytime and nighttime) of a 1024x1920 one;
+   15b `tools/stf_gated_warp.py --lut8` through its `main` on one
+   synthetic frame (card vs CPU at 11c's bar, uint8); 15c the JPEG
+   writer (`data/jpeg.py:imencode`) on a 900x1600 colour frame and a grey
+   one: bytes equal to the CPU run's, read back by the port's decoder,
+   the pixel stage (card) and the Huffman stage (host) timed apart;
+   15d `tools.test --show-dir` over 9b's 16 JPEG samples, HRFuser-T r640
+   bf16, batch 8, through kernels A, B and C with exact launch counts
+   (and 4 JPEG kernel launches a frame: the loader's and the show
+   loop's reads), one JPEG a frame that decodes, the drawing and its
+   JPEG card vs CPU bit-equal on the same results, ms per image; 15e
+   `tools.browse_dataset` writing 4 composites from 9b's train split.
 
 The last line is `{"ok": true, "device": {...}}`; the line before it
 lists each kernel's launches, error, times and bound as JSON.
@@ -3329,6 +3346,232 @@ def phase_model_tools(state, smi):
         raise AssertionError('14c: numerics_drift printed no report')
 
 
+# -- 15. the image renderings -------------------------------------------------
+
+RENDER_GATED_HW, RENDER_RAW_HW = (720, 1280), STF_RAW_HW
+
+
+def _same(label, card, cpu):
+    """Card vs CPU, bit for bit (tensors, arrays or bytes)."""
+    if isinstance(card, torch.Tensor):
+        card = card.cpu().numpy()
+    if isinstance(cpu, torch.Tensor):
+        cpu = cpu.numpy()
+    same = (card == cpu if isinstance(card, bytes) else
+            card.dtype == cpu.dtype and np.array_equal(card, cpu))
+    print(f'  {label}: card vs CPU {"bit-equal" if same else "DIFFER"}')
+    if not same:
+        raise AssertionError(f'15: {label} differs between card and CPU')
+
+
+def _gated_raw(rng, hw=RENDER_GATED_HW):
+    yy, xx = np.mgrid[0:hw[0], 0:hw[1]]
+    return np.clip(300 + 200 * np.sin(xx / 40.0) * np.cos(yy / 33.0)
+                   + rng.normal(0, 30, hw), 0, 1023).astype(np.uint16)
+
+
+def _bayer_raw(rng, hw=RENDER_RAW_HW):
+    yy, xx = np.mgrid[0:hw[0], 0:hw[1]]
+    return np.clip(1800 + 1500 * np.sin(xx / 60.0) * np.cos(yy / 45.0)
+                   + rng.normal(0, 200, hw), 0, 3967).astype(np.uint16)
+
+
+def phase_render_lut8(smi):
+    print(f'== 15a. 8-bit STF LUT images on the card vs the CPU port '
+          f'(gated {RENDER_GATED_HW[0]}x{RENDER_GATED_HW[1]}, Bayer '
+          f'{RENDER_RAW_HW[0]}x{RENDER_RAW_HW[1]})')
+    from hrfuser_tpu_torch.data import stf_lut
+    rng = np.random.default_rng(15)
+    gated = _gated_raw(rng)
+    raw = _bayer_raw(rng)
+    grey = stf_lut.gated_raw_to_lut8(gated, 'cpu')
+    for clip in (2.0, 0.5):
+        _same(f'clahe clip {clip} on {tuple(grey.shape)}',
+              stf_lut.clahe(grey.cuda(), clip), stf_lut.clahe(grey, clip))
+    bgr = stf_lut.bayer_gb_to_bgr(raw, 'cpu')
+    _same(f'bayer_gb_to_bgr {raw.shape} uint16',
+          stf_lut.bayer_gb_to_bgr(raw, 'cuda'), bgr)
+    img8 = (bgr >> 8).to(torch.uint8)
+    lab = stf_lut.bgr_to_lab(img8)
+    _same('bgr_to_lab', stf_lut.bgr_to_lab(img8.cuda()), lab)
+    every = torch.arange(1 << 24, dtype=torch.int64)
+    every = torch.stack([every >> 16, (every >> 8) & 255, every & 255],
+                        -1).to(torch.uint8).reshape(4096, 4096, 3)
+    for name, fn in (('bgr_to_lab', stf_lut.bgr_to_lab),
+                     ('lab_to_bgr', stf_lut.lab_to_bgr)):
+        _same(f'{name} on all 2^24 triples', fn(every.cuda()), fn(every))
+    _same(f'gated_raw_to_lut8 {gated.shape}',
+          stf_lut.gated_raw_to_lut8(gated, 'cuda'), grey)
+    for daytime in (True, False):
+        _same(f'raw_to_lut8 {raw.shape} daytime={daytime}',
+              stf_lut.raw_to_lut8(raw, daytime, 'cuda'),
+              stf_lut.raw_to_lut8(raw, daytime, 'cpu'))
+    g = torch.from_numpy(gated).cuda()
+    r = torch.from_numpy(raw.astype(np.int32)).cuda()
+    grey_card = grey.cuda()
+    clahe_ms = _time_ms(lambda: stf_lut.clahe(grey_card, 2.0))
+    gated_ms = _time_ms(lambda: stf_lut.gated_raw_to_lut8(g))
+    raw_ms = _host_ms(lambda: stf_lut.raw_to_lut8(r, True))
+    print(f'  on {smi} (CUDA events, 20 calls after 3; raw_to_lut8 on the '
+          f'host clock, synchronised, median of 5): clahe 720x1280 '
+          f'{clahe_ms:.3f} ms, gated_raw_to_lut8 720x1280 {gated_ms:.3f} '
+          f'ms, raw_to_lut8 1024x1920 {_fmt(raw_ms)} ms')
+
+
+def phase_render_gated_warp(smi):
+    print('== 15b. `tools/stf_gated_warp.py --lut8`: one synthetic frame '
+          'through its main on the card, the frame warped on the CPU')
+    from hrfuser_tpu_torch.data.png import imdecode
+    from hrfuser_tpu_torch.tools import stf_gated_warp
+    frame = 'scene_00001'                  # split line `scene,00001`
+    with tempfile.TemporaryDirectory() as root:
+        _oracle('offline_data').write_gated_frame(root, frame,
+                                                  np.random.default_rng(3))
+        with open(f'{root}/split.txt', 'w') as f:
+            f.write('scene,00001\n')
+        t0 = time.perf_counter()
+        stf_gated_warp.main(['--root', root, '--split', f'{root}/split.txt',
+                             '--lut8'])
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        with open(f'{root}/gated_acc_wraped_grey/{frame}.png', 'rb') as f:
+            card = imdecode(f.read(), unchanged=True)
+        cpu = stf_gated_warp.warp_frame(root, frame, 'cam_stereo_sgm',
+                                        use_lut8=True, device='cpu')
+    diff = np.abs(card.astype(np.int32) - cpu)
+    print(f'  written {card.dtype} {card.shape}; card vs CPU: '
+          f'{int((diff > 0).sum())} pixels differ, by at most '
+          f'{int(diff.max())} (bar: 11c\'s, none by more than 1); '
+          f'{len(np.unique(card))} distinct levels; the CLI {dt:.0f} ms '
+          f'for one frame (TIFF reads and PNG write included) on {smi}')
+    if card.dtype != np.uint8 or card.shape != (768, 1280) or \
+            diff.max() > 1:
+        raise AssertionError('15b: --lut8 output')
+
+
+def phase_render_jpeg(smi):
+    print('== 15c. JPEG writer (`data/jpeg.py:imencode`): a 900x1600 '
+          'camera-like frame and its grey channel, card vs CPU')
+    from hrfuser_tpu_torch.data import jpeg
+    img, _ = _jpeg_frame(np.random.default_rng(16))
+    for label, x in (('colour 900x1600', img),
+                     ('grey 900x1600', np.ascontiguousarray(img[..., 1]))):
+        card_t = torch.from_numpy(x).cuda()
+        card = jpeg.imencode(card_t)
+        _same(f'{label} JPEG bytes ({len(card)})', card,
+              jpeg.imencode(x, device='cpu'))
+        back = jpeg.decode_jpeg(card, 'cuda').cpu().numpy()
+        ref = jpeg.decode_jpeg(card, 'cpu').numpy()
+        if back.shape[:2] != x.shape[:2] or not np.array_equal(back, ref):
+            raise AssertionError(f'15c: {label} does not read back')
+        err = np.abs(back.astype(np.int32) - (x[..., None] if x.ndim == 2
+                                              else x)).mean()
+        pixel_ms = _time_ms(lambda: jpeg.encode_blocks(card_t))
+        blocks, comps = jpeg.encode_blocks(card_t)
+        host = blocks.cpu().numpy()
+        copy_ms = _host_ms(lambda: blocks.cpu().numpy())
+        entropy_ms = _host_ms(lambda: jpeg.encode_scan(host, comps))
+        total_ms = _host_ms(lambda: jpeg.imencode(card_t))
+        print(f'    read back by the port decoder (mean |error| '
+              f'{err:.2f} levels); on {smi}: pixel stage (card, CUDA '
+              f'events) {pixel_ms:.3f} ms, block copy {_fmt(copy_ms)} ms, '
+              f'Huffman stage (host) {_fmt(entropy_ms)} ms, imencode end '
+              f'to end {_fmt(total_ms)} ms')
+
+
+def phase_render_show_dir(state, smi):
+    print(f'== 15d. `tools.test --show-dir` over 9b\'s {NUS_N} JPEG '
+          f'samples, {CONFIG}, bf16, batch {BATCH}')
+    from hrfuser_tpu_torch import get_experiment
+    from hrfuser_tpu_torch.data import jpeg
+    from hrfuser_tpu_torch.data.pipelines.loading import imread
+    from hrfuser_tpu_torch.tools import test as test_cli
+    from hrfuser_tpu_torch.utils.visualization import draw_detections
+    exp = get_experiment(CONFIG)
+    root = state['nus_root']
+    show = f'{root}/show'
+    seen, spent = [], []
+    real = test_cli.show_results
+
+    def recorded(results, *args, **kw):
+        seen.append(results)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = real(results, *args, **kw)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return n
+
+    _reset_counts()
+    jpeg.pixels.launches = 0
+    test_cli.show_results = recorded
+    try:
+        test_cli.main([CONFIG, '--data-root', root, '--checkpoint',
+                       f'{root}/ckpt', '--batch-size', str(BATCH),
+                       '--dtype', 'bf16', '--eval', 'bbox',
+                       '--show-dir', show])
+    finally:
+        test_cli.show_results = real
+    _check_counts(_expected_launches(exp.model), NUS_N // BATCH,
+                  f'tools.test --show-dir over {NUS_N} images')
+    print(f'  JPEG kernel launches: {jpeg.pixels.launches} (4 a frame: the '
+          f'loader\'s read and the show loop\'s)')
+    if jpeg.pixels.launches != 4 * NUS_N:
+        raise AssertionError(f'15d: the JPEG kernel launched '
+                             f'{jpeg.pixels.launches} times, expected '
+                             f'{4 * NUS_N}')
+    (results,) = seen
+    names = sorted(os.listdir(show))
+    if names != [f'{i:04d}.jpg' for i in range(NUS_N)]:
+        raise AssertionError(f'15d: wrote {names}')
+    for name in names:
+        with open(f'{show}/{name}', 'rb') as f:
+            if jpeg.decode_jpeg(f.read(), 'cuda').shape != (*RAW_HW, 3):
+                raise AssertionError(f'15d: {name} does not decode')
+    kept = sum(int((r['scores'] >= 0.3).sum()) for r in results)
+    print(f'  {len(names)} JPEGs written, each decodes to {RAW_HW}; '
+          f'{kept} detections at score >= 0.3 drawn; the show loop '
+          f'{spent[0] * 1e3 / NUS_N:.1f} ms per image (read, draw, JPEG '
+          f'write) on {smi}')
+    drawn = 0
+    for r in results[:4]:                     # every valid detection
+        img = imread(r['meta']['filename'], device='cuda')
+        args = (r['boxes'], r['labels'], r['scores'])
+        kw = dict(class_names=exp.data.classes, score_thr=0.0)
+        card = draw_detections(img, *args, device='cuda', **kw)
+        cpu = draw_detections(img, *args, device='cpu', **kw)
+        _same(f'{os.path.basename(r["meta"]["filename"])}: '
+              f'{len(r["boxes"])} boxes drawn', card, cpu)
+        _same('  its JPEG', jpeg.imencode(card), jpeg.imencode(
+            cpu, device='cpu'))
+        drawn += len(r['boxes'])
+    if not drawn:
+        raise AssertionError('15d: no detection to draw')
+
+
+def phase_render_browse(state, smi):
+    print(f'== 15e. `tools.browse_dataset` over 9b\'s train split, '
+          f'{CONFIG}, 4 composites')
+    from hrfuser_tpu_torch.data.jpeg import decode_jpeg
+    from hrfuser_tpu_torch.tools import browse_dataset
+    out = f'{state["nus_root"]}/browse'
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    written = browse_dataset.main([CONFIG, '--data-root', state['nus_root'],
+                                   '--out-dir', out, '--num', '4'])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if [os.path.basename(p) for p in written] != [
+            f'sample_{i}.jpg' for i in range(4)]:
+        raise AssertionError(f'15e: wrote {written}')
+    shapes = set()
+    for path in written:
+        with open(path, 'rb') as f:
+            shapes.add(tuple(decode_jpeg(f.read(), 'cuda').shape))
+    print(f'  4 composites {sorted(shapes)} written and decoded, '
+          f'{dt * 1e3 / 4:.0f} ms a sample (pipeline included) on {smi}')
+
+
 def main():
     smi = phase_environment()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3396,6 +3639,11 @@ def main():
         ('14a', lambda: phase_flops(state, smi)),
         ('14b', lambda: phase_drift(state, smi)),
         ('14c', lambda: phase_model_tools(state, smi)),
+        ('15a', lambda: phase_render_lut8(smi)),
+        ('15b', lambda: phase_render_gated_warp(smi)),
+        ('15c', lambda: phase_render_jpeg(smi)),
+        ('15d', lambda: phase_render_show_dir(state, smi)),
+        ('15e', lambda: phase_render_browse(state, smi)),
     ]
     for name, run in phases:
         t1 = time.perf_counter()

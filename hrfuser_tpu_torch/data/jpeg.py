@@ -453,11 +453,11 @@ _FIX = {k: int(v * 65536 + 0.5) for k, v in (
     ('0.41869', 0.41869), ('0.08131', 0.08131))}
 
 
-def quality_tables(quality: int = QUALITY) -> Tuple[np.ndarray, np.ndarray]:
-    """The IJG quality scaling of the Annex K tables (`jcparam.c`,
-    baseline: clamped to 1-255), luma and chroma, natural order."""
-    quality = min(max(int(quality), 1), 100)
-    scale = 5000 // quality if quality < 50 else 200 - quality * 2
+def quality_tables() -> Tuple[np.ndarray, np.ndarray]:
+    """The IJG quality scaling (`jcparam.c`) of the Annex K tables at
+    `QUALITY`, baseline (clamped to 1-255): luma and chroma, natural
+    order."""
+    scale = 200 - QUALITY * 2
     return tuple(np.clip((np.asarray(t) * scale + 50) // 100, 1, 255)
                  for t in (LUMA_Q, CHROMA_Q))
 
@@ -553,12 +553,12 @@ def _blocks(plane: Tensor, quant: np.ndarray) -> Tensor:
     return quantize(forward_dct(b).reshape(rows, cols, 64), quant)
 
 
-def encode_blocks(img: Tensor, quality: int = QUALITY):
+def encode_blocks(img: Tensor):
     """The pixel stage of `imencode` on `img`'s device: BGR uint8
     [H, W, 3] (or grey [H, W]) -> (int16 [MCUs * per_mcu, 64] quantised
     blocks in zigzag order, MCU by MCU; each MCU block's component).
     Colour is 4:2:0: an MCU holds Y's 2x2 blocks, then Cb, then Cr."""
-    luma_q, chroma_q = quality_tables(quality)
+    luma_q, chroma_q = quality_tables()
     h, w = img.shape[:2]
     zigzag = torch.as_tensor(ZIGZAG, device=img.device)
     if img.dim() == 2:
@@ -608,10 +608,9 @@ def _segment(marker: int, body: bytes) -> bytes:
     return bytes([0xFF, marker]) + (len(body) + 2).to_bytes(2, 'big') + body
 
 
-def headers(height: int, width: int, grey: bool,
-            quality: int = QUALITY) -> bytes:
+def headers(height: int, width: int, grey: bool) -> bytes:
     """SOI through SOS, as libjpeg writes them for `cv2.imwrite`."""
-    luma_q, chroma_q = quality_tables(quality)
+    luma_q, chroma_q = quality_tables()
     zz = list(ZIGZAG)
     out = b'\xff\xd8' + _segment(0xE0, b'JFIF\x00\x01\x01\x00\x00\x01\x00'
                                  b'\x01\x00\x00')
@@ -636,6 +635,8 @@ def encode_scan(blocks: np.ndarray, comps) -> bytes:
     blocks = np.ascontiguousarray(blocks, np.int16)
     per_mcu = len(comps)
     comp = (ctypes.c_int * per_mcu)(*comps)
+    # a block codes to at most 16 + 11 + 63 * (16 + 10) bits, each byte
+    # possibly stuffed: 420 bytes
     cap = 420 * len(blocks) + 64
     out = np.empty(cap, np.uint8)
     written = ctypes.c_long(0)
@@ -648,7 +649,7 @@ def encode_scan(blocks: np.ndarray, comps) -> bytes:
     return out[:written.value].tobytes()
 
 
-def imencode(img, quality: int = QUALITY, device='cuda') -> bytes:
+def imencode(img, device='cuda') -> bytes:
     """JPEG bytes of a uint8 BGR [H, W, 3] or grey [H, W] image, equal to
     `cv2.imencode('.jpg', img)[1]` (tests/test_torch_jpeg_encode.py). A
     tensor's pixels are coded on its device, an array's on `device`; the
@@ -662,13 +663,13 @@ def imencode(img, quality: int = QUALITY, device='cuda') -> bytes:
     h, w = img.shape[:2]
     if not (0 < h < 65536 and 0 < w < 65536):
         raise ValueError(f'a JPEG frame of {h}x{w}')
-    blocks, comps = encode_blocks(img, quality)
-    return (headers(h, w, img.dim() == 2, quality)
+    blocks, comps = encode_blocks(img)
+    return (headers(h, w, img.dim() == 2)
             + encode_scan(blocks.cpu().numpy(), comps) + b'\xff\xd9')
 
 
-def imwrite(path: str, img, quality: int = QUALITY, device='cuda') -> None:
+def imwrite(path: str, img, device='cuda') -> None:
     """Write `imencode(img)` to `path` (as `cv2.imwrite` of a .jpg)."""
-    data = imencode(img, quality, device)
+    data = imencode(img, device)
     with open(path, 'wb') as f:
         f.write(data)

@@ -36,6 +36,7 @@ The kneepoint tables are sensor facts from the reference
 
 from __future__ import annotations
 
+import functools
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -136,13 +137,27 @@ def _as_int32(img, device) -> torch.Tensor:
     return out & 0xFFFF if img.dtype == torch.int16 else out
 
 
+def _bytes(img, device, what: str) -> torch.Tensor:
+    """A uint8 image (array or tensor) as int32 on its device; any other
+    type raises, so every table index derived from it is in range."""
+    if img.dtype not in (np.uint8, torch.uint8):
+        raise ValueError(f'{what} takes uint8, not {img.dtype}')
+    return _as_int32(img, device)
+
+
+def _raw(img, device, size: int, what: str) -> torch.Tensor:
+    """A raw frame as int32 on its device, each value checked to index a
+    table of `size` entries (one host sync)."""
+    x = _as_int32(img, device)
+    if x.numel() and not 0 <= int(x.min()) <= int(x.max()) < size:
+        raise ValueError(f'{what}: values {int(x.min())}..{int(x.max())} '
+                         f'index a table of {size} entries')
+    return x
+
+
 def _lut(table: np.ndarray, idx: torch.Tensor) -> torch.Tensor:
-    """table[idx] on idx's device, int32; an index outside the table
-    raises."""
-    if idx.numel() and not 0 <= int(idx.min()) <= int(idx.max()) < len(
-            table):
-        raise ValueError(f'values {int(idx.min())}..{int(idx.max())} index '
-                         f'a table of {len(table)} entries')
+    """table[idx] on idx's device, int32. The callers' indices are in
+    range by construction (checked inputs, bounded fixed-point sums)."""
     t = torch.from_numpy(np.asarray(table).astype(np.int32)).to(idx.device)
     return t[idx.long()]
 
@@ -163,7 +178,7 @@ def clahe(img, clip_limit: float, tiles=(8, 8), device='cuda'
           ) -> torch.Tensor:
     """`cv2.createCLAHE(clip_limit, tiles).apply(img)` for a uint8 [H, W]
     image, as uint8 on the image's device (see the module docstring)."""
-    src = _as_int32(img, device)
+    src = _bytes(img, device, 'clahe')
     h, w = src.shape
     tx, ty = tiles
     if h % ty or w % tx:
@@ -180,8 +195,10 @@ def clahe(img, clip_limit: float, tiles=(8, 8), device='cuda'
     by_tile = (padded.reshape(ty, th, tx, tw).permute(0, 2, 1, 3)
                .reshape(ty * tx, area))
     offsets = torch.arange(ty * tx, device=src.device)[:, None] * 256
-    hist = torch.bincount((by_tile + offsets).reshape(-1),
-                          minlength=ty * tx * 256).reshape(ty * tx, 256)
+    idx = (by_tile + offsets).reshape(-1)
+    hist = torch.zeros(ty * tx * 256, dtype=torch.int64,
+                       device=src.device).index_add_(
+        0, idx, torch.ones_like(idx)).reshape(ty * tx, 256)
     if limit:
         excess = (hist - limit).clamp(min=0).sum(1, keepdim=True)
         hist = hist.clamp(max=limit) + excess // 256
@@ -251,9 +268,6 @@ def bayer_gb_to_bgr(raw, device='cuda') -> torch.Tensor:
 
 # -- Lab ----------------------------------------------------------------------
 
-_LAB = {}
-
-
 def _srgb(x: np.ndarray) -> np.ndarray:
     return np.where(x <= 0.04045, x / 12.92, ((x + 0.055) / 1.055) ** 2.4)
 
@@ -274,22 +288,24 @@ D65 = np.array([0.950456, 1.0, 1.088754])
 # cube-root table entries that `cv2` rounds the other way (its float32
 # evaluation lands on .5), found by comparing all 2^24 colours
 _CBRT_FIXES = {49: -1, 628: 1}
+# the smallest f(X) / f(Z) index `lab_to_bgr` forms (L = 0, b = 255)
+_AB_MIN = -8145
 
 
+@functools.cache
 def lab_tables() -> dict:
     """The fixed-point tables of `bgr_to_lab` / `lab_to_bgr` (host)."""
-    if _LAB:
-        return _LAB
     i = np.arange(256)
-    _LAB['gamma'] = np.round(255 * 8 * _srgb(i / 255)).astype(np.int64)
+    tabs = {}
+    tabs['gamma'] = np.round(255 * 8 * _srgb(i / 255)).astype(np.int64)
     x = np.arange(256 * 3 // 2 * 8) / (255 * 8)
     cbrt = np.round(2 ** 15 * np.where(x < 216 / 24389,
                                        x * 841 / 108 + 16 / 116,
                                        np.cbrt(x))).astype(np.int64)
     for k, d in _CBRT_FIXES.items():
         cbrt[k] += d
-    _LAB['cbrt'] = cbrt
-    _LAB['to_xyz'] = np.round(4096 * RGB2XYZ / D65[:, None]).astype(
+    tabs['cbrt'] = cbrt
+    tabs['to_xyz'] = np.round(4096 * RGB2XYZ / D65[:, None]).astype(
         np.int64)
     # back: L -> (Y, f(Y)) at 2^14, a/b -> X, Z at 2^14, XYZ -> RGB at 2^12
     base = 1 << 14
@@ -297,21 +313,19 @@ def lab_tables() -> dict:
     small = li <= 8
     y_lin = li / 903.3
     fy = (li + 16) / 116
-    _LAB['y'] = np.round(base * np.where(small, y_lin, fy ** 3)).astype(
+    tabs['y'] = np.round(base * np.where(small, y_lin, fy ** 3)).astype(
         np.int64)
-    _LAB['fy'] = np.round(base * np.where(
+    tabs['fy'] = np.round(base * np.where(
         small, 7.787 * y_lin + 16 / 116, fy)).astype(np.int64)
     v = np.arange(base * 9 // 4) + _AB_MIN
-    _LAB['xz'] = np.where(v <= 3390, np.trunc(v * 108 / 841) - 290,
+    # linear below 6/29 (C's truncating division), cubed above in steps
+    tabs['xz'] = np.where(v <= 3390, np.trunc(v * 108 / 841) - 290,
                           (((v * v) >> 14) * v) >> 14).astype(np.int64)
-    _LAB['to_rgb'] = np.round(4096 * XYZ2RGB * D65[None, :]).astype(
+    tabs['to_rgb'] = np.round(4096 * XYZ2RGB * D65[None, :]).astype(
         np.int64)
-    _LAB['inv_gamma'] = np.round(255 * _srgb_inv(np.arange(4096) / 4096)
+    tabs['inv_gamma'] = np.round(255 * _srgb_inv(np.arange(4096) / 4096)
                                  ).astype(np.int64)
-    return _LAB
-
-
-_AB_MIN = -8145
+    return tabs
 
 
 def _descale(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -322,7 +336,7 @@ def bgr_to_lab(img, device='cuda') -> torch.Tensor:
     """`cv2.cvtColor(img, COLOR_BGR2LAB)` of uint8 BGR [H, W, 3]: uint8
     Lab (L * 255 / 100, a + 128, b + 128) on the image's device."""
     t = lab_tables()
-    px = _as_int32(img, device)
+    px = _bytes(img, device, 'bgr_to_lab')
     b, g, r = (_lut(t['gamma'], px[..., k]) for k in range(3))
     m = t['to_xyz']
     f = [_lut(t['cbrt'], _descale(r * int(m[k, 0]) + g * int(m[k, 1])
@@ -337,7 +351,7 @@ def lab_to_bgr(lab, device='cuda') -> torch.Tensor:
     """`cv2.cvtColor(lab, COLOR_LAB2BGR)` of uint8 Lab [H, W, 3]: uint8
     BGR on the image's device."""
     t = lab_tables()
-    px = _as_int32(lab, device).long()
+    px = _bytes(lab, device, 'lab_to_bgr').long()
     lightness, a, b = px[..., 0], px[..., 1], px[..., 2]
     y = _lut(t['y'], lightness).long()
     fy = _lut(t['fy'], lightness).long()
@@ -361,7 +375,8 @@ def raw_to_lut8(raw_bayer, daytime: bool, device='cuda') -> torch.Tensor:
     GB demosaic, >> 8, Lab, CLAHE 2.0 on L and 0.5 on a and b, back to
     BGR."""
     tabs = luts()
-    lin = _lut(tabs['decompand'], _as_int32(raw_bayer, device))
+    lin = _lut(tabs['decompand'], _raw(raw_bayer, device,
+                                       len(tabs['decompand']), 'raw_to_lut8'))
     toned = _lut(tabs['daytime'] if daytime else tabs['nighttime'], lin)
     img8 = (bayer_gb_to_bgr(toned) >> 8).to(torch.uint8)
     lab = bgr_to_lab(img8)
@@ -374,6 +389,7 @@ def gated_raw_to_lut8(raw, device='cuda') -> torch.Tensor:
     """Raw 10-bit gated frame [H, W] -> 8-bit grey LUT image [H, W]
     uint8 on its device (`process_rect_lut_gated8`, minus rectification):
     gated tone LUT, >> 2, CLAHE 2.0 with 8x8 tiles."""
-    img = (_lut(luts()['gated'], _as_int32(raw, device)) >> 2).to(
-        torch.uint8)
+    gated = luts()['gated']
+    img = (_lut(gated, _raw(raw, device, len(gated), 'gated_raw_to_lut8'))
+           >> 2).to(torch.uint8)
     return clahe(img, 2.0)

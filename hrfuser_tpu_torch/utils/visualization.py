@@ -13,8 +13,7 @@ What `cv2` draws is reproduced pixel for pixel (`tests/test_torch_
 visualization.py`):
   * `cv2.rectangle(img, p1, p2, colour, 2)` with `LINE_8` is the union of
     a 3-pixel band along each side (from corner to corner) and a plus of
-    radius 1 at each corner, clipped to the image; `thickness=1` is the
-    1-pixel outline.
+    radius 1 at each corner, clipped to the image.
   * `cv2.putText(..., FONT_HERSHEY_SIMPLEX, 0.45, colour, 1, LINE_AA)`:
     `cv2` 5.0 advances the pen by whole pixels, so a label is its
     characters' coverage masks (`utils/glyphs.py`, rendered once from
@@ -26,6 +25,7 @@ visualization.py`):
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence
 
 import numpy as np
@@ -66,8 +66,6 @@ TURBO = np.frombuffer(bytes.fromhex(
     '0f9b010e98010d95010b92010a8e02098b02088802078502068102057e03047a'
 ), np.uint8).reshape(256, 3)
 
-_glyph_stacks = {}
-
 
 def as_image(img, device='cuda') -> Tensor:
     """`img` as a tensor: a tensor where it lies, an array on `device`."""
@@ -100,18 +98,14 @@ def _fill(out: Tensor, x0: int, y0: int, x1: int, y1: int,
 
 def rectangle_(out: Tensor, p1, p2, colour: Tensor,
                thickness: int = 2) -> None:
-    """`cv2.rectangle(out, p1, p2, colour, thickness)` in place, `LINE_8`,
-    integer corners (thickness 1 or 2)."""
+    """`cv2.rectangle(out, p1, p2, colour, 2)` in place, `LINE_8`,
+    integer corners (the thickness the JAX drawing uses, the only one
+    reproduced)."""
+    if thickness != 2:
+        raise ValueError(f'rectangle thickness {thickness}: only 2 is '
+                         f'reproduced')
     (x1, y1), (x2, y2) = p1, p2
     corners = [(x1, y1), (x2, y1), (x2, y2), (x1, y2)]
-    if thickness == 1:
-        _fill(out, min(x1, x2), y1, max(x1, x2), y1, colour)
-        _fill(out, min(x1, x2), y2, max(x1, x2), y2, colour)
-        _fill(out, x1, min(y1, y2), x1, max(y1, y2), colour)
-        _fill(out, x2, min(y1, y2), x2, max(y1, y2), colour)
-        return
-    if thickness != 2:
-        raise ValueError(f'rectangle thickness {thickness}: 1 or 2')
     for (ax, ay), (bx, by) in zip(corners, corners[1:] + corners[:1]):
         if ay == by and ax != bx:                  # a 3-pixel band
             _fill(out, min(ax, bx), ay - 1, max(ax, bx), ay + 1, colour)
@@ -122,18 +116,17 @@ def rectangle_(out: Tensor, p1, p2, colour: Tensor,
         _fill(out, x, y - 1, x, y + 1, colour)
 
 
-def _glyph_stack(device: torch.device):
+@functools.cache
+def _glyph_stack(device: torch.device) -> Tensor:
     """Every glyph's mask in one int32 tensor [n, hmax, wmax] on
-    `device` (built once a device)."""
-    if device not in _glyph_stacks:
-        table = glyphs.table()
-        hmax = max(m.shape[0] for *_, m in table)
-        wmax = max(m.shape[1] for *_, m in table)
-        stack = np.zeros((len(table), hmax, wmax), np.int32)
-        for i, (*_, m) in enumerate(table):
-            stack[i, :m.shape[0], :m.shape[1]] = m
-        _glyph_stacks[device] = torch.from_numpy(stack).to(device)
-    return _glyph_stacks[device]
+    `device`."""
+    table = glyphs.table()
+    hmax = max(m.shape[0] for *_, m in table)
+    wmax = max(m.shape[1] for *_, m in table)
+    stack = np.zeros((len(table), hmax, wmax), np.int32)
+    for i, (*_, m) in enumerate(table):
+        stack[i, :m.shape[0], :m.shape[1]] = m
+    return torch.from_numpy(stack).to(device)
 
 
 def put_text_(out: Tensor, text: str, org, colour: Tensor) -> None:
@@ -146,7 +139,8 @@ def put_text_(out: Tensor, text: str, org, colour: Tensor) -> None:
     col = colour.to(torch.int32)
     x, y = org
     for ch in text:
-        advance, dx, dy, mask = glyphs.glyph(ch)
+        i = glyphs.index(ch)
+        advance, dx, dy, mask = glyphs.table()[i]
         gh, gw = mask.shape
         r0, c0 = y + dy, x + dx
         x += advance
@@ -154,9 +148,7 @@ def put_text_(out: Tensor, text: str, org, colour: Tensor) -> None:
         bottom, right = min(r0 + gh, h), min(c0 + gw, w)
         if top >= bottom or left >= right:
             continue
-        code = ord(ch) if glyphs.FIRST <= ord(ch) <= glyphs.LAST else ord('?')
-        a = stack[code - glyphs.FIRST, top - r0:bottom - r0,
-                  left - c0:right - c0, None]
+        a = stack[i, top - r0:bottom - r0, left - c0:right - c0, None]
         dst = out[top:bottom, left:right].to(torch.int32)
         q = (col - dst) * a
         out[top:bottom, left:right] = (

@@ -124,13 +124,16 @@ def table() -> Tuple[Tuple[int, int, int, np.ndarray], ...]:
     return tuple(out)
 
 
-def glyph(ch: str) -> Tuple[int, int, int, np.ndarray]:
-    """One character's (advance, dx, dy, mask); a character outside
-    printable ASCII draws as '?', as `cv2.putText` draws it."""
+def index(ch: str) -> int:
+    """`ch`'s row of `table()`; a character outside printable ASCII
+    draws as '?', as `cv2.putText` draws it."""
     code = ord(ch)
-    if not FIRST <= code <= LAST:
-        code = ord('?')
-    return table()[code - FIRST]
+    return (code if FIRST <= code <= LAST else ord('?')) - FIRST
+
+
+def glyph(ch: str) -> Tuple[int, int, int, np.ndarray]:
+    """One character's (advance, dx, dy, mask)."""
+    return table()[index(ch)]
 '''
 
 

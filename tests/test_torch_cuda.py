@@ -1019,3 +1019,34 @@ def test_flop_count_calls_are_the_launches(dev):
     assert by_op['hrfuser.cross_ffn']['calls'] == counts['cross_ffn']
     assert by_op['hrfuser.roi_align']['calls'] == counts['roi_align']
     assert by_op['hrfuser.greedy_keep']['flops'] == 0
+
+
+def test_renderings_on_the_card_equal_the_cpu(dev):
+    """The drawing, heatmap, JPEG writer and 8-bit LUT images: card vs
+    CPU bit for bit on seeded inputs."""
+    from hrfuser_tpu_torch.data import jpeg, stf_lut
+    from hrfuser_tpu_torch.utils import visualization as vis
+    rng = np.random.default_rng(0)
+    img = rng.integers(0, 256, (90, 160, 3)).astype(np.uint8)
+    boxes = rng.uniform(-10, 170, (12, 4)).astype(np.float32)
+    kw = dict(labels=rng.integers(0, 12, 12), scores=rng.random(12),
+              class_names=[f'c{i}' for i in range(12)], score_thr=0.2)
+    drawn = vis.draw_detections(img, boxes, device=dev, **kw)
+    assert drawn.device.type == 'cuda'
+    np.testing.assert_array_equal(
+        drawn.cpu().numpy(),
+        vis.draw_detections(img, boxes, device='cpu', **kw).numpy())
+    sensor = rng.normal(0, 2, (90, 160, 3)).astype(np.float32)
+    sensor[rng.random((90, 160)) < 0.5] = 0
+    np.testing.assert_array_equal(
+        vis.sensor_image_to_heatmap(sensor, device=dev).cpu().numpy(),
+        vis.sensor_image_to_heatmap(sensor, device='cpu').numpy())
+    assert jpeg.imencode(drawn) == jpeg.imencode(drawn.cpu(), device='cpu')
+    gated = rng.integers(0, 1024, (77, 131)).astype(np.uint16)
+    np.testing.assert_array_equal(
+        stf_lut.gated_raw_to_lut8(gated, dev).cpu().numpy(),
+        stf_lut.gated_raw_to_lut8(gated, 'cpu').numpy())
+    raw = rng.integers(0, 3968, (64, 96)).astype(np.uint16)
+    np.testing.assert_array_equal(
+        stf_lut.raw_to_lut8(raw, False, dev).cpu().numpy(),
+        stf_lut.raw_to_lut8(raw, False, 'cpu').numpy())

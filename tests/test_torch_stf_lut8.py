@@ -109,3 +109,11 @@ def test_lut8_defaults_to_the_card():
     for fn in (P.clahe, P.bayer_gb_to_bgr, P.bgr_to_lab, P.lab_to_bgr,
                P.gated_raw_to_lut8, P.raw_to_lut8):
         assert inspect.signature(fn).parameters['device'].default == 'cuda'
+
+
+@pytest.mark.parametrize('fn', [P.clahe, P.bgr_to_lab, P.lab_to_bgr])
+def test_byte_routines_refuse_other_types(fn):
+    args = (2.0,) if fn is P.clahe else ()
+    with pytest.raises(ValueError, match='takes uint8'):
+        fn(np.zeros((16, 16, 3) if fn is not P.clahe else (16, 16),
+                    np.int32), *args, device='cpu')
