@@ -242,12 +242,14 @@ Phases, each printed on its own lines; any failure exits non-zero:
    writer (`data/jpeg.py:imencode`) on a 900x1600 colour frame and a grey
    one: bytes equal to the CPU run's, read back by the port's decoder,
    the pixel stage (card) and the Huffman stage (host) timed apart;
-   15d `tools.test --show-dir` over 9b's 16 JPEG samples, HRFuser-T r640
+   15d `tools.test --show-dir` over 9b's 16 JPEG samples (written again
+   from its seed: 9c removes 9b's folder), HRFuser-T r640
    bf16, batch 8, through kernels A, B and C with exact launch counts
    (and 4 JPEG kernel launches a frame: the loader's and the show
    loop's reads), one JPEG a frame that decodes, the drawing and its
    JPEG card vs CPU bit-equal on the same results, ms per image; 15e
-   `tools.browse_dataset` writing 4 composites from 9b's train split.
+   `tools.browse_dataset` writing 4 composites from that folder's train
+   split.
 
 The last line is `{"ok": true, "device": {...}}`; the line before it
 lists each kernel's launches, error, times and bound as JSON.
@@ -3481,14 +3483,17 @@ def phase_render_jpeg(smi):
 
 def phase_render_show_dir(state, smi):
     print(f'== 15d. `tools.test --show-dir` over 9b\'s {NUS_N} JPEG '
-          f'samples, {CONFIG}, bf16, batch {BATCH}')
+          f'samples (written again from its seed), {CONFIG}, bf16, batch '
+          f'{BATCH}')
     from hrfuser_tpu_torch import get_experiment
     from hrfuser_tpu_torch.data import jpeg
     from hrfuser_tpu_torch.data.pipelines.loading import imread
     from hrfuser_tpu_torch.tools import test as test_cli
     from hrfuser_tpu_torch.utils.visualization import draw_detections
     exp = get_experiment(CONFIG)
-    root = state['nus_root']
+    root = state['render_root'] = tempfile.mkdtemp(prefix='nus_')
+    _nus_folder(root, np.random.default_rng(10), exp.data.classes)
+    _checkpoint(CONFIG, f'{root}/ckpt')
     show = f'{root}/show'
     seen, spent = [], []
     real = test_cli.show_results
@@ -3550,14 +3555,15 @@ def phase_render_show_dir(state, smi):
 
 
 def phase_render_browse(state, smi):
-    print(f'== 15e. `tools.browse_dataset` over 9b\'s train split, '
+    print(f'== 15e. `tools.browse_dataset` over 15d\'s train split, '
           f'{CONFIG}, 4 composites')
     from hrfuser_tpu_torch.data.jpeg import decode_jpeg
     from hrfuser_tpu_torch.tools import browse_dataset
-    out = f'{state["nus_root"]}/browse'
+    root = state['render_root']
+    out = f'{root}/browse'
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    written = browse_dataset.main([CONFIG, '--data-root', state['nus_root'],
+    written = browse_dataset.main([CONFIG, '--data-root', root,
                                    '--out-dir', out, '--num', '4'])
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
@@ -3570,6 +3576,7 @@ def phase_render_browse(state, smi):
             shapes.add(tuple(decode_jpeg(f.read(), 'cuda').shape))
     print(f'  4 composites {sorted(shapes)} written and decoded, '
           f'{dt * 1e3 / 4:.0f} ms a sample (pipeline included) on {smi}')
+    shutil.rmtree(root)
 
 
 def main():
