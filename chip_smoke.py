@@ -250,6 +250,26 @@ Phases, each printed on its own lines; any failure exits non-zero:
    JPEG card vs CPU bit-equal on the same results, ms per image; 15e
    `tools.browse_dataset` writing 4 composites from that folder's train
    split.
+16. RoIAlign's whole sampling contract, remat, the parity rehearsal:
+   16a kernel C's general plan against its twin at r640, C = 256, 8 x
+   1000 RoIs (phase 3's edge cases plus level-0 RoIs of grids 1-4, a
+   sliver capped at 4 but not 8, bins of exactly 2 and 3 px and one ulp
+   either side): adaptive `sample_num=0` at `max_grid` 4 and 8, static
+   grids 1, 3, 4, unaligned (static 2 and adaptive), float32 (TF32 off)
+   and bfloat16, each launch counted on the plan; time, twin time and
+   bound (bytes and FLOPs from the RoIs' own grids) beside the 2x2 plan's
+   time on the same inputs; the single-image entry's v4 and v8 at a
+   static 3x3 grid; 16b HRFuser-T r640 bf16 batch 8 with
+   `roi.sample_num=0` on calibrated weights: exact launch counts (every C
+   launch on the general plan), detections, latency and device busy time
+   in turns beside `sample_num=2` on the same weights, then batch 1
+   float32 card vs CPU (`card_checks.same_runs`); 16c one float32
+   HRFuser-T train step at batch 3 with and without `backbone.remat`,
+   the same weights, batch and generator (drops live): losses, gradients
+   and BN statistics at phase 8b's bars with bit-equality reported, one
+   BN update, the generator's end state, peak memory and ms a step of
+   both, then a `sample_num=0` step through the one-hot pool; 16d
+   `tools.real_parity --dry-run`.
 
 The last line is `{"ok": true, "device": {...}}`; the line before it
 lists each kernel's launches, error, times and bound as JSON.
@@ -395,13 +415,15 @@ def _ffn_work(x, p, dt, acts):
             _nbytes(*acts, *(p[k] for k in keys)), dt)
 
 
-def _roi_work(feats, rois, out):
-    """FLOPs (2 per channel of each of 196 samples x 4 taps, float32),
-    bytes, float32 and pixels of one kernel C call. The bytes are its
-    output, its RoIs and the pyramid pixels whose taps these RoIs weight
-    non-zero, each counted once (on the device)."""
-    from hrfuser_tpu_torch.ops.flops import roi_align_flops
-    from hrfuser_tpu_torch.ops.roi_align import _axis_taps, map_roi_levels
+def _roi_work(feats, rois, out, sample_num=2, max_grid=4, aligned=True):
+    """FLOPs (2 per channel of each of the 4 taps of each sample, float32,
+    counted from the RoIs' own grids: `sample_num` squared a bin, or in
+    the adaptive mode each RoI's ceil(bin) counts), bytes, float32 and
+    pixels of one kernel C call. The bytes are its output, its RoIs and
+    the pyramid pixels whose taps these RoIs weight non-zero, each
+    counted once (on the device)."""
+    from hrfuser_tpu_torch.ops.roi_align import (_bilinear, _sample_coords,
+                                                 map_roi_levels)
     b, n, _ = rois.shape
     c, dev = feats[0].shape[-1], rois.device
     lvl = map_roi_levels(rois, 4)
@@ -410,23 +432,28 @@ def _roi_work(feats, rois, out):
     starts = torch.cumsum(b * hs * ws, 0) - b * hs * ws  # level offsets
     scale = torch.tensor([1.0 / s for s in (4, 8, 16, 32)],
                          device=dev)[lvl]
+    xs, ys, wx, wy = _sample_coords(rois, scale, 7, sample_num, aligned,
+                                    max_grid)
+    samples = int(((wy > 0).sum(-1) * (wx > 0).sum(-1)).sum())  # a bin
     fh, fw = hs[lvl], ws[lvl]
-    taps = []
-    for lo_i, hi_i, size in ((0, 2, fw), (1, 3, fh)):
-        a1 = rois[..., lo_i] * scale - 0.5
-        bin_ = (rois[..., hi_i] * scale - 0.5 - a1) / 7
-        lo, hi, wl, wh = _axis_taps(a1, bin_, size, 7, 2)
-        taps.append((torch.stack([lo, hi], -1), torch.stack([wl, wh], -1)))
-    (xs, wx), (ys, wy) = taps                           # [B, N, 14, 2]
-    img = torch.arange(b, device=dev)[:, None]
-    base = starts[lvl] + img * fh * fw                           # [B, N]
-    idx = (base[..., None, None, None, None]
-           + ys[..., None, None] * fw[..., None, None, None, None]
-           + xs[:, :, None, None])
-    wt = wy[..., None, None] * wx[:, :, None, None]
-    pixels = torch.unique(idx[wt != 0]).numel()
+    pixels = 0
+    for i in range(b):
+        taps = []
+        for coord, wgt, size in ((xs[i], wx[i], fw[i]), (ys[i], wy[i],
+                                                          fh[i])):
+            lo, hi, wl, wh = _bilinear(coord, size)
+            per = wgt[:, None, :].expand(n, 7, wgt.shape[-1]).reshape(n, -1)
+            taps.append((torch.stack([lo, hi], -1),
+                         torch.stack([wl, wh], -1) * per[..., None]))
+        (xt, xw), (yt, yw) = taps                        # [N, 7g, 2]
+        base = starts[lvl[i]] + i * fh[i] * fw[i]                   # [N]
+        idx = (base[:, None, None, None, None]
+               + yt[:, :, :, None, None] * fw[i][:, None, None, None, None]
+               + xt[:, None, None])
+        wt = yw[:, :, :, None, None] * xw[:, None, None]
+        pixels += torch.unique(idx[wt != 0]).numel()
     nbytes = (pixels * c * feats[0].element_size() + _nbytes(rois, out))
-    return roi_align_flops(rois.shape, c), nbytes, torch.float32, pixels
+    return samples * 49 * 4 * 2 * c, nbytes, torch.float32, pixels
 
 
 def _randomize(module, g):
@@ -1556,9 +1583,11 @@ def phase_new_requests(smi):
         f'{k} {v:.4f}' for k, v in sorted(metrics.items())))
 
 
-def _train_setup(config, device, seed=0, no_drop=False, warmup=True):
+def _train_setup(config, device, seed=0, no_drop=False, warmup=True,
+                 remat=False, sample_num=None):
     """A training model on `device` (random weights drawn on the CPU from
-    `seed`), its `TrainState` and experiment."""
+    `seed`), its `TrainState` and experiment; `remat` and `sample_num`
+    replace the backbone's and the RoI head's."""
     import dataclasses
     from hrfuser_tpu_torch.apis.inference import init_weights_
     from hrfuser_tpu_torch.apis.train import create_train_state
@@ -1568,6 +1597,14 @@ def _train_setup(config, device, seed=0, no_drop=False, warmup=True):
     exp = get_experiment(config)
     if no_drop:
         exp = dataclasses.replace(exp, model=without_drops(exp.model))
+    model_cfg = exp.model
+    if remat:
+        model_cfg = dataclasses.replace(model_cfg, backbone=dataclasses.replace(
+            model_cfg.backbone, remat=True))
+    if sample_num is not None:
+        model_cfg = dataclasses.replace(model_cfg, roi=dataclasses.replace(
+            model_cfg.roi, sample_num=sample_num))
+    exp = dataclasses.replace(exp, model=model_cfg)
     sched = exp.schedule
     if not warmup:
         # the full lr from the first step: with warmup_iters 0 alone the
@@ -3579,6 +3616,267 @@ def phase_render_browse(state, smi):
     shutil.rmtree(root)
 
 
+# (label, sample_num, max_grid, aligned) of phase 16a
+ROI_MODES = (('adaptive max_grid 4', 0, 4, True),
+             ('adaptive max_grid 8', 0, 8, True),
+             ('static 1', 1, 4, True), ('static 3', 3, 4, True),
+             ('static 4', 4, 4, True), ('unaligned static 2', 2, 4, False),
+             ('unaligned adaptive', 0, 4, False))
+
+
+def _contract_rois(g):
+    """`_roi_inputs`' pyramid and 8 x 1000 RoIs, with 12 RoIs of every
+    image from row 250 replaced by `card_checks.grid_rois()`: grids 1-4,
+    a sliver capped at `max_grid` 4 but not 8, integer-boundary bins."""
+    feats32, rois = _roi_inputs(g)
+    extra = torch.from_numpy(_checks().grid_rois()).cuda()
+    rois[:, 250:250 + len(extra)] = extra
+    return feats32, rois
+
+
+def phase_roi_contract(report, smi):
+    print('== 16a. kernel C, the whole sampling contract vs its twin: r640, '
+          f'C = 256, {BATCH} x 1000 RoIs with grids 1-4, capped and '
+          f'integer-boundary bins')
+    from hrfuser_tpu_torch.ops import roi_align
+    g = torch.Generator().manual_seed(16)
+    feats32, rois = _contract_rois(g)
+    strides = (4, 8, 16, 32)
+    fb = [f.bfloat16().contiguous() for f in feats32]
+    ms2 = _time_ms(lambda: roi_align.multilevel_roi_align(fb, rois, strides))
+    print(f'  the 2x2 plan on these inputs, bf16: {ms2:.4f} ms ({smi})')
+    for label, sn, mg, al in ROI_MODES:
+        for dt in (torch.float32, torch.bfloat16):
+            feats = feats32 if dt == torch.float32 else fb
+
+            def roi_k():
+                return roi_align.multilevel_roi_align(feats, rois, strides, 7,
+                                                      sn, 56, mg, al)
+
+            def roi_p():
+                return roi_align.multilevel_roi_align_plain(
+                    feats, rois, strides, 7, sn, 56, mg, al)
+
+            before = roi_align.PLAN_LAUNCHES['grid']
+            got = roi_k()
+            if roi_align.PLAN_LAUNCHES['grid'] != before + 1:
+                raise AssertionError(f'{label}: the general plan did not '
+                                     f'launch')
+            err = _compare(f'roi_align {label} {str(dt)[6:]} [plan grid]',
+                           got, roi_p(), dt)
+            main = sn == 0 and mg == 4 and al
+            if dt == torch.bfloat16 or main:
+                ms = _time_ms(roi_k)
+                plain_ms = _time_ms(roi_p, iters=1, warmup=0)
+                flops, nbytes, peak, pixels = _roi_work(feats, rois, got, sn,
+                                                        mg, al)
+                bound = _bound(flops, nbytes, peak)
+                _print_time(ms, plain_ms, bound)
+                print(f'    {flops / 1e9:.2f} GFLOP from the RoIs\' own '
+                      f'grids, {nbytes / 1e6:.1f} MB ({pixels} pyramid '
+                      f'pixels); {ms / ms2:.2f}x the 2x2 plan; {smi}')
+                record = main and dt == torch.bfloat16
+                report.add('roi_align_grid', SRC_C, REPLACES_C, err,
+                           *((ms, plain_ms, bound) if record else ()))
+            else:
+                report.add('roi_align_grid', SRC_C, REPLACES_C, err)
+    for variant in ('v4', 'v8'):
+        for dt in (torch.float32, torch.bfloat16):
+            single = [f[0].to(dt).contiguous() for f in feats32]
+            _check(report, 'roi_align_grid', SRC_C, REPLACES_C,
+                   f'roi_align multilevel_roi_align_pallas variant={variant} '
+                   f'static 3 1x{rois.shape[1]} {str(dt)[6:]}',
+                   lambda: roi_align.multilevel_roi_align_pallas(
+                       single, rois[0], sample_num=3, variant=variant),
+                   lambda: roi_align.multilevel_roi_align_plain(
+                       [f[None] for f in single], rois[:1], strides,
+                       sample_num=3)[0].reshape(-1, 7, 7, 256), dt,
+                   lambda out: _roi_work([f[None] for f in single],
+                                         rois[:1], out, 3)[:3])
+
+
+def phase_adaptive_slice(report, smi):
+    print(f'== 16b. HRFuser-T r640 lidar+radar, bf16, batch {BATCH}, '
+          f'roi.sample_num=0 (adaptive, max_grid 4), calibrated weights')
+    import dataclasses
+    from hrfuser_tpu_torch.apis.inference import Detector, init_weights_
+    from hrfuser_tpu_torch.configs import get_experiment
+    from hrfuser_tpu_torch.models import predict
+    from hrfuser_tpu_torch.models.detectors.cascade_rcnn import CascadeRCNN
+    from hrfuser_tpu_torch.ops import roi_align
+    exp = get_experiment(CONFIG)
+    cfgs = {sn: dataclasses.replace(exp.model, roi=dataclasses.replace(
+        exp.model.roi, sample_num=sn)) for sn in (0, 2)}
+    models = {sn: CascadeRCNN(c) for sn, c in cfgs.items()}
+    init_weights_(models[0], torch.Generator().manual_seed(0))
+    img, mods = _inputs(exp.model, BATCH, np.random.default_rng(0))
+    x = torch.from_numpy(img).cuda()
+    xs = [torch.from_numpy(m).cuda() for m in mods]
+    models[0].cuda()
+    _calibrated(models[0], x, xs)
+    models[2].load_state_dict(models[0].state_dict())
+    dets = {sn: Detector(m.eval().cuda(), exp.data, torch.device('cuda'),
+                         torch.bfloat16) for sn, m in models.items()}
+    for det in dets.values():
+        det(img, mods)                                   # warm-up
+    torch.cuda.synchronize()
+    calls, times = 3, []
+    _reset_counts()
+    plans = dict(roi_align.PLAN_LAUNCHES)
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        out = dets[0](img, mods)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    plans = {k: roi_align.PLAN_LAUNCHES[k] - n for k, n in plans.items()}
+    want = _expected_launches(cfgs[0])
+    _check_counts(want, calls, f'sample_num=0 over {calls} calls')
+    print(f'  kernel C plans launched: {plans}')
+    if plans != {'2x2': 0, 'grid': calls * want['roi_align']}:
+        raise AssertionError('sample_num=0 must run the general plan alone')
+    report.kernels['roi_align_grid']['launches'] = plans['grid']
+    if not (out.boxes.isfinite().all() and out.scores.isfinite().all()):
+        raise AssertionError('non-finite detections')
+    per_image = out.valid.sum(1).tolist()
+    print(f'  detections: {sum(per_image)} valid (per image {per_image})')
+    if not sum(per_image):
+        raise AssertionError('no detection in the whole batch')
+    turns = {0: [], 2: []}
+    for _ in range(5):                      # in turns: 0, 2, 0, 2, ...
+        for sn in turns:
+            t0 = time.perf_counter()
+            dets[sn](img, mods)
+            torch.cuda.synchronize()
+            turns[sn].append((time.perf_counter() - t0) * 1e3)
+    med = {sn: sorted(t)[2] for sn, t in turns.items()}
+    busy = {sn: _busy_ms(lambda sn=sn: dets[sn](img, mods))[0]
+            for sn in turns}
+    print(f'  latency per batch (ms): the counted calls '
+          f'{", ".join(f"{t:.1f}" for t in times)}; then in turns, median '
+          f'of 5, sample_num=0 {med[0]:.1f}, sample_num=2 {med[2]:.1f}; '
+          f'device busy a batch (torch.profiler) ' + ' vs '.join(
+              'not measured' if busy[sn] is None else f'{busy[sn]:.2f} ms'
+              for sn in turns) + f'; {smi}')
+    cpu = CascadeRCNN(cfgs[0])
+    cpu.load_state_dict({k: v.cpu() for k, v in
+                         models[0].state_dict().items()})
+    img1, mods1 = _inputs(exp.model, 1, np.random.default_rng(1))
+    t0 = time.perf_counter()
+    for what, r in _checks().same_runs(
+            predict, models[0].float(), cpu.eval(), torch.from_numpy(img1),
+            [torch.from_numpy(m) for m in mods1], cfgs[0],
+            'predict sample_num=0'):
+        print(f'  batch 1 f32, {what}: card {r["got"]} / CPU {r["want"]} '
+              f'matched, max box err {r["box"]:.3e} px, max score err '
+              f'{r["score"]:.3e}, {r["at_cut"]} unmatched at a cut')
+    print(f'  card vs CPU in {time.perf_counter() - t0:.1f} s')
+    del dets, models
+    torch.cuda.empty_cache()
+
+
+def phase_remat(smi):
+    print(f'== 16c. backbone.remat: HRFuser-T float32 train step, batch 3 '
+          f'at {H}x{W}, with and without remat, same weights, batch and '
+          f'generator (drop path and proj_drop live)')
+    from hrfuser_tpu_torch.apis.train import train_step
+    from hrfuser_tpu_torch.tools.train import synthetic_batches
+    runs = {}
+    for remat in (False, True):
+        state, exp = _train_setup(CONFIG, 'cuda', warmup=False, remat=remat)
+        batch = next(synthetic_batches(exp, exp.schedule.samples_per_device,
+                                       pool=1))
+        model = state.model
+        gen = torch.Generator('cuda').manual_seed(5)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        losses = train_step(state, batch, gen)
+        torch.cuda.synchronize()
+        launches = sum(fn.launches for fn in _counters().values())
+        runs[remat] = dict(
+            losses={k: float(v) for k, v in losses.items()},
+            grads={n: p.grad.detach().clone()
+                   for n, p in model.named_parameters() if p.grad is not None},
+            stats={n: b.detach().clone() for n, b in model.named_buffers()
+                   if n.endswith(('running_mean', 'running_var'))},
+            tracked={int(b) for n, b in model.named_buffers()
+                     if n.endswith('num_batches_tracked')},
+            gen=gen.get_state(), peak=torch.cuda.max_memory_allocated(),
+            launches=launches)
+        ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train_step(state, batch, gen)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        runs[remat]['ms'] = sorted(ms)[1]
+        del state, model
+        torch.cuda.empty_cache()
+    a, b = runs[False], runs[True]
+    for k in a['losses']:
+        diff = abs(b['losses'][k] - a['losses'][k])
+        ok = (diff * 1024 <= 3 if k.endswith('acc')
+              else diff <= 1e-3 * abs(a['losses'][k]))
+        if not ok:
+            raise AssertionError(f'remat {k}: {b["losses"][k]} vs '
+                                 f'{a["losses"][k]}')
+    ga, gb = a['grads'], b['grads']
+    if set(ga) != set(gb):
+        raise AssertionError('remat changes which params get grads')
+    whole = (torch.cat([(gb[n] - ga[n]).flatten() for n in ga]).norm()
+             / torch.cat([ga[n].flatten() for n in ga]).norm()).item()
+    floor = 1e-3 * max(g.norm().item() for g in ga.values())
+    each = max((gb[n] - ga[n]).norm().item() / max(ga[n].norm().item(), floor)
+               for n in ga)
+    stats = max(((b['stats'][n] - v).abs().max() / (1 + v.abs().max())).item()
+                for n, v in a['stats'].items())
+    bits = (a['losses'] == b['losses']
+            and all(torch.equal(ga[n], gb[n]) for n in ga)
+            and all(torch.equal(a['stats'][n], b['stats'][n])
+                    for n in a['stats']))
+    print(f'  losses within rtol 1e-3; gradients relative L2 {whole:.2e} '
+          f'together (bar 2e-2), {each:.2e} worst (bar 1e-1); BN running '
+          f'statistics {stats:.2e} (bar 1e-4); bit-equal to the plain step: '
+          f'{bits}')
+    if whole > 2e-2 or each > 1e-1 or stats > 1e-4:
+        raise AssertionError('the remat step departs from the plain step')
+    print(f'  num_batches_tracked after one step: plain {sorted(a["tracked"])}'
+          f', remat {sorted(b["tracked"])}; generator state after the step '
+          f'equal: {torch.equal(a["gen"], b["gen"])}')
+    if b['tracked'] != a['tracked'] or max(b['tracked']) != 1:
+        raise AssertionError('remat updated BatchNorm statistics more than '
+                             'once')
+    if a['launches'] or b['launches']:
+        raise AssertionError('a train step launched an eval kernel')
+    gib = 2 ** 30
+    print(f'  peak memory (torch.cuda.max_memory_allocated) plain '
+          f'{a["peak"] / gib:.2f} GiB, remat {b["peak"] / gib:.2f} GiB; ms '
+          f'a step (median of 3) plain {a["ms"]:.1f}, remat {b["ms"]:.1f} '
+          f'on {smi}')
+    state, exp = _train_setup(CONFIG, 'cuda', warmup=False, sample_num=0)
+    batch = next(synthetic_batches(exp, exp.schedule.samples_per_device,
+                                   pool=1))
+    _reset_counts()
+    losses = train_step(state, batch, torch.Generator('cuda').manual_seed(5))
+    launches = sum(fn.launches for fn in _counters().values())
+    print(f'  sample_num=0 through the one-hot pool: loss '
+          f'{float(losses["loss"]):.4f}, {launches} kernel launches')
+    if not all(bool(v.isfinite()) for v in losses.values()) or launches:
+        raise AssertionError('sample_num=0 train step')
+    del state
+    torch.cuda.empty_cache()
+
+
+def phase_real_parity(smi):
+    print('== 16d. tools.real_parity --dry-run on the card')
+    from hrfuser_tpu_torch.tools import real_parity
+    t0 = time.perf_counter()
+    metrics = real_parity.main(['--dry-run'])
+    print(f'  metrics {metrics} in {time.perf_counter() - t0:.1f} s on '
+          f'{smi}')
+
+
 def main():
     smi = phase_environment()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3651,6 +3949,10 @@ def main():
         ('15c', lambda: phase_render_jpeg(smi)),
         ('15d', lambda: phase_render_show_dir(state, smi)),
         ('15e', lambda: phase_render_browse(state, smi)),
+        ('16a', lambda: phase_roi_contract(report, smi)),
+        ('16b', lambda: phase_adaptive_slice(report, smi)),
+        ('16c', lambda: phase_remat(smi)),
+        ('16d', lambda: phase_real_parity(smi)),
     ]
     for name, run in phases:
         t1 = time.perf_counter()

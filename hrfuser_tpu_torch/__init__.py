@@ -10,6 +10,7 @@ PyTorch twin that runs on CPU tensors. Imports torch and numpy only.
 from hrfuser_tpu_torch.apis.inference import (Detector, inference_detector,
                                               init_detector)
 from hrfuser_tpu_torch.configs import get_config, get_experiment
+from hrfuser_tpu_torch.version import __version__  # noqa: F401
 
 __all__ = ['Detector', 'init_detector', 'inference_detector', 'get_config',
            'get_experiment']

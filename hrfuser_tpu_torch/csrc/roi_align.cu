@@ -1,4 +1,6 @@
-// Kernel C: aligned multilevel RoIAlign, 7x7 bins x 2x2 samples.
+// Kernel C: multilevel RoIAlign, 7x7 bins. Two plans: the aligned 2x2
+// grid below, which the model path runs by default, and the general plan
+// further down (any static grid, the adaptive grid, aligned or not).
 //
 // Replaces the TPU Pallas kernels of hrfuser_tpu/ops/pallas_roi_align.py,
 // multilevel_roi_align_pallas -> _call: pallas_call :597 (_kernel_v7, the
@@ -289,6 +291,237 @@ __global__ void __launch_bounds__(kRoiThreads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// The general plan: any static grid, the adaptive grid, aligned or not
+// ---------------------------------------------------------------------------
+//
+// The function is the same as above with JAX's whole sampling contract
+// (hrfuser_tpu/ops/roi_align.py:8-18,282-335): a static grid of k x k
+// samples a bin (sample_num = k > 0), or the adaptive one (sample_num = 0,
+// mmcv's sampling_ratio=0): each RoI samples gy = ceil(bin_h) by gx =
+// ceil(bin_w) points a bin, clamped to [1, max_grid], each axis's samples
+// weighted 1 / count. `aligned` = 0 drops the half-pixel offset and makes
+// the RoI at least 1 pixel a side. A bin's x sample i of an axis with
+// `cnt` samples sits at a1 + (px + (i + 0.5) / cnt) * bin, as JAX computes
+// it; the count comes from the same __fdiv_rn(a2 - a1, 7) bin width, so a
+// bin exactly on an integer samples as many points as the twin does.
+//
+// Each RoI's table holds its level, image, counts and up to 7 * G taps an
+// axis, G the launch's grid bound (the static k, or max_grid); it lives in
+// dynamic shared memory sized by G (16 + 224 G bytes a RoI, two buffers).
+// The 1 / gy and 1 / gx weights are folded into the taps. A thread owns
+// one bin row of its lane's channels, as in the 2x2 plan, and for each bin
+// y-pools the two pixel columns of each of its gx x samples over the gy y
+// samples' rows; there is no column reuse (simple, not yet fast).
+
+struct GridHead {
+  const uint4* f;
+  int W;
+  short gy, gx;
+};
+static_assert(sizeof(GridHead) == 16, "GridHead is one 16-byte slot");
+
+__host__ __device__ constexpr long long grid_tab_bytes(int G) {
+  return (long long)sizeof(GridHead) + 2LL * kOut * G * (long long)sizeof(Tap);
+}
+
+struct GridArgs {
+  int G;         // taps a bin reserved an axis
+  int adaptive;  // 1: counts from ceil(bin), clamped to [1, G]
+  float offset;  // 0.5 when aligned, else 0
+  int aligned;
+};
+
+// Sample i (of cnt) of bin p on an axis with start a1, bin width `bin`.
+__device__ __forceinline__ Tap grid_tap(float a1, float bin, int p, int i,
+                                        int cnt, int size) {
+  const float frac =
+      __fadd_rn((float)p, __fdiv_rn((float)i + 0.5f, (float)cnt));
+  const float coord = __fadd_rn(a1, __fmul_rn(frac, bin));
+  const bool inside = coord > -1.f && coord < (float)size;
+  const float c = fminf(fmaxf(coord, 0.f), (float)(size - 1));
+  const int lo = (int)floorf(c);
+  const float whi = c - (float)lo;
+  return {lo, min(lo + 1, size - 1), inside ? 1.f - whi : 0.f,
+          inside ? whi : 0.f};
+}
+
+// An axis's aligned (or not) start and bin width, and its sample count.
+__device__ __forceinline__ void grid_axis(float v1, float v2, float s,
+                                          const GridArgs& a, float& a1,
+                                          float& bin, int& cnt) {
+  a1 = __fsub_rn(__fmul_rn(v1, s), a.offset);
+  const float a2 = __fsub_rn(__fmul_rn(v2, s), a.offset);
+  float roi = __fsub_rn(a2, a1);
+  if (!a.aligned) roi = fmaxf(roi, 1.f);
+  bin = __fdiv_rn(roi, (float)kOut);
+  cnt = a.adaptive ? (int)fminf(fmaxf(ceilf(bin), 1.f), (float)a.G) : a.G;
+}
+
+// Item k of RoI r's table: x taps [0, 7G), y taps [7G, 14G), the header.
+__device__ __forceinline__ void grid_fill(unsigned char* tab,
+                                          const Pyramid& pyr,
+                                          const float* __restrict__ rois,
+                                          int r, int N, int V, int k,
+                                          float finest, const GridArgs& a) {
+  const float* box = rois + 4 * (size_t)r;
+  const float x1 = __ldg(box), y1 = __ldg(box + 1);
+  const float x2 = __ldg(box + 2), y2 = __ldg(box + 3);
+  const float area = (x2 - x1) * (y2 - y1);
+  const float l = floorf(log2f(sqrtf(area) / finest + 1e-6f));
+  const int lvl = l >= 3.f ? 3 : (l >= 0.f ? (int)l : 0);
+  const int H = pyr.h[lvl], W = pyr.w[lvl];
+  const float s = pyr.scale[lvl];
+  const int S = kOut * a.G;
+  Tap* x = reinterpret_cast<Tap*>(tab + sizeof(GridHead));
+  Tap* y = x + S;
+  float a1, bin;
+  int cnt;
+  if (k < 2 * S) {
+    const bool is_x = k < S;
+    const int j = is_x ? k : k - S;
+    const int p = j / a.G, i = j % a.G;
+    if (is_x)
+      grid_axis(x1, x2, s, a, a1, bin, cnt);
+    else
+      grid_axis(y1, y2, s, a, a1, bin, cnt);
+    if (i >= cnt) return;  // past this RoI's count: never read
+    Tap t = grid_tap(a1, bin, p, i, cnt, is_x ? W : H);
+    const float w = __fdiv_rn(1.f, (float)cnt);
+    if (is_x)
+      x[j] = {t.lo, t.hi, t.wlo * w, t.whi * w};
+    else
+      y[j] = {t.lo * W, t.hi * W, t.wlo * w, t.whi * w};
+  } else {
+    GridHead* h = reinterpret_cast<GridHead*>(tab);
+    int gy, gx;
+    grid_axis(y1, y2, s, a, a1, bin, gy);
+    grid_axis(x1, x2, s, a, a1, bin, gx);
+    h->f = static_cast<const uint4*>(pyr.f[lvl]) + (size_t)(r / N) * H * W * V;
+    h->W = W;
+    h->gy = (short)gy;
+    h->gx = (short)gx;
+  }
+}
+
+// One bin row py of an RoI, 16-byte lane v: 7 output vectors at o.
+template <typename T>
+__device__ __forceinline__ void grid_row(const unsigned char* tab,
+                                         uint4* __restrict__ o, int V,
+                                         int py, int v, int G) {
+  constexpr int E = Vec<T>::n;
+  const GridHead h = *reinterpret_cast<const GridHead*>(tab);
+  const Tap* xt = reinterpret_cast<const Tap*>(tab + sizeof(GridHead));
+  const Tap* yt = xt + kOut * G + py * G;
+  const uint4* f = h.f + v;
+#pragma unroll 1
+  for (int px = 0; px < kOut; ++px) {
+    float acc[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[e] = 0.f;
+#pragma unroll 1
+    for (int ix = 0; ix < h.gx; ++ix) {
+      const Tap tx = xt[px * G + ix];
+#pragma unroll 1
+      for (int iy = 0; iy < h.gy; ++iy) {
+        const Tap ty = yt[iy];
+        const uint4 d00 = __ldg(f + (size_t)(ty.lo + tx.lo) * V);
+        const uint4 d01 = __ldg(f + (size_t)(ty.lo + tx.hi) * V);
+        const uint4 d10 = __ldg(f + (size_t)(ty.hi + tx.lo) * V);
+        const uint4 d11 = __ldg(f + (size_t)(ty.hi + tx.hi) * V);
+        float v00[E], v01[E], v10[E], v11[E];
+        unpack(d00, v00);
+        unpack(d01, v01);
+        unpack(d10, v10);
+        unpack(d11, v11);
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          const float lo = fmaf(ty.wlo, v00[e], ty.whi * v10[e]);
+          const float hi = fmaf(ty.wlo, v01[e], ty.whi * v11[e]);
+          acc[e] = fmaf(tx.wlo, lo, fmaf(tx.whi, hi, acc[e]));
+        }
+      }
+    }
+    __stcs(o + px * V + v, pack(acc));
+  }
+}
+
+// The 2x2 kernel's schedule (groups of rpb RoIs, tables double-buffered)
+// over the general tables.
+template <typename T>
+__global__ void __launch_bounds__(kRoiThreads)
+    roi_align_grid_kernel(Pyramid pyr, const float* __restrict__ rois,
+                          T* __restrict__ out, int R, int N, int V, int rpb,
+                          float finest, GridArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tab_bytes = (int)grid_tab_bytes(a.G);
+  const int tab_items = 2 * kOut * a.G + 1;
+  const int items = rpb * kOut * V;
+  const int groups = (R + rpb - 1) / rpb;
+  auto build = [&](int g, unsigned char* tab) {
+    for (int t = threadIdx.x; t < rpb * tab_items; t += blockDim.x) {
+      const int i = t / tab_items, r = g * rpb + i;
+      if (g < groups && r < R)
+        grid_fill(tab + i * tab_bytes, pyr, rois, r, N, V,
+                  t - i * tab_items, finest, a);
+    }
+  };
+  build(blockIdx.x, smem);
+  __syncthreads();
+  for (int g = blockIdx.x, buf = 0; g < groups; g += gridDim.x, buf ^= 1) {
+    unsigned char* tab = smem + buf * rpb * tab_bytes;
+    build(g + gridDim.x, smem + (buf ^ 1) * rpb * tab_bytes);
+    for (int it = threadIdx.x; it < items; it += blockDim.x) {
+      const int row = it / V, i = row / kOut, r = g * rpb + i;
+      if (r < R)
+        grid_row<T>(tab + i * tab_bytes,
+                    reinterpret_cast<uint4*>(out) +
+                        ((size_t)r * kOut + row % kOut) * kOut * V,
+                    V, row % kOut, it - row * V, a.G);
+    }
+    __syncthreads();
+  }
+}
+
+// RoIs a group and threads a block, the same for both plans.
+static void roi_groups(int V, int& rpb, int& threads) {
+  rpb = V >= 32 ? 1 : 32 / V;  // about 7 warps a group
+  threads = std::min(round_up(rpb * kOut * V, 32), kRoiThreads);
+}
+
+static long long grid_smem(int C, int vec, int G) {
+  int rpb, threads;
+  roi_groups(C / vec, rpb, threads);
+  return 2LL * rpb * grid_tab_bytes(G);
+}
+
+template <typename T>
+static int launch_grid(const Pyramid& pyr, const float* rois, void* out,
+                       int B, int N, int C, float finest, const GridArgs& a,
+                       cudaStream_t stream) {
+  constexpr int kVec = Vec<T>::n;
+  if (C <= 0 || C % kVec != 0 || a.G < 1) return (int)cudaErrorInvalidValue;
+  const long long smem = grid_smem(C, kVec, a.G);
+  if (smem > (long long)kSmemMax) return kErrNoPlan;
+  const int R = B * N;
+  if (R == 0) return 0;
+  const int V = C / kVec;
+  int rpb, threads;
+  roi_groups(V, rpb, threads);
+  const int groups = (R + rpb - 1) / rpb;
+  const void* kernel = reinterpret_cast<const void*>(roi_align_grid_kernel<T>);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int wave = wave_blocks(kernel, threads, (size_t)smem);
+  roi_align_grid_kernel<T><<<std::min(groups, wave), threads, (size_t)smem,
+                             stream>>>(pyr, rois, static_cast<T*>(out), R, N,
+                                       V, rpb, finest, a);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 static int launch(const Pyramid& pyr, const float* rois, void* out, int B,
                   int N, int C, float finest, cudaStream_t stream) {
@@ -310,18 +543,36 @@ static int launch(const Pyramid& pyr, const float* rois, void* out, int B,
 
 }  // namespace hrf
 
+// sample_num > 0: a static sample_num x sample_num grid; 0: adaptive, up
+// to max_grid an axis. An aligned 2x2 grid takes the 2x2 plan, the rest
+// the general plan, which returns kErrNoPlan when its tables do not fit.
 extern "C" int hrf_roi_align(const void* f0, const void* f1, const void* f2,
                              const void* f3, int h0, int w0, int h1, int w1,
                              int h2, int w2, int h3, int w3, float s0,
                              float s1, float s2, float s3, const float* rois,
                              void* out, int B, int N, int C, float finest,
-                             int bf16, void* stream) {
+                             int bf16, int sample_num, int max_grid,
+                             int aligned, void* stream) {
   hrf::Pyramid pyr{{f0, f1, f2, f3},
                    {h0, h1, h2, h3},
                    {w0, w1, w2, w3},
                    {s0, s1, s2, s3}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (sample_num < 0) return (int)cudaErrorInvalidValue;
+  if (sample_num == hrf::kGrid && aligned) {
+    if (bf16)
+      return hrf::launch<__nv_bfloat16>(pyr, rois, out, B, N, C, finest, s);
+    return hrf::launch<float>(pyr, rois, out, B, N, C, finest, s);
+  }
+  const hrf::GridArgs a{sample_num > 0 ? sample_num : max_grid,
+                        sample_num == 0, aligned ? 0.5f : 0.f, aligned};
   if (bf16)
-    return hrf::launch<__nv_bfloat16>(pyr, rois, out, B, N, C, finest, s);
-  return hrf::launch<float>(pyr, rois, out, B, N, C, finest, s);
+    return hrf::launch_grid<__nv_bfloat16>(pyr, rois, out, B, N, C, finest,
+                                           a, s);
+  return hrf::launch_grid<float>(pyr, rois, out, B, N, C, finest, a, s);
+}
+
+// Shared memory of the general plan at C channels and a grid bound of G.
+extern "C" long long hrf_roi_align_smem(int C, int bf16, int G) {
+  return hrf::grid_smem(C, bf16 ? 8 : 4, G);
 }

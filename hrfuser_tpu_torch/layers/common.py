@@ -15,6 +15,8 @@ updates its running statistics as flax's `nn.BatchNorm` does
 (`hrfuser_tpu/layers/common.py:33-55`): momentum 0.1 and the biased batch
 variance; inside `sync_batch_norm`, over every rank's batch. `DropPath`
 and `Dropout` draw from the generator that `train_generator` installs.
+`remat` runs a training call under `torch.utils.checkpoint`, whose
+recompute replays those draws and leaves the running statistics alone.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint
 
 from hrfuser_tpu_torch.parallel.mesh import all_reduce_sum
 
@@ -148,6 +151,9 @@ def _bn_tensors(bn: nn.BatchNorm2d):
 
 
 _SYNC = contextvars.ContextVar('sync_batch_norm', default=False)
+# True while `remat` recomputes a forward: the running statistics were
+# updated by the forward itself
+_RECOMPUTE = contextvars.ContextVar('recompute', default=False)
 
 
 @contextlib.contextmanager
@@ -181,6 +187,8 @@ def _synced_batch_norm(x: Tensor, bn: nn.BatchNorm2d) -> Tensor:
     shape = (1, c, 1, 1)
     y = ((xa - mean.to(xa.dtype).view(shape)) * scale.to(xa.dtype).view(shape)
          + bn.bias.to(xa.dtype).view(shape))
+    if _RECOMPUTE.get():
+        return y.to(x.dtype)
     with torch.no_grad():
         m = bn.momentum
         bn.running_mean.mul_(1 - m).add_(mean.to(bn.running_mean.dtype),
@@ -204,12 +212,66 @@ def batch_norm_train(x: Tensor, bn: nn.BatchNorm2d) -> Tensor:
     # momentum 1 leaves the batch mean and unbiased variance in the temps
     y = F.batch_norm(x, batch_mean, batch_var, bn.weight.to(x.dtype),
                      bn.bias.to(x.dtype), True, 1.0, bn.eps)
+    if _RECOMPUTE.get():
+        return y
     with torch.no_grad():
         m = bn.momentum
         bn.running_mean.mul_(1 - m).add_(batch_mean, alpha=m)
         bn.running_var.mul_(1 - m).add_(batch_var, alpha=m * (n - 1) / n)
         bn.num_batches_tracked.add_(1)
     return y
+
+
+class _Replay:
+    """What the recompute of one `remat` call needs from its forward,
+    which may have run in another thread (a CUDA backward runs on the
+    autograd engine's device thread, where no context variable is set):
+    the drop generator, its state when the forward began, and whether
+    BatchNorm was synced. The recompute replays the forward's draws from
+    that state, then puts the generator back where it was, and leaves the
+    running statistics alone; under SyncBN it still all-reduces the batch
+    statistics, so every rank's collectives stay matched."""
+
+    def __init__(self):
+        self.generator = _GENERATOR.get()
+        self.sync = _SYNC.get()
+        self.state = None
+
+    @contextlib.contextmanager
+    def forward(self):
+        if self.generator is not None:
+            self.state = self.generator.get_state()
+        yield
+
+    @contextlib.contextmanager
+    def recompute(self):
+        g = self.generator
+        later = None if g is None else g.get_state()
+        tokens = (_GENERATOR.set(g), _SYNC.set(self.sync),
+                  _RECOMPUTE.set(True))
+        if g is not None:
+            g.set_state(self.state)
+        try:
+            yield
+        finally:
+            if g is not None:
+                g.set_state(later)
+            for var, token in zip((_GENERATOR, _SYNC, _RECOMPUTE), tokens):
+                var.reset(token)
+
+    def contexts(self):
+        return self.forward(), self.recompute()
+
+
+def remat(module: nn.Module, *args):
+    """`module(*args)`; in a training forward with grad enabled, under
+    `torch.utils.checkpoint` (non-reentrant), so its activations are
+    recomputed in the backward instead of kept (the JAX backbone's
+    `nn.remat`, `hrfuser_tpu/models/backbones/hr_modules.py:250-252`)."""
+    if not (module.training and torch.is_grad_enabled()):
+        return module(*args)
+    return checkpoint.checkpoint(module, *args, use_reentrant=False,
+                                 context_fn=_Replay().contexts)
 
 
 def conv_bn(x: Tensor, conv: nn.Conv2d, bn: Optional[nn.BatchNorm2d] = None,

@@ -3,9 +3,11 @@
 Copy of `hrfuser_tpu.models.backbones.hr_config`: the stage and fusion
 dataclasses, the stochastic depth schedule (`apply_stochastic_depth`)
 and the parser of a reference-style `extra` dict
-(`backbone_cfg_from_extra`). The TPU routing knobs (`remat`,
-`cf_layout`, `chain_kernel`) are left out; `tests/test_torch_configs.py`
-holds every remaining field equal to the JAX original.
+(`backbone_cfg_from_extra`). `remat` rematerialises each HRModule and
+fusion block in a training backward (`torch.utils.checkpoint`,
+`layers/common.remat`); the TPU routing knobs (`cf_layout`,
+`chain_kernel`) are left out. `tests/test_torch_configs.py` holds every
+remaining field equal to the JAX original.
 """
 
 from __future__ import annotations
@@ -69,6 +71,9 @@ class HRBackboneCfg:
     num_fused_modalities: int = 0
     mod_in_channels: Tuple[int, ...] = ()
     drop_path_rate: float = 0.0
+    # rematerialise each HRModule / fusion block in the backward of a
+    # training step: their activations are recomputed, not kept
+    remat: bool = False
 
     @property
     def pre_neck_fusion(self) -> bool:

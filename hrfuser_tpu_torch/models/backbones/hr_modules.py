@@ -18,7 +18,8 @@ from torch import nn
 
 from hrfuser_tpu_torch.layers.attention import HRFormerBlock
 from hrfuser_tpu_torch.layers.common import (bilinear_resize, conv3x3,
-                                             nearest_up, res_layer, run_seq)
+                                             nearest_up, remat, res_layer,
+                                             run_seq)
 from hrfuser_tpu_torch.models.backbones.hr_config import StageCfg
 from hrfuser_tpu_torch.ops.chain import hrformer_chain
 
@@ -195,13 +196,16 @@ class HRModule(nn.Module):
 
 
 class HRStage(nn.ModuleList):
-    """`num_modules` HRModules in sequence (`HRNet._make_stage`)."""
+    """`num_modules` HRModules in sequence (`HRNet._make_stage`); with
+    `remat`, each module of a training step is rematerialised in the
+    backward (`hr_modules.py:250-252`)."""
 
-    def __init__(self, stage: StageCfg):
+    def __init__(self, stage: StageCfg, remat: bool = False):
         super().__init__([HRModule(stage, m)
                           for m in range(stage.num_modules)])
+        self.remat = remat
 
     def forward(self, xs: List[Tensor]) -> List[Tensor]:
         for m in self:
-            xs = m(xs)
+            xs = remat(m, xs) if self.remat else m(xs)
         return xs

@@ -3,7 +3,8 @@
 Counterpart of `hrfuser_tpu.models.backbones.hrformer` (the reference
 `mmdet/models/backbones/hrformer.py:564-740`): a two-conv stride-2 stem,
 a Bottleneck stage 1, then three multi-resolution HRFormer stages joined
-by transitions. The reference keeps the stem's convs directly on the
+by transitions (each HRModule rematerialised in a training backward
+with `cfg.remat`). The reference keeps the stem's convs directly on the
 backbone (`conv1`, `bn1`, `conv2`, `bn2`; `conv_a`/`norm_a`/`conv_b`/
 `norm_b` for HRFuser's modality streams), so the stem is a function over
 those modules. Parameter names are the reference's.
@@ -52,9 +53,9 @@ class HRFormerBackbone(nn.Module):
                                       cfg.stage3.out_channels)
         self.transition3 = Transition(cfg.stage3.out_channels,
                                       cfg.stage4.out_channels)
-        self.stage2 = HRStage(cfg.stage2)
-        self.stage3 = HRStage(cfg.stage3)
-        self.stage4 = HRStage(cfg.stage4)
+        self.stage2 = HRStage(cfg.stage2, cfg.remat)
+        self.stage3 = HRStage(cfg.stage3, cfg.remat)
+        self.stage4 = HRStage(cfg.stage4, cfg.remat)
 
     def forward(self, x: Tensor) -> List[Tensor]:
         """x: [B, H, W, 3]. Returns one NHWC map per branch (strides 4, 8,

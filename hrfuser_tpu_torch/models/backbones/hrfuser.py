@@ -14,7 +14,9 @@ its transition and fusion bank D run on the stage-4 outputs, then a ReLU
 (`hrfuser_tpu/models/backbones/hrfuser.py:261-274`). Parameter names are
 the reference's. In training the fusion blocks and HRFormer stages run
 their blocks' eager forward instead of the eval chains (the JAX
-`resolve_chain(mode, train=True) -> False`).
+`resolve_chain(mode, train=True) -> False`); with `cfg.remat` each
+HRModule and fusion block of a training step is rematerialised in the
+backward (`hrfuser.py:75-76`, `hr_modules.py:250-252`).
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from hrfuser_tpu_torch.layers.attention import HRFuserFusionBlock
-from hrfuser_tpu_torch.layers.common import conv3x3, res_layer
+from hrfuser_tpu_torch.layers.common import conv3x3, remat, res_layer
 from hrfuser_tpu_torch.models.backbones.hr_config import (FusionCfg,
                                                           HRBackboneCfg,
                                                           StageCfg)
@@ -42,18 +44,21 @@ class FusionBank(nn.ModuleList):
     """One `HRFuserFusionBlock` per camera branch, each run in eval as one
     `fusion_chain` (`hrfuser_tpu/models/backbones/hrfuser.py:53-74`)."""
 
-    def __init__(self, fusion: FusionCfg, num_modalities: int):
+    def __init__(self, fusion: FusionCfg, num_modalities: int,
+                 remat: bool = False):
         super().__init__([
             HRFuserFusionBlock(fusion.num_channels[i], fusion.num_heads[i],
                                num_modalities, fusion.window_sizes[i],
                                fusion.mlp_ratios[i], fusion.drop_path,
                                fusion.proj_drop_rate)
             for i in range(fusion.num_branches)])
+        self.remat = remat
 
     def forward(self, xs: List[Tensor], mods: List[List[Tensor]]
                 ) -> List[Tensor]:
         if self.training:
-            return [blk(x, ms) for blk, x, ms in zip(self, xs, mods)]
+            return [remat(blk, x, ms) if self.remat else blk(x, ms)
+                    for blk, x, ms in zip(self, xs, mods)]
         return [fusion_chain(x, mods[i], self[i].folded(),
                              self[i].num_heads) for i, x in enumerate(xs)]
 
@@ -66,11 +71,13 @@ class ModalityStage(nn.ModuleList):
     `hrfuser.py:262`; the math is the same). A conv stage runs each
     modality's `HRStage` (`hrfuser.py:146-152`)."""
 
-    def __init__(self, stage: StageCfg, num_modalities: int):
+    def __init__(self, stage: StageCfg, num_modalities: int,
+                 remat: bool = False):
         if stage.num_branches != 1:
             raise ValueError(f'a modality stage has one branch, not '
                              f'{stage.num_branches}')
-        super().__init__([HRStage(stage) for _ in range(num_modalities)])
+        super().__init__([HRStage(stage, remat)
+                          for _ in range(num_modalities)])
         self.former = stage.block == 'HRFORMER'
         self.num_heads = stage.num_heads[0] if self.former else None
 
@@ -126,9 +133,9 @@ class HRFuserBackbone(nn.Module):
                                       cfg.stage3.out_channels)
         self.transition3 = Transition(cfg.stage3.out_channels,
                                       cfg.stage4.out_channels)
-        self.stage2 = HRStage(cfg.stage2)
-        self.stage3 = HRStage(cfg.stage3)
-        self.stage4 = HRStage(cfg.stage4)
+        self.stage2 = HRStage(cfg.stage2, cfg.remat)
+        self.stage3 = HRStage(cfg.stage3, cfg.remat)
+        self.stage4 = HRStage(cfg.stage4, cfg.remat)
         # modality transitions, stages and fusion banks
         self.transition_a = ModalityTransition(
             cfg.stage_a.out_channels, cfg.fusion_a.num_channels, nm)
@@ -136,16 +143,16 @@ class HRFuserBackbone(nn.Module):
             cfg.stage_b.out_channels, cfg.fusion_b.num_channels, nm)
         self.transition_c = ModalityTransition(
             cfg.stage_c.out_channels, cfg.fusion_c.num_channels, nm)
-        self.stage_b = ModalityStage(cfg.stage_b, nm)
-        self.stage_c = ModalityStage(cfg.stage_c, nm)
-        self.fusion_a = FusionBank(cfg.fusion_a, nm)
-        self.fusion_b = FusionBank(cfg.fusion_b, nm)
-        self.fusion_c = FusionBank(cfg.fusion_c, nm)
+        self.stage_b = ModalityStage(cfg.stage_b, nm, cfg.remat)
+        self.stage_c = ModalityStage(cfg.stage_c, nm, cfg.remat)
+        self.fusion_a = FusionBank(cfg.fusion_a, nm, cfg.remat)
+        self.fusion_b = FusionBank(cfg.fusion_b, nm, cfg.remat)
+        self.fusion_c = FusionBank(cfg.fusion_c, nm, cfg.remat)
         if cfg.pre_neck_fusion:
-            self.stage_d = ModalityStage(cfg.stage_d, nm)
+            self.stage_d = ModalityStage(cfg.stage_d, nm, cfg.remat)
             self.transition_d = ModalityTransition(
                 cfg.stage_d.out_channels, cfg.fusion_d.num_channels, nm)
-            self.fusion_d = FusionBank(cfg.fusion_d, nm)
+            self.fusion_d = FusionBank(cfg.fusion_d, nm, cfg.remat)
 
     def unused_parameters(self) -> List[nn.Parameter]:
         """The reference's BatchNorms beside the stage-2 transition convs

@@ -35,10 +35,12 @@ STAGE_STDS = ((0.1, 0.1, 0.2, 0.2), (0.05, 0.05, 0.1, 0.1),
 
 @dataclasses.dataclass(frozen=True)
 class RoIHeadCfg:
-    """`hrfuser_tpu`'s `RoIHeadCfg` (static 2x2 sampling) without its TPU
-    eval-pool knobs: eval pools with kernel C, training with the one-hot
-    formulation (`pool_method`), whose einsum operands are rounded to
-    bfloat16 when `gather_bf16` is set."""
+    """`hrfuser_tpu`'s `RoIHeadCfg` without its TPU eval-pool knobs: eval
+    pools with kernel C, training with the one-hot formulation
+    (`pool_method`), whose einsum operands are rounded to bfloat16 when
+    `gather_bf16` is set. `sample_num` > 0 samples a static grid a bin;
+    0 is the reference's exact `sampling_ratio=0` (ceil(bin) samples an
+    axis, capped at `max_grid`), in both pools."""
     num_classes: int
     num_stages: int = 3
     stage_loss_weights: Tuple[float, ...] = (1.0, 0.5, 0.25)
@@ -46,6 +48,7 @@ class RoIHeadCfg:
     fc_out_channels: int = 1024
     roi_size: int = 7
     sample_num: int = 2
+    max_grid: int = 4
     pool_method: str = 'onehot'
     gather_bf16: bool = True
     finest_scale: int = 56
@@ -86,11 +89,12 @@ class CascadeRoIHead(nn.Module):
                                  f'formulation, not {cfg.pool_method!r}')
             pooled = multilevel_roi_align_onehot(
                 feats, rois, cfg.featmap_strides, cfg.roi_size,
-                cfg.sample_num, cfg.finest_scale, cfg.gather_bf16)
+                cfg.sample_num, cfg.finest_scale, cfg.gather_bf16,
+                cfg.max_grid)
         else:
             pooled = multilevel_roi_align(
                 feats, rois.contiguous(), cfg.featmap_strides, cfg.roi_size,
-                cfg.sample_num, cfg.finest_scale)
+                cfg.sample_num, cfg.finest_scale, cfg.max_grid)
         return self.bbox_head[stage](pooled)
 
     def decode_cascade(self, feats: Sequence[Tensor], proposals: Tensor,

@@ -1,4 +1,4 @@
-"""Box math: IoU, delta coding, clipping.
+"""Box math: IoU, delta coding, clipping, flips, areas and scaling.
 
 Torch counterpart of `hrfuser_tpu.ops.boxes` (the reference
 `mmdet/core/bbox/coder/delta_xywh_bbox_coder.py:118-260` and
@@ -9,7 +9,7 @@ slots are zero boxes. Every function takes any leading batch dims.
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import torch
 
@@ -79,3 +79,32 @@ def delta2bbox(rois: Tensor, deltas: Tensor,
     if max_shape is not None:
         boxes = clip_boxes(boxes, max_shape)
     return boxes
+
+
+def bbox_flip(boxes: Tensor, img_shape: Tuple[int, int],
+              direction: str = 'horizontal') -> Tensor:
+    """Flip boxes inside an (h, w) image (`transforms.py` bbox_flip)."""
+    h, w = img_shape
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    if direction == 'horizontal':
+        return torch.stack([w - x2, y1, w - x1, y2], -1)
+    if direction == 'vertical':
+        return torch.stack([x1, h - y2, x2, h - y1], -1)
+    raise ValueError(direction)
+
+
+def bbox_area(boxes: Tensor) -> Tensor:
+    return (boxes[..., 2] - boxes[..., 0]) * (boxes[..., 3] - boxes[..., 1])
+
+
+def bbox_center_size(boxes: Tensor) -> Tuple[Tensor, Tensor]:
+    """(centres [..., 2], sizes [..., 2])."""
+    return ((boxes[..., :2] + boxes[..., 2:]) * 0.5,
+            boxes[..., 2:] - boxes[..., :2])
+
+
+def scale_boxes(boxes: Tensor, scale_factor) -> Tensor:
+    """Multiply box coordinates by [sx, sy, sx, sy] (rescale to the
+    original image)."""
+    return boxes * torch.as_tensor(scale_factor, dtype=boxes.dtype,
+                                   device=boxes.device)

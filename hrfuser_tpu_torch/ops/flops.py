@@ -22,7 +22,10 @@ is no work of the model's, and a share of peak must not count it.
     (9 multiply-adds an output); `16 P C^2 + 72 P C` at H = 4 C.
   * `hrfuser::roi_align` (kernel C): a multiply-add per channel for each
     of the 4 bilinear taps of each of the `out^2 s^2` samples of a RoI
-    (7x7 bins, 2x2 samples: 1568 C a RoI).
+    (7x7 bins, 2x2 samples: 1568 C a RoI). In the adaptive mode
+    (`sample_num=0`) s is `max_grid`, the grid the JAX gather pool's
+    jaxpr contracts over whatever each RoI's own count: a bound on the
+    work, which depends on the RoIs.
   * `hrfuser::greedy_keep`: 0, like the rest of NMS (comparisons only).
 """
 
@@ -64,9 +67,11 @@ def cross_ffn_flops(x_shape, hidden: int) -> int:
 
 
 def roi_align_flops(rois_shape, channels: int, out_size: int = 7,
-                    sample_num: int = 2) -> int:
-    """Kernel C's FLOPs for rois [B, N, 4] over C-channel levels."""
-    samples = out_size * out_size * sample_num * sample_num
+                    sample_num: int = 2, max_grid: int = 4) -> int:
+    """Kernel C's FLOPs for rois [B, N, 4] over C-channel levels; an
+    adaptive grid (`sample_num=0`) counts `max_grid` samples an axis."""
+    grid = sample_num or max_grid
+    samples = out_size * out_size * grid * grid
     return math.prod(rois_shape[:-1]) * samples * 4 * 2 * channels
 
 
@@ -85,8 +90,9 @@ def _cross_ffn(x, ln, w1, b1, wdw, bdw, w2, b2, w1_p, w2_p, entry,
 
 @register_flop_formula(torch.ops.hrfuser.roi_align)
 def _roi_align(feats, rois, strides, out_size, sample_num, finest_scale,
-               entry, out_shape=None):
-    return roi_align_flops(rois, feats[0][-1], out_size, sample_num)
+               max_grid, aligned, entry, out_shape=None):
+    return roi_align_flops(rois, feats[0][-1], out_size, sample_num,
+                           max_grid)
 
 
 @register_flop_formula(torch.ops.hrfuser.greedy_keep)

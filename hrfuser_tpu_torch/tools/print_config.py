@@ -27,12 +27,10 @@ from hrfuser_tpu_torch.configs import get_experiment, list_configs
 # dataclass name -> ((field, ((JAX-only field, its value), ...)), ...):
 # the JAX-only fields that follow `field` in the JAX dataclass
 JAX_ONLY = {
-    'HRBackboneCfg': (('drop_path_rate', (('remat', False),
-                                          ('cf_layout', 'auto'),
-                                          ('chain_kernel', 'auto'))),),
-    'RoIHeadCfg': (('sample_num', (('max_grid', 4),)),
-                   ('pool_method', (('pool_method_eval', 'pallas'),
-                                    ('pallas_variant', 'v7')))),
+    'HRBackboneCfg': (('remat', (('cf_layout', 'auto'),
+                                 ('chain_kernel', 'auto'))),),
+    'RoIHeadCfg': (('pool_method', (('pool_method_eval', 'pallas'),
+                                    ('pallas_variant', 'v7'))),),
     'Experiment': (('optim', (('seed', 0),)),),
 }
 

@@ -6,7 +6,9 @@ trains it with the config's AdamW and LR schedule, logging every
 `--log-interval` steps to `<work-dir>/train.log.json`, saving a
 checkpoint (weights, optimizer and step counters) every
 `--ckpt-interval-epochs` epochs and at the end; `--resume-from`
-continues from one.
+continues from one. `--remat` recomputes each backbone HRModule and
+fusion block in the backward instead of keeping its activations
+(`layers/common.remat`): the same step in less memory.
 
 Dataset mode (`tools/train.py:138-210`): `--data-root` holds the train
 split the converters write, `nuscenes_infos_train_mono3d.coco.json`
@@ -82,6 +84,10 @@ def parse_args(argv=None):
     p.add_argument('--eval-interval-epochs', type=int, default=0,
                    help='run val evaluation every N epochs (0 = off), '
                         'the EvalHook equivalent')
+    p.add_argument('--remat', action='store_true',
+                   help='rematerialize backbone modules in backward '
+                        '(activation memory ~halves; enables large '
+                        'per-chip batches)')
     p.add_argument('--device', default='cuda')
     return p.parse_args(argv)
 
@@ -172,6 +178,10 @@ def train(args, group=None):
                                                     save_checkpoint)
 
     exp = get_experiment(args.config)
+    if args.remat:
+        exp = dataclasses.replace(exp, model=dataclasses.replace(
+            exp.model, backbone=dataclasses.replace(exp.model.backbone,
+                                                    remat=True)))
     if args.samples_per_device:
         exp = dataclasses.replace(exp, schedule=dataclasses.replace(
             exp.schedule, samples_per_device=args.samples_per_device))

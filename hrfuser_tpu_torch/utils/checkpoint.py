@@ -110,6 +110,12 @@ def _apply(sd: Dict[str, torch.Tensor], model: nn.Module,
     model.load_state_dict({k: sd[k] for k in want})
 
 
+def read_weights(ckpt_path: str) -> Dict[str, torch.Tensor]:
+    """The state dict a checkpoint file (or directory) holds: a port
+    checkpoint's, a reference mmdet `.pth`'s or a bare one, on the CPU."""
+    return _state_dict_of(_read(ckpt_path))
+
+
 def load_weights(ckpt_path: str, model: nn.Module) -> nn.Module:
     """Weights-only warm start of `model`, in place.
 
@@ -118,7 +124,7 @@ def load_weights(ckpt_path: str, model: nn.Module) -> nn.Module:
     key the model needs that the file lacks, or a shape that differs,
     raises `ValueError`.
     """
-    _apply(_state_dict_of(_read(ckpt_path)), model, ckpt_path)
+    _apply(read_weights(ckpt_path), model, ckpt_path)
     return model
 
 

@@ -37,7 +37,8 @@ _SIGNATURES = {
     'hrf_cross_ffn': ([_P] * 12 + [_I] * 6 + [_P], _I),
     'hrf_cross_ffn_plan': ([_I] * 3 + [_IP] * 3, _L),
     'hrf_roi_align': ([_P] * 4 + [_I] * 8 + [_F] * 4 + [_P, _P]
-                      + [_I] * 3 + [_F, _I, _P], _I),
+                      + [_I] * 3 + [_F] + [_I] * 4 + [_P], _I),
+    'hrf_roi_align_smem': ([_I] * 3, _L),
     'hrf_jpeg_idct': ([_P, _P, _IP, _I, _P], _I),
     'hrf_jpeg_color': ([_P, _P, _IP] + [_I] * 4 + [_P], _I),
 }

@@ -3,8 +3,9 @@
 Each kernel's launches in one forward of a config (and in one flip-TTA
 call), a matcher of detections or RPN proposals computed on two devices,
 a recorder of the RPN proposals a call makes, random weights calibrated
-on an input so that these comparisons see real detections, and a
-recorder of the kernel ops' calls with each call's FLOPs.
+on an input so that these comparisons see real detections, a
+recorder of the kernel ops' calls with each call's FLOPs, and RoIs that
+take each branch of RoIAlign's adaptive grid.
 Imports torch and numpy only, and is loaded by path (`tests.oracles`
 imports JAX, which the card's machine lacks).
 
@@ -64,7 +65,7 @@ def _kernel_formulas():
         'hrfuser.cross_ffn': lambda a: flops.cross_ffn_flops(
             a[0].shape, a[2].shape[1]),
         'hrfuser.roi_align': lambda a: flops.roi_align_flops(
-            a[1].shape, a[0][0].shape[-1], a[3], a[4])}
+            a[1].shape, a[0][0].shape[-1], a[3], a[4], a[6])}
 
 
 @contextlib.contextmanager
@@ -263,3 +264,30 @@ def calibrate(model, img, mod_imgs):
         for m, v in zip(drops, rates):
             m.rate = v
         model.eval()
+
+
+def boundary_rois():
+    """Level-0 RoIs whose bins are exactly 2 and 3 pixels at stride 4
+    (sides of 56 and 84 px), each with its far edges one float32 ulp
+    below, on and above: `ceil(bin)`, the adaptive RoIAlign's grid, steps
+    from 2 to 3 (3 to 4) between the last two. [6, 4] float32."""
+    out = []
+    for x1, y1, side in ((4., 6., 56.), (8., 2., 84.)):
+        for step in (-np.inf, None, np.inf):
+            x2, y2 = np.float32(x1 + side), np.float32(y1 + side)
+            if step is not None:
+                x2, y2 = np.nextafter(x2, step), np.nextafter(y2, step)
+            out.append([x1, y1, x2, y2])
+    return np.array(out, np.float32)
+
+
+def grid_rois():
+    """RoIs that take each branch of the adaptive grid: level-0 squares
+    whose bins take grids 1, 2, 3 and 4 (sides 14-98 px, bins 0.5-3.5
+    px), a sliver capped at `max_grid` 4 but not 8 (6 px bins), a tall
+    thin one (grids 1 x 3), then `boundary_rois()`. [12, 4] float32."""
+    squares = [[100., 100., 100. + side, 100. + side]
+               for side in (14., 42., 70., 98.)]
+    slivers = [[200., 50., 368., 58.], [10., 300., 15., 380.]]
+    return np.concatenate([np.array(squares + slivers, np.float32),
+                           boundary_rois()])

@@ -3,7 +3,8 @@
 Test support for `torch.library.opcheck` (the op's implementation on
 that device against its fake one): kernel A in its four modes (self,
 cross with a residual and z, a centre-padded slab, pre-normed windows),
-kernel B, kernel C over four levels, and NMS's keep loop below and above
+kernel B, kernel C over four levels (2x2, adaptive with `max_grid` 4,
+unaligned at a static 3x3), and NMS's keep loop below and above
 one block (`ops/nms.BLOCK`). Torch only: `chip_smoke.py` and
 `tests/test_torch_cuda.py` load it by path on the card's machine.
 """
@@ -15,7 +16,7 @@ from hrfuser_tpu_torch.layers.attention import (HRFormerBlock,
 from hrfuser_tpu_torch.ops import chain, nms, roi_align
 
 LABELS = ('A self', 'A cross', 'A padded', 'A windows', 'B', 'C',
-          'keep 40', 'keep 300')
+          'keep 40', 'keep 300', 'C adaptive', 'C unaligned')
 C, HEADS = 16, 2
 
 
@@ -54,14 +55,17 @@ def op_case(label, device, dtype):
         x = _randn(g, (2, 5, 6, C), device, dtype)
         return chain.cross_ffn_op, (x, *(p[k] for k in chain._FFN_KEYS),
                                     'cross_ffn')
-    if label == 'C':
+    if label.startswith('C'):
+        grid = {'C': (2, True), 'C adaptive': (0, True),
+                'C unaligned': (3, False)}[label]
         feats = [_randn(g, (2, 32 // s, 48 // s, 8), device, dtype)
                  for s in (1, 2, 4, 8)]
         xy = torch.rand((2, 5, 2), generator=g) * 100
         rois = torch.cat([xy, xy + torch.rand((2, 5, 2), generator=g) * 90],
                          -1).to(device)
-        return roi_align.roi_align_op, (feats, rois, [4, 8, 16, 32], 7, 2,
-                                        56, 'multilevel_roi_align')
+        return roi_align.roi_align_op, (feats, rois, [4, 8, 16, 32], 7,
+                                        grid[0], 56, 4, grid[1],
+                                        'multilevel_roi_align')
     n = int(label.split()[1])
     xy = torch.rand((2, n, 2), generator=g) * 50
     boxes = torch.cat([xy, xy + 5 + torch.rand((2, n, 2), generator=g) * 20],

@@ -88,19 +88,23 @@ class RecordingDraws(Draws):
 
 
 def train_setup(name, seed, device, state_dict=None, warmup=False,
-                f32_pool=False, dtype=torch.float32):
-    """`name`'s model with drop path and `proj_drop` off and its
-    `TrainState` on `device`: weights from `state_dict` (numpy) or drawn
-    from `seed`; the full lr from the first step unless `warmup`; the
-    one-hot RoI pool in float32 with `f32_pool` (as the JAX checks
-    run it)."""
+                f32_pool=False, dtype=torch.float32, drops=False,
+                remat=False):
+    """`name`'s model with drop path and `proj_drop` off (live with
+    `drops`) and its `TrainState` on `device`: weights from `state_dict`
+    (numpy) or drawn from `seed`; the full lr from the first step unless
+    `warmup`; the one-hot RoI pool in float32 with `f32_pool` (as the JAX
+    checks run it); `backbone.remat` with `remat`."""
     from hrfuser_tpu_torch.apis.inference import init_weights_
     from hrfuser_tpu_torch.apis.train import create_train_state
     from hrfuser_tpu_torch.configs import get_experiment
     from hrfuser_tpu_torch.configs.presets import without_drops
     from hrfuser_tpu_torch.models.detectors.cascade_rcnn import CascadeRCNN
     exp = get_experiment(name)
-    model_cfg = without_drops(exp.model)
+    model_cfg = exp.model if drops else without_drops(exp.model)
+    if remat:
+        model_cfg = dataclasses.replace(model_cfg, backbone=dataclasses.replace(
+            model_cfg.backbone, remat=True))
     if f32_pool:
         model_cfg = dataclasses.replace(model_cfg, roi=dataclasses.replace(
             model_cfg.roi, gather_bf16=False))
@@ -206,6 +210,27 @@ def sharded_train_rank(rank, world_size, address, name, batches, tables,
                     reduce_ms=reduce_ms, buffer_mb=buffer_mb[-1],
                     launches=sum(fn.launches for fn in kernels),
                     rank=group.rank)
+
+
+def remat_pair_rank(rank, world_size, address, name, batch):
+    """One sharded step of `name` (drop path and `proj_drop` live) without
+    and with `backbone.remat`, from the same weights, batch and seeds:
+    {remat: `step_result` and the set of BN `num_batches_tracked`}."""
+    from hrfuser_tpu_torch.parallel import api
+    from hrfuser_tpu_torch.parallel.mesh import process_group, shard_rows
+    torch.set_num_threads(1)
+    out = {}
+    with process_group('cpu', None, rank, world_size,
+                       address=address) as group:
+        for remat in (False, True):
+            state = train_setup(name, 0, group.device, drops=True,
+                                remat=remat)
+            step = api.make_sharded_train_step(state, group, 0, **TRAIN_CAPS)
+            losses = step(shard_rows(batch, group))
+            out[remat] = dict(step_result(state, losses), tracked={
+                int(b) for n, b in state.model.named_buffers()
+                if n.endswith('num_batches_tracked')})
+    return out
 
 
 def mismatch(got, want, floor_share=1e-3):

@@ -30,11 +30,10 @@ NAMES = ['cascade_rcnn_hrfuser_t_1x_nus_r640_l_r_fusion',
 # the JAX configs the port leaves out, with their `_bn` aliases
 NOT_PORTED = set()
 
-# TPU routing knobs and the adaptive RoIAlign grid, which the port does
-# not carry
+# the TPU routing knobs, which the port does not carry
 OMITTED = {
-    'backbone.remat', 'backbone.cf_layout', 'backbone.chain_kernel',
-    'roi.pool_method_eval', 'roi.pallas_variant', 'roi.max_grid',
+    'backbone.cf_layout', 'backbone.chain_kernel',
+    'roi.pool_method_eval', 'roi.pallas_variant',
 }
 OMITTED_IN_STAGES = set()
 OMITTED_IN_FUSIONS = set()

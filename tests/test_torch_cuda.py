@@ -195,6 +195,72 @@ def test_roi_align_matches_twin_on_the_r1248_pyramid(dev, dt):
            dt)
 
 
+# (sample_num, max_grid, aligned) of kernel C's general plan
+GRID_MODES = [(0, 4, True), (0, 8, True), (1, 4, True), (3, 4, True),
+              (4, 4, True), (2, 4, False), (0, 4, False)]
+
+
+def _grid_rois(g, b, n, h, w):
+    """Mixed RoIs, the first of each image replaced by
+    `card_checks.grid_rois()` (grids 1-4, capped, integer-boundary bins)."""
+    rois = _rois_on_level(g, b, n, h, w, None)
+    extra = torch.from_numpy(_oracle('card_checks').grid_rois())
+    rois[:, :len(extra)] = extra
+    return rois
+
+
+@pytest.mark.parametrize('dt', DTYPES)
+@pytest.mark.parametrize('mode', GRID_MODES)
+@pytest.mark.parametrize('c', [32, 256])
+def test_roi_align_general_plan_matches_twin(dev, c, mode, dt):
+    """Kernel C's general plan (adaptive `sample_num=0` up to `max_grid`,
+    static grids, unaligned) against the twin; one counted launch of the
+    plan, none of the 2x2 one."""
+    sample_num, max_grid, aligned = mode
+    g = torch.Generator().manual_seed(c + sample_num)
+    h, w = 384, 640
+    feats = [torch.randn((2, h // s, w // s, c), generator=g).to(dev, dt)
+             for s in (4, 8, 16, 32)]
+    rois = _grid_rois(g, 2, 301, h, w).to(dev).contiguous()
+    before = dict(roi_align.PLAN_LAUNCHES)
+    n = roi_align.multilevel_roi_align.launches
+    got = roi_align.multilevel_roi_align(feats, rois, (4, 8, 16, 32), 7,
+                                         sample_num, 56, max_grid, aligned)
+    assert roi_align.multilevel_roi_align.launches == n + 1
+    assert roi_align.PLAN_LAUNCHES == dict(before, grid=before['grid'] + 1)
+    _close(got, roi_align.multilevel_roi_align_plain(
+        feats, rois, (4, 8, 16, 32), 7, sample_num, 56, max_grid, aligned),
+        dt)
+
+
+@pytest.mark.parametrize('variant', roi_align.VARIANTS)
+def test_pallas_entry_takes_any_static_grid_on_the_card(dev, variant):
+    g = torch.Generator().manual_seed(3)
+    feats = [torch.randn((96 // s, 160 // s, 256), generator=g).to(dev)
+             for s in (1, 2, 4, 8)]
+    rois = _grid_rois(g, 1, 200, 384, 640)[0].to(dev).contiguous()
+    got = roi_align.multilevel_roi_align_pallas(feats, rois, sample_num=3,
+                                                variant=variant)
+    want = roi_align.multilevel_roi_align_plain(
+        [f[None] for f in feats], rois[None], (4, 8, 16, 32), sample_num=3)
+    _close(got, want[0].reshape(got.shape), torch.float32)
+
+
+def test_general_plan_without_room_raises_with_its_bytes(dev):
+    """A grid bound whose RoI tables do not fit a block's shared memory
+    raises, naming the bytes, and launches nothing."""
+    feats = [torch.zeros((1, 32 // 2 ** i, 32 // 2 ** i, 8), device=dev,
+                         dtype=torch.bfloat16) for i in range(4)]
+    rois = torch.tensor([[[0., 0., 50., 50.]]], device=dev)
+    need = roi_align.plan_bytes(8, torch.bfloat16, 64)
+    assert need > 232448
+    before = roi_align.multilevel_roi_align.launches
+    with pytest.raises(ValueError, match=f'{need} bytes'):
+        roi_align.multilevel_roi_align(feats, rois, (4, 8, 16, 32),
+                                       sample_num=0, max_grid=64)
+    assert roi_align.multilevel_roi_align.launches == before
+
+
 def test_roi_align_raises_where_it_cannot_load_16_byte_vectors(dev):
     rois = torch.tensor([[[0., 0., 50., 50.]]], device=dev)
 

@@ -11,7 +11,8 @@ converters (one nuScenes sample on a fake DB, an STF frame, the inverse
 depth warp) on the CPU, the renderings (detections drawn with labels, a
 heatmap, a JPEG written, an 8-bit gated LUT image), and imports the KITTI
 evaluation, the model tools (FLOP count, drift, `print_config`,
-`publish_model`) and `tools.browse_dataset`, and statically over every
+`publish_model`), `tools.browse_dataset`, `tools.real_parity` and
+`tools.train --remat`'s argument, and statically over every
 module of the package and the scripts that drive it on the card. The
 one exception is `tests/oracles/make_render_tables.py`, which renders
 the glyph and colour-map tables from `cv2` in the sandbox (it may import
@@ -160,6 +161,9 @@ assert decode_jpeg(data, 'cpu').shape == (60, 90, 3)
 grey = gated_raw_to_lut8(rng.integers(0, 1024, (40, 72)).astype(np.uint16),
                          device='cpu')
 assert grey.shape == (40, 72) and grey.dtype == torch.uint8
+from hrfuser_tpu_torch.tools import real_parity
+from hrfuser_tpu_torch.tools import train as train_tool
+assert train_tool.parse_args(['tiny_fusion_test', '--remat']).remat
 bad = sorted(m for m in sys.modules if m.split('.')[0] in {forbidden})
 assert not bad, bad
 print('ok')
@@ -205,6 +209,12 @@ def test_image_loading_defaults_to_the_card():
                loading.read_jpeg, loading.LoadImageFromFile, build_pipeline,
                DetDataLoader):
         assert inspect.signature(fn).parameters['device'].default == 'cuda'
+
+
+def test_real_parity_defaults_to_the_card():
+    from hrfuser_tpu_torch.tools import real_parity
+    assert real_parity.parse_args(['--dry-run']).device == 'cuda'
+    assert real_parity.parse_args(['a.pth', 'data']).device == 'cuda'
 
 
 def test_offline_converters_default_to_the_card():

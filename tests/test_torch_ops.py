@@ -153,3 +153,32 @@ def test_proposals_match_jax_per_image():
                                    np.asarray(want.boxes), atol=1e-4)
         np.testing.assert_allclose(got.scores[i].numpy(),
                                    np.asarray(want.scores), atol=1e-6)
+
+
+# the JAX package's small public helpers, each against its JAX original
+HELPERS = {
+    'bbox_area': lambda m, b: m.bbox_area(b),
+    'bbox_center_size': lambda m, b: m.bbox_center_size(b),
+    'bbox_flip_horizontal': lambda m, b: m.bbox_flip(b, (60, 90)),
+    'bbox_flip_vertical': lambda m, b: m.bbox_flip(b, (60, 90), 'vertical'),
+    'scale_boxes': lambda m, b: m.scale_boxes(b, [0.5, 2.0, 0.5, 2.0]),
+}
+
+
+@pytest.mark.parametrize('name', [*HELPERS, 'version'])
+def test_small_helpers_equal_jax(name):
+    if name == 'version':
+        from hrfuser_tpu import __version__ as want
+        from hrfuser_tpu_torch import __version__ as got
+        assert got == want
+        return
+    b, _ = _rand(50, 11)
+    b = np.stack([b, b[::-1]])                      # a leading batch dim
+    got = HELPERS[name](boxes, torch.from_numpy(b))
+    want = HELPERS[name](jax_boxes, jnp.asarray(b))
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    for g, w in zip(got, want, strict=True):
+        assert g.dtype == torch.float32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    with pytest.raises(ValueError):
+        boxes.bbox_flip(torch.from_numpy(b), (60, 90), 'diagonal')

@@ -34,6 +34,7 @@ from hrfuser_tpu_torch.parallel.mesh import run_ranks
 from hrfuser_tpu_torch.utils.checkpoint import save_checkpoint
 from tests.oracles import parallel_ranks as pr
 from tests.oracles.data_files import write_nuscenes
+from tests.oracles.rank_path import stdlib_profile_path  # noqa: F401
 
 NAME = 'tiny_fusion_test'
 SCALE = (96, 54)

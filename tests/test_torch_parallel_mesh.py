@@ -25,6 +25,7 @@ from hrfuser_tpu_torch.data.loader import DetDataLoader
 from hrfuser_tpu_torch.parallel import mesh
 from tests.oracles import parallel_ranks
 from tests.oracles.data_files import write_nuscenes
+from tests.oracles.rank_path import stdlib_profile_path  # noqa: F401
 
 DEADLINE_S = 240
 SCALE = (96, 54)                     # (w, h): 100x176 -> 54x95, pad 64x96

@@ -71,6 +71,7 @@ from hrfuser_tpu_torch.parallel.mesh import run_ranks
 from hrfuser_tpu_torch.utils.jax_weights import state_dict_from_jax
 from tests.oracles import parallel_ranks as pr
 from tests.oracles.random_variables import random_variables
+from tests.oracles.rank_path import stdlib_profile_path  # noqa: F401
 from tests.test_torch_train_slice import JaxDraws
 
 B, H, W = 4, 64, 96

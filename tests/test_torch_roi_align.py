@@ -13,8 +13,19 @@ RoIs, the flat (q, p) row order, the right edge of a level whose width is
 not a multiple of 8, more oversize RoIs than v4's fallback takes per
 iteration, and full-axis slivers. Its `slow` cases hold it to the v4 and
 v8 Pallas kernels in interpret mode.
+
+The whole sampling contract (`hrfuser_tpu/ops/roi_align.py:8-18`): the
+adaptive grid (`sample_num=0`, grids 1-4, a RoI capped at `max_grid`,
+`max_grid` 8), static grids 1, 3 and 4, and `aligned=False`, for the
+twin, the single-level `roi_align` and the one-hot training pool, each
+against its JAX function on the RoIs of `tests/test_ops_roi_align.py:
+136-203` plus bins that sit on an integer and one ulp either side of it
+(where `ceil` picks the grid): f32 at 1e-5 (the one-hot pool at 1e-4),
+the JAX side un-jitted (its jitted `roi_align` lets XLA reorder sums,
+1e-5 apart).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,7 +33,11 @@ import torch
 
 from hrfuser_tpu.ops.roi_align import map_roi_levels as jax_map_levels
 from hrfuser_tpu.ops.roi_align import multilevel_roi_align as jax_pool
+from hrfuser_tpu.ops.roi_align import \
+    multilevel_roi_align_onehot as jax_onehot
+from hrfuser_tpu.ops.roi_align import roi_align as jax_roi_align
 from hrfuser_tpu_torch.ops import roi_align
+from tests.oracles.card_checks import boundary_rois
 
 STRIDES = (4, 8, 16, 32)
 
@@ -246,13 +261,129 @@ def test_pallas_entry_matches_pallas_interpret(name, variant):
 @pytest.mark.parametrize('sample_num', [0, -1])
 def test_adaptive_sampling_raises_on_the_cpu(sample_num):
     """`sample_num=0` is the JAX package's adaptive mode
-    (`hrfuser_tpu/ops/roi_align.py:8-14`), not ported: the CPU path
-    raises as the card's does, instead of returning NaN."""
-    feats = [torch.zeros((1, 64 // s, 64 // s, 8)) for s in (4, 8, 16, 32)]
+    (`hrfuser_tpu/ops/roi_align.py:8-14`): the CPU path equals JAX's
+    gather pool; a negative grid raises, as the card's path does."""
+    feats, rois = _multi_case()
+    tfeats = [torch.from_numpy(f)[None] for f in feats]
+    trois = torch.from_numpy(rois)[None]
+    if sample_num < 0:
+        with pytest.raises(ValueError, match='adaptive sampling'):
+            roi_align.multilevel_roi_align_plain(tfeats, trois, STRIDES,
+                                                 sample_num=sample_num)
+        with pytest.raises(ValueError, match='adaptive sampling'):
+            roi_align.multilevel_roi_align(tfeats, trois, STRIDES,
+                                           sample_num=sample_num)
+        return
+    want = np.asarray(jax_pool([jnp.asarray(f) for f in feats],
+                               jnp.asarray(rois), list(STRIDES),
+                               sample_num=0, gather_dtype=None))
+    for fn in (roi_align.multilevel_roi_align_plain,
+               roi_align.multilevel_roi_align):
+        got = fn(tfeats, trois, STRIDES, sample_num=0).numpy()[0]
+        np.testing.assert_allclose(got.reshape(want.shape), want, atol=1e-5,
+                                   rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# the whole sampling contract against JAX
+# ---------------------------------------------------------------------------
+
+# (sample_num, max_grid, aligned)
+MODES = [(0, 4, True), (0, 8, True), (1, 4, True), (3, 4, True),
+         (4, 4, True), (0, 4, False), (2, 4, False), (3, 4, False)]
+MODE_IDS = [f'{"adaptive" if s == 0 else f"static{s}"}-max{g}-'
+            f'{"aligned" if a else "unaligned"}' for s, g, a in MODES]
+# `tests/test_ops_roi_align.py:136-203`: at scale 1/4, bins under a pixel
+# (grid 1), a RoI capped at 4 (4.5 x 3.4 px bins), grids 3 x 2 and 4 x 3
+SINGLE_ROIS = [[4., 4., 20., 18.], [0., 0., 127., 95.],
+               [10.3, 7.7, 70.1, 53.3], [2., 2., 100., 60.]]
+# its multilevel RoIs, one partly outside
+MULTI_ROIS = [[4., 4., 100., 90.], [0., 0., 30., 20.], [-8., -4., 40., 44.],
+              [10., 5., 120., 120.]]
+
+
+def _jax_unjitted(fn, *args, **kw):
+    with jax.disable_jit():
+        return np.asarray(fn(*args, **kw))
+
+
+@pytest.mark.parametrize('mode', MODES, ids=MODE_IDS)
+def test_single_level_roi_align_matches_jax(mode):
+    sample_num, max_grid, aligned = mode
+    rng = np.random.default_rng(1)
+    feat = rng.normal(0, 1, (24, 32, 4)).astype(np.float32)
+    rois = np.concatenate([np.array(SINGLE_ROIS, np.float32),
+                           boundary_rois()[:3]])
+    want = _jax_unjitted(jax_roi_align, jnp.asarray(feat), jnp.asarray(rois),
+                         spatial_scale=0.25, out_size=7,
+                         sample_num=sample_num, aligned=aligned,
+                         max_grid=max_grid)
+    got = roi_align.roi_align(torch.from_numpy(feat), torch.from_numpy(rois),
+                              0.25, 7, sample_num, aligned, max_grid)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+
+
+def _multi_case():
+    rng = np.random.default_rng(2)
+    feats = [rng.normal(0, 1, (32 // 2 ** i, 48 // 2 ** i, 8))
+             .astype(np.float32) for i in range(4)]
+    return feats, np.concatenate([np.array(MULTI_ROIS, np.float32),
+                                  boundary_rois()])
+
+
+@pytest.mark.parametrize('mode', MODES, ids=MODE_IDS)
+def test_twin_matches_jax_gather_in_every_mode(mode):
+    sample_num, max_grid, aligned = mode
+    feats, rois = _multi_case()
+    want = np.asarray(jax_pool([jnp.asarray(f) for f in feats],
+                               jnp.asarray(rois), list(STRIDES),
+                               sample_num=sample_num, max_grid=max_grid,
+                               aligned=aligned, gather_dtype=None))
+    tfeats = [torch.from_numpy(f)[None] for f in feats]
+    got = roi_align.multilevel_roi_align(tfeats, torch.from_numpy(rois)[None],
+                                         STRIDES, 7, sample_num, 56,
+                                         max_grid, aligned).numpy()[0]
+    np.testing.assert_allclose(got.reshape(want.shape), want, atol=1e-5,
+                               rtol=0)
+
+
+@pytest.mark.parametrize('mode', MODES, ids=MODE_IDS)
+def test_onehot_pool_matches_jax_onehot_in_every_mode(mode):
+    """float32 operands, at JAX's own one-hot vs gather bar (1e-4)."""
+    sample_num, max_grid, aligned = mode
+    feats, rois = _multi_case()
+    want = np.asarray(jax_onehot(
+        [jnp.asarray(f) for f in feats], jnp.asarray(rois), list(STRIDES),
+        sample_num=sample_num, max_grid=max_grid, aligned=aligned,
+        compute_dtype=jnp.float32))
+    got = roi_align.multilevel_roi_align_onehot(
+        [torch.from_numpy(f)[None] for f in feats],
+        torch.from_numpy(rois)[None], STRIDES, 7, sample_num, 56, False,
+        max_grid, aligned).numpy()[0]
+    np.testing.assert_allclose(got.reshape(want.shape), want, atol=1e-4,
+                               rtol=1e-4)
+
+
+def test_boundary_bins_step_the_grid():
+    """The far edge one ulp above the integer bin adds a sample an axis:
+    the pooled values move by far more than float32 rounding, so a
+    device whose bin is an ulp off would show."""
+    feats, _ = _multi_case()
+    rois = boundary_rois()
+    got = roi_align.multilevel_roi_align(
+        [torch.from_numpy(f)[None] for f in feats],
+        torch.from_numpy(rois)[None], STRIDES, sample_num=0).numpy()[0]
+    for below, on, above in (got[0:3], got[3:6]):
+        assert np.abs(on - below).max() < 1e-5
+        assert np.abs(above - on).max() > 1e-2
+
+
+@pytest.mark.parametrize('max_grid', [0, -2])
+def test_adaptive_grid_needs_a_positive_bound(max_grid):
+    feats = [torch.zeros((1, 64 // s, 64 // s, 8)) for s in STRIDES]
     rois = torch.tensor([[[4., 4., 40., 40.]]])
-    with pytest.raises(ValueError, match='adaptive sampling'):
-        roi_align.multilevel_roi_align_plain(feats, rois, (4, 8, 16, 32),
-                                             sample_num=sample_num)
-    with pytest.raises(ValueError, match='adaptive sampling'):
-        roi_align.multilevel_roi_align(feats, rois, (4, 8, 16, 32),
-                                       sample_num=sample_num)
+    for fn in (roi_align.multilevel_roi_align,
+               roi_align.multilevel_roi_align_onehot):
+        with pytest.raises(ValueError, match='max_grid'):
+            fn(feats, rois, STRIDES, sample_num=0, max_grid=max_grid)

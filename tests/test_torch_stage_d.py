@@ -24,7 +24,7 @@ from tests.oracles.slice_pair import (SlicePair, check_backbone,
 HW = (64, 96)
 CHANNELS, HEADS = (8, 16, 24, 32), (1, 2, 2, 4)
 # the TPU routing knobs the port does not carry
-KNOBS = {'remat', 'cf_layout', 'chain_kernel'}
+KNOBS = {'cf_layout', 'chain_kernel'}
 
 
 def _stage(branches, modules, block='HRFORMERBLOCK'):
