@@ -47,7 +47,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
    here, its `latency_ms` beside the host's PNG, JSON and base64 decode
    times; /predict with the camera as a baseline JPEG from the oracle
    encoder: 200, 2 JPEG kernel launches, the detections of a PNG payload
-   of its decoded pixels; a progressive JPEG refused with 400) and
+   of its decoded pixels; the same coefficients progressive and
+   arithmetic-coded: 200, 2 launches each, the baseline payload's
+   detections exactly; a 12-bit JPEG refused with 400) and
    `inference_detector`'s time on this thread, on fresh threads and on
    one worker thread;
 3c. every kernel of the STF path vs its twin at the r1248 map shapes
@@ -270,6 +272,18 @@ Phases, each printed on its own lines; any failure exits non-zero:
    BN update, the generator's end state, peak memory and ms a step of
    both, then a `sample_num=0` step through the one-hot pool; 16d
    `tools.real_parity --dry-run`.
+17. JPEG modes: a 900x1600 4:2:0 frame (`_jpeg_frame`, seed 17) in each
+   coding the port reads: baseline, progressive, arithmetic sequential,
+   arithmetic progressive (the last three re-coded from the baseline's
+   coefficients by the oracle encoder), progressive cut after its DC
+   scan (block smoothing), CMYK and YCCK (4 components, K at 2x2); each
+   decoded on the card and on the CPU, bit-equal, with exactly 2 JPEG
+   kernel launches, the re-coded frames bit-equal to the baseline's
+   pixels; host entropy ms (median of 5) and kernel ms (CUDA events,
+   mean of 50), the bound of the 4-component frames; the smoothed
+   coefficients counted; then the loader alone over 9b's 16 samples with
+   their camera JPEGs as they are and re-coded progressive (copies 9b
+   makes), in turns.
 
 The last line is `{"ok": true, "device": {...}}`; the line before it
 lists each kernel's launches, error, times and bound as JSON.
@@ -1410,6 +1424,7 @@ def phase_serve(state):
         print('  inference_detector ms by calling thread: '
               + _by_thread(lambda: inference_detector(det, img, mods)))
         _serve_jpeg(call, img)
+        _serve_jpeg_sensors(call, det, img, pngs[0], mods)
     finally:
         server.shutdown()
         server.server_close()
@@ -1418,10 +1433,27 @@ def phase_serve(state):
         raise AssertionError('server thread did not stop')
 
 
+def _recode(data, **kw):
+    """The oracle encoder's stream of a JPEG's own coefficients (as the
+    port's entropy decoder reads them) in another coding (`kw`: the
+    oracle's `progressive`, `arithmetic`, ...): the same pixels."""
+    from hrfuser_tpu_torch.data import jpeg
+    enc = _oracle('jpeg_encoder')
+    frame, coefs = jpeg.decode_coefficients(data)
+    blocks, quant = jpeg.split(torch.from_numpy(coefs), frame)
+    return enc.encode([b.numpy() for b in blocks],
+                      [q.numpy() for q in quant],
+                      (frame.height, frame.width),
+                      [c[:2] for c in frame.comps], **kw)
+
+
 def _serve_jpeg(call, img):
     """/predict with the request's camera as a baseline JPEG: 200, two
     JPEG kernel launches, and the detections of a PNG payload of the
-    decoded pixels; a progressive JPEG gets a 400 naming the mode."""
+    decoded pixels; the same coefficients progressive and
+    arithmetic-coded: 200, two launches, the baseline's detections
+    exactly; a 12-bit JPEG (a mode the port refuses, as the JAX package's
+    readers do) refused with 400."""
     from hrfuser_tpu_torch.data import jpeg
     from hrfuser_tpu_torch.data.png import imencode
     enc = _oracle('jpeg_encoder')
@@ -1451,11 +1483,78 @@ def _serve_jpeg(call, img):
     if not same:
         raise AssertionError('the JPEG payload detects other objects than '
                              'the PNG of its pixels')
-    code, reply = call('/predict', data.replace(b'\xff\xc0', b'\xff\xc2',
-                                                1))
-    print(f'  POST /predict with a progressive JPEG: {code} {reply}')
-    if code != 400 or 'progressive' not in reply.get('error', ''):
-        raise AssertionError('a progressive JPEG was not refused with 400')
+    detections = {k: v for k, v in by_jpeg.items() if k != 'latency_ms'}
+    for label, kw in (('progressive', dict(progressive=True)),
+                      ('arithmetic-coded', dict(arithmetic=True))):
+        t0 = time.perf_counter()
+        other = _recode(data, **kw)
+        made = time.perf_counter() - t0
+        jpeg.pixels.launches = 0
+        code, reply = call('/predict', other)
+        launches = jpeg.pixels.launches
+        latency = reply.pop('latency_ms', None)
+        print(f'  POST /predict, the same coefficients {label} '
+              f'({len(other) / 1e3:.0f} kB, written by the oracle in '
+              f'{made:.1f} s): {code}, latency_ms {latency}, {launches} '
+              f'JPEG kernel launches, detections equal to the baseline '
+              f"payload's: {reply == detections}")
+        if code != 200:
+            raise AssertionError(f'a {label} JPEG: {code} {reply}')
+        if launches != 2:
+            raise AssertionError(f'a {label} JPEG request launched the JPEG '
+                                 f'kernel {launches} times, expected 2')
+        if reply != detections:
+            raise AssertionError(f'a {label} JPEG of the baseline payload\'s '
+                                 f'coefficients detects other objects')
+    twelve = bytearray(data)
+    twelve[twelve.index(b'\xff\xc0') + 4] = 12
+    code, reply = call('/predict', bytes(twelve))
+    print(f'  POST /predict with a 12-bit JPEG: {code} {reply}')
+    if code != 400 or '12-bit' not in reply.get('error', ''):
+        raise AssertionError('a 12-bit JPEG was not refused with 400')
+
+
+def _serve_jpeg_sensors(call, det, img, camera, mods):
+    """/predict_multi with the sensor images as 8-bit JPEGs (the port's
+    writer): 200, two JPEG kernel launches a sensor (decoded on the
+    worker thread on the card), and the detections `inference_detector`
+    gives for the CPU decode of the same bytes."""
+    from hrfuser_tpu_torch import inference_detector
+    from hrfuser_tpu_torch.data import jpeg
+    from hrfuser_tpu_torch.data.pipelines.loading import decode
+    from hrfuser_tpu_torch.tools import serve
+    # 8-bit sensors of the projections' own values (m / 100 - 200 m)
+    jpgs = [jpeg.imencode(np.clip(m / 100. - 200., 0, 255).round().astype(
+        np.uint8)) for m in mods]
+    body = json.dumps({'img': base64.b64encode(camera).decode(),
+                       'mods': [base64.b64encode(j).decode()
+                                for j in jpgs]}).encode()
+    jpeg.pixels.launches = 0
+    code, reply = call('/predict_multi', body)
+    launches = jpeg.pixels.launches
+    if code != 200:
+        raise AssertionError(f'/predict_multi with JPEG sensors: {code} '
+                             f'{reply}')
+    again = [call('/predict_multi', body)[1]['latency_ms'] for _ in range(3)]
+    sensors = [serve._sensor(det.data, name, decode(j, 'unchanged', 'cpu'))
+               for name, j in zip(det.data.modalities, jpgs)]
+    want = inference_detector(det, img, sensors)
+    same = (reply['labels'] == want['labels'].tolist()
+            and np.allclose(np.reshape(reply['boxes'], (-1, 4)),
+                            want['boxes'].reshape(-1, 4), atol=0.01)
+            and np.allclose(reply['scores'], want['scores'], atol=1e-4))
+    print(f'  POST /predict_multi, sensors as {len(jpgs)} 8-bit JPEGs '
+          f'({sum(map(len, jpgs)) / 1e3:.0f} kB): 200, '
+          f'{len(reply["labels"])} detections, latency_ms '
+          f'{reply["latency_ms"]} (3 more: {again}), {launches} JPEG kernel '
+          f'launches in the first; detections as inference_detector on '
+          f'their CPU decode: {same}')
+    if launches != 2 * len(jpgs):
+        raise AssertionError(f'JPEG sensors launched the JPEG kernel '
+                             f'{launches} times, expected {2 * len(jpgs)}')
+    if not same:
+        raise AssertionError('JPEG sensor payloads detect other objects than '
+                             'inference_detector on their CPU decode')
 
 
 def _stf_request(rng):
@@ -2012,6 +2111,28 @@ def _png_twin(root, twin):
         os.symlink(f'{root}/{ch}', f'{twin}/{ch}')
     with open(f'{twin}/{NUS_VAL}', 'w') as f:
         json.dump(coco, f)
+
+
+def _progressive_twin(root, twin):
+    """`root`'s val split with each camera JPEG re-coded progressive from
+    its own coefficients (`_recode`, 8 threads), the sensor folders
+    linked: the same pixels in another coding, for phase 17's loader."""
+    from concurrent.futures import ThreadPoolExecutor
+    with open(f'{root}/{NUS_VAL}') as f:
+        names = [img['file_name'] for img in json.load(f)['images']]
+
+    def copy(name):
+        with open(f'{root}/{name}', 'rb') as f:
+            data = _recode(f.read(), progressive=True)
+        with open(f'{twin}/{name}', 'wb') as f:
+            f.write(data)
+
+    os.makedirs(os.path.dirname(f'{twin}/{names[0]}'))
+    for ch in ('rih', 'riv'):
+        os.symlink(f'{root}/{ch}', f'{twin}/{ch}')
+    shutil.copy(f'{root}/{NUS_VAL}', f'{twin}/{NUS_VAL}')
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(copy, names))
 
 
 def _checkpoint(config, folder):
@@ -3877,6 +3998,167 @@ def phase_real_parity(smi):
           f'{smi}')
 
 
+# a 4-component frame's colour work a pixel, counted from the kernel's
+# arithmetic as JPEG_OPS_PIXEL: CMYK -> BGR (three inks of 4 operations)
+# and the store; YCCK adds the YCbCr -> RGB of JPEG_OPS_PIXEL and three
+# inversions
+JPEG_OPS_CMYK, JPEG_OPS_YCCK = 15, 33
+
+
+def _sm_clock():
+    """The card's SM clock now and its maximum, as `nvidia-smi` reads
+    them."""
+    return _run(['nvidia-smi', '--query-gpu=clocks.sm,clocks.max.sm',
+                 '--format=csv,noheader'])
+
+
+def _jpeg_modes_work(frame, coefs, out):
+    """(operations, bytes) of one frame through the kernel, for any
+    colour space (`_jpeg_work`'s count with the 4-component colour
+    work)."""
+    from hrfuser_tpu_torch.data import jpeg
+    ops, nbytes = _jpeg_work(frame, coefs, out)
+    extra = {jpeg.CMYK: JPEG_OPS_CMYK, jpeg.YCCK: JPEG_OPS_YCCK}.get(
+        frame.colour)
+    if extra is not None:
+        ops += (extra - JPEG_OPS_PIXEL) * frame.height * frame.width
+    return ops, nbytes
+
+
+def phase_jpeg_modes(smi, report):
+    print(f'== 17. JPEG modes: a {RAW_HW[0]}x{RAW_HW[1]} 4:2:0 frame in '
+          f'each, on {smi}')
+    from hrfuser_tpu_torch.data import jpeg
+    from hrfuser_tpu_torch.data.datasets.coco import CocoFusionDataset
+    from hrfuser_tpu_torch.data.loader import DetDataLoader
+    from hrfuser_tpu_torch import get_experiment
+    enc = _oracle('jpeg_encoder')
+    rng = np.random.default_rng(17)
+    img, base = _jpeg_frame(rng, RAW_HW)
+    t0 = time.perf_counter()
+    frames = {'baseline': base}
+    for label, kw in (('progressive', dict(progressive=True)),
+                      ('arithmetic', dict(arithmetic=True)),
+                      ('arithmetic progressive', dict(arithmetic=True,
+                                                      progressive=True))):
+        frames[label] = _recode(base, **kw)
+    prog = frames['progressive']
+    second = prog.index(b'\xff\xda', prog.index(b'\xff\xda') + 2)
+    frames['progressive cut after its DC scan'] = prog[:second] + b'\xff\xd9'
+    cmyk = np.dstack([255 - img[..., 2], 255 - img[..., 1],
+                      255 - img[..., 0],
+                      rng.integers(0, 80, RAW_HW).astype(np.uint8)])
+    for label, ycck in (('CMYK', False), ('YCCK', True)):
+        frames[label] = enc.encode(
+            *enc.image_coefficients(cmyk, 90, (2, 2), ycck=ycck), RAW_HW,
+            (2, 2), jfif=False, adobe=2 if ycck else 0)
+    print(f'  wrote the frames (oracle encoder) in '
+          f'{time.perf_counter() - t0:.1f} s')
+    # frames holding the baseline frame's coefficients
+    same_as = dict.fromkeys(('progressive', 'arithmetic',
+                             'arithmetic progressive'), 'baseline')
+    print(f'  SM clock before the timings: {_sm_clock()}')
+    card, err = {}, 0
+    for label, data in frames.items():
+        frame, coefs = jpeg.decode_coefficients(data)
+        c = torch.from_numpy(coefs).cuda()
+        jpeg.pixels.launches = 0
+        got = jpeg.decode_jpeg(data, 'cuda')
+        torch.cuda.synchronize()
+        launches = jpeg.pixels.launches
+        cpu = jpeg.decode_jpeg(data, 'cpu')
+        diff = (got.cpu().int() - cpu.int()).abs().max().item()
+        err = max(err, diff)
+        card[label] = got.cpu()
+        if launches != 2:
+            raise AssertionError(f'{label}: {launches} JPEG kernel launches, '
+                                 f'expected 2')
+        if diff:
+            raise AssertionError(f'{label}: card and CPU differ by {diff}')
+        twin = same_as.get(label)
+        if twin and not torch.equal(card[label], card[twin]):
+            raise AssertionError(f'{label}: the same coefficients as the '
+                                 f'{twin} frame give other pixels')
+        entropy = _host_ms(lambda: jpeg.decode_coefficients(data))
+        call_ms = _time_ms(lambda: jpeg.pixels(c, frame), iters=50)
+        # a profile now and then records no kernel: one more try
+        dev_ms = (_device_ms(lambda: jpeg.pixels(c, frame), 'jpeg_', iters=50)
+                  or _device_ms(lambda: jpeg.pixels(c, frame), 'jpeg_',
+                                iters=50))
+        line = (f'  {label} ({len(data) / 1e3:.0f} kB, {len(frame.comps)} '
+                f'components, {sum(frame.blocks)} blocks): card = CPU '
+                f'bit-equal, {launches} launches'
+                + (f', pixels = the {twin} frame\'s' if twin else '')
+                + f'; host entropy {_fmt(entropy)} ms (median of 5); kernels '
+                + (f'{dev_ms:.4f} ms device time (torch.profiler, the 2 '
+                   f'launches, mean of 50)' if dev_ms is not None
+                   else 'device time not measured (no CUDA events in the '
+                   'profile)')
+                + f'; the call {call_ms:.4f} ms (CUDA events, launch '
+                f'overhead included, mean of 50)')
+        if len(frame.comps) == 4:
+            ops, nbytes = _jpeg_modes_work(frame, c, got)
+            bound = max((nbytes / HBM_BYTES_PER_S * 1e3, 'bytes'),
+                        (ops / PEAK_FLOPS[torch.float32] * 1e3,
+                         'operations'))
+            line += (f'; bound {bound[0]:.4f} ms ({bound[1]}: '
+                     f'{nbytes / 1e6:.2f} MB, {ops / 1e6:.0f} M integer '
+                     f'operations)')
+            if dev_ms is not None:
+                line += f', {bound[0] / dev_ms:.1%} of bound on device time'
+        print(line)
+    print(f'  SM clock after the timings: {_sm_clock()}')
+    # grey reads (`cv2.IMREAD_GRAYSCALE`): a YCbCr frame's luma alone (one
+    # launch and the crop's copy), a CMYK frame through both launches
+    for label, want in (('baseline', 1), ('CMYK', 2)):
+        jpeg.pixels.launches = 0
+        got = jpeg.decode_jpeg(frames[label], 'cuda', grey=True)
+        torch.cuda.synchronize()
+        launches = jpeg.pixels.launches
+        cpu = jpeg.decode_jpeg(frames[label], 'cpu', grey=True)
+        same = got.shape == RAW_HW and torch.equal(got.cpu(), cpu)
+        print(f'  {label} read grey {tuple(got.shape)}: card = CPU '
+              f'bit-equal: {same}, {launches} launches')
+        if not same or launches != want:
+            raise AssertionError(f'{label} read grey: card = CPU {same}, '
+                                 f'{launches} launches, expected {want}')
+    # block smoothing: the cut frame's coefficients 1-9 were estimated
+    label = 'progressive cut after its DC scan'
+    frame, cut = jpeg.decode_coefficients(frames[label])
+    blocks, _ = jpeg.split(torch.from_numpy(cut), frame)
+    estimated = sum(int((b[..., 1:] != 0).sum()) for b in blocks)
+    off = (card[label].float() - card['baseline'].float()).abs().mean()
+    print(f'  the cut frame: {estimated} AC coefficients estimated by block '
+          f'smoothing (none sent), pixels {off.item():.2f} from the full '
+          f'frame\'s on average')
+    if not estimated:
+        raise AssertionError('the cut frame was not smoothed')
+    report.add('jpeg_pixels', SRC_JPEG, REPLACES_JPEG, float(err))
+    # the loader over 9b's samples (written again from its seed), their
+    # cameras as they are and re-coded progressive
+    exp = get_experiment(CONFIG)
+    root = tempfile.mkdtemp(prefix='nus_codings_')
+    try:
+        t0 = time.perf_counter()
+        _nus_folder(root, np.random.default_rng(10), exp.data.classes)
+        t1 = time.perf_counter()
+        _progressive_twin(root, f'{root}/progressive')
+        print(f'  wrote 9b\'s {NUS_N} samples again in {t1 - t0:.1f} s, their '
+              f'progressive copies in {time.perf_counter() - t1:.1f} s')
+        for coding, folder in (('baseline', root),
+                               ('progressive', f'{root}/progressive')) * 2:
+            ds = CocoFusionDataset(NUS_VAL, exp.data.classes,
+                                   data_root=folder, test_mode=True)
+            t0 = time.perf_counter()
+            n = sum(int(b['num_real'])
+                    for b in DetDataLoader(ds, exp.data, BATCH, train=False))
+            dt = time.perf_counter() - t0
+            print(f'  loader alone, {coding} JPEG cameras: {n} images in '
+                  f'{dt * 1e3:.0f} ms, {n / dt:.1f} images/s')
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
     smi = phase_environment()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3953,6 +4235,7 @@ def main():
         ('16b', lambda: phase_adaptive_slice(report, smi)),
         ('16c', lambda: phase_remat(smi)),
         ('16d', lambda: phase_real_parity(smi)),
+        ('17', lambda: phase_jpeg_modes(smi, report)),
     ]
     for name, run in phases:
         t1 = time.perf_counter()

@@ -1,14 +1,14 @@
-// The JPEG decoder's pixel half: dequantisation, inverse DCT, chroma
-// upsampling and YCbCr -> BGR, in two launches an image.
+// The JPEG decoder's pixel half: dequantisation, inverse DCT, upsampling
+// and colour conversion, in two launches an image.
 //
 // Replaces no TPU kernel: the JAX package decodes camera JPEGs on the host
-// with libjpeg (hrfuser_tpu/data/native.py, _native/loader.cpp), and this
-// kernel takes that library's place after the host's Huffman decoding
+// with libjpeg (hrfuser_tpu/data/native.py, _native/loader.cpp) or cv2,
+// and this kernel takes their place after the host's entropy decoding
 // (csrc/jpeg_entropy.cpp). The plain twin is data/jpeg.py:pixels_plain.
 //
 // The function is libjpeg-turbo's decoder on x86-64 (jidctint-avx2.asm,
-// jdsample.c, jdcolor.c), so that the output is bit-equal to the JAX
-// package's decoder and to cv2:
+// jdsample.c, jdcolor.c), and cv2's CMYK conversion after it, so that the
+// output is bit-equal to the JAX package's decoder and to cv2:
 //  - launch 1, one 8x8 block a group of 8 threads: each coefficient times
 //    its quantisation value, kept to 16 bits (pmullw); the ISLOW transform
 //    (CONST_BITS 13, PASS1_BITS 2) down the columns, each thread one
@@ -17,7 +17,8 @@
 //    and offset by 128. The SIMD code's 16-bit sums (x0 +- x4, x7 + x3,
 //    x5 + x1) wrap, and a block whose rows 1-7 are all zero takes its
 //    shortcut, (c * q) << 2 in 16 bits. Each component's samples go to a
-//    uint8 plane over its MCU-padded block grid.
+//    uint8 plane over its MCU-padded block grid. A grey read of a grey or
+//    YCbCr file transforms the first component alone.
 //  - launch 2, one thread an output pixel: each component's sample at the
 //    pixel, by fancy upsampling (h2v1, h1v2, h2v2 linear interpolation
 //    between sample centres, with libjpeg-turbo's alternating rounding
@@ -25,17 +26,22 @@
 //    samples wide or less), the sample grid clamped at the image's last
 //    real row and column; then the fixed-point YCbCr -> RGB of jdcolor.c
 //    (SCALEBITS 16), clamped to [0, 255], stored as B, G, R. Grey repeats
-//    its one plane; RGB files are copied.
+//    its one plane; RGB files are copied; CMYK (and YCCK, first turned
+//    CMYK as jdcolor.c's ycck_cmyk_convert does) goes to BGR as cv2's
+//    icvCvt_CMYK2BGR_8u_C4C3R does. A grey read stores one byte: the luma,
+//    jdcolor.c's rgb_gray_convert of RGB, cv2's icvCvt_CMYK2Gray of CMYK.
 //
 // What bounds it on the H100: for a 900x1600 4:2:0 frame it reads 34,200
 // blocks of 128 bytes of coefficients (4.38 MB) and writes 4.32 MB of
 // BGR, 2.6 us at 3.35 TB/s; its integer work, counted from this code in
 // chip_smoke.py (1,632 operations a block, 106 a pixel: 208 M), takes
 // 3.1 us at the 67 T/s of the card's CUDA cores, so the two bounds are
-// close. The planes (1.4 MB at 4:2:0) stay in the 50 MB L2 between the
-// launches. The design is the simple one: no tiling across blocks, no
-// fusion of the two launches, no vector loads, the parameters indexed
-// at run time (they live on the stack); its time is in PERF.md.
+// close. A 4-component frame with K at 2x2 has 57,000 blocks, so its
+// bound is some 1.6x that. The planes (1.4 MB at 4:2:0) stay in the
+// 50 MB L2 between the launches. The design is the simple one: no tiling
+// across blocks, no fusion of the two launches, no vector loads, the
+// parameters indexed at run time (they live on the stack); its time is
+// in PERF.md.
 
 #include <cuda_runtime.h>
 
@@ -50,9 +56,9 @@ struct JpegComp {
 };
 
 struct JpegParams {
-  JpegComp c[3];
+  JpegComp c[4];
   int n;
-  long long start[4];  // first block of each component
+  long long start[5];  // first block of each component
 };
 
 namespace {
@@ -101,18 +107,20 @@ constexpr int kBlocksPerCta = 32;
 
 }  // namespace
 
+// the first `ncoded` components (a grey read of a YCbCr file codes only
+// its luma, as libjpeg then skips the chroma)
 __global__ void __launch_bounds__(256)
     jpeg_idct_kernel(const int16_t* __restrict__ coefs,
-                     uint8_t* __restrict__ planes, JpegParams p) {
+                     uint8_t* __restrict__ planes, JpegParams p, int ncoded) {
   __shared__ int ws[kBlocksPerCta][64];
   int local = threadIdx.x >> 3, t = threadIdx.x & 7;
-  long long total = p.start[p.n];
+  long long total = p.start[ncoded];
   long long blk = (long long)blockIdx.x * kBlocksPerCta + local;
   bool live = blk < total;
   int ci = 0;
-  while (ci + 1 < p.n && blk >= p.start[ci + 1]) ci++;
+  while (ci + 1 < ncoded && blk >= p.start[ci + 1]) ci++;
   const int16_t* src = coefs + (live ? blk : 0) * 64;
-  const int16_t* q = coefs + total * 64 + ci * 64;
+  const int16_t* q = coefs + p.start[p.n] * 64 + ci * 64;
 
   // pass 1: column t
   int x[8], nz = 0;
@@ -189,30 +197,64 @@ __device__ __forceinline__ int upsample(const uint8_t* pl, const JpegComp& c,
   return at(pl, c, y / c.ey, x / c.ex);
 }
 
+__device__ __forceinline__ void ycc_rgb(const int* s, int& r, int& g,
+                                        int& b) {
+  int xb = s[1] - 128, xr = s[2] - 128;
+  r = sat(s[0] + ((91881 * xr + 32768) >> 16), 0, 255);
+  g = sat(s[0] + ((-22554 * xb + 32768 - 46802 * xr) >> 16), 0, 255);
+  b = sat(s[0] + ((116130 * xb + 32768) >> 16), 0, 255);
+}
+
+// cv2's CMYK -> BGR (icvCvt_CMYK2BGR_8u_C4C3R) of one ink
+__device__ __forceinline__ int ink(int v, int k) {
+  return k - (((255 - v) * k) >> 8);
+}
+
 }  // namespace
 
+// colour: 0 grey, 1 YCbCr, 2 RGB, 3 CMYK, 4 YCCK; channels: 3 (BGR) or
+// 1 (grey: the first plane of a grey or YCbCr file, jdcolor.c's
+// rgb_gray_convert of RGB, cv2's icvCvt_CMYK2Gray_8u_C4C1R of CMYK)
 __global__ void __launch_bounds__(256)
     jpeg_color_kernel(const uint8_t* __restrict__ planes,
                       uint8_t* __restrict__ out, JpegParams p, int height,
-                      int width, int colour) {
+                      int width, int colour, int channels) {
   long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (long long)height * width) return;
   int y = (int)(idx / width), x = (int)(idx % width);
-  int s[3];
+  int s[4];
   for (int i = 0; i < p.n; i++)
     s[i] = upsample(planes + p.start[i] * 64, p.c[i], y, x);
   int b, g, r;
-  if (colour == 0) {
+  if (colour == 0 || (colour == 1 && channels == 1)) {
     b = g = r = s[0];
   } else if (colour == 2) {
     r = s[0];
     g = s[1];
     b = s[2];
+  } else if (colour == 1) {
+    ycc_rgb(s, r, g, b);
   } else {
-    int xb = s[1] - 128, xr = s[2] - 128;
-    r = sat(s[0] + ((91881 * xr + 32768) >> 16), 0, 255);
-    g = sat(s[0] + ((-22554 * xb + 32768 - 46802 * xr) >> 16), 0, 255);
-    b = sat(s[0] + ((116130 * xb + 32768) >> 16), 0, 255);
+    int c = s[0], m = s[1], yy = s[2];
+    if (colour == 4) {  // YCCK -> CMYK (jdcolor.c ycck_cmyk_convert)
+      ycc_rgb(s, c, m, yy);
+      c = 255 - c;
+      m = 255 - m;
+      yy = 255 - yy;
+    }
+    r = ink(c, s[3]);
+    g = ink(m, s[3]);
+    b = ink(yy, s[3]);
+    if (channels == 1) {
+      out[idx] = (uint8_t)((b * 1868 + g * 9617 + r * 4899 + 8192) >> 14);
+      return;
+    }
+  }
+  if (channels == 1) {
+    out[idx] = colour == 2
+        ? (uint8_t)((19595 * r + 38470 * g + 7471 * b + 32768) >> 16)
+        : (uint8_t)r;
+    return;
   }
   uint8_t* o = out + idx * 3;
   o[0] = (uint8_t)b;
@@ -239,27 +281,34 @@ JpegParams params_of(const int* comp, int n) {
 
 // comp: per component (block rows, block cols, sample rows, sample cols,
 // row factor, column factor); coefs: the blocks, then n x 64 quantisation
-// values (int16); planes: 64 bytes a block.
+// values (int16); planes: 64 bytes a block, of the first `ncoded`
+// components.
 extern "C" int hrf_jpeg_idct(const void* coefs, void* planes, const int* comp,
-                             int n, void* stream) {
-  if (n < 1 || n > 3) return (int)cudaErrorInvalidValue;
+                             int n, int ncoded, void* stream) {
+  if (n < 1 || n > 4 || ncoded < 1 || ncoded > n)
+    return (int)cudaErrorInvalidValue;
   hrf::JpegParams p = hrf::params_of(comp, n);
-  long long grid = (p.start[n] + hrf::kBlocksPerCta - 1) / hrf::kBlocksPerCta;
+  long long grid =
+      (p.start[ncoded] + hrf::kBlocksPerCta - 1) / hrf::kBlocksPerCta;
   hrf::jpeg_idct_kernel<<<(unsigned)grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int16_t*>(coefs), static_cast<uint8_t*>(planes), p);
+      static_cast<const int16_t*>(coefs), static_cast<uint8_t*>(planes), p,
+      ncoded);
   return (int)cudaGetLastError();
 }
 
-// colour: 0 grey, 1 YCbCr, 2 RGB; out: BGR uint8 [height, width, 3]
+// colour: 0 grey, 1 YCbCr, 2 RGB, 3 CMYK, 4 YCCK; n: the planes read;
+// out: BGR uint8 [height, width, 3], or grey [height, width] if channels
+// is 1
 extern "C" int hrf_jpeg_color(const void* planes, void* out, const int* comp,
                               int n, int height, int width, int colour,
-                              void* stream) {
-  if (n < 1 || n > 3) return (int)cudaErrorInvalidValue;
+                              int channels, void* stream) {
+  if (n < 1 || n > 4 || (channels != 1 && channels != 3))
+    return (int)cudaErrorInvalidValue;
   hrf::JpegParams p = hrf::params_of(comp, n);
   long long pixels = (long long)height * width;
   unsigned grid = (unsigned)((pixels + 255) / 256);
   hrf::jpeg_color_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(planes), static_cast<uint8_t*>(out), p,
-      height, width, colour);
+      height, width, colour, channels);
   return (int)cudaGetLastError();
 }

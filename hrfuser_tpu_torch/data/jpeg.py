@@ -4,16 +4,19 @@ host, pixels on the card.
 The port's JPEG decoder, in place of libjpeg (which the JAX package's
 loader links, `hrfuser_tpu/data/native.py`, and which `cv2` bundles):
   * `decode_coefficients(data)`: the host half, `csrc/jpeg_entropy.cpp`
-    (markers and Huffman decoding, sequential by nature), bound with
-    ctypes. It returns each component's quantised coefficients and
-    quantisation table in one int16 array.
-  * `pixels(coefs, frame)`: the kernel half, `csrc/jpeg_pixels.cu`, two
-    launches an image: dequantisation and the integer inverse DCT into
-    one sample plane per component, then chroma upsampling and colour
-    conversion into BGR. A CUDA tensor launches the kernel (or raises); a
-    CPU tensor takes the plain twin `pixels_plain`, nothing else does.
-  * `decode_jpeg(data, device)`: both, with one host-to-device copy of
-    the coefficients on the caller's current stream.
+    (markers, Huffman and arithmetic decoding of sequential and
+    progressive scans, sequential by nature, and libjpeg's block
+    smoothing of incomplete progressive frames), bound with ctypes. It
+    returns each component's quantised coefficients and quantisation
+    table in one int16 array.
+  * `pixels(coefs, frame, grey)`: the kernel half, `csrc/jpeg_pixels.cu`,
+    two launches an image: dequantisation and the integer inverse DCT
+    into one sample plane per component, then upsampling and colour
+    conversion into BGR, or grey. A CUDA tensor launches the kernel (or
+    raises); a CPU tensor takes the plain twin `pixels_plain`, nothing
+    else does.
+  * `decode_jpeg(data, device, grey)`: both, with one host-to-device copy
+    of the coefficients on the caller's current stream.
 
 The pixels are libjpeg-turbo's on x86-64, where its SIMD code does the
 inverse DCT (`jidctint-avx2.asm` / `-sse2.asm`): the ISLOW integer
@@ -28,9 +31,16 @@ for other integral ratios and for chroma 2 samples wide or less) and
 encoder writes the result is also libjpeg's C path's; they differ only
 for coefficients whose transform overflows 16 bits, where this decoder
 keeps the SIMD code's answer, which is what the JAX package's decoder
-and `cv2` give (tests/test_torch_jpeg.py). Progressive, lossless,
-hierarchical, arithmetic-coded, 12-bit and 2- or 4-component files raise
-`JpegError` naming the mode.
+and `cv2` give (tests/test_torch_jpeg.py). 4-component files are what
+`cv2` makes of them (the JAX package's decoder refuses them, and its
+loader falls through to `cv2`): YCCK turned CMYK by `jdcolor.c`, then
+CMYK to BGR by `cv2`'s own arithmetic, the Adobe marker's inversion
+ignored as `cv2` ignores it. A grey read (`grey=True`, what
+`cv2.IMREAD_GRAYSCALE` gives) of a grey or YCbCr file is its luma,
+whose chroma is then not transformed; of an RGB file `jdcolor.c`'s
+`rgb_gray_convert`; of a CMYK or YCCK one `cv2`'s CMYK -> grey. Lossless,
+hierarchical, 12-bit and 2-component files raise `JpegError` naming the
+mode (tests/test_torch_jpeg_modes.py for the rest).
 
 The writer, `imencode(img)` / `imwrite(path, img)`, gives the bytes
 `cv2.imencode('.jpg', img)` gives with its defaults (libjpeg-turbo:
@@ -72,7 +82,7 @@ from hrfuser_tpu_torch.utils import cuda_build
 
 SOURCE = Path(__file__).resolve().parents[1] / 'csrc' / 'jpeg_entropy.cpp'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build'
-GREY, YCBCR, RGB = 0, 1, 2
+GREY, YCBCR, RGB, CMYK, YCCK = 0, 1, 2, 3, 4
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
@@ -141,9 +151,9 @@ def lib() -> ctypes.CDLL:
 
 
 class Frame(NamedTuple):
-    """A JPEG frame's layout: image size, colour space (GREY, YCBCR or
-    RGB) and per component (h, v, block rows, block cols), the block
-    grid padded to whole MCUs."""
+    """A JPEG frame's layout: image size, colour space (GREY, YCBCR, RGB,
+    CMYK or YCCK) and per component (h, v, block rows, block cols), the
+    block grid padded to whole MCUs."""
     height: int
     width: int
     colour: int
@@ -184,7 +194,7 @@ def _error(buf) -> str:
 
 def frame_info(data: bytes) -> Frame:
     """The frame header of a JPEG byte string."""
-    info = (ctypes.c_int * 16)()
+    info = (ctypes.c_int * 20)()
     err = ctypes.create_string_buffer(256)
     if lib().hrf_jpeg_info(data, len(data), info, err, len(err)):
         raise JpegError(_error(err))
@@ -203,7 +213,7 @@ def jpeg_shape(data: bytes) -> Tuple[int, int, int]:
 
 
 def decode_coefficients(data: bytes) -> Tuple[Frame, np.ndarray]:
-    """Huffman-decode a JPEG on the host: (frame, int16 array of
+    """Entropy-decode a JPEG on the host: (frame, int16 array of
     `frame.size` values: each component's [block rows, block cols, 64]
     coefficients in natural order, one after the other, then each
     component's 64 quantisation values)."""
@@ -328,45 +338,78 @@ def _upsample(plane: Tensor, frame: Frame, i: int) -> Tensor:
     return cols(rows(ys // ey), xs // ex)
 
 
-def _colour(samples, colour: int) -> Tensor:
-    """Full-size components (int64 [H, W] each) -> BGR uint8 [H, W, 3]
-    (launch 2's colour conversion)."""
+def _ycc_rgb(y, cb, cr):
+    """`jdcolor.c`'s fixed-point YCbCr -> RGB (SCALEBITS 16), clamped."""
+    xb, xr = cb - 128, cr - 128
+    return [(y + v).clamp(0, 255) for v in (
+        (91881 * xr + 32768) >> 16,
+        (-22554 * xb + 32768 - 46802 * xr) >> 16,
+        (116130 * xb + 32768) >> 16)]
+
+
+def _colour(samples, colour: int, grey: bool = False) -> Tensor:
+    """Full-size components (int64 [H, W] each) -> BGR uint8 [H, W, 3],
+    or grey uint8 [H, W] (launch 2's colour conversion). CMYK (and YCCK,
+    first turned CMYK by `jdcolor.c`'s `ycck_cmyk_convert`) goes to BGR
+    as `cv2` does it (`icvCvt_CMYK2BGR_8u_C4C3R`: each of C, M, Y becomes
+    k - ((255 - v) * k >> 8), then B, G, R = Y, M, C); grey from RGB is
+    `rgb_gray_convert`, from CMYK `cv2`'s `icvCvt_CMYK2Gray_8u_C4C1R`."""
+    if colour in (GREY, YCBCR) and grey:
+        return samples[0].to(torch.uint8)
     if colour == GREY:
         y = samples[0]
         return torch.stack([y, y, y], -1).to(torch.uint8)
     if colour == RGB:
         r, g, b = samples
+        if grey:
+            return ((19595 * r + 38470 * g + 7471 * b + 32768) >> 16).to(
+                torch.uint8)
         return torch.stack([b, g, r], -1).to(torch.uint8)
-    y, cb, cr = samples
-    xb, xr = cb - 128, cr - 128
-    red = y + ((91881 * xr + 32768) >> 16)
-    green = y + ((-22554 * xb + 32768 - 46802 * xr) >> 16)
-    blue = y + ((116130 * xb + 32768) >> 16)
-    return torch.stack([blue, green, red], -1).clamp(0, 255).to(torch.uint8)
+    if colour in (CMYK, YCCK):
+        if colour == YCCK:
+            cmy = [255 - v for v in _ycc_rgb(*samples[:3])]
+        else:
+            cmy = samples[:3]
+        k = samples[3]
+        c, m, y = (k - (((255 - v) * k) >> 8) for v in cmy)
+        if grey:
+            return ((y * 1868 + m * 9617 + c * 4899 + 8192) >> 14).to(
+                torch.uint8)
+        return torch.stack([y, m, c], -1).to(torch.uint8)
+    red, green, blue = _ycc_rgb(*samples)
+    return torch.stack([blue, green, red], -1).to(torch.uint8)
 
 
-def pixels_plain(coefs: Tensor, frame: Frame) -> Tensor:
+def _luma_only(frame: Frame, grey: bool) -> bool:
+    """A grey read of a grey or YCbCr file needs its first component
+    alone (libjpeg decodes no chroma then)."""
+    return grey and frame.colour in (GREY, YCBCR)
+
+
+def pixels_plain(coefs: Tensor, frame: Frame, grey: bool = False) -> Tensor:
     """The kernel's plain twin: `decode_coefficients`' array (int16, any
-    device) -> BGR uint8 [H, W, 3] on its device."""
+    device) -> BGR uint8 [H, W, 3] (grey [H, W] if `grey`) on its
+    device."""
     blocks, quant = split(coefs, frame)
+    if _luma_only(frame, grey):
+        blocks, quant = blocks[:1], quant[:1]
     planes = _planes(blocks, quant)
     full = [_upsample(p, frame, i) for i, p in enumerate(planes)]
-    return _colour(full, frame.colour)
+    return _colour(full, frame.colour, grey)
 
 
 # -- the kernel -------------------------------------------------------------
 
-def _launch(coefs: Tensor, frame: Frame) -> Tensor:
+def _launch(coefs: Tensor, frame: Frame, grey: bool) -> Tensor:
     if (coefs.dtype != torch.int16 or coefs.dim() != 1
             or coefs.numel() != frame.size or not coefs.is_contiguous()):
         raise ValueError(f'jpeg pixels kernel: coefficients must be a '
                          f'contiguous int16 vector of {frame.size}')
     n = len(frame.comps)
-    blocks = frame.blocks
+    coded = 1 if _luma_only(frame, grey) else n
     dev = coefs.device
-    planes = torch.empty(64 * sum(blocks), dtype=torch.uint8, device=dev)
-    out = torch.empty((frame.height, frame.width, 3), dtype=torch.uint8,
-                      device=dev)
+    planes = torch.empty(64 * sum(frame.blocks[:coded]), dtype=torch.uint8,
+                         device=dev)
     params = []
     for i, (h, v, r, c) in enumerate(frame.comps):
         dh, dw = frame.sampled(i)
@@ -376,35 +419,49 @@ def _launch(coefs: Tensor, frame: Frame) -> Tensor:
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib = cuda_build.lib()
     cuda_build.check(lib.hrf_jpeg_idct(coefs.data_ptr(), planes.data_ptr(),
-                                       params, n, stream), 'hrf_jpeg_idct')
+                                       params, n, coded, stream),
+                     'hrf_jpeg_idct')
     pixels.launches += 1
+    if grey and coded == 1 and frame.expand(0) == (1, 1):
+        # full-size luma: its plane, cropped, is the grey image
+        _, _, r, c = frame.comps[0]
+        return planes.view(r * 8, c * 8)[:frame.height,
+                                         :frame.width].contiguous()
+    shape = (frame.height, frame.width) + (() if grey else (3,))
+    out = torch.empty(shape, dtype=torch.uint8, device=dev)
     cuda_build.check(lib.hrf_jpeg_color(planes.data_ptr(), out.data_ptr(),
-                                        params, n, frame.height,
-                                        frame.width, frame.colour, stream),
+                                        params, coded, frame.height,
+                                        frame.width, frame.colour,
+                                        1 if grey else 3, stream),
                      'hrf_jpeg_color')
     pixels.launches += 1
     return out
 
 
-def pixels(coefs: Tensor, frame: Frame) -> Tensor:
-    """`decode_coefficients`' array as a tensor -> BGR uint8 [H, W, 3] on
-    its device: the kernel (two launches, counted in `pixels.launches`)
-    for a CUDA tensor, the plain twin for a CPU one."""
+def pixels(coefs: Tensor, frame: Frame, grey: bool = False) -> Tensor:
+    """`decode_coefficients`' array as a tensor -> BGR uint8 [H, W, 3] (or
+    with `grey` the grey image [H, W] `cv2.IMREAD_GRAYSCALE` gives) on its
+    device: the kernel for a CUDA tensor, the plain twin for a CPU one.
+    The kernel counts its launches in `pixels.launches`: two a frame, one
+    for a grey read of a grey or YCbCr file whose luma is full size (its
+    plane cropped by one PyTorch copy, a device kernel not counted
+    there)."""
     if on_cpu(coefs):
-        return pixels_plain(coefs, frame)
-    return _launch(coefs, frame)
+        return pixels_plain(coefs, frame, grey)
+    return _launch(coefs, frame, grey)
 
 
 pixels.launches = 0
 
 
-def decode_jpeg(data: bytes, device='cuda') -> Tensor:
+def decode_jpeg(data: bytes, device='cuda', grey: bool = False) -> Tensor:
     """A JPEG byte string -> BGR uint8 [H, W, 3] on `device` (what
-    `cv2.imdecode(buf, IMREAD_COLOR)` gives). Huffman decoding runs here;
-    the coefficients go to `device` in one copy, on its current stream,
-    and the pixels are made there."""
+    `cv2.imdecode(buf, IMREAD_COLOR)` gives; with `grey`, uint8 [H, W] as
+    `IMREAD_GRAYSCALE` gives). Entropy decoding runs here; the
+    coefficients go to `device` in one copy, on its current stream, and
+    the pixels are made there."""
     frame, coefs = decode_coefficients(data)
-    return pixels(torch.from_numpy(coefs).to(device), frame)
+    return pixels(torch.from_numpy(coefs).to(device), frame, grey)
 
 
 # -- the writer ---------------------------------------------------------------

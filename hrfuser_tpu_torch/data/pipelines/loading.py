@@ -12,13 +12,15 @@ Port of `hrfuser_tpu/data/pipelines/loading.py:47-200` (the reference's
   * `FilterAnnotations`: drops tiny or barely visible gts.
 
 The card's machine has no `cv2`, so `imread` picks a decoder by the
-file's extension: PNG through `data/png.py` (bit-equal to `cv2.imread`
-for 8- and 16-bit grey, RGB and RGBA files), JPEG through `data/jpeg.py`
-(Huffman decoding on the host, the pixels on `device`; bit-equal to
-`cv2.imread` and the JAX package's libjpeg decoder), TIFF (the STF gated
-raw frames, read unchanged) through `data/tiff.py`. `imdecode` reads a
-camera payload, JPEG or PNG by its first bytes. Nothing falls back to
-another decoder: a file neither can read raises. `imwrite` picks the
+file's extension: PNG through `data/png.py` (every colour type, bit
+depth and interlace, bit-equal to `cv2.imread` in its three modes), JPEG
+through `data/jpeg.py` (entropy decoding on the host, the pixels on
+`device`; baseline, progressive and arithmetic-coded, grey, YCbCr, RGB,
+CMYK and YCCK, bit-equal to `cv2.imread` and the JAX package's libjpeg
+decoder), TIFF (the STF gated raw frames, read unchanged) through
+`data/tiff.py`. `decode` / `imdecode` read a payload, JPEG or PNG by its
+first bytes. Nothing falls back to another decoder: a file neither can
+read raises. `imwrite` picks the
 encoder by the extension, as `cv2.imwrite` does: JPEG through
 `data/jpeg.py` (pixels on the image's device, bytes equal to `cv2`'s),
 PNG through `data/png.py`.
@@ -52,40 +54,49 @@ def _own_stream(device: torch.device):
     return streams[device]
 
 
-def read_jpeg(data: bytes, device='cuda') -> np.ndarray:
-    """A JPEG byte string as uint8 BGR [H, W, 3] on the host, its pixels
-    made on `device` (on a stream of this thread's own)."""
+def read_jpeg(data: bytes, device='cuda', grey: bool = False) -> np.ndarray:
+    """A JPEG byte string as uint8 BGR [H, W, 3] (grey [H, W] with
+    `grey`) on the host, its pixels made on `device` (on a stream of this
+    thread's own)."""
     device = torch.device(device)
     if device.type != 'cuda':
-        return jpeg.decode_jpeg(data, device).numpy()
+        return jpeg.decode_jpeg(data, device, grey).numpy()
     with torch.cuda.stream(_own_stream(device)):
-        return jpeg.decode_jpeg(data, device).cpu().numpy()
+        return jpeg.decode_jpeg(data, device, grey).cpu().numpy()
+
+
+def decode(data: bytes, flag: str = 'color', device='cuda') -> np.ndarray:
+    """What `cv2.imdecode(buf, IMREAD_<FLAG>)` gives for a JPEG or PNG
+    byte string (told apart by their first bytes), as a host array; a
+    JPEG's pixels are made on `device` (`read_jpeg`). A JPEG reads grey
+    in 'grayscale' mode, and in 'unchanged' mode when it has one
+    component. Other bytes raise `jpeg.JpegError`."""
+    if flag not in FLAGS:
+        raise ValueError(f'imread flag {flag!r}: one of {FLAGS}')
+    if data[:2] == b'\xff\xd8':
+        grey = flag == 'grayscale' or (flag == 'unchanged'
+                                       and jpeg.jpeg_shape(data)[2] == 1)
+        return read_jpeg(data, device, grey)
+    if data[:8] == png.SIGNATURE:
+        return png.imdecode(data, unchanged=flag == 'unchanged',
+                            grayscale=flag == 'grayscale')
+    raise jpeg.JpegError('not a JPEG or PNG payload')
 
 
 def imread(path: str, flag: str = 'color', device='cuda') -> np.ndarray:
-    """What `cv2.imread(path, IMREAD_<FLAG>)` gives for the files the
-    datasets hold: 'color' uint8 BGR [H, W, 3]; 'unchanged' the PNG's own
-    depth, [H, W] grey or BGR [H, W, 3]; 'grayscale' uint8 [H, W] of a
-    grey PNG (a colour file raises: see `data/png.py`). JPEG reads in
-    'color' only, its pixels made on `device` (`read_jpeg`); TIFF in
-    'unchanged' only (uint8 or uint16 [H, W]). PNG and TIFF decode on the
-    host whatever `device` says."""
-    if flag not in FLAGS:
-        raise ValueError(f'imread flag {flag!r}: one of {FLAGS}')
+    """What `cv2.imread(path, IMREAD_<FLAG>)` gives: 'color' uint8 BGR
+    [H, W, 3]; 'unchanged' the file's own depth and channels (a PNG's
+    alpha kept, BGRA), [H, W] for grey; 'grayscale' uint8 [H, W]. A .png,
+    .jpg or .jpeg file is read by its first bytes (`decode`: a JPEG's
+    pixels made on `device`), a TIFF in 'unchanged' only (uint8 or
+    uint16 [H, W]). PNG and TIFF decode on the host whatever `device`
+    says."""
     if not osp.exists(path):
         raise FileNotFoundError(path)
     lower = path.lower()
-    if lower.endswith('.png'):
+    if lower.endswith(('.png', '.jpg', '.jpeg')):
         with open(path, 'rb') as f:
-            data = f.read()
-        return png.imdecode(data, unchanged=flag == 'unchanged',
-                            grayscale=flag == 'grayscale')
-    if lower.endswith(('.jpg', '.jpeg')):
-        if flag != 'color':
-            raise ValueError(f'{path}: JPEG reads in colour only, not '
-                             f'{flag!r}')
-        with open(path, 'rb') as f:
-            return read_jpeg(f.read(), device)
+            return decode(f.read(), flag, device)
     if lower.endswith(('.tif', '.tiff')):
         if flag != 'unchanged':
             raise ValueError(f'{path}: TIFF reads unchanged only, not '
@@ -102,9 +113,7 @@ def imdecode(data: bytes, device='cuda') -> torch.Tensor:
     there; a PNG decodes on the host and is copied."""
     if data[:2] == b'\xff\xd8':
         return jpeg.decode_jpeg(data, device)
-    if data[:8] == png.SIGNATURE:
-        return torch.from_numpy(png.imdecode(data)).to(device)
-    raise ValueError('not a JPEG or PNG payload')
+    return torch.from_numpy(decode(data, 'color', 'cpu')).to(device)
 
 
 def imwrite(path: str, img, device='cuda') -> None:

@@ -3,20 +3,24 @@
 
 The card's machine has no `cv2`, PIL or `torchvision`, so the server
 decodes its PNG payloads here and the offline converters write their
-sensor images with `imwrite`. Supported: bit depths 8 and 16, colour
-types 0 (grey), 2 (RGB) and 6 (RGBA, alpha dropped), non-interlaced, the
-five scanline filters. Anything else (palette or interlaced PNG, or not
-a PNG at all) raises `ValueError`.
+sensor images with `imwrite`. Every PNG decodes: colour types 0 (grey),
+2 (RGB), 3 (palette, with tRNS), 4 (grey + alpha) and 6 (RGBA), at
+every bit depth the type allows (1, 2, 4, 8, 16), plain or Adam7
+interlaced, through the five scanline filters. A file that is not a PNG,
+or whose header is not a valid one, raises `ValueError`.
 
 `imdecode(data)` returns what `cv2.imdecode(buf, cv2.IMREAD_COLOR)` does
-for these files: uint8 BGR [H, W, 3] (16-bit samples keep their high
-byte, grey is repeated into three channels). `unchanged=True` returns
-what `cv2.IMREAD_UNCHANGED` does, alpha dropped: the file's depth (uint8
-or uint16), [H, W] for grey, BGR [H, W, 3] otherwise. `grayscale=True`
-returns what `cv2.IMREAD_GRAYSCALE` does for a grey file: uint8 [H, W]
-(16-bit samples keep their high byte). A colour file raises there: cv2
-converts it to grey with libpng's fixed-point weights, which this
-decoder does not reproduce bit for bit.
+(libpng's transforms as cv2 asks for them): uint8 BGR [H, W, 3], 16-bit
+samples keeping their high byte, grey of depth 1-4 scaled to 8 bits and
+repeated into three channels, palettes expanded, alpha dropped.
+`unchanged=True` returns what `cv2.IMREAD_UNCHANGED` does: the file's
+depth (uint8, or uint16 for 16-bit files), [H, W] for grey, BGR
+[H, W, 3], or BGRA [H, W, 4] for a file with alpha (grey + alpha as
+grey repeated, RGB and palette files with tRNS as alpha from it).
+`grayscale=True` returns what `cv2.IMREAD_GRAYSCALE` does: uint8
+[H, W], a colour file through libpng's `png_set_rgb_to_gray` at cv2's
+weights (0.299, 0.587: 9797 / 19234 / 3737 of 32768), truncated for
+8-bit samples and rounded for 16-bit ones.
 """
 
 from __future__ import annotations
@@ -27,7 +31,6 @@ import zlib
 import numpy as np
 
 SIGNATURE = b'\x89PNG\r\n\x1a\n'
-_CHANNELS = {0: 1, 2: 3, 6: 4}
 
 
 def _chunks(data: bytes):
@@ -100,15 +103,59 @@ def _unfilter_block(px, kinds, out, r0, r1, w):
     out[r0 + 1:r1 + 1] = buf[1:]
 
 
-def imdecode(data: bytes, unchanged: bool = False,
-             grayscale: bool = False) -> np.ndarray:
-    """Decode a PNG byte string (see the module docstring)."""
+# colour type: (channels, allowed bit depths)
+_TYPES = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)), 3: (1, (1, 2, 4, 8)),
+          4: (2, (8, 16)), 6: (4, (8, 16))}
+# Adam7's passes: first column, first row, column step, row step
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+# libpng's png_set_rgb_to_gray(png, 1, 0.299, 0.587), as cv2 calls it:
+# red and green as (w * 32768) / 100000 truncated, blue the rest of 32768
+_GREY_R, _GREY_G = 29900 * 32768 // 100000, 58700 * 32768 // 100000
+_GREY_B = 32768 - _GREY_R - _GREY_G
+
+
+def _passes(h: int, w: int, interlace: int):
+    """(rows, cols, first row, first col, row step, col step) of each
+    non-empty (sub)image the data holds, in order."""
+    if not interlace:
+        return [(h, w, 0, 0, 1, 1)]
+    out = []
+    for x0, y0, dx, dy in _ADAM7:
+        rows, cols = -(-(h - y0) // dy), -(-(w - x0) // dx)
+        if rows > 0 and cols > 0:
+            out.append((rows, cols, y0, x0, dy, dx))
+    return out
+
+
+def _samples(rows: np.ndarray, w: int, ch: int, depth: int) -> np.ndarray:
+    """Unfiltered rows [H, row bytes] -> samples [H, W, ch], uint8 for
+    depths up to 8 (values as stored), uint16 for 16."""
+    h = rows.shape[0]
+    if depth == 16:
+        return rows.reshape(h, w, ch, 2).view('>u2')[..., 0].astype(
+            np.uint16)
+    if depth == 8:
+        return rows.reshape(h, w, ch)
+    per = 8 // depth
+    shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+    vals = (rows[:, :, None] >> shifts) & ((1 << depth) - 1)
+    return vals.reshape(h, -1)[:, :w, None].astype(np.uint8)
+
+
+def _decode_samples(data: bytes):
+    """A PNG's header fields and its samples [H, W, ch] (de-interlaced),
+    with its PLTE and tRNS chunks."""
     if data[:8] != SIGNATURE:
         raise ValueError('not a PNG payload')
-    header, idat = None, []
+    header, idat, plte, trns = None, [], None, None
     for kind, body in _chunks(data):
         if kind == b'IHDR' and len(body) == 13:
             header = struct.unpack('>IIBBBBB', body)
+        elif kind == b'PLTE':
+            plte = body
+        elif kind == b'tRNS':
+            trns = body
         elif kind == b'IDAT':
             idat.append(body)
         elif kind == b'IEND':
@@ -116,36 +163,92 @@ def imdecode(data: bytes, unchanged: bool = False,
     if header is None or not idat:
         raise ValueError('PNG without IHDR or IDAT')
     w, h, depth, color, _, _, interlace = header
-    if depth not in (8, 16) or color not in _CHANNELS:
-        raise ValueError(f'PNG bit depth {depth}, colour type {color}: '
-                         f'only depths 8/16 and grey, RGB, RGBA decode')
-    if interlace:
-        raise ValueError('interlaced PNG is not supported')
-    if grayscale and color != 0:
-        raise ValueError('a colour PNG read as grey: only grey PNGs decode '
-                         'in grayscale mode')
-    ch, nbytes = _CHANNELS[color], depth // 8
-    bpp = ch * nbytes
-    size = h * (1 + w * bpp)
+    if color not in _TYPES or depth not in _TYPES[color][1]:
+        raise ValueError(f'PNG bit depth {depth}, colour type {color}: not '
+                         f'a valid combination')
+    if interlace > 1:
+        raise ValueError(f'PNG interlace method {interlace}')
+    if color == 3 and plte is None:
+        raise ValueError('palette PNG without a PLTE chunk')
+    ch = _TYPES[color][0]
+    bits = ch * depth
+    bpp = max(1, bits // 8)                        # the filters' unit
+    parts = _passes(h, w, interlace)
+    sizes = [rows * (1 + -(-cols * bits // 8)) for rows, cols, *_ in parts]
     try:                              # no more than the header promises
-        raw = zlib.decompressobj().decompress(b''.join(idat), size + 1)
+        raw = zlib.decompressobj().decompress(b''.join(idat), sum(sizes) + 1)
     except zlib.error as e:
         raise ValueError(f'corrupt PNG image data: {e}') from e
     raw = np.frombuffer(raw, np.uint8)
-    if raw.size != size:
+    if raw.size != sum(sizes):
         raise ValueError('PNG image data does not match its header')
-    px = _unfilter(raw.reshape(h, 1 + w * bpp), h, w, bpp)
-    if nbytes == 2:
-        img = px.reshape(h, w, ch, 2).view('>u2')[..., 0]
-        img = img.astype(np.uint16) if unchanged else (img >> 8).astype(
-            np.uint8)
-    else:
-        img = px.reshape(h, w, ch)
-    img = img[..., :3]                                   # alpha dropped
+    passes, start = [], 0
+    for (rows, cols, *_), size in zip(parts, sizes):
+        rb = size // rows - 1
+        block = raw[start:start + size].reshape(rows, 1 + rb)
+        start += size
+        unf = _unfilter(block, rows, rb // bpp, bpp).reshape(rows, rb)
+        passes.append(_samples(unf, cols, ch, depth))
+    if not interlace:
+        return depth, color, passes[0], plte, trns
+    img = np.zeros((h, w, ch), passes[0].dtype)
+    for (_, _, y0, x0, dy, dx), px in zip(parts, passes):
+        img[y0::dy, x0::dx] = px
+    return depth, color, img, plte, trns
+
+
+def imdecode(data: bytes, unchanged: bool = False,
+             grayscale: bool = False) -> np.ndarray:
+    """Decode a PNG byte string (see the module docstring)."""
+    depth, color, px, plte, trns = _decode_samples(data)
+    if depth < 8 and color == 0:      # png_set_expand_gray_1_2_4_to_8
+        px = px * np.uint8(255 // ((1 << depth) - 1))
+    if color == 3:                    # png_set_palette_to_rgb
+        table = np.zeros((256, 3), np.uint8)
+        pal = np.frombuffer(plte[:768], np.uint8)
+        table[:len(pal) // 3] = pal[:len(pal) // 3 * 3].reshape(-1, 3)
+        alpha = np.full(256, 255, np.uint8)
+        if trns:
+            alpha[:min(len(trns), 256)] = np.frombuffer(trns[:256], np.uint8)
+        idx = px[..., 0]
+        px = np.concatenate([table[idx], alpha[idx][..., None]], -1) \
+            if trns else table[idx]
+    elif color == 2 and trns and len(trns) >= 6 and unchanged:
+        key = np.frombuffer(trns[:6], '>u2').astype(px.dtype)  # tRNS_to_alpha
+        top = np.iinfo(px.dtype).max
+        alpha = np.where((px == key).all(-1), 0, top).astype(px.dtype)
+        px = np.concatenate([px, alpha[..., None]], -1)
+    elif color == 4:                  # grey + alpha: grey repeated, alpha
+        px = px[..., [0, 0, 0, 1]]
+    ch = px.shape[-1]
+    if grayscale:
+        if ch == 1:
+            grey = px[..., 0]
+            return (grey >> 8).astype(np.uint8) if depth == 16 else grey
+        return _rgb_to_grey(px[..., :3], depth)
+    if unchanged:
+        if ch == 1:
+            return px[..., 0].copy()
+        if ch == 3:
+            return np.ascontiguousarray(px[..., ::-1])      # RGB -> BGR
+        return np.ascontiguousarray(px[..., [2, 1, 0, 3]])  # RGBA -> BGRA
+    if depth == 16:
+        px = (px >> 8).astype(np.uint8)
     if ch == 1:
-        return (img[..., 0].copy() if unchanged or grayscale
-                else np.repeat(img, 3, -1))
-    return np.ascontiguousarray(img[..., ::-1])          # RGB -> BGR
+        return np.repeat(px, 3, -1)
+    return np.ascontiguousarray(px[..., 2::-1])         # alpha dropped
+
+
+def _rgb_to_grey(rgb: np.ndarray, depth: int) -> np.ndarray:
+    """libpng's `png_do_rgb_to_gray` without gamma, at cv2's weights:
+    8-bit samples truncate (a grey pixel stays as it is), 16-bit ones
+    round before their high byte is kept."""
+    r, g, b = (rgb[..., i].astype(np.int64) for i in range(3))
+    mix = _GREY_R * r + _GREY_G * g + _GREY_B * b
+    if depth == 16:
+        return (((mix + 16384) >> 15) >> 8).astype(np.uint8)
+    same = (r == g) & (r == b)
+    return np.where(same, r, mix >> 15).astype(np.uint8)
 
 
 def imencode(img: np.ndarray) -> bytes:

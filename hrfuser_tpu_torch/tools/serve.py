@@ -15,7 +15,7 @@ not called before costs about 200 ms more on the card (measured by
 
     POST /predict        body = JPEG or PNG bytes (BGR camera image)
     POST /predict_multi  json {"img": <b64 jpeg or png>,
-                               "mods": [<b64 png>, ...]}
+                               "mods": [<b64 png or jpeg>, ...]}
                          (sensor PNGs in the config's modality order, as
                          stored offline: uint16 projections, dequantized
                          on the device, STF's radar with its empty
@@ -26,13 +26,16 @@ not called before costs about 200 ms more on the card (measured by
             "labels": [...], "class_names": [...], "latency_ms": t}
     GET  /healthz        -> {"status": "ok"}
 
-Camera payloads are JPEG or PNG, as the JAX server's `cv2.imdecode`
-takes them (`data/pipelines/loading.imdecode`, picked by the first
-bytes). A JPEG is Huffman-decoded on the worker thread and its pixels
-are made on the detector's device, where the model reads them without a
-copy back to the host. Sensor payloads are PNG (`data/png.py`). A
-payload that does not decode (a progressive JPEG, say) gets a 400 with
-the reason.
+Camera payloads are JPEG (any coding: baseline, progressive,
+arithmetic) or PNG (any type), as the JAX server's `cv2.imdecode` takes
+them (`data/pipelines/loading.imdecode`, picked by the first bytes). A
+JPEG is entropy-decoded on the worker thread and its pixels are made on
+the detector's device, where the model reads them without a copy back
+to the host. Sensor payloads decode on the worker thread as
+`cv2.IMREAD_UNCHANGED` does (`data/pipelines/loading.decode`: a PNG on
+the host, a JPEG's pixels on the detector's device, copied back to the
+host as the dataset loader's are). A payload that does not
+decode (a 12-bit or lossless JPEG, say) gets a 400 with the reason.
 
     python -m hrfuser_tpu_torch.tools.serve \\
         cascade_rcnn_hrfuser_t_1x_nus_r640_l_r_fusion --dtype bf16 \\
@@ -54,14 +57,18 @@ import numpy as np
 
 from hrfuser_tpu_torch.apis.inference import (inference_detector,
                                               init_detector)
-from hrfuser_tpu_torch.data.pipelines.loading import imdecode
-from hrfuser_tpu_torch.data.png import imdecode as png_decode
+from hrfuser_tpu_torch.data.pipelines.loading import decode, imdecode
 from hrfuser_tpu_torch.tools.test import DTYPES
 
 
-def predict(detector, camera: bytes, mods):
-    """Decode a camera payload on the detector's device and detect;
-    runs on the worker thread."""
+def predict(detector, camera: bytes, sensors):
+    """Decode a request's payloads and detect; runs on the worker thread.
+    The camera's pixels are made on the detector's device and stay there;
+    `sensors`, (stream name, payload) pairs, decode as `cv2.IMREAD_UNCHANGED`
+    does to host arrays, a JPEG's pixels made on the device too."""
+    mods = [_sensor(detector.data, name, decode(data, 'unchanged',
+                                                detector.device))
+            for name, data in sensors] or None
     return inference_detector(detector, imdecode(camera, detector.device),
                               mods)
 
@@ -97,20 +104,18 @@ def build_handler(detector, worker: ThreadPoolExecutor):
                 body = self.rfile.read(n)
                 t0 = time.time()
                 if self.path == '/predict':
-                    img, mods = body, None
+                    img, sensors = body, []
                 else:
                     req = json.loads(body)
                     img = base64.b64decode(req['img'])
-                    pngs, names = req.get('mods', []), modalities
-                    if pngs and len(pngs) != len(names):
+                    sensors, names = req.get('mods', []), modalities
+                    if sensors and len(sensors) != len(names):
                         raise ValueError(
-                            f'{len(pngs)} sensor images; the config takes '
-                            f'{len(names)} ({", ".join(names)})')
-                    mods = [_sensor(detector.data, name,
-                                    png_decode(base64.b64decode(m),
-                                               unchanged=True))
-                            for name, m in zip(names, pngs)] or None
-                det = worker.submit(predict, detector, img, mods).result()
+                            f'{len(sensors)} sensor images; the config '
+                            f'takes {len(names)} ({", ".join(names)})')
+                    sensors = [(name, base64.b64decode(m))
+                               for name, m in zip(names, sensors)]
+                det = worker.submit(predict, detector, img, sensors).result()
             except (ValueError, KeyError, TypeError) as e:
                 self._json(400, {'error': str(e)})
                 return

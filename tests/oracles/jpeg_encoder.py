@@ -1,24 +1,31 @@
 """A baseline JPEG encoder in numpy, for testing decoders.
 
-It writes sequential Huffman-coded JPEG streams (SOF0 or SOF1) from
-coefficients the caller gives, so a test can put any value a baseline
-stream can carry into a decoder, including coefficients whose inverse
-DCT leaves the sample range. `image_coefficients` makes realistic
-coefficients from a BGR or grey image (JFIF colour conversion, box
-downsampling, float DCT, the IJG quality scaling of the Annex K tables).
+It writes JPEG streams from coefficients the caller gives, so a test can
+put any value a stream can carry into a decoder, including coefficients
+whose inverse DCT leaves the sample range: sequential Huffman-coded
+(SOF0 or SOF1), progressive Huffman-coded (SOF2: `progression`'s
+spectral selection and successive approximation, every EOB run 1),
+arithmetic-coded sequential (SOF9) and progressive (SOF10), with 1, 3
+or 4 components (CMYK or YCCK behind an Adobe marker). The same
+coefficients give the same pixels in every mode. `image_coefficients`
+makes realistic coefficients from a BGR, CMYK or grey image (JFIF colour
+conversion, box downsampling, float DCT, the IJG quality scaling of the
+Annex K tables).
 
     coefs, quant = image_coefficients(bgr, quality=90, sampling=(2, 2))
     data = encode(coefs, quant, bgr.shape[:2], sampling=(2, 2))
 
 Coefficients are int arrays [block rows, block cols, 64] per component,
 in natural (row-major) order, over the component's MCU-padded block
-grid; `block_grid` gives the grid. The streams use the standard Huffman
+grid; `block_grid` gives the grid. Huffman streams use the standard
 tables of Annex K.3, so AC values must lie in [-1023, 1023] and DC
 differences in [-2047, 2047]. Options: restart intervals, one scan per
 component, 16-bit quantisation tables, JFIF or no APP0 marker, other
-component identifiers. Entropy coding is vectorised over all
-coefficients, so a 900x1600 frame takes about a second. Used by the
-JPEG decoder's tests and by `chip_smoke.py` (loaded by path there).
+component identifiers, arithmetic conditioning (DAC). Huffman coding is
+vectorised over all coefficients, so a 900x1600 frame takes about a
+second; the arithmetic coder runs one decision at a time in Python, 5-8 s
+for such a frame. Used by the JPEG decoder's tests and by
+`chip_smoke.py` (loaded by path there).
 """
 
 from typing import List, Optional, Sequence, Tuple
@@ -105,12 +112,13 @@ def block_grid(hw: Tuple[int, int], sampling: Sequence[Tuple[int, int]]
 
 def _sampling(ncomp: int, sampling) -> List[Tuple[int, int]]:
     """(h, v) of luma's chroma subsampling, as every component's
-    factors: chroma takes 1x1 and luma the given factors."""
+    factors: chroma takes 1x1, luma (and a fourth component, as libjpeg
+    samples K) the given factors."""
     if ncomp == 1:
         return [(1, 1)]
     if isinstance(sampling[0], (tuple, list)):
         return [tuple(s) for s in sampling]
-    return [tuple(sampling), (1, 1), (1, 1)]
+    return [tuple(sampling), (1, 1), (1, 1), tuple(sampling)][:ncomp]
 
 
 _DCT = np.array([[(np.sqrt(0.125) if u == 0 else 0.5)
@@ -118,20 +126,32 @@ _DCT = np.array([[(np.sqrt(0.125) if u == 0 else 0.5)
                   for x in range(8)] for u in range(8)])
 
 
+def _ycc(r, g, b):
+    return [0.299 * r + 0.587 * g + 0.114 * b,
+            -0.168736 * r - 0.331264 * g + 0.5 * b + 128,
+            0.5 * r - 0.418688 * g - 0.081312 * b + 128]
+
+
 def image_coefficients(img: np.ndarray, quality: int = 90,
-                       sampling=(2, 2)):
-    """A BGR [H, W, 3] or grey [H, W] uint8 image -> (coefficients per
-    component, quantisation tables per component), for `encode`.
-    `sampling` is luma's (h, v) factors, chroma taking (1, 1)."""
+                       sampling=(2, 2), ycck: bool = False):
+    """A BGR [H, W, 3], CMYK [H, W, 4] or grey [H, W] uint8 image ->
+    (coefficients per component, quantisation tables per component), for
+    `encode`. `sampling` is luma's (h, v) factors (and K's), chroma
+    taking (1, 1). CMYK is stored as it is, or with `ycck` as YCCK (the
+    inverted C, M, Y as RGB to YCbCr, K as it is: libjpeg's
+    cmyk_ycck_convert); write either with `adobe=0` or `adobe=2`."""
     img = np.asarray(img, np.float64)
     luma_q, chroma_q = quality_tables(quality)
     if img.ndim == 2:
         planes, quant = [img], [luma_q]
+    elif img.shape[2] == 4:
+        c, m, y, k = (img[..., i] for i in range(4))
+        planes = (_ycc(255 - c, 255 - m, 255 - y) if ycck else [c, m, y])
+        planes.append(k)
+        quant = [luma_q, chroma_q, chroma_q, luma_q]
     else:
         b, g, r = img[..., 0], img[..., 1], img[..., 2]
-        planes = [0.299 * r + 0.587 * g + 0.114 * b,
-                  -0.168736 * r - 0.331264 * g + 0.5 * b + 128,
-                  0.5 * r - 0.418688 * g - 0.081312 * b + 128]
+        planes = _ycc(r, g, b)
         quant = [luma_q, chroma_q, chroma_q]
     factors = _sampling(len(planes), sampling)
     hmax = max(f[0] for f in factors)
@@ -175,72 +195,6 @@ def _category(v: np.ndarray):
     return size, bits.astype(np.int64)
 
 
-def _scan_words(blocks: np.ndarray, comp_of_block: np.ndarray,
-                tables, new_interval: np.ndarray):
-    """Entropy-code blocks [N, 64] (natural order) in stream order:
-    (word values, word lengths, index of each word's block). A word is a
-    Huffman code with its extra bits; DC predictors restart where
-    `new_interval` is set."""
-    n = len(blocks)
-    zz = blocks[:, ZIGZAG].astype(np.int64)
-    # DC differences, per component, reset at each restart
-    dc = zz[:, 0]
-    diff = np.empty(n, np.int64)
-    last = {}
-    for i in range(n):
-        c = comp_of_block[i]
-        if new_interval[i]:
-            last = {}
-        diff[i] = dc[i] - last.get(c, 0)
-        last[c] = dc[i]
-    if np.abs(diff).max(initial=0) > 2047:
-        raise ValueError('a DC difference beyond 2047')
-    if np.abs(zz[:, 1:]).max(initial=0) > 1023:
-        raise ValueError('an AC value beyond 1023')
-    dc_codes = np.stack([tables[c][0][0] for c in range(len(tables))])
-    dc_lens = np.stack([tables[c][0][1] for c in range(len(tables))])
-    ac_codes = np.stack([tables[c][1][0] for c in range(len(tables))])
-    ac_lens = np.stack([tables[c][1][1] for c in range(len(tables))])
-
-    size, bits = _category(diff)
-    words = [(np.arange(n), 0, (dc_codes[comp_of_block, size] << size) | bits,
-              dc_lens[comp_of_block, size] + size)]
-    # AC: one word per nonzero coefficient, ZRL words for runs of 16
-    # zeros before it, an EOB where the block ends in zeros
-    blk, k = np.nonzero(zz[:, 1:])
-    k = k + 1
-    prev = np.zeros_like(k)
-    same = np.zeros(len(blk), bool)
-    same[1:] = blk[1:] == blk[:-1]
-    prev[same] = k[:-1][same[1:]]
-    run = k - prev - 1
-    zrl = run // 16
-    run = run % 16
-    size, bits = _category(zz[blk, k])
-    c = comp_of_block[blk]
-    sym = run * 16 + size
-    if zrl.any():
-        zb = np.repeat(blk, zrl)
-        zk = np.repeat(k, zrl) - 0.5             # just before its value
-        zc = comp_of_block[zb]
-        words.append((zb, zk, ac_codes[zc, 0xf0], ac_lens[zc, 0xf0]))
-    words.append((blk, k, (ac_codes[c, sym] << size) | bits,
-                  ac_lens[c, sym] + size))
-    last_k = np.zeros(n, np.int64)
-    np.maximum.at(last_k, blk, k)
-    eob = np.nonzero(last_k < 63)[0]
-    ce = comp_of_block[eob]
-    words.append((eob, 64, ac_codes[ce, 0], ac_lens[ce, 0]))
-    block = np.concatenate([np.broadcast_to(w[0], np.shape(w[2]))
-                            for w in words])
-    pos = np.concatenate([np.broadcast_to(np.asarray(w[1], np.float64),
-                                          np.shape(w[2])) for w in words])
-    value = np.concatenate([w[2] for w in words])
-    length = np.concatenate([w[3] for w in words])
-    order = np.lexsort((pos, block))
-    return value[order], length[order], block[order]
-
-
 def _pack(value: np.ndarray, length: np.ndarray) -> bytes:
     """Words of up to 32 bits, MSB first, into bytes; the last byte is
     padded with one bits."""
@@ -266,12 +220,498 @@ def _segment(marker: int, body: bytes) -> bytes:
     return bytes([0xFF, marker]) + (len(body) + 2).to_bytes(2, 'big') + body
 
 
+def _scan_blocks(coefs, factors, grids, hw, comps):
+    """A scan's blocks [N, 64] (natural order) in stream order, each
+    block's component and MCU index: MCU by MCU when the scan holds
+    several components, else over the component's own block grid."""
+    h, w = hw
+    hmax = max(f[0] for f in factors)
+    vmax = max(f[1] for f in factors)
+    if len(comps) > 1:
+        mcu_rows, mcu_cols = grids[0][0] // factors[0][1], \
+            grids[0][1] // factors[0][0]
+        parts, owner = [], []
+        for c in comps:
+            hs, v = factors[c]
+            g = coefs[c].reshape(mcu_rows, v, mcu_cols, hs, 64)
+            parts.append(g.transpose(0, 2, 1, 3, 4).reshape(
+                mcu_rows, mcu_cols, v * hs, 64))
+            owner += [c] * (v * hs)
+        blocks = np.concatenate(parts, 2).reshape(-1, 64)
+        comp_of_block = np.tile(owner, mcu_rows * mcu_cols)
+        per_mcu = len(owner)
+    else:
+        c = comps[0]
+        hs, v = factors[c]
+        rows = -(-(-(-h * v // vmax)) // 8)
+        cols = -(-(-(-w * hs // hmax)) // 8)
+        blocks = coefs[c][:rows, :cols].reshape(-1, 64)
+        comp_of_block = np.full(len(blocks), c)
+        per_mcu = 1
+    return blocks, comp_of_block, np.arange(len(blocks)) // per_mcu
+
+
+def _shift(v: np.ndarray, al: int) -> np.ndarray:
+    """An AC point transform: |v| >> Al with v's sign."""
+    return np.sign(v) * (np.abs(v) >> al)
+
+
+def _ac_words(zz: np.ndarray, first: int, comp_of_block, tables):
+    """Huffman words of AC values zz [N, L] at zigzag positions first ..
+    first + L - 1 (runs, ZRLs, an EOB where the band ends in zeros): the
+    baseline scan's AC part, and a progressive AC first scan's."""
+    n, span = zz.shape
+    ac_codes = np.stack([t[1][0] for t in tables])
+    ac_lens = np.stack([t[1][1] for t in tables])
+    if np.abs(zz).max(initial=0) > 1023:
+        raise ValueError('an AC value beyond 1023')
+    words = []
+    blk, j = np.nonzero(zz)
+    k = j + first
+    prev = np.full_like(k, first - 1)
+    same = np.zeros(len(blk), bool)
+    same[1:] = blk[1:] == blk[:-1]
+    prev[same] = k[:-1][same[1:]]
+    run = k - prev - 1
+    zrl = run // 16
+    run = run % 16
+    size, bits = _category(zz[blk, j])
+    c = comp_of_block[blk]
+    sym = run * 16 + size
+    if zrl.any():
+        zb = np.repeat(blk, zrl)
+        zk = np.repeat(k, zrl) - 0.5             # just before its value
+        zc = comp_of_block[zb]
+        words.append((zb, zk, ac_codes[zc, 0xf0], ac_lens[zc, 0xf0]))
+    words.append((blk, k, (ac_codes[c, sym] << size) | bits,
+                  ac_lens[c, sym] + size))
+    last_k = np.full(n, first - 1)
+    np.maximum.at(last_k, blk, k)
+    eob = np.nonzero(last_k < first + span - 1)[0]
+    ce = comp_of_block[eob]
+    words.append((eob, 64, ac_codes[ce, 0], ac_lens[ce, 0]))
+    return words
+
+
+def _dc_words(dc: np.ndarray, comp_of_block, tables, new_interval):
+    """Huffman words of DC values, as differences per component that
+    restart where `new_interval` is set."""
+    n = len(dc)
+    diff = np.empty(n, np.int64)
+    last = {}
+    for i in range(n):
+        c = comp_of_block[i]
+        if new_interval[i]:
+            last = {}
+        diff[i] = dc[i] - last.get(c, 0)
+        last[c] = dc[i]
+    if np.abs(diff).max(initial=0) > 2047:
+        raise ValueError('a DC difference beyond 2047')
+    dc_codes = np.stack([t[0][0] for t in tables])
+    dc_lens = np.stack([t[0][1] for t in tables])
+    size, bits = _category(diff)
+    return [(np.arange(n), 0, (dc_codes[comp_of_block, size] << size) | bits,
+             dc_lens[comp_of_block, size] + size)]
+
+
+def _refine_words(zz: np.ndarray, first: int, ah: int, al: int,
+                  comp_of_block, tables):
+    """Huffman words of a progressive AC refinement scan (jcphuff.c
+    encode_mcu_AC_refine with every EOB run 1): zz [N, L] the band's
+    coefficients. A newly nonzero coefficient is coded with its zero run
+    and sign; an older one sends its next bit, held back to follow the
+    next code in the block (a ZRL, a new coefficient or the EOB)."""
+    n, span = zz.shape
+    ac_codes = np.stack([t[1][0] for t in tables])
+    ac_lens = np.stack([t[1][1] for t in tables])
+    a = np.abs(zz) >> al
+    newly = a == 1
+    last_new = np.where(newly.any(1),
+                        span - 1 - np.argmax(newly[:, ::-1], 1), -1)
+    r = np.zeros(n, np.int64)
+    words, anchors, held = [], [], []      # anchors: (block, j, key)
+    for j in range(span):
+        col = a[:, j]
+        nz = col > 0
+        z = np.nonzero(nz & (r > 15) & (j <= last_new))[0]
+        if len(z):
+            cz = comp_of_block[z]
+            key = first + j - 0.6
+            words.append((z, np.full(len(z), key), ac_codes[cz, 0xf0],
+                          ac_lens[cz, 0xf0]))
+            anchors.append((z, np.full(len(z), j), np.full(len(z), key)))
+            more = r[z] // 16 - 1
+            zb = np.repeat(z, more)
+            words.append((zb, np.full(len(zb), first + j - 0.5),
+                          ac_codes[comp_of_block[zb], 0xf0],
+                          ac_lens[comp_of_block[zb], 0xf0]))
+            r[z] %= 16
+        b = np.nonzero(col == 1)[0]
+        if len(b):
+            cb = comp_of_block[b]
+            sym = r[b] * 16 + 1
+            sign = (zz[b, j] > 0).astype(np.int64)
+            words.append((b, np.full(len(b), float(first + j)),
+                          (ac_codes[cb, sym] << 1) | sign,
+                          ac_lens[cb, sym] + 1))
+            anchors.append((b, np.full(len(b), j), np.full(len(b),
+                                                           float(first + j))))
+            r[b] = 0
+        p = np.nonzero(col > 1)[0]
+        if len(p):
+            held.append((p, np.full(len(p), j), col[p] & 1))
+        r[~nz] += 1
+    hb = np.concatenate([h[0] for h in held]) if held else np.zeros(0, int)
+    hj = np.concatenate([h[1] for h in held]) if held else np.zeros(0, int)
+    hv = np.concatenate([h[2] for h in held]) if held else np.zeros(0, int)
+    # an EOB where zeros or held bits are left after the last code
+    after = np.zeros(n, bool)
+    if len(hb):
+        last_anchor = np.full(n, -1)
+        for ab, aj, _ in anchors:
+            np.maximum.at(last_anchor, ab, aj)
+        after[hb[hj >= last_anchor[hb]]] = True
+    tail = r > 0
+    eob = np.nonzero(tail | after)[0]
+    ce = comp_of_block[eob]
+    words.append((eob, np.full(len(eob), 64.0), ac_codes[ce, 0],
+                  ac_lens[ce, 0]))
+    anchors.append((eob, np.full(len(eob), span), np.full(len(eob), 64.0)))
+    if len(hb):
+        ab = np.concatenate([x[0] for x in anchors])
+        aj = np.concatenate([x[1] for x in anchors])
+        ak = np.concatenate([x[2] for x in anchors])
+        order = np.lexsort((aj, ab))
+        code = (ab * 128 + aj)[order]
+        idx = np.searchsorted(code, hb * 128 + hj, side='right')
+        key = ak[order][idx] + 0.01 + hj / 1e4
+        words.append((hb, key, hv, np.ones(len(hb), np.int64)))
+    return words
+
+
+def _join_words(words):
+    """Words (block, key, value, length) in stream order."""
+    block = np.concatenate([np.broadcast_to(w[0], np.shape(w[2]))
+                            for w in words])
+    pos = np.concatenate([np.broadcast_to(np.asarray(w[1], np.float64),
+                                          np.shape(w[2])) for w in words])
+    value = np.concatenate([np.asarray(w[2], np.int64) for w in words])
+    length = np.concatenate([np.asarray(w[3], np.int64) for w in words])
+    order = np.lexsort((pos, block))
+    return value[order], length[order], block[order]
+
+
+# -- arithmetic coding (the QM coder of Annex D, as jcarith.c codes) ------
+
+# Table D.2: (Qe, next index after an LPS, after an MPS, switch MPS)
+QE_TABLE = (
+    (0x5a1d, 1, 1, 1), (0x2586, 14, 2, 0), (0x1114, 16, 3, 0),
+    (0x080b, 18, 4, 0), (0x03d8, 20, 5, 0), (0x01da, 23, 6, 0),
+    (0x00e5, 25, 7, 0), (0x006f, 28, 8, 0), (0x0036, 30, 9, 0),
+    (0x001a, 33, 10, 0), (0x000d, 35, 11, 0), (0x0006, 9, 12, 0),
+    (0x0003, 10, 13, 0), (0x0001, 12, 13, 0), (0x5a7f, 15, 15, 1),
+    (0x3f25, 36, 16, 0), (0x2cf2, 38, 17, 0), (0x207c, 39, 18, 0),
+    (0x17b9, 40, 19, 0), (0x1182, 42, 20, 0), (0x0cef, 43, 21, 0),
+    (0x09a1, 45, 22, 0), (0x072f, 46, 23, 0), (0x055c, 48, 24, 0),
+    (0x0406, 49, 25, 0), (0x0303, 51, 26, 0), (0x0240, 52, 27, 0),
+    (0x01b1, 54, 28, 0), (0x0144, 56, 29, 0), (0x00f5, 57, 30, 0),
+    (0x00b7, 59, 31, 0), (0x008a, 60, 32, 0), (0x0068, 62, 33, 0),
+    (0x004e, 63, 34, 0), (0x003b, 32, 35, 0), (0x002c, 33, 9, 0),
+    (0x5ae1, 37, 37, 1), (0x484c, 64, 38, 0), (0x3a0d, 65, 39, 0),
+    (0x2ef1, 67, 40, 0), (0x261f, 68, 41, 0), (0x1f33, 69, 42, 0),
+    (0x19a8, 70, 43, 0), (0x1518, 72, 44, 0), (0x1177, 73, 45, 0),
+    (0x0e74, 74, 46, 0), (0x0bfb, 75, 47, 0), (0x09f8, 77, 48, 0),
+    (0x0861, 78, 49, 0), (0x0706, 79, 50, 0), (0x05cd, 48, 51, 0),
+    (0x04de, 50, 52, 0), (0x040f, 50, 53, 0), (0x0363, 51, 54, 0),
+    (0x02d4, 52, 55, 0), (0x025c, 53, 56, 0), (0x01f8, 54, 57, 0),
+    (0x01a4, 55, 58, 0), (0x0160, 56, 59, 0), (0x0125, 57, 60, 0),
+    (0x00f6, 58, 61, 0), (0x00cb, 59, 62, 0), (0x00ab, 61, 63, 0),
+    (0x008f, 61, 32, 0), (0x5b12, 65, 65, 1), (0x4d04, 80, 66, 0),
+    (0x412c, 81, 67, 0), (0x37d8, 82, 68, 0), (0x2fe8, 83, 69, 0),
+    (0x293c, 84, 70, 0), (0x2379, 86, 71, 0), (0x1edf, 87, 72, 0),
+    (0x1aa9, 87, 73, 0), (0x174e, 72, 74, 0), (0x1424, 72, 75, 0),
+    (0x119c, 74, 76, 0), (0x0f6b, 74, 77, 0), (0x0d51, 75, 78, 0),
+    (0x0bb6, 77, 79, 0), (0x0a40, 77, 48, 0), (0x5832, 80, 81, 1),
+    (0x4d1c, 88, 82, 0), (0x438e, 89, 83, 0), (0x3bdd, 90, 84, 0),
+    (0x34ee, 91, 85, 0), (0x2eae, 92, 86, 0), (0x299a, 93, 87, 0),
+    (0x2516, 86, 71, 0), (0x5570, 88, 89, 1), (0x4ca9, 95, 90, 0),
+    (0x44d9, 96, 91, 0), (0x3e22, 97, 92, 0), (0x3824, 99, 93, 0),
+    (0x32b4, 99, 94, 0), (0x2e17, 93, 86, 0), (0x56a8, 95, 96, 1),
+    (0x4f46, 101, 97, 0), (0x47e5, 102, 98, 0), (0x41cf, 103, 99, 0),
+    (0x3c3d, 104, 100, 0), (0x375e, 99, 93, 0), (0x5231, 105, 102, 0),
+    (0x4c0f, 106, 103, 0), (0x4639, 107, 104, 0), (0x415e, 103, 99, 0),
+    (0x5627, 105, 106, 1), (0x50e7, 108, 107, 0), (0x4b85, 109, 103, 0),
+    (0x5597, 110, 109, 0), (0x504f, 111, 107, 0), (0x5a10, 110, 111, 1),
+    (0x5522, 112, 109, 0), (0x59eb, 112, 111, 1), (0x5a1d, 113, 113, 0))
+# statistics bins: 64 a DC table, 256 an AC table (16 of each), and the
+# fixed 0.5 bin (state 113) that signs and DC refinements use
+DC_BINS, AC_BINS = 0, 16 * 64
+FIXED_BIN = AC_BINS + 16 * 256
+
+
+def qm_encode(decisions) -> bytes:
+    """Code binary decisions (each bin * 2 + bit, every bin starting at
+    state 0, MPS 0) into stuffed bytes (jcarith.c arith_encode and
+    finish_pass)."""
+    state = bytearray(FIXED_BIN + 1)
+    state[FIXED_BIN] = 113
+    qe_of = [q[0] for q in QE_TABLE]
+    nl_of = [q[1] | (q[3] << 7) for q in QE_TABLE]
+    nm_of = [q[2] for q in QE_TABLE]
+    out = bytearray()
+    a, c, ct, sc, zc, buffer = 0x10000, 0, 11, 0, 0, -1
+
+    def emit(byte, carry):
+        """A finished byte of C (with a carry into the held one); the
+        held byte, zero runs and stacked 0xFF bytes go out as they
+        settle."""
+        nonlocal sc, zc, buffer
+        if carry:
+            if buffer >= 0:
+                out.extend(bytes(zc))
+                zc = 0
+                out.append(buffer + 1)
+                if buffer + 1 == 0xFF:
+                    out.append(0)
+            zc += sc
+            sc = 0
+            buffer = byte
+        elif byte == 0xFF:
+            sc += 1
+        else:
+            if buffer == 0:
+                zc += 1
+            elif buffer >= 0:
+                out.extend(bytes(zc))
+                zc = 0
+                out.append(buffer)
+            if sc:
+                out.extend(bytes(zc))
+                zc = 0
+                out.extend(b'\xff\x00' * sc)
+                sc = 0
+            buffer = byte
+
+    for d in decisions:
+        st, val = d >> 1, d & 1
+        sv = state[st]
+        i = sv & 0x7F
+        qe = qe_of[i]
+        a -= qe
+        if val != sv >> 7:
+            if a >= qe:
+                c += a
+                a = qe
+            state[st] = (sv & 0x80) ^ nl_of[i]
+        else:
+            if a >= 0x8000:
+                continue
+            if a < qe:
+                c += a
+                a = qe
+            state[st] = (sv & 0x80) ^ nm_of[i]
+        # renormalise: double A and C until A >= 0x8000, a byte out each
+        # time CT runs out
+        shift = 16 - a.bit_length()
+        while shift:
+            step = shift if shift < ct else ct
+            a <<= step
+            c <<= step
+            ct -= step
+            shift -= step
+            if ct == 0:
+                temp = c >> 19
+                emit(temp & 0xFF, temp > 0xFF)
+                c &= 0x7FFFF
+                ct = 8
+    # termination (section D.1.8)
+    temp = (a - 1 + c) & 0xFFFF0000
+    c = temp + 0x8000 if temp < c else temp
+    c <<= ct
+    if c & 0xF8000000:
+        if buffer >= 0:
+            out.extend(bytes(zc))
+            zc = 0
+            out.append(buffer + 1)
+            if buffer + 1 == 0xFF:
+                out.append(0)
+        zc += sc
+    else:
+        emit(0x100, False)          # settles the held byte and 0xFF run
+    if c & 0x7FFF800:
+        out.extend(bytes(zc))
+        for byte in ((c >> 19) & 0xFF, (c >> 11) & 0xFF)[
+                :2 if c & 0x7F800 else 1]:
+            out.append(byte)
+            if byte == 0xFF:
+                out.append(0)
+    return bytes(out)
+
+
+def _arith_value(add, bins, x, k_bins, v):
+    """Figures F.8-F.9: the magnitude of the nonzero value v (its sign
+    already coded) from the bin of its first decision `x`; `k_bins` is
+    an AC value's X2 bin (189 or 217 on), None for DC (X1 = 20 on).
+    Returns the magnitude category's top bit (0 for |v| = 1)."""
+    v = abs(v) - 1
+    st, m = x, 0
+    if v:
+        add(st, 1)
+        nb = v.bit_length()
+        m = 1 << (nb - 1)
+        if k_bins is None:
+            st = bins + 20
+            for _ in range(nb - 1):
+                add(st, 1)
+                st += 1
+        elif nb > 1:
+            add(st, 1)
+            st = k_bins
+            for _ in range(nb - 2):
+                add(st, 1)
+                st += 1
+    add(st, 0)
+    st += 14
+    top = m
+    while m > 1:
+        m >>= 1
+        add(st, 1 if m & v else 0)
+    return top
+
+
+def _arith_dc(add, tbl, ctx, diff, dac):
+    """Figure F.4 for one DC difference; returns the next context."""
+    bins = DC_BINS + 64 * tbl
+    st = bins + ctx
+    if diff == 0:
+        add(st, 0)
+        return 0
+    add(st, 1)
+    add(st + 1, 0 if diff > 0 else 1)
+    m = _arith_value(add, bins, st + (2 if diff > 0 else 3), None, diff)
+    low, high = dac.get(tbl, (0, 1))
+    if m < (1 << low) >> 1:
+        return 0
+    ctx = 4 if diff > 0 else 8
+    return ctx + 8 if m > (1 << high) >> 1 else ctx
+
+
+def _arith_ac(add, tbl, zz, first, last, kx):
+    """Figure F.5 over positions first..last of zigzag values zz (a list;
+    index 0 = position `first`)."""
+    bins = AC_BINS + 256 * tbl
+    ke = last
+    while ke >= first and zz[ke - first] == 0:
+        ke -= 1
+    k = first
+    while k <= ke:
+        st = bins + 3 * (k - 1)
+        add(st, 0)
+        while zz[k - first] == 0:
+            add(st + 1, 0)
+            st += 3
+            k += 1
+        add(st + 1, 1)
+        v = zz[k - first]
+        add(FIXED_BIN, 0 if v > 0 else 1)
+        _arith_value(add, bins, st + 2, bins + (189 if k <= kx else 217), v)
+        k += 1
+    if k <= last:
+        add(bins + 3 * (k - 1), 1)
+
+
+def _arith_refine(add, tbl, zz, first, last, ah, al):
+    """Figure G.10 (jcarith.c encode_mcu_AC_refine) over one block's
+    band zz (a list; index 0 = position `first`)."""
+    bins = AC_BINS + 256 * tbl
+    a = [abs(v) >> al for v in zz]
+    ke = last
+    while ke >= first and a[ke - first] == 0:
+        ke -= 1
+    kex = ke
+    while kex >= first and abs(zz[kex - first]) >> ah == 0:
+        kex -= 1
+    k = first
+    while k <= ke:
+        st = bins + 3 * (k - 1)
+        if k > kex:
+            add(st, 0)
+        while True:
+            v = a[k - first]
+            if v:
+                if v >> 1:
+                    add(st + 2, v & 1)
+                else:
+                    add(st + 1, 1)
+                    add(FIXED_BIN, 0 if zz[k - first] > 0 else 1)
+                break
+            add(st + 1, 0)
+            st += 3
+            k += 1
+        k += 1
+    if k <= last:
+        add(bins + 3 * (k - 1), 1)
+
+
+def _arith_interval(blocks, comp_of_block, ss, se, ah, al, progressive,
+                    tbl, dac, kx):
+    """The coded bytes of one restart interval of a scan; `tbl` gives a
+    component's DC and AC table."""
+    decisions = []
+    push = decisions.append
+
+    def add(st, bit):
+        push(st * 2 + bit)
+
+    ctx, last = {}, {}
+    for zz, c in zip(blocks[:, ZIGZAG].tolist(), comp_of_block.tolist()):
+        if not progressive or (ss == 0 and ah == 0):       # DC first
+            dc = zz[0] >> al if progressive else zz[0]
+            ctx[c] = _arith_dc(add, tbl[c], ctx.get(c, 0),
+                               dc - last.get(c, 0), dac)
+            last[c] = dc
+        elif ss == 0:                                       # DC refine
+            add(FIXED_BIN, (zz[0] >> al) & 1)
+        if not progressive:
+            _arith_ac(add, tbl[c], zz[1:], 1, 63, kx[tbl[c]])
+        elif ss and not ah:
+            band = [(abs(v) >> al) * (1 if v > 0 else -1)
+                    for v in zz[ss:se + 1]]
+            _arith_ac(add, tbl[c], band, ss, se, kx[tbl[c]])
+        elif ss:
+            _arith_refine(add, tbl[c], zz[ss:se + 1], ss, se, ah, al)
+    return qm_encode(decisions)
+
+
+def _adobe(transform: int) -> bytes:
+    """The APP14 body libjpeg writes: 'Adobe', version 100, flags 0, the
+    colour transform."""
+    return b'Adobe' + bytes([0, 100, 0, 0, 0, 0, transform])
+
+
+def progression(ncomp: int, interleaved: bool = True):
+    """A progressive script of spectral selection and successive
+    approximation: (components, Ss, Se, Ah, Al) a scan. DC first at
+    Al 1, each component's AC 1-5 then 6-63 at Al 2, their refinement to
+    Al 1, the DC refinement, each component's AC refinement to Al 0."""
+    comps = list(range(ncomp))
+    dc = [comps] if interleaved else [[c] for c in comps]
+    return ([(s, 0, 0, 0, 1) for s in dc]
+            + [([c], 1, 5, 0, 2) for c in comps]
+            + [([c], 6, 63, 0, 2) for c in comps]
+            + [([c], 1, 63, 2, 1) for c in comps]
+            + [(s, 0, 0, 1, 0) for s in dc]
+            + [([c], 1, 63, 1, 0) for c in comps])
+
+
 def encode(coefs: Sequence[np.ndarray], quant: Sequence[np.ndarray],
            hw: Tuple[int, int], sampling=(2, 2), restart: int = 0,
            interleaved: bool = True, quant16: bool = False,
            jfif: bool = True, ids: Optional[Sequence[int]] = None,
-           sof: int = 0xC0) -> bytes:
-    """A baseline JPEG stream of the given coefficients.
+           sof: int = 0xC0, progressive: bool = False,
+           arithmetic: bool = False, adobe: Optional[int] = None,
+           dac: Optional[dict] = None) -> bytes:
+    """A JPEG stream of the given coefficients.
 
     Args:
         coefs: per component, int [block rows, block cols, 64] natural
@@ -279,14 +719,23 @@ def encode(coefs: Sequence[np.ndarray], quant: Sequence[np.ndarray],
         quant: per component, its quantisation table (64, natural
             order); components with equal tables share one.
         hw: the image's (height, width).
-        sampling: luma's (h, v) factors (chroma 1x1), or every
-            component's (h, v).
+        sampling: luma's (h, v) factors (chroma 1x1; a fourth component
+            takes luma's), or every component's (h, v).
         restart: the restart interval in MCUs (0: none).
-        interleaved: one scan for all components, or one each.
+        interleaved: one scan for all components, or one each (for a
+            progressive stream: its DC scans).
         quant16: write 16-bit quantisation tables.
         jfif: write the JFIF APP0 marker.
-        ids: component identifiers (default 1, 2, 3).
-        sof: the frame marker, 0xC0 (baseline) or 0xC1 (extended).
+        ids: component identifiers (default 1, 2, 3, 4).
+        sof: the frame marker of a sequential Huffman stream, 0xC0
+            (baseline) or 0xC1 (extended).
+        progressive: code the scans of `progression`: SOF2, or SOF10
+            with `arithmetic`.
+        arithmetic: arithmetic coding (SOF9, or SOF10 with
+            `progressive`), with conditioning `dac` ({DC table: (L, U)},
+            and {16 + AC table: Kx}) written as a DAC segment.
+        adobe: write an Adobe APP14 marker with this colour transform (0:
+            RGB or CMYK as stored, 1: YCbCr, 2: YCCK).
     """
     ncomp = len(coefs)
     factors = _sampling(ncomp, sampling)
@@ -295,6 +744,10 @@ def encode(coefs: Sequence[np.ndarray], quant: Sequence[np.ndarray],
         if c.shape != (*g, 64):
             raise ValueError(f'coefficients {c.shape}; the grid is {g}')
     ids = list(ids or range(1, ncomp + 1))
+    if arithmetic:
+        sof = 0xCA if progressive else 0xC9
+    elif progressive:
+        sof = 0xC2
     tabs, qidx = [], []
     for q in quant:
         q = np.asarray(q).ravel()
@@ -306,9 +759,12 @@ def encode(coefs: Sequence[np.ndarray], quant: Sequence[np.ndarray],
             qidx.append(len(tabs))
             tabs.append(q)
     huff = [(DC_LUMA, AC_LUMA)] + [(DC_CHROMA, AC_CHROMA)] * (ncomp - 1)
+    table_of = [min(c, 1) for c in range(ncomp)]
     out = bytearray(b'\xff\xd8')
     if jfif:
         out += _segment(0xE0, b'JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00')
+    if adobe is not None:
+        out += _segment(0xEE, _adobe(adobe))
     for i, t in enumerate(tabs):
         if quant16:
             body = bytes([0x10 | i]) + t[ZIGZAG].astype('>u2').tobytes()
@@ -320,55 +776,68 @@ def encode(coefs: Sequence[np.ndarray], quant: Sequence[np.ndarray],
     for c in range(ncomp):
         frame += bytes([ids[c], factors[c][0] * 16 + factors[c][1], qidx[c]])
     out += _segment(sof, frame)
-    for t, (dc, ac) in enumerate(huff[:min(ncomp, 2)]):
-        for cls, spec in ((0, dc), (1, ac)):
-            out += _segment(0xC4, bytes([cls * 16 + t, *spec[0], *spec[1]]))
+    dac = dict(dac or {})
+    if arithmetic and dac:
+        body = b''
+        for index, val in sorted(dac.items()):
+            body += bytes([index, val[0] | val[1] << 4 if index < 16
+                           else val])
+        out += _segment(0xCC, body)
+    elif not arithmetic:
+        for t, (dc, ac) in enumerate(huff[:min(ncomp, 2)]):
+            for cls, spec in ((0, dc), (1, ac)):
+                out += _segment(0xC4, bytes([cls * 16 + t, *spec[0],
+                                             *spec[1]]))
     if restart:
         out += _segment(0xDD, restart.to_bytes(2, 'big'))
     tables = [tuple(_code_table(s) for s in h) for h in huff]
-    scans = [list(range(ncomp))] if interleaved else [[c] for c in
-                                                      range(ncomp)]
-    h, w = hw
-    hmax = max(f[0] for f in factors)
-    vmax = max(f[1] for f in factors)
-    for comps in scans:
+    if progressive:
+        scans = progression(ncomp, interleaved)
+    else:
+        comps_ = [list(range(ncomp))] if interleaved else [
+            [c] for c in range(ncomp)]
+        scans = [(s, 0, 63, 0, 0) for s in comps_]
+    dc_range = {t: v for t, v in dac.items() if t < 16}
+    kx = [dac.get(16 + t, 5) for t in range(16)]
+    for comps, ss, se, ah, al in scans:
         body = bytes([len(comps)])
         for c in comps:
-            t = min(c, 1)
+            t = table_of[c]
             body += bytes([ids[c], t * 16 + t])
-        out += _segment(0xDA, body + b'\x00\x3f\x00')
-        if len(comps) > 1:
-            mcu_rows, mcu_cols = grids[0][0] // factors[0][1], \
-                grids[0][1] // factors[0][0]
-            parts, owner = [], []
-            for c in comps:
-                hs, v = factors[c]
-                g = coefs[c].reshape(mcu_rows, v, mcu_cols, hs, 64)
-                parts.append(g.transpose(0, 2, 1, 3, 4).reshape(
-                    mcu_rows, mcu_cols, v * hs, 64))
-                owner += [c] * (v * hs)
-            blocks = np.concatenate(parts, 2).reshape(-1, 64)
-            comp_of_block = np.tile(owner, mcu_rows * mcu_cols)
-            per_mcu = len(owner)
-        else:
-            c = comps[0]
-            hs, v = factors[c]
-            rows = -(-(-(-h * v // vmax)) // 8)
-            cols = -(-(-(-w * hs // hmax)) // 8)
-            blocks = coefs[c][:rows, :cols].reshape(-1, 64)
-            comp_of_block = np.full(len(blocks), c)
-            per_mcu = 1
-        mcu = np.arange(len(blocks)) // per_mcu
+        out += _segment(0xDA, body + bytes([ss, se, ah * 16 + al]))
+        blocks, owner, mcu = _scan_blocks(coefs, factors, grids, hw, comps)
         interval = mcu // restart if restart else np.zeros_like(mcu)
-        new = np.r_[True, interval[1:] != interval[:-1]]
-        value, length, block = _scan_words(blocks, comp_of_block, tables,
-                                           new)
-        seg = interval[block]
-        bounds = np.searchsorted(seg, np.arange(seg.max(initial=0) + 2))
-        for i in range(len(bounds) - 1):
-            a, b = bounds[i], bounds[i + 1]
+        bounds = np.searchsorted(interval,
+                                 np.arange(interval.max(initial=0) + 2))
+        if arithmetic:
+            segs = [_arith_interval(blocks[a:b], owner[a:b], ss, se, ah, al,
+                                    progressive, table_of, dc_range, kx)
+                    for a, b in zip(bounds[:-1], bounds[1:])]
+        else:
+            new = np.r_[True, interval[1:] != interval[:-1]]
+            zz = blocks[:, ZIGZAG].astype(np.int64)
+            if not progressive:
+                words = (_dc_words(zz[:, 0], owner, tables, new)
+                         + _ac_words(zz[:, 1:], 1, owner, tables))
+            elif ss == 0 and ah == 0:
+                words = _dc_words(zz[:, 0] >> al, owner, tables, new)
+            elif ss == 0:
+                words = [(np.arange(len(zz)), 0, (zz[:, 0] >> al) & 1,
+                          np.ones(len(zz), np.int64))]
+            elif ah == 0:
+                words = _ac_words(_shift(zz[:, ss:se + 1], al), ss, owner,
+                                  tables)
+            else:
+                words = _refine_words(zz[:, ss:se + 1], ss, ah, al, owner,
+                                      tables)
+            value, length, block = _join_words(words)
+            seg = interval[block]
+            cuts = np.searchsorted(seg, np.arange(len(bounds)))
+            segs = [_stuff(_pack(value[a:b], length[a:b]))
+                    for a, b in zip(cuts[:-1], cuts[1:])]
+        for i, data in enumerate(segs):
             if i:
                 out += bytes([0xFF, 0xD0 + (i - 1) % 8])
-            out += _stuff(_pack(value[a:b], length[a:b]))
+            out += data
     out += b'\xff\xd9'
     return bytes(out)

@@ -755,6 +755,69 @@ def test_jpeg_kernel_matches_its_twin(dev, name):
         assert torch.equal(got.cpu(), jpeg.pixels_plain(c.cpu(), frame))
 
 
+def _mode_streams():
+    """name -> (JPEG bytes, grey read): 4-component CMYK and YCCK frames,
+    grey reads of YCbCr (luma full size, and luma 1x1 beside 2x2
+    chroma), RGB and CMYK files, from the oracle encoder."""
+    enc = _oracle('jpeg_encoder')
+    rng = np.random.default_rng(1)
+    bgr = rng.integers(0, 256, (37, 53, 3)).astype(np.uint8)
+    cmyk = rng.integers(0, 256, (37, 53, 4)).astype(np.uint8)
+    out = {}
+    for label, ycck in (('cmyk', False), ('ycck', True)):
+        data = enc.encode(*enc.image_coefficients(cmyk, 90, (2, 2),
+                                                  ycck=ycck), (37, 53),
+                          (2, 2), jfif=False, adobe=2 if ycck else 0)
+        out[label] = (data, False)
+        out[f'grey {label}'] = (data, True)
+    out['grey ycbcr'] = (enc.encode(*enc.image_coefficients(bgr, 90),
+                                    (37, 53)), True)
+    odd = [(1, 1), (2, 2), (1, 1)]
+    out['grey ycbcr luma 1x1'] = (enc.encode(
+        *enc.image_coefficients(bgr, 90, odd), (37, 53), odd), True)
+    rgb = [(1, 1)] * 3
+    out['grey rgb'] = (enc.encode(*enc.image_coefficients(bgr, 90, rgb),
+                                  (37, 53), rgb, jfif=False, ids=b'RGB'),
+                       True)
+    return out
+
+
+@pytest.mark.parametrize('name', ['cmyk', 'ycck', 'grey cmyk', 'grey ycck',
+                                  'grey ycbcr', 'grey ycbcr luma 1x1',
+                                  'grey rgb'])
+def test_jpeg_kernel_colour_modes_match_the_twin(dev, name):
+    """4-component frames and grey reads: the kernel equals
+    `pixels_plain` bit for bit; a grey read of a YCbCr file with full-size
+    luma takes launch 1 alone."""
+    from hrfuser_tpu_torch.data import jpeg
+    data, grey = _mode_streams()[name]
+    frame, coefs = jpeg.decode_coefficients(data)
+    c = torch.from_numpy(coefs).to(dev)
+    before = jpeg.pixels.launches
+    got = jpeg.pixels(c, frame, grey=grey)
+    torch.cuda.synchronize()
+    one = name == 'grey ycbcr'
+    assert jpeg.pixels.launches - before == (1 if one else 2)
+    assert torch.equal(got.cpu(), jpeg.pixels_plain(c.cpu(), frame, grey))
+
+
+@pytest.mark.parametrize('coding', ['progressive', 'arithmetic',
+                                    'arithmetic progressive'])
+def test_jpeg_codings_decode_on_the_card_as_baseline(dev, coding):
+    """The same coefficients progressive or arithmetic-coded decode on
+    the card to the baseline frame's pixels."""
+    from hrfuser_tpu_torch.data import jpeg
+    enc = _oracle('jpeg_encoder')
+    bgr = np.random.default_rng(2).integers(0, 256, (45, 61, 3)).astype(
+        np.uint8)
+    coefs, quant = enc.image_coefficients(bgr, 90)
+    base = jpeg.decode_jpeg(enc.encode(coefs, quant, (45, 61)), dev)
+    got = jpeg.decode_jpeg(enc.encode(
+        coefs, quant, (45, 61), progressive='progressive' in coding,
+        arithmetic='arithmetic' in coding, restart=2), dev)
+    assert torch.equal(got, base)
+
+
 def test_jpeg_kernel_refuses_what_it_cannot_take(dev):
     from hrfuser_tpu_torch.data import jpeg
     frame, coefs = jpeg.decode_coefficients(

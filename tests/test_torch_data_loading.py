@@ -3,7 +3,8 @@
 
 Files are written with `cv2` into a temporary folder, as the JAX data
 tests write theirs. Tolerances: PNG cameras, grey gated images and
-16-bit sensors bit-equal to `cv2.imread`; the dequantized sensors equal
+16-bit sensors bit-equal to `cv2.imread` in its three modes (a colour
+PNG or a JPEG read grey too); the dequantized sensors equal
 to the JAX step's (the same numpy arithmetic); JPEG bit-equal to the JAX
 package's native decoder and to `cv2.imread` (`tests/test_torch_jpeg.py`
 holds the decoder to both over many more files). JPEGs decode their
@@ -64,27 +65,18 @@ FLAGS = {'color': cv2.IMREAD_COLOR, 'unchanged': cv2.IMREAD_UNCHANGED,
          'grayscale': cv2.IMREAD_GRAYSCALE}
 PNG_CASES = [(name, flag) for name in ('cam.png', 'cam_rgba.png',
                                        'cam16.png', 'grey.png', 'grey16.png')
-             for flag in ('color', 'unchanged')] + [
-    ('grey.png', 'grayscale'), ('grey16.png', 'grayscale')]
+             for flag in ('color', 'unchanged', 'grayscale')]
 
 
 @pytest.mark.parametrize('name,flag', PNG_CASES)
 def test_png_reads_bit_equal_to_cv2(files, name, flag):
+    """Alpha kept in 'unchanged' (BGRA); a colour file read as grey with
+    libpng's fixed-point weights, as cv2 asks for them."""
     path, _ = files[1][name]
     want = cv2.imread(path, FLAGS[flag])
-    if flag == 'unchanged' and want.ndim == 3 and want.shape[2] == 4:
-        want = want[..., :3]                        # alpha dropped
     got = loading.imread(path, flag)
     assert got.dtype == want.dtype and got.shape == want.shape
     np.testing.assert_array_equal(got, want)
-
-
-def test_colour_png_read_as_grey_raises(files):
-    """cv2 turns a colour PNG grey with libpng's fixed-point weights; the
-    port refuses it rather than give other numbers."""
-    path, _ = files[1]['cam.png']
-    with pytest.raises(ValueError, match='grayscale mode'):
-        loading.imread(path, 'grayscale')
 
 
 def test_jpeg_reads_as_the_jax_native_decoder(files):
@@ -93,8 +85,11 @@ def test_jpeg_reads_as_the_jax_native_decoder(files):
     assert got.dtype == np.uint8 and got.shape == img.shape
     np.testing.assert_array_equal(got, jax_native.decode_jpeg_bgr(path))
     np.testing.assert_array_equal(got, cv2.imread(path))
-    with pytest.raises(ValueError, match='colour only'):
-        loading.imread(path, 'grayscale', device='cpu')
+    grey = loading.imread(path, 'grayscale', device='cpu')
+    np.testing.assert_array_equal(grey, cv2.imread(path,
+                                                   cv2.IMREAD_GRAYSCALE))
+    np.testing.assert_array_equal(loading.imread(path, 'unchanged',
+                                                 device='cpu'), got)
 
 
 def test_a_file_that_is_not_a_jpeg_raises(tmp_path):

@@ -1,18 +1,21 @@
 """`hrfuser_tpu_torch` never imports JAX, flax, orbax, the JAX package
 or `cv2` (the card's machine has neither JAX nor `cv2`).
 
-Checked in a fresh interpreter (this test process has JAX loaded by
-`tests/conftest.py`) that runs the tiny fusion and camera-only slices,
-`inference_detector`, `run_inference`, a training step, a JPEG decode
-(`data/jpeg.py`, the pixel kernel's twin) and a `DetDataLoader` over PNG
-and over JPEG files end to end on the CPU, a one-rank
-`gloo` sharded train step and a sharded `run_inference`, the offline
-converters (one nuScenes sample on a fake DB, an STF frame, the inverse
-depth warp) on the CPU, the renderings (detections drawn with labels, a
-heatmap, a JPEG written, an 8-bit gated LUT image), and imports the KITTI
-evaluation, the model tools (FLOP count, drift, `print_config`,
-`publish_model`), `tools.browse_dataset`, `tools.real_parity` and
-`tools.train --remat`'s argument, and statically over every
+Checked in fresh interpreters (this test process has JAX loaded by
+`tests/conftest.py`), one an area, each under its own time limit: model
+and serving (the tiny fusion and camera-only slices,
+`inference_detector`, `run_inference`, the KITTI evaluation, the
+server); training and data parallelism (a training step, a
+`DetDataLoader` over PNG files into a step, a one-rank `gloo` sharded
+train step and a sharded `run_inference`, `tools.train --remat`'s
+argument); data, offline and renderings (a `DetDataLoader` over JPEG
+files, JPEG decodes through the pixel kernel's twin, progressive and
+arithmetic-coded frames among them, a CMYK frame read grey, a colour
+PNG read grey, the offline converters (one nuScenes sample on a fake DB,
+an STF frame, the inverse depth warp), the renderings (detections drawn
+with labels, a heatmap, a JPEG written, an 8-bit gated LUT image)); the
+tools (FLOP count, drift, `print_config`, `publish_model`,
+`tools.browse_dataset`, `tools.real_parity`). And statically over every
 module of the package and the scripts that drive it on the card. The
 one exception is `tests/oracles/make_render_tables.py`, which renders
 the glyph and colour-map tables from `cv2` in the sandbox (it may import
@@ -27,6 +30,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / 'hrfuser_tpu_torch'
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'hrfuser_tpu', 'cv2')
@@ -39,21 +44,25 @@ SCRIPTS = [ROOT / 'chip_smoke.py', ROOT / 'chip_profile.py',
 # what a script may import although the package may not
 ALLOWED = {ROOT / 'tests' / 'oracles' / 'make_render_tables.py': {'cv2'}}
 
-_SCRIPT = """
+_PRELUDE = """
+import dataclasses
 import sys
+import tempfile
 import numpy as np
-from hrfuser_tpu_torch import init_detector
-det = init_detector('tiny_fusion_test', 'cpu', seed=0)
+import torch
 rng = np.random.default_rng(0)
+"""
+
+_MODEL = """
+from hrfuser_tpu_torch import init_detector, inference_detector
+from hrfuser_tpu_torch.apis.test import run_inference
+det = init_detector('tiny_fusion_test', 'cpu', seed=0)
 img = rng.normal(0, 1, (1, 64, 96, 3)).astype(np.float32)
 mods = [rng.normal(0, 1, (1, 64, 96, 3)).astype(np.float32)
         for _ in range(2)]
 out = det(img, mods)
 assert tuple(out.boxes.shape) == (1, 20, 4), out.boxes.shape
 assert bool(out.boxes.isfinite().all())
-import dataclasses
-from hrfuser_tpu_torch import inference_detector
-from hrfuser_tpu_torch.apis.test import run_inference
 det.data = dataclasses.replace(det.data, img_scale=(96, 64))  # small grid
 raw = rng.integers(0, 256, (60, 90, 3)).astype(np.uint8)
 u16 = [rng.integers(19900, 21000, (60, 90, 3)).astype(np.uint16)
@@ -70,29 +79,28 @@ cam = init_detector('tiny_camera_test', 'cpu', seed=0)
 assert tuple(cam(img, None).boxes.shape) == (1, 20, 4)
 import hrfuser_tpu_torch.data.datasets.kitti2d
 import hrfuser_tpu_torch.evaluation.kitti_eval
-import torch
+from hrfuser_tpu_torch.tools import serve
+"""
+
+_TRAIN = """
+from hrfuser_tpu_torch import init_detector
+from hrfuser_tpu_torch.apis.test import run_inference
 from hrfuser_tpu_torch.apis.train import create_train_state, train_step
 from hrfuser_tpu_torch.configs import get_experiment
+from hrfuser_tpu_torch.data.datasets.coco import CocoFusionDataset
+from hrfuser_tpu_torch.data.loader import DetDataLoader
 from hrfuser_tpu_torch.models.detectors.cascade_rcnn import CascadeRCNN
 from hrfuser_tpu_torch.tools.train import synthetic_batches
+from tests.oracles.data_files import write_nuscenes
 exp = get_experiment('tiny_fusion_test')
 state = create_train_state(CascadeRCNN(exp.model), exp.optim, exp.schedule,
                            100)
 m = train_step(state, next(synthetic_batches(exp, 2, (64, 96))),
                torch.Generator().manual_seed(0))
 assert bool(m['loss'].isfinite()) and state.applied == 1
-from hrfuser_tpu_torch.apis.flops import count_params
-from hrfuser_tpu_torch.tools import (get_flops, numerics_drift, print_config,
-                                     publish_model)
-assert count_params(det.model) > 0
-assert print_config.to_tree(exp)['model']['roi']['max_grid'] == 4
-import tempfile
-from hrfuser_tpu_torch.data.datasets.coco import CocoFusionDataset
-from hrfuser_tpu_torch.data.loader import DetDataLoader
-from tests.oracles.data_files import write_nuscenes
+data = dataclasses.replace(exp.data, img_scale=(96, 54),
+                           classes=exp.data.classes[:4])
 with tempfile.TemporaryDirectory() as root:
-    data = dataclasses.replace(exp.data, img_scale=(96, 54),
-                               classes=exp.data.classes[:4])
     write_nuscenes(root, 3, (100, 176), (54, 95), data.classes)
     ds = CocoFusionDataset('ann.json', data.classes, data_root=root)
     loader = DetDataLoader(ds, data, 2, train=True, device='cpu')
@@ -100,22 +108,9 @@ with tempfile.TemporaryDirectory() as root:
     assert batch['img'].shape == (2, 64, 96, 3), batch['img'].shape
     m = train_step(state, batch, torch.Generator().manual_seed(0))
     assert bool(m['loss'].isfinite()) and state.applied == 2
-from hrfuser_tpu_torch.data import jpeg
-from tests.oracles.jpeg_encoder import encode, image_coefficients
-def write_jpeg(path, bgr):
-    with open(path, 'wb') as f:
-        f.write(encode(*image_coefficients(bgr, 90), bgr.shape[:2]))
-with tempfile.TemporaryDirectory() as root:
-    write_nuscenes(root, 2, (100, 176), (54, 95), data.classes, ext='jpg',
-                   writer=write_jpeg)
-    ds = CocoFusionDataset('ann.json', data.classes, data_root=root)
-    batch = next(iter(DetDataLoader(ds, data, 2, train=False,
-                                    device='cpu')))
-    assert batch['img'].shape == (2, 64, 96, 3), batch['img'].shape
-    with open(root + '/samples/CAM_FRONT/0000.jpg', 'rb') as f:
-        assert jpeg.decode_jpeg(f.read(), 'cpu').shape == (100, 176, 3)
 from hrfuser_tpu_torch.parallel.api import make_sharded_train_step
 from hrfuser_tpu_torch.parallel.mesh import free_store, process_group
+det = init_detector('tiny_fusion_test', 'cpu', seed=0)
 store, address = free_store(1)
 with process_group('cpu', rank=0, world_size=1, address=address) as group:
     state = create_train_state(CascadeRCNN(exp.model), exp.optim,
@@ -132,6 +127,46 @@ with process_group('cpu', rank=0, world_size=1, address=address) as group:
         det.data = data
         got = run_inference(det, loader, progress=False, group=group)
         assert len(got) == 3, len(got)
+from hrfuser_tpu_torch.tools import train as train_tool
+assert train_tool.parse_args(['tiny_fusion_test', '--remat']).remat
+"""
+
+_DATA = """
+from hrfuser_tpu_torch.configs import get_experiment
+from hrfuser_tpu_torch.data import jpeg, png
+from hrfuser_tpu_torch.data.datasets.coco import CocoFusionDataset
+from hrfuser_tpu_torch.data.loader import DetDataLoader
+from hrfuser_tpu_torch.data.pipelines import loading
+from tests.oracles.data_files import write_nuscenes
+from tests.oracles.jpeg_encoder import encode, image_coefficients
+exp = get_experiment('tiny_fusion_test')
+data = dataclasses.replace(exp.data, img_scale=(96, 54),
+                           classes=exp.data.classes[:4])
+def write_jpeg(path, bgr):
+    with open(path, 'wb') as f:
+        f.write(encode(*image_coefficients(bgr, 90), bgr.shape[:2]))
+with tempfile.TemporaryDirectory() as root:
+    write_nuscenes(root, 2, (100, 176), (54, 95), data.classes, ext='jpg',
+                   writer=write_jpeg)
+    ds = CocoFusionDataset('ann.json', data.classes, data_root=root)
+    batch = next(iter(DetDataLoader(ds, data, 2, train=False,
+                                    device='cpu')))
+    assert batch['img'].shape == (2, 64, 96, 3), batch['img'].shape
+    with open(root + '/samples/CAM_FRONT/0000.jpg', 'rb') as f:
+        assert jpeg.decode_jpeg(f.read(), 'cpu').shape == (100, 176, 3)
+bgr = rng.integers(0, 256, (37, 53, 3)).astype(np.uint8)
+coefs, quant = image_coefficients(bgr, 90)
+base = jpeg.decode_jpeg(encode(coefs, quant, (37, 53)), 'cpu')
+for kw in (dict(progressive=True), dict(arithmetic=True),
+           dict(arithmetic=True, progressive=True)):
+    got = jpeg.decode_jpeg(encode(coefs, quant, (37, 53), **kw), 'cpu')
+    assert torch.equal(got, base), kw
+cmyk = rng.integers(0, 256, (16, 24, 4)).astype(np.uint8)
+grey = jpeg.decode_jpeg(encode(*image_coefficients(cmyk, 90), (16, 24),
+                               jfif=False, adobe=0), 'cpu', grey=True)
+assert grey.shape == (16, 24)
+assert loading.decode(png.imencode(bgr), 'grayscale', 'cpu').shape == (37,
+                                                                       53)
 from hrfuser_tpu_torch.data.gated_warp import inverse_depth_warp
 from hrfuser_tpu_torch.tools import create_data, stf_projection
 from tests.oracles.offline_data import nuscenes_sample, stf_frame
@@ -148,33 +183,60 @@ warped = inverse_depth_warp(torch.rand(24, 32), torch.full((24, 32), 5.0),
 assert warped.shape == (24, 32, 1) and bool(warped.isfinite().all())
 from hrfuser_tpu_torch.data.jpeg import decode_jpeg, imencode
 from hrfuser_tpu_torch.data.stf_lut import gated_raw_to_lut8
-from hrfuser_tpu_torch.tools import browse_dataset
 from hrfuser_tpu_torch.utils.visualization import (draw_detections,
                                                    sensor_image_to_heatmap)
+raw = rng.integers(0, 256, (60, 90, 3)).astype(np.uint8)
 vis = draw_detections(raw, np.array([[5.0, 12.0, 40.0, 50.0]]), [1], [0.9],
                       class_names=['car', 'truck'], device='cpu')
 assert vis.shape == raw.shape and bool((vis.numpy() != raw).any())
-heat = sensor_image_to_heatmap(u16[0], device='cpu')
+u16 = rng.integers(19900, 21000, (60, 90, 3)).astype(np.uint16)
+heat = sensor_image_to_heatmap(u16, device='cpu')
 assert heat.shape == (60, 90, 3)
-data = imencode(vis, device='cpu')
-assert decode_jpeg(data, 'cpu').shape == (60, 90, 3)
+assert decode_jpeg(imencode(vis, device='cpu'), 'cpu').shape == (60, 90, 3)
 grey = gated_raw_to_lut8(rng.integers(0, 1024, (40, 72)).astype(np.uint16),
                          device='cpu')
 assert grey.shape == (40, 72) and grey.dtype == torch.uint8
-from hrfuser_tpu_torch.tools import real_parity
+"""
+
+_TOOLS = """
+from hrfuser_tpu_torch import init_detector
+from hrfuser_tpu_torch.apis.flops import count_params
+from hrfuser_tpu_torch.configs import get_experiment
+from hrfuser_tpu_torch.tools import (browse_dataset, get_flops,
+                                     numerics_drift, print_config,
+                                     publish_model, real_parity)
+from hrfuser_tpu_torch.tools import test as test_tool
 from hrfuser_tpu_torch.tools import train as train_tool
-assert train_tool.parse_args(['tiny_fusion_test', '--remat']).remat
+det = init_detector('tiny_fusion_test', 'cpu', seed=0)
+assert count_params(det.model) > 0
+exp = get_experiment('tiny_fusion_test')
+assert print_config.to_tree(exp)['model']['roi']['max_grid'] == 4
+assert real_parity.parse_args(['--dry-run']).dry_run
+"""
+
+_EPILOGUE = """
 bad = sorted(m for m in sys.modules if m.split('.')[0] in {forbidden})
 assert not bad, bad
 print('ok')
 """
 
+# each area in a fresh interpreter of its own, with its own time limit
+AREAS = {'model and serving': _MODEL,
+         'training and data parallelism': _TRAIN,
+         'data, offline and renderings': _DATA,
+         'tools': _TOOLS}
 
-def test_tiny_slice_runs_without_jax_in_a_fresh_process():
-    env = {**os.environ, 'PYTHONPATH': ''}
-    proc = subprocess.run(
-        [sys.executable, '-c', _SCRIPT.format(forbidden=set(FORBIDDEN))],
-        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+
+@pytest.mark.parametrize('area', sorted(AREAS))
+def test_tiny_slice_runs_without_jax_in_a_fresh_process(area):
+    # one thread: beside busy test workers, a tiny model's small ops on
+    # many threads wait on each other, and an area takes many times as
+    # long as it does alone
+    env = {**os.environ, 'PYTHONPATH': '', 'OMP_NUM_THREADS': '1'}
+    script = (_PRELUDE + AREAS[area]
+              + _EPILOGUE.format(forbidden=set(FORBIDDEN)))
+    proc = subprocess.run([sys.executable, '-c', script], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.strip().endswith('ok')
 

@@ -5,18 +5,22 @@ writes the JAX CLI's JSON keys, on a fusion and a camera-only config, and
 its dataset mode names the split it reads; `tools.serve` on a
 thread answers /healthz, /predict and /predict_multi (uint16 sensor PNGs,
 dequantized on the device; none for a camera-only config; a grey PNG as
-one channel) with what `inference_detector` gives, a JPEG camera as the
-PNG of its decoded pixels, 404 for unknown paths and 400 for a JPEG mode
-the decoder refuses (progressive) or a body that is not JSON; `--input-hw`
-sets the grid of the warm-up call.
+one channel; 8-bit JPEGs, decoded on the detector's device) with what
+`inference_detector` gives, a JPEG camera as the
+PNG of its decoded pixels (baseline, progressive and arithmetic-coded
+JPEGs alike), 404 for unknown paths and 400 for a JPEG mode the decoder
+refuses (12-bit) or a body that is not JSON; `--input-hw` sets the grid
+of the warm-up call.
 """
 
 import base64
 import dataclasses
 import json
+import sys
 import threading
 import urllib.error
 import urllib.request
+from pathlib import Path
 
 import cv2
 import numpy as np
@@ -25,9 +29,13 @@ import torch
 
 from hrfuser_tpu_torch import (get_experiment, inference_detector,
                                init_detector)
+from hrfuser_tpu_torch.data.pipelines import loading
 from hrfuser_tpu_torch.data.png import imdecode
 from hrfuser_tpu_torch.tools import serve
 from hrfuser_tpu_torch.tools import test as test_cli
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / 'oracles'))
+import jpeg_encoder as enc  # noqa: E402
 
 NAME = 'tiny_fusion_test'
 
@@ -139,12 +147,14 @@ def test_predict_camera_only(server):
 
 
 def test_jpeg_gets_a_400(server):
-    """A progressive JPEG, which the decoder refuses, is a bad request."""
+    """A 12-bit JPEG, which the decoder refuses (as the JAX package's
+    readers do), is a bad request."""
     _, url = server
-    ok, jpg = cv2.imencode('.jpg', _request()[0],
-                           [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
-    code, reply = _call(url + '/predict', jpg.tobytes())
-    assert code == 400 and 'progressive JPEG' in reply['error']
+    ok, jpg = cv2.imencode('.jpg', _request()[0])
+    jpg = bytearray(jpg.tobytes())
+    jpg[jpg.index(b'\xff\xc0') + 4] = 12
+    code, reply = _call(url + '/predict', bytes(jpg))
+    assert code == 400 and '12-bit' in reply['error']
     code, _ = _call(url + '/predict_multi', b'not json')
     assert code == 400
 
@@ -169,6 +179,59 @@ def test_a_jpeg_camera_answers_as_the_png_of_its_pixels(server):
             reply.pop('latency_ms')
             replies.append(reply)
         assert replies[0] == replies[1], route
+
+
+@pytest.mark.parametrize('coding', ['progressive', 'arithmetic',
+                                    'arithmetic progressive'])
+def test_other_jpeg_codings_answer_as_the_baseline(server, coding):
+    """A progressive or arithmetic-coded camera payload holding a
+    baseline payload's coefficients gets a 200 and its detections."""
+    _, url = server
+    img, _ = _request()
+    coefs, quant = enc.image_coefficients(img, 90)
+    replies = []
+    for kw in ({}, {'progressive': 'progressive' in coding,
+                    'arithmetic': 'arithmetic' in coding}):
+        code, reply = _call(url + '/predict',
+                            enc.encode(coefs, quant, img.shape[:2], **kw))
+        assert code == 200, reply
+        reply.pop('latency_ms')
+        replies.append(reply)
+    assert replies[0] == replies[1]
+
+
+def test_a_jpeg_sensor_decodes_on_the_detectors_device(server,
+                                                        monkeypatch):
+    """8-bit JPEG sensor payloads decode as `cv2.IMREAD_UNCHANGED` gives
+    them, on the worker thread, with the detector's device (where a
+    JPEG's pixels are made), and are answered as `inference_detector`
+    answers those pixels."""
+    det, url = server
+    img, mods = _request()
+    jpgs = [cv2.imencode('.jpg', ((m - 19900) // 100).astype(np.uint8))[1]
+            .tobytes() for m in mods]
+    calls = []
+
+    def decode(data, flag, device):
+        calls.append((flag, device, threading.current_thread().name))
+        return loading.decode(data, flag, device)
+
+    monkeypatch.setattr(serve, 'decode', decode)
+    body = json.dumps({'img': base64.b64encode(_png(img)).decode(),
+                       'mods': [base64.b64encode(j).decode()
+                                for j in jpgs]}).encode()
+    code, reply = _call(url + '/predict_multi', body)
+    assert code == 200, reply
+    assert [c[:2] for c in calls] == [('unchanged', det.device)] * 2
+    assert all(c[2].startswith('model') for c in calls)
+    sensors = [serve._sensor(det.data, name, cv2.imdecode(
+        np.frombuffer(j, np.uint8), cv2.IMREAD_UNCHANGED))
+        for name, j in zip(det.data.modalities, jpgs)]
+    want = inference_detector(det, img, sensors)
+    assert len(want['labels']) and reply['labels'] == want['labels'].tolist()
+    np.testing.assert_allclose(reply['boxes'], want['boxes'].reshape(-1, 4),
+                               atol=0.01)
+    np.testing.assert_allclose(reply['scores'], want['scores'], atol=1e-4)
 
 
 @pytest.mark.parametrize('dtype', [np.uint8, np.uint16])
