@@ -2,7 +2,9 @@
 checkout of the repository, in turns (other, this tree, this tree, other).
 
     python3 chip_profile.py [--parent DIR [DIR ...]] [--unchecked]
-                            [--configs T,B,H] [--offline] [--out FILE]
+                            [--configs T,B,H] [--dtype bf16|f32]
+                            [--kernels | --offline]
+                            [--out FILE]
 
 Each DIR holds another checkout, e.g. the parent commit unpacked from
 `git archive` into `build/parent`, or a copy of this tree with one change
@@ -25,7 +27,17 @@ this tree's (`chip_smoke.py`). Measured, bf16:
 - `model`: per config, the latency per batch of 8 at 384x640 (median of
   7 calls after 2 warm-ups) and, under `torch.profiler` over 2 calls,
   wall and device busy time per call, idle share, kernel C's device time
-  per call and the kernels with the most device time.
+  per call and the kernels with the most device time; in bf16, or with
+  `--dtype f32` in float32 (the serving entry points' default), the same
+  weights either way. With `--dtype f32` the kernel C turns are skipped
+  (its float32 batch is the one above; no float32 plan of its own).
+- `kernels` (with --kernels, in place of the two above): kernels A (self,
+  cross over two modalities) and B at HRFuser-T's four widths, HRFuser-B's
+  four and the STF r1248 map at C = 72, B = 8, in `--dtype`: ms per call (median
+  of 3 CUDA-event timings of 20 calls), device ms per call of each
+  launch under `torch.profiler`, max error against the twin (held to
+  `chip_smoke.TOL` and, in float32, its 1e-4 bar, but for --unchecked
+  trees): for knock-out copies of a kernel's parts.
 - `offline` (with --offline, in place of the two above): one nuScenes
   sample through the tree's `tools/create_data.convert_sample` on the
   card (phase 11a's seeded sample): ms per sample (median of 7 after 2
@@ -114,11 +126,14 @@ def _roi(smoke, checked=True):
     return dict(cases=out, ptxas=ptxas)
 
 
-def _model(smoke, config):
+DTYPES = {'bf16': torch.bfloat16, 'f32': torch.float32}
+
+
+def _model(smoke, config, dtype='bf16'):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from hrfuser_tpu_torch import init_detector
-    det = init_detector(config, 'cuda', seed=0, dtype=torch.bfloat16)
+    det = init_detector(config, 'cuda', seed=0, dtype=DTYPES[dtype])
     img, mods = smoke._inputs(det.cfg, smoke.BATCH, np.random.default_rng(0))
     for _ in range(2):
         det(img, mods)
@@ -144,13 +159,82 @@ def _model(smoke, config):
             count[e.name] += 1
     busy = sum(ms.values())
     top = sorted(ms, key=ms.get, reverse=True)[:12]
-    return dict(config=config, latency_ms=sorted(times)[len(times) // 2],
+    return dict(config=config, dtype=dtype,
+                latency_ms=sorted(times)[len(times) // 2],
                 latency_runs=times, wall_ms=wall, busy_ms=busy,
                 idle=1 - busy / wall,
                 kernels_per_call=sum(count.values()) / calls,
                 roi_align_ms=sum(v for k, v in ms.items()
                                  if 'roi_align_kernel' in k),
                 top=[(k[:90], ms[k], count[k] / calls) for k in top])
+
+
+KERNEL_SHAPES = ((96, 160, 18, 1), (48, 80, 36, 2), (24, 40, 72, 4),
+                 (12, 20, 144, 8), (24, 78, 72, 4), (96, 160, 78, 2),
+                 (48, 80, 156, 4), (24, 40, 312, 8), (12, 20, 624, 16))
+
+
+def _launch_ms(fn, iters=10):
+    """Device ms per call of each kernel `fn` launches (`torch.profiler`)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ms = defaultdict(float)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms[e.name.split('(')[0][:60]] += e.time_range.elapsed_us() / 1e3
+    return {k: v / iters for k, v in ms.items()}
+
+
+def _kernels(smoke, dtype, checked=True):
+    from hrfuser_tpu_torch.layers.attention import (HRFormerBlock,
+                                                    HRFuserFusionBlock)
+    from hrfuser_tpu_torch.ops import chain
+    dt = DTYPES[dtype]
+    g = torch.Generator().manual_seed(2)
+    out = {}
+    for h, w, c, heads in KERNEL_SHAPES:
+        blk = smoke._randomize(HRFormerBlock(c, heads), g).cuda()
+        fus = smoke._randomize(HRFuserFusionBlock(c, heads, 2), g).cuda()
+        p, pf = blk.folded(), fus.folded()
+        x, z0, z1 = (torch.randn((smoke.BATCH, h, w, c), generator=g)
+                     .cuda().to(dt) for _ in range(3))
+
+        def cross(attn, x=x, zs=(z0, z1), ps=pf['attn'], heads=heads):
+            out = x
+            for z, pk in zip(zs, ps):
+                out = attn(out, x, z, pk, heads)
+            return out
+
+        cases = {
+            'self': (lambda: chain.window_self_attention(x, p['attn'], heads),
+                     lambda: chain.window_attention_plain(x, x, p['attn'],
+                                                          heads)),
+            'cross x2': (lambda: cross(chain.window_cross_attention),
+                         lambda: cross(lambda o, q, z, pk, n: chain.
+                                       window_attention_plain(
+                                           o, q, pk, n, kv_src=z, z=z))),
+            'ffn': (lambda: chain.cross_ffn(x, p['ffn']),
+                    lambda: chain.cross_ffn_plain(x, p['ffn']))}
+        for name, (fk, fp) in cases.items():
+            got, want = fk().float(), fp().float()
+            err = (got - want).abs().max().item()
+            tol = smoke.TOL[dt]
+            bar = smoke.F32_BAR if dt == torch.float32 else None
+            if checked and not (torch.allclose(got, want, atol=tol, rtol=tol)
+                                and (bar is None or err <= bar)):
+                raise AssertionError(f'{h}x{w}x{c} {name}: max_abs_err '
+                                     f'{err}')
+            times = sorted(smoke._time_ms(fk) for _ in range(3))
+            out[f'{h}x{w}x{c} {name}'] = dict(
+                ms=times[1], ms_runs=times, max_abs_err=err,
+                launches=_launch_ms(fk))
+    return dict(cases=out)
 
 
 def _offline(smoke):
@@ -190,7 +274,7 @@ def _offline(smoke):
                 top=[(k[:90], by_name[k], count[k]) for k in top])
 
 
-def _worker(root, what, config, checked):
+def _worker(root, what, config, checked, dtype):
     sys.path.insert(0, str(root))
     import hrfuser_tpu_torch
     pkg = Path(hrfuser_tpu_torch.__file__).resolve()
@@ -201,14 +285,15 @@ def _worker(root, what, config, checked):
     smoke = _smoke()
     res = (_roi(smoke, checked) if what == 'roi'
            else _offline(smoke) if what == 'offline'
-           else _model(smoke, config))
+           else _kernels(smoke, dtype, checked) if what == 'kernels'
+           else _model(smoke, config, dtype))
     print('RESULT ' + json.dumps(dict(root=str(root), what=what, **res)))
 
 
-def _turn(root, what, config=None, checked=True):
+def _turn(root, what, config=None, checked=True, dtype='bf16'):
     cmd = [sys.executable, str(Path(__file__).resolve()), '--worker-root',
-           str(root), '--what', what] + (['--config', config] if config
-                                          else [])
+           str(root), '--what', what, '--dtype', dtype] + (
+               ['--config', config] if config else [])
     cmd += [] if checked else ['--unchecked']
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
@@ -231,6 +316,10 @@ def main():
                     help='do not hold the other trees\' kernel C to its twin')
     ap.add_argument('--configs', default='T,B',
                     help='detectors to profile: T, B, H (comma separated)')
+    ap.add_argument('--dtype', choices=sorted(DTYPES), default='bf16',
+                    help='the detectors\' compute dtype')
+    ap.add_argument('--kernels', action='store_true',
+                    help='measure only kernels A and B by width')
     ap.add_argument('--offline', action='store_true',
                     help='measure only the offline nuScenes conversion')
     ap.add_argument('--out', type=Path,
@@ -241,7 +330,7 @@ def main():
     args = ap.parse_args()
     if args.worker_root is not None:
         _worker(args.worker_root, args.what, args.config,
-                not args.unchecked)
+                not args.unchecked, args.dtype)
         return
     others = [p.resolve() for p in args.parent]
     if not torch.cuda.is_available():
@@ -254,6 +343,24 @@ def main():
     print(smi, flush=True)
     roots = [*others, HERE, HERE, *others[::-1]] if others else [HERE]
     tag = {HERE: 'this tree', **{p: p.name for p in others}}
+    if args.kernels:
+        runs = [_turn(r, 'kernels', checked=r == HERE or not args.unchecked,
+                      dtype=args.dtype) for r in roots]
+        print(f'== kernels A and B, {args.dtype}, B = {_smoke().BATCH}, ms a '
+              f'call ({smi}); turns in order')
+        for case in runs[0]['cases']:
+            print(f'  {case}:')
+            for r in runs:
+                v = r['cases'][case]
+                parts = ', '.join(f'{k} {ms:.4f}'
+                                  for k, ms in v['launches'].items())
+                print(f'    {tag[Path(r["root"])]}: {v["ms"]:.4f} (device: '
+                      f'{parts}), max_abs_err {v["max_abs_err"]:.3e}')
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps(dict(device=smi, runs=runs),
+                                       indent=1))
+        print(f'wrote {args.out}')
+        return
     if args.offline:
         runs = [_turn(r, 'offline') for r in roots]
         print(f'== one nuScenes sample, reference mode ({smi})')
@@ -271,13 +378,16 @@ def main():
                                        indent=1))
         print(f'wrote {args.out}')
         return
+    nroi = 0 if args.dtype == 'f32' else len(roots)
     runs = [_turn(r, 'roi', checked=r == HERE or not args.unchecked)
-            for r in roots]
+            for r in roots[:nroi]]
     configs = [CONFIGS[c] for c in args.configs.split(',') if c]
-    runs += [_turn(r, 'model', c) for c in configs for r in roots]
+    runs += [_turn(r, 'model', c, dtype=args.dtype) for c in configs
+             for r in roots]
 
-    print(f'== kernel C, ms ({smi}); turns in order')
-    for case in runs[0]['cases']:
+    if nroi:
+        print(f'== kernel C, ms ({smi}); turns in order')
+    for case in (runs[0]['cases'] if nroi else ()):
         cells = []
         for r in runs[:len(roots)]:
             v = r['cases'][case]
@@ -288,16 +398,18 @@ def main():
         v = runs[0]['cases'][case]
         print(f'  {case}: ' + '; '.join(cells) + f'; bound '
               f'{v["bound_ms"]:.4f} ({v["bound_by"]}, {v["mbytes"]:.1f} MB)')
-    for r in runs[:len(roots)]:
+    for r in runs[:nroi]:
         for line in r['ptxas']:
             print(f'  {tag[Path(r["root"])]} {line}')
-    print('== detectors, bf16 batch of 8, ms per call')
-    for r in runs[len(roots):]:
+    print(f'== detectors, {args.dtype} batch of 8, ms per call')
+    for r in runs[nroi:]:
         print(f'  {r["config"]} {tag[Path(r["root"])]}: latency '
               f'{r["latency_ms"]:.2f}, profiled wall {r["wall_ms"]:.2f}, '
               f'busy {r["busy_ms"]:.2f}, idle {r["idle"]:.1%}, kernel C '
               f'{r["roi_align_ms"]:.3f}, {r["kernels_per_call"]:.0f} '
               f'kernels a call')
+        for name, ms, n in r['top'][:6]:
+            print(f'    {ms:.3f} ms in {n:g} x {name}')
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(dict(device=smi, runs=runs), indent=1))
     print(f'wrote {args.out}')

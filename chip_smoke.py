@@ -8,13 +8,17 @@ Phases, each printed on its own lines; any failure exits non-zero:
    power limit (exits non-zero without a CUDA device);
 2. build: nvcc compiles `hrfuser_tpu_torch/csrc/*.cu` into `build/`; the
    count of tensor-core instructions (`HMMA`, `HGMMA`) in each kernel of
-   the library, from `cuobjdump --dump-sass` (fails if kernel A's or B's
-   bf16 plan has none);
+   the library, from `cuobjdump --dump-sass` (fails if a launch of kernel
+   A's or B's bf16 plan 'mma' or float32 plan 'tf32x3' has none);
 3. every kernel of the eval path vs its plain PyTorch twin on the card at
    HRFuser-T's main-path shapes, float32 (TF32 off) and bfloat16, with
    both timed, each line naming the plan the host picked and each timed
    kernel call printing its bound (the larger of its FLOPs over the
-   card's peak for their type and the bytes it must move over 3.35 TB/s);
+   card's peak for their type and the bytes it must move over 3.35 TB/s;
+   kernels A and B in float32 multiply in split TF32, three TF32 products
+   a product, so their bound takes 495 / 3 TFLOP/s, and their lines print
+   the CUDA-core bound at 67 TFLOP/s beside it and hold max_abs_err to
+   1e-4 besides the float32 tolerance);
    kernel C at r640, C = 256, 8 x 1000 RoIs also prints its bytes (output
    plus the pyramid pixels its taps touch, counted on the card), GB/s,
    share of bound and device time under `torch.profiler`, and is timed on
@@ -26,7 +30,12 @@ Phases, each printed on its own lines; any failure exits non-zero:
 4. the main path: `init_detector` on the full-width HRFuser-T r640
    lidar+radar config (random weights from seed 0), three bf16 batches of
    8 at 384x640; checks the outputs (shapes, finite values, at least
-   one detection in the batch) and every kernel's launch count;
+   one detection in the batch) and every kernel's launch count; then the
+   same weights serve the batch in float32 (the serving entry points'
+   default; kernels A and B on their 'tf32x3' plans): exact launch
+   counts, a detection, the median of 3 on the host clock, device busy /
+   idle share and the top kernels under `torch.profiler`, the TF32
+   settings it ran under;
 4b. the same for HRFuser-B (`cascade_rcnn_hrfuser_b_1x_nus_r640_l_r_
    fusion`, widths 78-624);
 5. HRFuser-T at batch 1 in float32 on the card (kernels) vs the CPU
@@ -183,7 +192,7 @@ Phases, each printed on its own lines; any failure exits non-zero:
 12. data parallelism (`hrfuser_tpu_torch/parallel/`) on HRFuser-T r640,
    ranks spawned by `parallel.mesh.run_ranks` (each with a deadline) and
    sharing this one card, so no figure here is a scaling result: 12a a
-   world of one rank on `nccl`, 20 float32 steps of
+   world of one rank on `nccl`, 10 float32 steps of
    `make_sharded_train_step` at batch 3 (drop off, the reference caps),
    each beside `train_step` from the same weights and optimizer state
    on the same batch and draws (cuDNN deterministic): losses at rtol
@@ -350,10 +359,24 @@ REPLACES_C = ['hrfuser_tpu/ops/pallas_roi_align.py:597',
               'hrfuser_tpu/ops/pallas_roi_align.py:633',
               'hrfuser_tpu/ops/pallas_roi_align.py:558']
 # H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W): kernels A and B
-# multiply bf16 on tensor cores and float32 on CUDA cores; kernel C
-# accumulates in float32 on CUDA cores whatever its features' type
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# multiply bf16 on tensor cores ('mma'), and float32 on tensor cores in
+# split TF32 ('tf32x3': each float32 product is three TF32 products, so
+# float32-accurate products run at most at a third of the 495 TFLOP/s
+# dense TF32 rate, the least time the card can take for them); kernel C
+# accumulates in float32 on CUDA cores (67 TFLOP/s) whatever its
+# features' type. A and B's float32 lines print the CUDA-core bound too.
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
+              'tf32x3': 495e12 / 3}
 HBM_BYTES_PER_S = 3.35e12
+# kernels A and B's float32 ('tf32x3') lines against their twins, beside
+# the float32 tolerance: the CUDA-core loops measured 1.2e-6 to 1.2e-5
+# there, one-pass TF32 (about 2^-11 a product) would miss it
+F32_BAR = 1e-4
+KERNELS_AB = ('window_attention_self', 'window_attention_cross', 'cross_ffn')
+# report entries of the float32 plans (the bf16 plans keep the names)
+F32_ENTRIES = {'window_attention_self': 'window_attention_tf32x3',
+               'window_attention_cross': 'window_attention_tf32x3',
+               'cross_ffn': 'cross_ffn_tf32x3'}
 
 
 def _run(cmd):
@@ -398,11 +421,16 @@ def _nbytes(*tensors):
 
 def _bound(flops, nbytes, dt):
     """(least ms, 'bytes' or 'operations'): the larger of FLOPs over the
-    peak for `dt` and bytes over the memory rate."""
+    peak for `dt` (a dtype, or 'tf32x3') and bytes over the memory rate."""
     ops_ms = flops / PEAK_FLOPS[dt] * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return (bytes_ms, 'bytes') if bytes_ms >= ops_ms else (ops_ms,
                                                             'operations')
+
+
+def _peak(dt):
+    """The peak kernels A and B's plan for `dt` multiplies at."""
+    return dt if dt == torch.bfloat16 else 'tf32x3'
 
 
 def _attn_work(x, ps, dt, acts):
@@ -416,7 +444,7 @@ def _attn_work(x, ps, dt, acts):
     keys += ['wqkv_p', 'wo_p'] if dt == torch.bfloat16 else ['wqkv', 'wo']
     return (sum(window_attention_flops(x.shape, p['bias'].shape[-1],
                                        padded=False) for p in ps),
-            _nbytes(*acts, *(p[k] for p in ps for k in keys)), dt)
+            _nbytes(*acts, *(p[k] for p in ps for k in keys)), _peak(dt))
 
 
 def _ffn_work(x, p, dt, acts):
@@ -426,7 +454,7 @@ def _ffn_work(x, p, dt, acts):
     keys = ['ln', 'b1', 'wdw', 'bdw', 'b2']
     keys += ['w1_p', 'w2_p'] if dt == torch.bfloat16 else ['w1', 'w2']
     return (cross_ffn_flops(x.shape, p['w1'].shape[1]),
-            _nbytes(*acts, *(p[k] for k in keys)), dt)
+            _nbytes(*acts, *(p[k] for k in keys)), _peak(dt))
 
 
 def _roi_work(feats, rois, out, sample_num=2, max_grid=4, aligned=True):
@@ -511,21 +539,44 @@ class Report:
             k['bound_ms'], k['bound_by'] = bound
 
 
-def _print_time(ms, plain_ms, bound):
+def _print_time(ms, plain_ms, bound, work=None):
+    """`work` (FLOPs, bytes, peak) of a 'tf32x3' call adds its CUDA-core
+    bound (float32 FLOPs at 67 TFLOP/s) beside the split-TF32 one."""
     print(f'    time {ms:.4f} ms, plain {plain_ms:.4f} ms, bound '
-          f'{bound[0]:.4f} ms ({bound[1]}), {bound[0] / ms:.1%} of bound')
+          f'{bound[0]:.4f} ms ({bound[1]}'
+          + (', split TF32' if work and work[2] == 'tf32x3' else '')
+          + f'), {bound[0] / ms:.1%} of bound')
+    if work and work[2] == 'tf32x3':
+        core = _bound(work[0], work[1], torch.float32)
+        print(f'    CUDA-core bound {core[0]:.4f} ms ({core[1]}), '
+              f'{core[0] / ms:.1%} of it')
 
 
-def _compare(label, got, want, dtype):
+def _compare(label, got, want, dtype, bar=None):
+    """Max error of a kernel against its twin, held to `TOL` and, given
+    `bar`, to max_abs_err <= bar."""
     tol = TOL[dtype]
     got, want = got.float(), want.float()
     err = (got - want).abs().max().item()
-    ok = torch.allclose(got, want, atol=tol, rtol=tol)
-    print(f'  {label}: max_abs_err {err:.3e} (atol=rtol={tol:g}) '
+    ok = torch.allclose(got, want, atol=tol, rtol=tol) and (
+        bar is None or err <= bar)
+    print(f'  {label}: max_abs_err {err:.3e} (atol=rtol={tol:g}'
+          + ('' if bar is None else f'; bar {bar:g}') + ') '
           f'{"ok" if ok else "FAIL"}')
     if not ok:
         raise AssertionError(f'{label}: kernel disagrees with its twin')
     return err
+
+
+def _entry(name, dt):
+    """The report entry of a kernel call: kernels A and B in float32 run
+    their 'tf32x3' plans, reported apart from the bf16 plans."""
+    return F32_ENTRIES[name] if dt == torch.float32 and name in KERNELS_AB \
+        else name
+
+
+def _bar(name, dt):
+    return F32_BAR if _entry(name, dt) != name else None
 
 
 def phase_environment():
@@ -589,13 +640,18 @@ def phase_build():
     counts = _sass_mma_counts(info.path)
     for name, n in counts.items():
         print(f'  SASS {name}: {n} HMMA/HGMMA')
-    for kernel, prefixes in (('A', ('window_attention_mma', 'window_out_mma')),
-                             ('B', ('ffn_fc1_mma', 'ffn_tile_mma'))):
-        n = sum(v for k, v in counts.items() if k.startswith(prefixes))
-        print(f'  kernel {kernel} bf16 plan: {n} tensor-core instructions')
-        if n == 0:
-            raise AssertionError(f'kernel {kernel}: no HMMA/HGMMA in its '
-                                 f'bf16 instantiation')
+    for kernel, plan, prefixes in (
+            ('A', 'bf16', ('window_attention_mma', 'window_out_mma')),
+            ('B', 'bf16', ('ffn_fc1_mma', 'ffn_tile_mma')),
+            ('A', 'float32', ('window_attention_tf32', 'window_out_tf32')),
+            ('B', 'float32', ('ffn_fc1_tf32', 'ffn_tile_tf32'))):
+        for prefix in prefixes:
+            n = sum(v for k, v in counts.items() if k.startswith(prefix))
+            print(f'  kernel {kernel} {plan} plan, {prefix}*: {n} '
+                  f'tensor-core instructions')
+            if n == 0:
+                raise AssertionError(f'kernel {kernel}: no HMMA/HGMMA in '
+                                     f'{prefix}* of its {plan} plan')
 
 
 def _plans(c, heads, dt):
@@ -663,12 +719,12 @@ def phase_kernels(report):
                      lambda out: _ffn_work(x, p['ffn'], dt, [x, out]))):
                 got = fk()
                 err = _compare(f'{name} {tag} [plan {plans[name]}]', got,
-                               fp(), dt)
+                               fp(), dt, _bar(name, dt))
                 torch.cuda.synchronize()
-                ms, plain_ms = _time_ms(fk), _time_ms(fp)
-                bound = _bound(*work(got))
-                _print_time(ms, plain_ms, bound)
-                report.add(name, src, rep, err,
+                ms, plain_ms, wk = _time_ms(fk), _time_ms(fp), work(got)
+                bound = _bound(*wk)
+                _print_time(ms, plain_ms, bound, wk)
+                report.add(_entry(name, dt), src, rep, err,
                            *((ms, plain_ms, bound) if main else ()))
 
     # kernel C at the r640 pyramid, 8 x 1000 RoIs with the edge cases,
@@ -745,14 +801,18 @@ def _roi_inputs(g, hw=(H, W)):
     return feats32, rois.cuda().contiguous()
 
 
-def _check(report, name, src, rep, label, fk, fp, dt, work):
+def _check(report, name, src, rep, label, fk, fp, dt, work, record=False):
     """Hold a kernel call to its twin; time both beside the call's bound,
-    from `work(out)` -> (FLOPs, bytes, peak type)."""
+    from `work(out)` -> (FLOPs, bytes, peak type). `record`: the times
+    go to the report's entry."""
     got = fk()
-    err = _compare(label, got, fp(), dt)
+    err = _compare(label, got, fp(), dt, _bar(name, dt))
     torch.cuda.synchronize()
-    _print_time(_time_ms(fk), _time_ms(fp), _bound(*work(got)))
-    report.add(name, src, rep, err)
+    ms, plain_ms, w = _time_ms(fk), _time_ms(fp), work(got)
+    bound = _bound(*w)
+    _print_time(ms, plain_ms, bound, w)
+    report.add(_entry(name, dt), src, rep, err,
+               *((ms, plain_ms, bound) if record else ()))
 
 
 def phase_kernels_wide(report):
@@ -808,7 +868,7 @@ def phase_kernels_wide(report):
 
             def windows_work(out):
                 return (window_attention_flops((xw.shape[0], 7, 7, c)),
-                        _nbytes(xw, yw, out, *wts, bias), dt)
+                        _nbytes(xw, yw, out, *wts, bias), _peak(dt))
 
             for name, src, rep, label, fk, fp, plan, work in (
                     ('window_attention_self', SRC_A, REPLACES_A, 'self',
@@ -836,7 +896,8 @@ def phase_kernels_wide(report):
                      lambda out: _ffn_work(x, p['ffn'], dt, [x, out]))):
                 _check(report, name, src, rep,
                        f'{name} {label} {tag} [plan {plan}]', fk, fp, dt,
-                       work)
+                       work, record=c == 624 and dt == torch.float32
+                       and label in ('self', 'ffn'))
 
     # rows 4 and 5: the block entries at test_pallas_block.py's shapes
     for (h, w, c, heads) in ((20, 26, 18, 1), (13, 12, 36, 2),
@@ -858,7 +919,7 @@ def phase_kernels_wide(report):
                    lambda: blk(x), torch.float32,
                    lambda out: (attn_flops + ffn_flops,
                                 _nbytes(x, out, *blk.parameters()),
-                                torch.float32))
+                                _peak(torch.float32)))
             _check(report, 'window_attention_cross', SRC_A, REPLACES_A,
                    f'block.fused_fusion_block {tag}',
                    lambda: block.fused_fusion_block(x, zs, fus,
@@ -866,7 +927,7 @@ def phase_kernels_wide(report):
                    lambda: fus(x, zs), torch.float32,
                    lambda out: (2 * attn_flops + ffn_flops,
                                 _nbytes(x, *zs, out, *fus.parameters()),
-                                torch.float32))
+                                _peak(torch.float32)))
 
     # rows 3b / 3c: the single-image entry, variants v4 and v8
     feats32, rois = _roi_inputs(g)
@@ -1013,12 +1074,14 @@ def _check_counts(want, calls, label):
 
 
 def phase_slice(report, smi, config, title, record, hw=(H, W),
-                calibrate=False, against_f32=False, shared=None):
+                calibrate=False, against_f32=False, shared=None, f32=False):
     """Drive `config` as a user would on an `hw` grid; check launches and
     outputs; `shared[config]` keeps the median latency and the device busy
     ms (phase 14a). `calibrate`: weights from `card_checks.calibrate` on the
     batch. `against_f32`: the batch's bf16 neck maps held to its float32
-    ones on the card within `BF16_MAP_REL` (relative L2 a level)."""
+    ones on the card within `BF16_MAP_REL` (relative L2 a level). `f32`:
+    the same weights then serve the batch in float32, the serving entry
+    points' default (`_float32_batch`)."""
     print(f'== {title}')
     from hrfuser_tpu_torch import init_detector
     counters = _counters()
@@ -1072,6 +1135,8 @@ def phase_slice(report, smi, config, title, record, hw=(H, W),
              f'{busy:.2f} ms, idle {1 - busy / wall:.1%}'))
     if shared is not None:
         shared[config] = (sorted(times)[len(times) // 2], busy)
+    if f32:
+        _float32_batch(report, smi, det, img, mods, want, record, hw)
     if against_f32:
         with torch.no_grad():
             fb = det.model.forward_features(
@@ -1087,6 +1152,49 @@ def phase_slice(report, smi, config, title, record, hw=(H, W),
                                      f'from float32')
     del det
     torch.cuda.empty_cache()
+
+
+def _float32_batch(report, smi, det, img, mods, want, record, hw):
+    """The batch of 8 in float32 on `det`'s weights (a `Detector` of
+    dtype float32, as `init_detector` and `tools.serve` / `tools.test`
+    default to), kernels A and B on their 'tf32x3' plans: launches exact,
+    outputs finite with a detection, median of 3 on the host clock with
+    the card synchronised, device busy / idle under `torch.profiler`.
+    `record`: the launches go to the float32 plans' report entries."""
+    from hrfuser_tpu_torch.apis.inference import Detector
+    print(f'  float32 batch of {BATCH} on the same weights (matmul '
+          f'allow_tf32={torch.backends.cuda.matmul.allow_tf32}, cudnn '
+          f'allow_tf32={torch.backends.cudnn.allow_tf32})')
+    d32 = Detector(det.model, det.data, det.device, torch.float32)
+    d32(img, mods)                                       # warm-up
+    torch.cuda.synchronize()
+    _reset_counts()
+    calls, times = 3, []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        out = d32(img, mods)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    _check_counts(want, calls, 'float32')
+    counts = {k: fn.launches for k, fn in _counters().items()}
+    if record:
+        report.kernels['window_attention_tf32x3']['launches'] = (
+            counts['window_attention_self'] + counts['window_attention_cross'])
+        report.kernels['cross_ffn_tf32x3']['launches'] = counts['cross_ffn']
+    if not (out.boxes.isfinite().all() and out.scores.isfinite().all()):
+        raise AssertionError('float32: non-finite detections')
+    per_image = out.valid.sum(1).tolist()
+    print(f'  float32 detections: {sum(per_image)} valid (per image '
+          f'{per_image})')
+    if not sum(per_image):
+        raise AssertionError('float32: no detection in the whole batch')
+    print(f'  float32 latency per batch of {BATCH} at {hw[0]}x{hw[1]} (ms): '
+          f'{", ".join(f"{t:.1f}" for t in times)}; median '
+          f'{sorted(times)[len(times) // 2]:.1f} on {smi}')
+    busy, wall = _busy_ms(lambda: d32(img, mods), top=8)
+    print(f'  float32 under torch.profiler: {wall:.2f} ms a batch, device '
+          'busy ' + ('not measured' if busy is None else
+                     f'{busy:.2f} ms, idle {1 - busy / wall:.1%}'))
 
 
 def phase_cpu_check(config, title, hw=(H, W), calibrate=False):
@@ -2819,7 +2927,7 @@ def phase_offline_homography(smi):
           f'(CUDA events, mean of 10); CPU {cpu_ms[0]:.1f} ms')
 
 
-PARALLEL_STEPS = 20                  # 12a: world size 1 vs train_step
+PARALLEL_STEPS = 10                  # 12a: world size 1 vs train_step
 PARALLEL_DEADLINE_S = 420            # a spawned rank's deadline
 SHARED = '2 ranks sharing one H100'  # 12b-12d: no scaling result
 EVAL_COUNTERS = {
@@ -4173,10 +4281,11 @@ def main():
         ('3c', lambda: phase_kernels_r1248(report)),
         ('4', lambda: phase_slice(
             report, smi, CONFIG, '4. main path: HRFuser-T r640 lidar+radar, '
-            'bf16, batch 8', record=True, shared=state)),
+            'bf16, then float32, batch 8', record=True, shared=state,
+            f32=True)),
         ('4b', lambda: phase_slice(
             report, smi, CONFIG_B, '4b. HRFuser-B r640 lidar+radar, bf16, '
-            'batch 8', record=False, shared=state)),
+            'then float32, batch 8', record=False, shared=state, f32=True)),
         ('5', lambda: phase_cpu_check(CONFIG, '5. HRFuser-T')),
         ('5b', lambda: phase_cpu_check(CONFIG_B, '5b. HRFuser-B')),
         ('6a', lambda: phase_preprocess(state)),

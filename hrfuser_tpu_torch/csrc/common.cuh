@@ -5,7 +5,9 @@
 // round once on store, with float weights. The tensor-core ("mma") plans
 // take bf16 activations and bf16 weights packed at fold time, multiply
 // bf16 operands with f32 accumulation, and round to bf16 where the TPU
-// kernels do. Biases and norm parameters are always float.
+// kernels do. The float32 tensor-core ("tf32x3") plans take float32
+// activations and the float32 folded weights and multiply in split TF32
+// (below), rounding nothing. Biases and norm parameters are always float.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -355,6 +357,179 @@ struct WeightRing {
     return NS * sizeof(bf16) * (size_t)rows * padded_stride(cols);
   }
 };
+
+// ---------------------------------------------------------------------------
+// Split-TF32 tile products (float32 operands, f32 accumulators)
+// ---------------------------------------------------------------------------
+//
+// The float32 ("tf32x3") plans multiply on tensor cores without losing
+// float32's accuracy: each operand x is split as x = hi + lo, hi =
+// tf32(x), lo = tf32(x - hi) (`cvt.rna.tf32.f32`: round to nearest, ties
+// away from zero, to 10 mantissa bits; `ops/chain.py:split_tf32` is its
+// Python mirror), and a.b is formed as lo_a.hi_b + hi_a.lo_b + hi_a.hi_b,
+// three `mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32` into f32
+// accumulators. The dropped lo_a.lo_b and the split leave about 2^-21 of
+// each product, float32's own rounding; one-pass TF32 keeps about 2^-11.
+//
+// Operands are float32 tiles in shared memory, read by plain 4-byte loads
+// (ldmatrix moves 16-bit halves): A [M][K] with a row stride of 4 mod 8
+// words (`stride_a`), B [K][N] (N contiguous, the layout of the folded
+// weights) with a row stride of 8 mod 16 words (`stride_b`); at those
+// strides the 32 lanes of a fragment load hit 32 distinct banks.
+// Fragments of m16n8k8 (PTX ISA), g = lane / 4, t = lane % 4: A a0 (row g,
+// col t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4); B b0 (k t, n g),
+// b1 (k t + 4, n g); the accumulator as the bf16 tile's.
+
+__host__ __device__ constexpr int stride_a(int k) {
+  return k % 8 == 4 ? k : round_up(k, 8) + 4;
+}
+
+__host__ __device__ constexpr int stride_b(int n) {
+  return round_up(n, 8) % 16 == 8 ? round_up(n, 8) : round_up(n, 8) + 8;
+}
+
+__device__ __forceinline__ unsigned tf32_rna(float x) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi,
+                                           unsigned& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a.b to float32 accuracy: the two small terms, then the large one.
+__device__ __forceinline__ void mma_split(float (&c)[4],
+                                          const unsigned (&ah)[4],
+                                          const unsigned (&al)[4],
+                                          const unsigned (&bh)[2],
+                                          const unsigned (&bl)[2]) {
+  mma_tf32(c, al, bh);
+  mma_tf32(c, ah, bl);
+  mma_tf32(c, ah, bh);
+}
+
+// Split A fragment: rows r0 (g) and r1 (g + 8) of a tile, k column k0 + t.
+__device__ __forceinline__ void frag_a_split(unsigned (&hi)[4],
+                                             unsigned (&lo)[4],
+                                             const float* r0, const float* r1,
+                                             int k) {
+  split_tf32(r0[k], hi[0], lo[0]);
+  split_tf32(r1[k], hi[1], lo[1]);
+  split_tf32(r0[k + 4], hi[2], lo[2]);
+  split_tf32(r1[k + 4], hi[3], lo[3]);
+}
+
+// Split B fragment from [K][N]: `b` at row k0 + t, column n0 + g.
+__device__ __forceinline__ void frag_b_split(unsigned (&hi)[2],
+                                             unsigned (&lo)[2],
+                                             const float* b, int ldb) {
+  split_tf32(b[0], hi[0], lo[0]);
+  split_tf32(b[4 * ldb], hi[1], lo[1]);
+}
+
+// One warp's C += A . B over k8 steps, split TF32: MT m16 tiles (rows
+// a + 16 * mstep * i, those with i < mcount; a row index r reads row
+// min(r, mrows - 1), so a tile may hang over a ragged edge) by NT n8
+// tiles (columns b + 8 * j of B [K][N]). A and B point at the k-origin.
+template <int MT, int NT>
+__device__ __forceinline__ void warp_mma_f32(float (&acc)[MT][NT][4],
+                                             const float* a, int lda,
+                                             int mstep, int mcount,
+                                             int mrows, const float* b,
+                                             int ldb, int ksteps, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  for (int ks = 0; ks < ksteps; ++ks) {
+    const int k = 8 * ks + t;
+    unsigned bh[NT][2], bl[NT][2];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      frag_b_split(bh[j], bl[j], b + k * ldb + 8 * j + g, ldb);
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      if (i >= mcount) break;
+      const int r = 16 * mstep * i + g;
+      unsigned ah[4], al[4];
+      frag_a_split(ah, al, a + min(r, mrows - 1) * lda,
+                   a + min(r + 8, mrows - 1) * lda, k);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) mma_split(acc[i][j], ah, al, bh[j], bl[j]);
+    }
+  }
+}
+
+// W floats (1, 2 or 4) of which the first n are read, the rest zero.
+template <int W>
+__device__ __forceinline__ void cp_async_part(void* dst, const void* src,
+                                              int n) {
+  if constexpr (W == 4)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "r"(4 * n));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "n"(4 * W), "r"(4 * n));
+}
+
+template <int W, class Dst, class Src>
+__device__ __forceinline__ void async_rows_by(Dst dst, Src src, int rows,
+                                              int cols, int valid,
+                                              const float* any, int tid,
+                                              int nthreads, bool tail) {
+  const int per = cols / W;
+  for (int e = tid; e < rows * per; e += nthreads) {
+    const int r = e / per, c = (e - r * per) * W;
+    const float* s = src(r);
+    const int n = s == nullptr ? 0 : max(0, min(W, valid - c));
+    if (n > 0 || s == nullptr || tail)
+      cp_async_part<W>(dst(r) + c, n > 0 ? s + c : any, n);
+  }
+}
+
+// Rows r < rows of `cols` floats (cols % 4 == 0) into shared memory at
+// dst(r), by cp.async from every thread of the block. Row r comes from
+// src(r) (nullptr: a row of zeros), of which the first `valid` floats
+// are read; the rest are zero-filled, or with `tail` false left as they
+// are (for a caller that overwrites them or never reads them). `bytes`
+// (16, 8 or 4, `copy_bytes`): every row start src(r) is aligned to it,
+// the width of each copy (with Eight false, 8 copies 4 bytes at a time:
+// one loop fewer in a kernel whose registers are tight). `any` is a
+// global address never read (the operand of a zero-fill). The caller
+// commits.
+template <bool Eight = true, class Dst, class Src>
+__device__ __forceinline__ void async_rows(Dst dst, Src src, int rows,
+                                           int cols, int valid, int bytes,
+                                           const float* any, int tid,
+                                           int nthreads, bool tail = true) {
+  if (bytes == 16)
+    async_rows_by<4>(dst, src, rows, cols, valid, any, tid, nthreads, tail);
+  else if (Eight && bytes == 8)
+    async_rows_by<2>(dst, src, rows, cols, valid, any, tid, nthreads, tail);
+  else
+    async_rows_by<1>(dst, src, rows, cols, valid, any, tid, nthreads, tail);
+}
+
+// The widest cp.async (16, 8 or 4 bytes) that keeps every row start
+// p + k * stride floats aligned, k any: for `async_rows`.
+inline int copy_bytes(const void* p, int stride) {
+  const size_t a = reinterpret_cast<size_t>(p);
+  return stride % 4 == 0 && a % 16 == 0 ? 16
+         : stride % 2 == 0 && a % 8 == 0 ? 8
+                                         : 4;
+}
 
 // Blocks of `kernel` the card runs at once: its SMs times the blocks one
 // SM holds at `threads` threads and `smem` bytes of dynamic shared memory,

@@ -14,7 +14,7 @@
 // because Mosaic had none). The depthwise 3x3 zero-pads the hidden map at
 // the real image edge.
 //
-// Two plans, picked by the host from the dtype and C:
+// Three plans, picked by the host from the dtype and C:
 //
 // "mma" (bf16 activations, every width whose fc1 block fits 227 KB: C
 // up to 1,664): tensor cores (`mma.sync` m16n8k16, bf16 operands, f32
@@ -61,17 +61,51 @@
 //   at 12x20x624, B = 8; 79 MB at 96x160x78, which spills to device
 //   memory and is still faster, 0.57 vs 0.63 ms).
 //
-// "scalar" (float32 activations, and bf16 beyond "mma"): the CUDA-core
-// loop that came before "mma", kept for the float32 correctness path. One block per (TH x 8
+// "tf32x3" (float32 activations, every C: its shared memory does not
+// grow with C): tensor cores in split TF32 (`common.cuh`: each product
+// as three `mma.sync` m16n8k8 TF32 into f32 accumulators, float32's
+// accuracy), rounding nothing to bf16; the LN, exact-erf GELUs and dw
+// taps stay float32. "mma"'s two launches:
+//   1. fc1: one block per (64 pixels, `tpb` tiles of 64 hidden channels).
+//      LN statistics of its pixels once (a warp a pixel), then per hidden
+//      tile K-slices of 32 channels of the pixels and of the float32 W1
+//      rows streamed (cp.async, double-buffered; 8-byte copies where C
+//      is even but not a multiple of 4, and the tails past C, which the
+//      LN pass rewrites, not copied), each pixel slice layer-normed in
+//      place; bias and GELU from registers to an f32
+//      scratch [B*H*W][round64(4C)] (157 MB at 96x160x78, B = 8, twice
+//      bf16's; skipping its stores and loads saves 1-4 % of a call,
+//      `chip_profile.py --kernels` knock-out). 37,376 B, three blocks
+//      an SM (85 registers a thread).
+//   2. Tiles: "mma"'s tile launch in f32 (TH = 8 for C <= 192, else 4; at
+//      most 3 / 5 fc2 column tiles a block): hidden chunks of 32 (not 64:
+//      in f32 a 64-chunk stage held one block an SM) on the tile plus
+//      halo and the chunk's float32 W2 rows for the block's columns, one
+//      chunk ahead; dw3x3 + GELU on CUDA cores, fc2 by split TF32 from
+//      registers, the last GELU and the residual once. TH by the same
+//      register budget as "mma". Up to 89,216 B (TH 8, 3 column tiles)
+//      and 105,856 B (TH 4, 5).
+//   Measured (NVIDIA H100 80GB HBM3, 700 W, B = 8, ms, share of the
+//   split-TF32 / the CUDA-core bound, the CUDA-core loop's time in
+//   brackets; `chip_profile.py --kernels --dtype f32`, in turns):
+//   96x160x18 0.285, 1.9 / 4.2 % (0.279); 12x20x144 0.134, 3.0 / 7.3 %
+//   (0.548); 96x160x78 1.128, 6.8 / 16.7 % (5.10); 48x80x156 0.812, 9.2
+//   / 22.6 % (6.85); 24x40x312 0.726, 10.1 / 25.0 % (5.67); 12x20x624
+//   0.910, 8.0 / 19.8 % (9.86): 1.3-3.6x the "mma" plan's time. Slower
+//   than the plain twin (cuBLAS' float32 GEMMs, 0.51-0.57 ms at 24x40x312
+//   and 12x20x624 in four runs, 1.29 in a fifth) from C = 312 up; at C =
+//   18 level with the CUDA-core loop, whose one launch is all it takes
+//   there.
+//
+// "scalar" (bf16 beyond "mma"; no preset has such a width): the CUDA-core
+// loop that came before the tensor-core plans. One block per (TH x 8
 // tile, image) with LN on the halo tile in f32 shared memory; the hidden
 // channels in chunks of KH; f32 FMAs with weight columns read through the
 // read-only path (`dot_column`). Shared memory, 4-byte words, NH =
 // (TH+2)(TW+2), NP = TH*TW: NH*C + NH*KH + NP*KH [+ NP*C]. One chunk with
-// the tallest tile that fits 200 KB where possible (8x8 at C <= 36, 4x8
-// at 72 and 78, 2x8 at 144 and 156); else the tallest tile whose chunk of
-// at least 32 channels fits (C = 312: TH = 4, 6 chunks of 208; C = 624:
-// TH = 2, 9 chunks of 278, 202,048 B). A shape with no plan (C above
-// about 1,500) is refused with its byte count (kErrNoPlan).
+// the tallest tile that fits 200 KB where possible; else the tallest
+// tile whose chunk of at least 32 channels fits. A shape with no plan (C
+// above about 1,500) is refused with its byte count (kErrNoPlan).
 //
 // What bounds it on the H100 (NVIDIA H100 80GB HBM3, 700 W), "mma", bf16,
 // B = 8, FLOPs of the model (16 P C^2 + 72 P C for P pixels) over the
@@ -86,7 +120,8 @@
 // the tile products and each block's staging at two or three blocks an
 // SM, was not separated further. At HRFuser-T's narrow C the padding to
 // 64 channels wastes most of each product (C = 18: 18 of 64).
-// "scalar": f32 FMAs on CUDA cores.
+// "scalar": f32 FMAs on CUDA cores (12x20x624 9.96 ms when it served
+// float32).
 #include "common.cuh"
 
 namespace hrf {
@@ -510,18 +545,333 @@ static int launch_mma(const void* x, void* out, const float* ln,
 
 static bool ffn_mma_fits(int C) { return ffn_mma_bytes(C) <= kSmemMax; }
 
+// ---------------------------------------------------------------------------
+// "tf32x3" plan: float32 on tensor cores (split TF32), two launches
+// ---------------------------------------------------------------------------
+
+constexpr int kSlice32 = 32;               // K-slice of fc1's product
+constexpr int kSX32 = stride_a(kSlice32);  // row stride of a pixel slice
+constexpr int kSW1 = stride_b(kHid);       // row stride of a W1 slice
+constexpr int kHid32 = 32;                 // hidden channels per tile chunk
+constexpr int kSH32 = stride_a(kHid32);    // row stride of hidden chunks
+
+// fc1: LN statistics [64][2]; two stages of {pixel slice [64][kSX32], W1
+// slice [32][kSW1]}.
+static size_t ffn_fc1_tf32_smem() {
+  return sizeof(float) *
+         (2 * kFc1Rows + 2 * (kFc1Rows * kSX32 + kSlice32 * kSW1));
+}
+
+// Tiles: the dw output [NP][kSH32]; two stages of {hidden chunk on the
+// halo tile [NH][kSH32], the chunk's W2 rows for `per` column tiles
+// [32][stride_b(64 per)]}.
+static size_t ffn_tile_tf32_smem(int th, int per) {
+  const size_t nh = (size_t)(th + 2) * (kTw + 2), np = (size_t)th * kTw;
+  return sizeof(float) * (np * kSH32 + 2 * (nh * kSH32 +
+                                            (size_t)kHid32 *
+                                                stride_b(per * kNCol)));
+}
+
+static size_t ffn_tf32_bytes(int C) {
+  const int th = ffn_mma_th(C);
+  return std::max(ffn_fc1_tf32_smem(),
+                  ffn_tile_tf32_smem(th, th == 8 ? MmaTile<8>::NQ
+                                                 : MmaTile<4>::NQ));
+}
+
+// Launch 1: hbuf[p] = GELU(fc1'(LN x[p])) in f32 for every pixel p,
+// [P][CHP]; one block per (64 pixels, `tpb` hidden tiles of 64). Per
+// hidden tile, K-slices of 32 channels of the pixels and of W1 are
+// streamed (cp.async, double-buffered), each pixel slice layer-normed in
+// place from statistics taken once.
+__global__ void __launch_bounds__(kFfnThreads, 3) ffn_fc1_tf32_kernel(
+    const float* __restrict__ x, const float* __restrict__ ln,
+    const float* __restrict__ w1, const float* __restrict__ b1,
+    float* __restrict__ hbuf, int P, int C, int CH, int tpb, int vec_x,
+    int vec_w) {
+  extern __shared__ __align__(16) float smf[];
+  const int CHP = round_up(CH, kHid);
+  float* stats = smf;                  // [64][2]
+  float* stages = smf + 2 * kFc1Rows;  // 2 x {X [64][kSX32], W1 [32][kSW1]}
+  const int xsz = kFc1Rows * kSX32, ssz = xsz + kSlice32 * kSW1;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp & 3, wn = warp >> 2;  // m16 tile, n32 column group
+  const int g = lane >> 2, t4 = lane & 3;
+  const int p0 = blockIdx.x * kFc1Rows, t0 = blockIdx.y * tpb;
+  const int nt = min(tpb, CHP / kHid - t0);
+  const int nks = (C + kSlice32 - 1) / kSlice32, total = nt * nks;
+  auto issue = [&](int i) {
+    if (i < total) {
+      float* xs = stages + (i & 1) * ssz;
+      float* ws = xs + xsz;
+      const int n0 = (t0 + i / nks) * kHid, c0 = (i % nks) * kSlice32;
+      async_rows([&](int r) { return xs + r * kSX32; },
+                 [&](int r) -> const float* {
+                   if (p0 + r >= P) return nullptr;
+                   return x + (size_t)(p0 + r) * C + c0;
+                 },
+                 kFc1Rows, kSlice32, C - c0, vec_x, x, tid, kFfnThreads,
+                 false);  // the LN pass writes every float of the slice
+      async_rows([&](int r) { return ws + r * kSW1; },
+                 [&](int r) -> const float* {
+                   if (c0 + r >= C) return nullptr;
+                   return w1 + (size_t)(c0 + r) * CH + n0;
+                 },
+                 kSlice32, kHid, CH - n0, vec_w, w1, tid, kFfnThreads,
+                 false);  // hidden columns past CH are never stored
+    }
+    cp_async_commit();
+  };
+  issue(0);
+  for (int r = warp; r < kFc1Rows; r += kFfnWarps) {
+    float mean = 0.f, rstd = 0.f;
+    if (p0 + r < P)
+      warp_ln_stats(x + (size_t)(p0 + r) * C, C, lane, mean, rstd);
+    if (lane == 0) {
+      stats[2 * r] = mean;
+      stats[2 * r + 1] = rstd;
+    }
+  }
+  int i = 0;
+  for (int t = 0; t < nt; ++t) {
+    float acc[1][4][4];
+    zero_acc(acc);
+    for (int r = 0; r < nks; ++r, ++i) {
+      issue(i + 1);
+      cp_async_wait<1>();
+      __syncthreads();  // slice i landed, statistics written
+      float* xs = stages + (i & 1) * ssz;
+      const int c0 = r * kSlice32;
+      for (int e = tid; e < kFc1Rows * kSlice32; e += kFfnThreads) {
+        const int row = e / kSlice32, c = e % kSlice32, col = c0 + c;
+        float* p = xs + row * kSX32 + c;
+        *p = p0 + row < P && col < C
+                 ? (*p - stats[2 * row]) * stats[2 * row + 1] * ln[col] +
+                       ln[C + col]
+                 : 0.f;
+      }
+      __syncthreads();
+      warp_mma_f32(acc, xs + 16 * wm * kSX32, kSX32, 1, 1, 16,
+                   xs + xsz + 32 * wn, kSW1, kSlice32 / 8, lane);
+      __syncthreads();  // stage i & 1 free
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = p0 + 16 * wm + g + 8 * h;
+        const int col = (t0 + t) * kHid + 32 * wn + 8 * j + 2 * t4;
+        if (p >= P) continue;
+        float2 o;
+        o.x = col < CH ? gelu(acc[0][j][2 * h] + b1[col]) : 0.f;
+        o.y = col + 1 < CH ? gelu(acc[0][j][2 * h + 1] + b1[col + 1]) : 0.f;
+        *reinterpret_cast<float2*>(hbuf + (size_t)p * CHP + col) = o;
+      }
+  }
+}
+
+// Launch 2: one block per (TH x 8 tile, image, fc2 column split). Chunk
+// k of 32 hidden channels (half "mma"'s, so that a float32 stage holds
+// two blocks an SM) is one pipeline stage: the tile plus halo of hbuf
+// (zero-filled outside the image: the dw conv's zero padding) and the
+// chunk's W2 rows for this block's columns, by cp.async, one chunk
+// ahead. Per chunk: dw3x3 + GELU on CUDA cores -> f32 [TH*8][32], then
+// fc2 accumulated in registers by split-TF32 `mma`; the last GELU and the
+// residual once.
+template <int TH>
+__global__ void __launch_bounds__(kFfnThreads, 2) ffn_tile_tf32_kernel(
+    const float* __restrict__ x, float* __restrict__ out,
+    const float* __restrict__ wdw, const float* __restrict__ bdw,
+    const float* __restrict__ w2, const float* __restrict__ b2,
+    const float* __restrict__ hbuf, int H, int W, int C, int CH, int ntx,
+    int per_split, int vec_w) {
+  using T = MmaTile<TH>;
+  constexpr int HW = kTw + 2, SH = kSH32;
+  extern __shared__ __align__(16) float smf[];
+  const int CHP = round_up(CH, kHid), NT = round_up(C, kNCol) / kNCol;
+  const int SW = stride_b(per_split * kNCol);
+  const int hsz = T::NH * SH, ssz = hsz + kHid32 * SW;
+  float* hd2 = smf;                 // [NP][SH]  GELU(dw)
+  float* stages = hd2 + T::NP * SH;  // 2 x {hid [NH][SH], W2 [32][SW]}
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wn = warp & 3, wm = warp >> 2;  // n16 column group, m parity
+  const int g = lane >> 2, t4 = lane & 3;
+  const int mc2 = (T::NP / 16 - wm + 1) / 2;
+  const int b = blockIdx.y;
+  const int y0 = (blockIdx.x / ntx) * TH, x0 = (blockIdx.x % ntx) * kTw;
+  const int q0 = blockIdx.z * per_split;   // first fc2 column tile
+  const int nq = min(per_split, NT - q0);  // fc2 column tiles here
+  const int nchunk = CHP / kHid32;
+  auto issue = [&](int k) {  // chunk k -> stage k % 2
+    float* hid = stages + (k & 1) * ssz;
+    float* ws = hid + hsz;
+    async_rows([&](int r) { return hid + r * SH; },
+               [&](int r) -> const float* {
+                 const int y = y0 - 1 + r / HW, xx = x0 - 1 + r % HW;
+                 if (y < 0 || y >= H || xx < 0 || xx >= W) return nullptr;
+                 return hbuf + ((size_t)(b * H + y) * W + xx) * CHP +
+                        k * kHid32;
+               },
+               T::NH, kHid32, kHid32, 16, hbuf, tid, kFfnThreads);
+    async_rows([&](int r) { return ws + r * SW; },
+               [&](int r) -> const float* {
+                 if (k * kHid32 + r >= CH) return nullptr;
+                 return w2 + (size_t)(k * kHid32 + r) * C + q0 * kNCol;
+               },
+               kHid32, nq * kNCol, C - q0 * kNCol, vec_w, w2, tid,
+               kFfnThreads);
+    cp_async_commit();
+  };
+  issue(0);
+  if (nchunk > 1) issue(1);
+  else cp_async_commit();
+
+  float acc2[T::NQ][T::MT2][2][4];
+#pragma unroll
+  for (int q = 0; q < T::NQ; ++q) zero_acc(acc2[q]);
+
+  for (int k = 0; k < nchunk; ++k) {
+    const int j0 = k * kHid32;
+    const float* hid = stages + (k & 1) * ssz;
+    const float* w2s = hid + hsz;
+    cp_async_wait<1>();  // chunk k landed; chunk k + 1 may be in flight
+    __syncthreads();
+    {  // a thread keeps one channel (kFfnThreads % kHid32 == 0)
+      const int j = tid % kHid32;
+      const bool live = j0 + j < CH;
+      float wk[9], bk = 0.f;
+#pragma unroll
+      for (int t = 0; t < 9; ++t)
+        wk[t] = live ? __ldg(wdw + (j0 + j) * 9 + t) : 0.f;
+      if (live) bk = __ldg(bdw + j0 + j);
+      for (int p = tid / kHid32; p < T::NP; p += kFfnThreads / kHid32) {
+        const int py = p / kTw, px = p % kTw;
+        float a = bk;
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+          for (int dx = 0; dx < 3; ++dx)
+            a = fmaf(hid[((py + dy) * HW + px + dx) * SH + j],
+                     wk[dy * 3 + dx], a);
+        hd2[p * SH + j] = live ? gelu(a) : 0.f;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < T::NQ; ++q) {
+      if (q >= nq) break;
+      warp_mma_f32(acc2[q], hd2 + 16 * wm * SH, SH, 2, mc2, T::NP,
+                   w2s + q * kNCol + 16 * wn, SW, kHid32 / 8, lane);
+    }
+    __syncthreads();  // stage k % 2 and hd2 are free
+    if (k + 2 < nchunk) issue(k + 2);
+    else cp_async_commit();  // keep one group per chunk for the wait
+  }
+
+  // out = x + GELU(fc2 + b2), real pixels and channels only
+#pragma unroll
+  for (int q = 0; q < T::NQ; ++q) {
+    if (q >= nq) break;
+#pragma unroll
+    for (int mi = 0; mi < T::MT2; ++mi) {
+      if (mi >= mc2) break;
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int p = 16 * (wm + 2 * mi) + g + 8 * h;
+          const int y = y0 + p / kTw, xx = x0 + p % kTw;
+          if (y >= H || xx >= W) continue;
+          const int col = (q0 + q) * kNCol + 16 * wn + 8 * j + 2 * t4;
+          const size_t gi = ((size_t)(b * H + y) * W + xx) * C;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int n = col + e;
+            if (n < C)
+              out[gi + n] =
+                  x[gi + n] + gelu(acc2[q][mi][j][2 * h + e] + b2[n]);
+          }
+        }
+    }
+  }
+}
+
+static int launch_fc1_tf32(const float* x, const float* ln, const float* w1,
+                           const float* b1, float* hbuf, int P, int C,
+                           int CH, cudaStream_t stream) {
+  const size_t bytes = ffn_fc1_tf32_smem();
+  cudaError_t err = cudaFuncSetAttribute(
+      ffn_fc1_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = round_up(CH, kHid) / kHid;
+  const int rows = (P + kFc1Rows - 1) / kFc1Rows;
+  const int wave = wave_blocks(
+      reinterpret_cast<const void*>(ffn_fc1_tf32_kernel), kFfnThreads, bytes);
+  const int tpb = one_wave_per(rows, tiles, 1, [wave](int) { return wave; });
+  dim3 grid(rows, (tiles + tpb - 1) / tpb);
+  ffn_fc1_tf32_kernel<<<grid, kFfnThreads, bytes, stream>>>(
+      x, ln, w1, b1, hbuf, P, C, CH, tpb, copy_bytes(x, C),
+      copy_bytes(w1, CH));
+  return (int)cudaGetLastError();
+}
+
+template <int TH>
+static int launch_tiles_tf32(const float* x, float* out, const float* wdw,
+                             const float* bdw, const float* w2,
+                             const float* b2, const float* hbuf, int B,
+                             int H, int W, int C, int CH,
+                             cudaStream_t stream) {
+  const int nt = round_up(C, kNCol) / kNCol;
+  const int lo = (nt + MmaTile<TH>::NQ - 1) / MmaTile<TH>::NQ;
+  cudaError_t err = cudaFuncSetAttribute(
+      ffn_tile_tf32_kernel<TH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)ffn_tile_tf32_smem(TH, (nt + lo - 1) / lo));
+  if (err != cudaSuccess) return (int)err;
+  const int nty = (H + TH - 1) / TH, ntx = (W + kTw - 1) / kTw;
+  const int per = one_wave_per((long long)nty * ntx * B, nt, lo, [](int q) {
+    return wave_blocks(
+        reinterpret_cast<const void*>(ffn_tile_tf32_kernel<TH>), kFfnThreads,
+        ffn_tile_tf32_smem(TH, q));
+  });
+  const size_t bytes = ffn_tile_tf32_smem(TH, per);
+  dim3 grid(nty * ntx, B, (nt + per - 1) / per);
+  ffn_tile_tf32_kernel<TH><<<grid, kFfnThreads, bytes, stream>>>(
+      x, out, wdw, bdw, w2, b2, hbuf, H, W, C, CH, ntx, per,
+      copy_bytes(w2, C));
+  return (int)cudaGetLastError();
+}
+
+static int launch_tf32(const float* x, float* out, const float* ln,
+                       const float* w1, const float* b1, const float* wdw,
+                       const float* bdw, const float* w2, const float* b2,
+                       float* hbuf, int B, int H, int W, int C, int CH,
+                       cudaStream_t stream) {
+  const int err = launch_fc1_tf32(x, ln, w1, b1, hbuf, B * H * W, C, CH,
+                                  stream);
+  if (err != 0) return err;
+  if (ffn_mma_th(C) == 8)
+    return launch_tiles_tf32<8>(x, out, wdw, bdw, w2, b2, hbuf, B, H, W, C,
+                                CH, stream);
+  return launch_tiles_tf32<4>(x, out, wdw, bdw, w2, b2, hbuf, B, H, W, C, CH,
+                              stream);
+}
+
 }  // namespace hrf
 
-// The plan for (C, hidden, dtype): *mma = 1 for the tensor-core plan
-// (*kh is then its chunk of 64), 0 for the scalar plan; *th = 0: none
-// fits. Returns the shared memory of its largest launch in bytes.
+// The plan for (C, hidden, dtype): *mma = 1 for the bf16 tensor-core
+// plan, 2 for the float32 one (*kh is then the tile launch's hidden
+// chunk: 64, 32), 0 for the
+// scalar plan; *th = 0: none fits. Returns the shared memory of its
+// largest launch in bytes.
 extern "C" long long hrf_cross_ffn_plan(int C, int CH, int bf16, int* th,
                                         int* kh, int* mma) {
-  if (bf16 && hrf::ffn_mma_fits(C)) {
+  if (!bf16 || hrf::ffn_mma_fits(C)) {
     *th = hrf::ffn_mma_th(C);
-    *kh = hrf::kHid;
-    *mma = 1;
-    return (long long)hrf::ffn_mma_bytes(C);
+    *kh = bf16 ? hrf::kHid : hrf::kHid32;
+    *mma = bf16 ? 1 : 2;
+    return (long long)(bf16 ? hrf::ffn_mma_bytes(C) : hrf::ffn_tf32_bytes(C));
   }
   const hrf::FfnPlan plan = hrf::ffn_plan(C, CH);
   *th = plan.th;
@@ -531,8 +881,9 @@ extern "C" long long hrf_cross_ffn_plan(int C, int CH, int bf16, int* th,
 }
 
 // w1p [round64(CH)][round64(C)], w2p [round64(C)][round64(CH)]: bf16
-// weights packed for the tensor-core plan (bf16 activations only); hbuf
-// [B*H*W][round64(CH)] its bf16 scratch for GELU(fc1).
+// weights packed for the bf16 tensor-core plan (bf16 activations only);
+// hbuf [B*H*W][round64(CH)] the scratch for GELU(fc1), bf16 for that plan
+// and float32 for the float32 one.
 extern "C" int hrf_cross_ffn(const void* x, void* out, const float* ln,
                              const float* w1, const float* b1,
                              const float* wdw, const float* bdw,
@@ -541,6 +892,13 @@ extern "C" int hrf_cross_ffn(const void* x, void* out, const float* ln,
                              int B, int H, int W, int C, int CH, int bf16,
                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!bf16) {
+    if (hbuf == nullptr) return hrf::kErrNoPlan;
+    return hrf::launch_tf32(static_cast<const float*>(x),
+                            static_cast<float*>(out), ln, w1, b1, wdw, bdw,
+                            w2, b2, static_cast<float*>(hbuf), B, H, W, C,
+                            CH, s);
+  }
   if (bf16 && hrf::ffn_mma_fits(C)) {
     if (w1p == nullptr || w2p == nullptr || hbuf == nullptr)
       return hrf::kErrNoPlan;
@@ -548,9 +906,6 @@ extern "C" int hrf_cross_ffn(const void* x, void* out, const float* ln,
                            wdw, bdw, static_cast<const hrf::bf16*>(w2p), b2,
                            static_cast<hrf::bf16*>(hbuf), B, H, W, C, CH, s);
   }
-  if (bf16)
-    return hrf::launch<__nv_bfloat16>(x, out, ln, w1, b1, wdw, bdw, w2, b2, B,
-                                      H, W, C, CH, s);
-  return hrf::launch<float>(x, out, ln, w1, b1, wdw, bdw, w2, b2, B, H, W, C,
-                            CH, s);
+  return hrf::launch<__nv_bfloat16>(x, out, ln, w1, b1, wdw, bdw, w2, b2, B,
+                                    H, W, C, CH, s);
 }

@@ -28,7 +28,7 @@
 // scale d^-0.5 is folded into Wq / bq by the host; `bias` is the gathered
 // relative-position bias [nh, 49, 49].
 //
-// Two plans, picked by the host from the dtype, C and the head dim:
+// Three plans, picked by the host from the dtype, C and the head dim:
 //
 // "mma" (bf16 activations, head dim up to 64, whose staged window fits
 // 227 KB: every HRFuser-T and HRFuser-B width): tensor cores (`mma.sync`
@@ -75,18 +75,87 @@
 //   0.258 ms cross for the attention launch, against 0.168 and 0.199 for
 //   2 groups of 8 (H100, 700 W). Output launch at C = 624: 111,104 B.
 //
-// "scalar" (float32 activations, and bf16 where "mma" has no plan): the
-// CUDA-core loops that came before "mma", kept for the float32
-// correctness path. Shared
+// "tf32x3" (float32 activations, head dim up to 64: every width of every
+// preset, and any C; float32 has no other plan, so a wider head dim is
+// refused with the bytes this plan would need): tensor cores in split TF32 (`common.cuh`:
+// x = hi + lo, each product as lo.hi + hi.lo + hi.hi, three `mma.sync`
+// m16n8k8 TF32 with f32 accumulators, about 2^-21 a product; one-pass
+// TF32 would keep 2^-11), rounding nothing to bf16: the LN, softmax and
+// products stay float32-accurate. "mma"'s decomposition, two launches
+// (one at narrow C, below):
+//   1. Attention: one block per (window, image, group of heads), 256
+//      threads. A float32 window of C = 624 is 123 KB, and cross mode's
+//      two would not fit 227 KB, so the window is never staged whole: LN
+//      statistics of its tokens first (a warp a token, from L2), then
+//      for each head of the group, K-slices of 32 channels of the tokens
+//      (both windows in cross mode) and of that head's q | k | v columns
+//      of the float32 Wqkv, cp.async double-buffered (16-byte copies
+//      where rows are aligned, else 4-byte: C = 78, d = 39), each token
+//      slice layer-normed in place (ring tokens and channels past C
+//      zero), then the tile product q | k | v [49 x 3dp], d padded to
+//      dp = 16, 24, 40 or 64 (four builds of the launch, to keep the
+//      build short) inside the staged tile (zero-filled weight columns:
+//      39 -> 40, 18 -> 24; the folded float32 weights as they are). Rows past token 48 read row 48 instead of padding:
+//      their logits are masked, their probabilities 0. Four warps then
+//      run the core in registers: q.k^T, bias, softmax, and p.v with p
+//      from registers as the A operand (m16n8k8's A pairs columns t and
+//      t + 4, the accumulator 2t and 2t + 1, so v's rows are read in that
+//      order instead of shuffling p). Head outputs (f32) go to an O
+//      scratch [B * nwin, 49, round4(C)].
+//   2. Output: one block per (window, image, slice of Wo's columns): O
+//      and the float32 Wo streamed in K-slices of 32, the tile product,
+//      then bo, the real-pixel mask, the residual and z.
+//   Shared memory does not grow with C: attention launch 50,304 B self
+//   and 64,416 cross at dp = 24 (HRFuser-T), 72,000 and 86,112 at dp = 40
+//   (HRFuser-B); output launch 33,056 B. Grids by `one_wave_per`, as
+//   "mma". Registers: three blocks an SM at dp = 16 / 24 (80 a thread,
+//   200-250 bytes spilled; 2-3 % faster at HRFuser-T's widths than two
+//   blocks at 128), two at dp = 40 / 64 (128, 8-36 bytes spilled).
+//   One launch at narrow C: where C <= 72 and dp <= 24 (HRFuser-T's
+//   heads), the grid gives a block every head of its window and the head
+//   outputs' [49][round8(C) + 4] floats (5.5 KB at C = 18, 14.9 KB at 72)
+//   cost no block an SM, the attention launch keeps the head outputs in
+//   shared memory and makes the Wo product and the output itself, as
+//   launch 2 would: no second launch, no O scratch (96x160x18 self 0.207
+//   -> 0.189 ms; cross at 24x78x72, where the fused block would cost a
+//   block an SM, took 0.55 ms fused against 0.44 in two launches). The
+//   LN pass rewrites every float of a token slice, so the slice's tail
+//   past C is not copied. Copies 16 bytes wide where rows are aligned,
+//   else 4 (8-byte copies cost this launch registers; launch 2 and kernel
+//   B take them).
+//   Measured (NVIDIA H100 80GB HBM3, 700 W, B = 8, ms, share of the
+//   split-TF32 bound (3 x FLOPs at 495 TFLOP/s, or bytes at 3.35 TB/s) /
+//   of the CUDA-core bound (FLOPs at 67 TFLOP/s); the CUDA-core loops'
+//   time in brackets; `chip_profile.py --kernels --dtype f32`, in turns):
+//   self 96x160x18 0.196, 2.7 / 5.7 % (0.189); 48x80x36 0.129 (0.141);
+//   24x40x72 0.097-0.115 (0.163); 12x20x144 0.082-0.121 (0.395);
+//   96x160x78 0.870, 5.5 / 13.5 % (1.725); 48x80x156 0.675, 6.2 / 15.3 %
+//   (2.677); 24x40x312 0.755, 5.2 / 12.8 % (3.347); 12x20x624 0.718, 5.3
+//   / 12.9 % (6.646). Two cross launches 2.0-5.0 / 4.3-12.4 %: behind the
+//   loops at C = 18 and 36 (96x160x18 0.520 against 0.444, 48x80x36
+//   0.332 against 0.303), ahead from C = 72 (24x78x72 0.445 against
+//   0.575).
+//   1.1-4.1x the "mma" plan's time at the same width. At C = 18-36 (one
+//   or two slices of 32, one or two heads a block) a block's fixed work
+//   outweighs its products. Knock-outs (`chip_profile.py --kernels
+//   --unchecked`, copies of the tree with a part skipped, same card):
+//   the projection's loads, splits and `mma` are 1-7 % of a self call,
+//   the core 4-12 %, the token and weight copies 13-16 % at C = 18 and
+//   25-30 % at C >= 78; the rest is the streamed skeleton (the LN pass
+//   over each slice, three barriers a slice, the statistics), which the
+//   tensor cores wait on.
+//
+// "scalar" (bf16 where "mma" has no plan: a head dim above 64 or a staged
+// window past 227 KB; no preset has such a width): the CUDA-core loops
+// that came before the tensor-core plans, built for bf16 only. Shared
 // memory, 4-byte words, nx = 2 in cross mode, else 1:
 //   pix, real [2][49]; stats [nx*49][2]; X [nx*49][CK] staged tokens;
 //   QKV [49][S] (S odd); P [49][49]; O [49][C].
-// "resident" (whenever it fits 227 KB, every HRFuser-T width and C = 78
-// and 156): CK = C, all heads projected in one pass, O reuses X.
+// "resident" (whenever it fits 227 KB): CK = C, all heads projected in
+// one pass, O reuses X.
 // "streamed": heads one at a time, each projected over channel chunks of
-// CK re-staged from L2 (C = 624 cross: 4 chunks of 156, 217,168 B). A
-// shape with no plan (C above about 1,000) is refused with its byte count
-// (kErrNoPlan), never run another way.
+// CK re-staged from L2. A shape with no plan (C above about 1,000) is
+// refused with its byte count (kErrNoPlan), never run another way.
 //
 // What bounds it on the H100 (NVIDIA H100 80GB HBM3, 700 W), "mma", bf16,
 // B = 8, FLOPs of the model (T C (8C + 196) for T window tokens) over the
@@ -103,7 +172,8 @@
 // (staging and LN of the window, the core on four of eight warps, the
 // heads of a group in turn; at C = 624 one block an SM), was not
 // separated further.
-// "scalar": f32 FMAs on CUDA cores with few blocks in flight.
+// "scalar": f32 FMAs on CUDA cores with few blocks in flight (12x20x624
+// self 6.71 ms when its float32 build served float32, before "tf32x3").
 #include "common.cuh"
 
 namespace hrf {
@@ -140,6 +210,11 @@ struct AttnArgs {
   const bf16* wop;    // [round64(C)][KP] packed Wo^T
   bf16* obuf;         // [B * nwin, 49, round8(C)] head outputs
   int group;          // heads per block
+  // "tf32x3" plan
+  float* obuf32;      // [B * nwin, 49, round4(C)] head outputs
+  int vec_x, vec_w;   // copy widths (`copy_bytes`) of token rows and of
+  int vec_o;          // Wqkv's head columns, and of Wo's rows
+  int fuse;           // Wo in the attention launch (one launch, no obuf32)
 };
 
 // Token t of window `win` of image b: its row in the stored frame (-1:
@@ -682,29 +757,547 @@ static int launch_mma(AttnArgs a, int B, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// "tf32x3" plan: float32 on tensor cores (split TF32), two launches
+// ---------------------------------------------------------------------------
+
+constexpr int kSlice32 = 32;               // K-slice of the streamed products
+constexpr int kSX32 = stride_a(kSlice32);  // row stride of a token slice
+constexpr int kSO32 = stride_b(kOutSlice);  // row stride of a Wo slice
+
+// The head dim padded to the next width the attention launch is built
+// for: 16, 24, 40 or 64 (HRFuser-T's 18 and HRFuser-B's 39 waste 6 and 1
+// columns); wider heads have no plan here.
+static int head_pad32(int C, int nh) {
+  const int d = C / nh;
+  return d <= 16 ? 16 : d <= 24 ? 24 : d <= 40 ? 40 : d <= 64 ? 64 : d;
+}
+
+// Widest C whose Wo product runs in the attention launch when a block
+// holds every head of its window: the head outputs stay in shared memory
+// and the whole Wo [C][64] column tile fits the two stages. Built into
+// the launches of padded head dims up to kFuseMaxDp only (HRFuser-T's):
+// in the wider ones its code alone cost 4-5 % at C >= 78 (more spills).
+constexpr int kFuseMaxC = 72, kFuseMaxDp = 24;
+
+// Row stride of the head outputs held for that product ([49][round8(C)]).
+__host__ __device__ constexpr int fused_stride(int C) {
+  return stride_a(round_up(C, 8));
+}
+
+// pix, real [64] ints; LN statistics [2 * 49][2]; q | k | v [3][49][dp +
+// 4]; two stages of {token slices [nx][49][kSX32], Wqkv slice [32][3dp
+// padded]}; `fuse`: the head outputs [49][fused_stride(C)].
+static size_t attn_tf32_smem(int C, int nh, int cross, bool fuse) {
+  const size_t dp = head_pad32(C, nh), nx = cross ? 2 : 1;
+  return sizeof(float) *
+         (2 * kRows + 4 * kTok + 3 * kTok * (dp + 4) +
+          2 * (nx * kTok * kSX32 + (size_t)kSlice32 * stride_b(3 * (int)dp)) +
+          (fuse ? (size_t)kTok * fused_stride(C) : 0));
+}
+
+// The most the attention launch may take: with the head outputs where C
+// allows the fused Wo product.
+static size_t attn_tf32_smem(int C, int nh, int cross) {
+  return attn_tf32_smem(
+      C, nh, cross, C <= kFuseMaxC && head_pad32(C, nh) <= kFuseMaxDp);
+}
+
+static size_t out_tf32_smem() {
+  return sizeof(float) *
+         (2 * kRows + 2 * ((size_t)kTok * kSX32 + kSlice32 * kSO32));
+}
+
+static bool attn_tf32_fits(int C, int nh, int cross) {
+  return head_pad32(C, nh) <= kMaxHeadPad &&
+         attn_tf32_smem(C, nh, cross) <= kSmemMax;
+}
+
+// out = [res] [+ z] + real . (O . Wo + bo) for one warp's m16 x n32 tile
+// of the Wo product (rows 16 wm.., columns n0..), from its accumulators.
+__device__ __forceinline__ void store_out_tf32(const AttnArgs& a,
+                                               const float (&acc)[1][4][4],
+                                               const int* pix,
+                                               const int* real, int n0,
+                                               int wm, int lane) {
+  const float* res = static_cast<const float*>(a.res);
+  const float* z = static_cast<const float*>(a.zadd);
+  float* out = static_cast<float*>(a.out);
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int t = 16 * wm + g + 8 * h;
+      if (t >= kTok || pix[t] < 0) continue;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = n0 + 8 * j + 2 * t4 + e;
+        if (n >= a.C) continue;
+        const size_t gi = (size_t)pix[t] * a.C + n;
+        float r = res != nullptr ? res[gi] : 0.f;
+        if (z != nullptr) r += z[gi];
+        out[gi] = r + (real[t] ? acc[0][j][2 * h + e] + a.bo[n] : 0.f);
+      }
+    }
+}
+
+// Launch 1: per head of the block's group, q | k | v [49 x 3dp] by a tile
+// product over K-slices of 32 channels streamed with their Wqkv rows
+// (cp.async, double-buffered), each token slice layer-normed in place
+// from statistics taken once; then the core on four warps: q.k^T, bias,
+// softmax and p.v, from registers. Head outputs (f32) to a.obuf32, or,
+// with a.fuse (the block holds every head, C <= kFuseMaxC), to shared
+// memory, followed by the Wo product and the output as launch 2 makes
+// them.
+// Blocks an SM the registers are held to: three at HRFuser-T's head dims
+// (padded 16 and 24), where a block's serial phases, not its products,
+// take the time, and two above.
+constexpr int attn_tf32_min_blocks(int dp) { return dp <= 24 ? 3 : 2; }
+
+template <int DP>
+__global__ void __launch_bounds__(kThreads, attn_tf32_min_blocks(DP))
+    window_attention_tf32_kernel(const AttnArgs a) {
+  constexpr int SD = DP + 4;                // q | k | v row stride
+  constexpr int SN = stride_b(3 * DP);      // Wqkv slice row stride
+  constexpr int NJ = 3 * DP / 8;            // q | k | v n8 tiles
+  constexpr int NTW = (NJ + 1) / 2;         // ... of one warp
+  extern __shared__ __align__(16) float smf[];
+  const int C = a.C, d = C / a.nh, nx = a.cross ? 2 : 1;
+  int* pix = reinterpret_cast<int*>(smf);  // [64]
+  int* real = pix + kRows;                 // [64]
+  float* stats = smf + 2 * kRows;          // [nx * 49][2]
+  float* qkv = stats + 4 * kTok;           // [3][49][SD]
+  float* stages = qkv + 3 * kTok * SD;
+  const int xsz = nx * kTok * kSX32, ssz = xsz + kSlice32 * SN;
+  float* osm = stages + 2 * ssz;  // a.fuse: head outputs [49][so]
+  const int cw = round_up(C, 8), so = fused_stride(C);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int b = blockIdx.x / a.nwin, win = blockIdx.x % a.nwin;
+  const int h0 = blockIdx.y * a.group, nhb = min(a.group, a.nh - h0);
+  const int nks = (C + kSlice32 - 1) / kSlice32, total = nhb * nks;
+  const float* qsrc = static_cast<const float*>(a.qsrc);
+  const float* kvsrc = static_cast<const float*>(a.kvsrc);
+  if (tid < kRows) {
+    if (tid < kTok) {
+      map_token(a, b, win, tid, pix, real);
+    } else {
+      pix[tid] = -1;
+      real[tid] = 0;
+    }
+  }
+  if constexpr (DP <= kFuseMaxDp)
+    if (a.fuse)  // the K padding of the Wo product, C .. round8(C)
+      for (int e = tid; e < kTok * (cw - C); e += kThreads)
+        osm[e / (cw - C) * so + C + e % (cw - C)] = 0.f;
+  __syncthreads();
+
+  // slice i: channels (i % nks) * 32 .. of the tokens and of head
+  // h0 + i / nks's q | k | v columns of Wqkv (zero past d and past C)
+  auto issue = [&](int i) {
+    if (i < total) {
+      float* xs = stages + (i & 1) * ssz;
+      float* ws = xs + xsz;
+      const int hh = h0 + i / nks, c0 = (i % nks) * kSlice32;
+      async_rows<false>([&](int r) { return xs + r * kSX32; },
+                 [&](int r) -> const float* {
+                   const int tok = r % kTok;
+                   if (pix[tok] < 0) return nullptr;
+                   return (r >= kTok ? kvsrc : qsrc) + (size_t)pix[tok] * C +
+                          c0;
+                 },
+                 nx * kTok, kSlice32, C - c0, a.vec_x, qsrc, tid, kThreads,
+                 false);  // the LN pass writes every float of the slice
+      async_rows<false>([&](int r) { return ws + (r % kSlice32) * SN +
+                                     (r / kSlice32) * DP; },
+                 [&](int r) -> const float* {
+                   const int k = c0 + r % kSlice32;
+                   if (k >= C) return nullptr;
+                   return a.wqkv + (size_t)k * 3 * C + (r / kSlice32) * C +
+                          hh * d;
+                 },
+                 3 * kSlice32, DP, d, a.vec_w, a.wqkv, tid, kThreads);
+    }
+    cp_async_commit();
+  };
+  issue(0);
+  // LN statistics of every staged token, a warp a token, while slice 0
+  // loads (ring tokens and windows mode: none)
+  for (int t = warp; t < nx * kTok; t += kThreads / 32) {
+    const int tok = t % kTok;
+    const float* ln = t >= kTok ? a.lnkv : a.lnq;
+    float mean = 0.f, rstd = 0.f;
+    if (ln != nullptr && real[tok])
+      warp_ln_stats((t >= kTok ? kvsrc : qsrc) + (size_t)pix[tok] * C, C,
+                    lane, mean, rstd);
+    if (lane == 0) {
+      stats[2 * t] = mean;
+      stats[2 * t + 1] = rstd;
+    }
+  }
+
+  // projection: warp (wm, wh) computes rows 16 wm.., n8 tiles wh * NTW..
+  const int wm = warp & 3, wh = warp >> 2;
+  const int ra = min(16 * wm + g, kTok - 1), rb = min(16 * wm + g + 8,
+                                                      kTok - 1);
+  int i = 0;
+  for (int hh = h0; hh < h0 + nhb; ++hh) {
+    float acc[NTW][4];
+#pragma unroll
+    for (int j = 0; j < NTW; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    for (int r = 0; r < nks; ++r, ++i) {
+      issue(i + 1);
+      cp_async_wait<1>();
+      __syncthreads();  // slice i landed, statistics written
+      float* xs = stages + (i & 1) * ssz;
+      const float* ws = xs + xsz;
+      const int c0 = r * kSlice32;
+      // LN in place; ring tokens and channels past C become zero
+      for (int e = tid; e < nx * kTok * kSlice32; e += kThreads) {
+        const int t = e / kSlice32, c = e % kSlice32, col = c0 + c;
+        float* p = xs + t * kSX32 + c;
+        const float* ln = t >= kTok ? a.lnkv : a.lnq;
+        float v = 0.f;
+        if (real[t % kTok] && col < C) {
+          v = *p;
+          if (ln != nullptr)
+            v = (v - stats[2 * t]) * stats[2 * t + 1] * ln[col] + ln[C + col];
+        }
+        *p = v;
+      }
+      __syncthreads();
+      const float* xq = xs;
+      const float* xkv = xs + (a.cross ? kTok * kSX32 : 0);
+#pragma unroll
+      for (int ks = 0; ks < kSlice32 / 8; ++ks) {
+        const int k = 8 * ks + t4;
+        unsigned qh[4], ql[4], kh[4], kl[4];
+        frag_a_split(qh, ql, xq + ra * kSX32, xq + rb * kSX32, k);
+        if (a.cross) {
+          frag_a_split(kh, kl, xkv + ra * kSX32, xkv + rb * kSX32, k);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            kh[e] = qh[e];
+            kl[e] = ql[e];
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < NTW; ++j) {
+          const int jj = wh * NTW + j;  // n8 tile of q | k | v
+          if (jj >= NJ) break;
+          unsigned bh[2], bl[2], ah[4], al[4];
+          frag_b_split(bh, bl, ws + k * SN + 8 * jj + g, SN);
+          const bool q = 8 * jj < DP;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            ah[e] = q ? qh[e] : kh[e];
+            al[e] = q ? ql[e] : kl[e];
+          }
+          mma_split(acc[j], ah, al, bh, bl);
+        }
+      }
+      __syncthreads();  // stage i & 1 free
+    }
+    // + bias -> q | k | v in shared memory (rows of real tokens' windows)
+#pragma unroll
+    for (int j = 0; j < NTW; ++j) {
+      const int jj = wh * NTW + j;
+      if (jj >= NJ) break;
+      const int col = 8 * jj + 2 * t4, part = col / DP, e0 = col % DP;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = 16 * wm + g + 8 * h;
+        if (row >= kTok) continue;
+        float2 o;
+        o.x = acc[j][2 * h] +
+              (e0 < d ? a.bqkv[part * C + hh * d + e0] : 0.f);
+        o.y = acc[j][2 * h + 1] +
+              (e0 + 1 < d ? a.bqkv[part * C + hh * d + e0 + 1] : 0.f);
+        *reinterpret_cast<float2*>(qkv + (part * kTok + row) * SD + e0) = o;
+      }
+    }
+    __syncthreads();
+
+    // core: warp w < 4 owns query rows 16 w ..; rows and keys past 48 read
+    // row 48 (their logits are masked, their probabilities 0)
+    if (warp < 4) {
+      const float* q = qkv;
+      const float* k = qkv + kTok * SD;
+      const float* v = qkv + 2 * kTok * SD;
+      const int r0 = min(16 * warp + g, kTok - 1);
+      const int r1 = min(16 * warp + g + 8, kTok - 1);
+      float s[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < DP / 8; ++ks) {
+        const int kk = 8 * ks + t4;
+        unsigned qh[4], ql[4];
+        frag_a_split(qh, ql, q + r0 * SD, q + r1 * SD, kk);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float* kr = k + min(8 * j + g, kTok - 1) * SD + kk;
+          unsigned bh[2], bl[2];
+          split_tf32(kr[0], bh[0], bl[0]);
+          split_tf32(kr[4], bh[1], bl[1]);
+          mma_split(s[j], qh, ql, bh, bl);
+        }
+      }
+      const float* bh = a.bias + hh * kTok * kTok;
+      float inv[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = 16 * warp + g + 8 * h;
+        float m = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = 8 * j + 2 * t4 + e;
+            float x = s[j][2 * h + e];
+            if (c >= kTok)
+              x = -INFINITY;  // padding keys
+            else if (r < kTok)
+              x += __ldg(bh + r * kTok + c);
+            s[j][2 * h + e] = x;
+            m = fmaxf(m, x);
+          }
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float x = expf(s[j][2 * h + e] - m);
+            s[j][2 * h + e] = x;
+            sum += x;
+          }
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        inv[h] = 1.0f / sum;
+      }
+      // p . v with p from registers: in key block kb the A operand's
+      // column t is key 8 kb + 2t and column t + 4 key 8 kb + 2t + 1 (the
+      // accumulator's own pair), so v's rows are read in that order
+      float o[DP / 8][4];
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+#pragma unroll
+      for (int kb = 0; kb < 8; ++kb) {
+        unsigned ph[4], pl[4];
+        split_tf32(s[kb][0] * inv[0], ph[0], pl[0]);
+        split_tf32(s[kb][2] * inv[1], ph[1], pl[1]);
+        split_tf32(s[kb][1] * inv[0], ph[2], pl[2]);
+        split_tf32(s[kb][3] * inv[1], ph[3], pl[3]);
+        const float* v0 = v + min(8 * kb + 2 * t4, kTok - 1) * SD + g;
+        const float* v1 = v + min(8 * kb + 2 * t4 + 1, kTok - 1) * SD + g;
+#pragma unroll
+        for (int j = 0; j < DP / 8; ++j) {
+          unsigned vh[2], vl[2];
+          split_tf32(v0[8 * j], vh[0], vl[0]);
+          split_tf32(v1[8 * j], vh[1], vl[1]);
+          mma_split(o[j], ph, pl, vh, vl);
+        }
+      }
+      const int cs = round_up(C, 4);
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = 16 * warp + g + 8 * h;
+          if (r >= kTok) continue;
+          float* dst = a.obuf32 + ((size_t)blockIdx.x * kTok + r) * cs;
+          if constexpr (DP <= kFuseMaxDp)
+            if (a.fuse) dst = osm + r * so;
+          dst += hh * d;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = 8 * j + 2 * t4 + e;
+            if (c < d) dst[c] = o[j][2 * h + e];
+          }
+        }
+    }
+    // the next head's q | k | v are written after its K loop, whose
+    // barriers hold every warp until this core is done
+  }
+  if constexpr (DP <= kFuseMaxDp) {
+    if (!a.fuse) return;
+    // Wo product on every warp (m16 tile wm, n32 column group wh) per
+    // column tile of 64, the tile's Wo rows [round8(C)][kSO32] over both
+    // stages (free since the last K loop's barrier)
+    for (int n0 = 0; n0 < C; n0 += kOutSlice) {
+      async_rows<false>([&](int r) { return stages + r * kSO32; },
+                 [&](int r) -> const float* {
+                   return r < C ? a.wo + (size_t)r * C + n0 : nullptr;
+                 },
+                 cw, kOutSlice, C - n0, a.vec_o, a.wo, tid, kThreads,
+                 false);  // columns past C are never stored
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();  // Wo tile landed, every head's output written
+      float acc[1][4][4];
+      zero_acc(acc);
+      warp_mma_f32(acc, osm + 16 * wm * so, so, 1, 1, kTok - 16 * wm,
+                   stages + 32 * wh, kSO32, cw / 8, lane);
+      store_out_tf32(a, acc, pix, real, n0 + 32 * wh, wm, lane);
+      __syncthreads();  // stages free for the next tile
+    }
+  }
+}
+
+// Launch 2: out = [res] [+ z] + real . (O . Wo + bo) over the block's
+// slice of Wo's columns, O and Wo streamed in K-slices of 32.
+__global__ void __launch_bounds__(kThreads) window_out_tf32_kernel(
+    const AttnArgs a, int per_split) {
+  extern __shared__ __align__(16) float smf[];
+  const int C = a.C, cs = round_up(C, 4);
+  int* pix = reinterpret_cast<int*>(smf);
+  int* real = pix + kRows;
+  float* stages = smf + 2 * kRows;  // 2 x {O [49][kSX32], Wo [32][kSO32]}
+  const int osz = kTok * kSX32, ssz = osz + kSlice32 * kSO32;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int b = blockIdx.x / a.nwin, win = blockIdx.x % a.nwin;
+  const int nt = round_up(C, kOutSlice) / kOutSlice;
+  const int q0 = blockIdx.y * per_split, nq = min(per_split, nt - q0);
+  const int nks = (C + kSlice32 - 1) / kSlice32, total = nq * nks;
+  const float* orow = a.obuf32 + (size_t)blockIdx.x * kTok * cs;
+  auto issue = [&](int i) {
+    if (i < total) {
+      float* os = stages + (i & 1) * ssz;
+      float* ws = os + osz;
+      const int n0 = (q0 + i / nks) * kOutSlice, c0 = (i % nks) * kSlice32;
+      async_rows([&](int r) { return os + r * kSX32; },
+                 [&](int r) { return orow + (size_t)r * cs + c0; }, kTok,
+                 kSlice32, C - c0, 16, orow, tid, kThreads);
+      async_rows([&](int r) { return ws + r * kSO32; },
+                 [&](int r) -> const float* {
+                   if (c0 + r >= C) return nullptr;
+                   return a.wo + (size_t)(c0 + r) * C + n0;
+                 },
+                 kSlice32, kOutSlice, C - n0, a.vec_o, a.wo, tid, kThreads,
+                 false);  // columns past C are never stored
+    }
+    cp_async_commit();
+  };
+  issue(0);
+  if (tid < kTok) map_token(a, b, win, tid, pix, real);
+
+  const int wm = warp & 3, wn = warp >> 2;  // m16 tile, n32 column group
+  int i = 0;
+  for (int q = 0; q < nq; ++q) {
+    float acc[1][4][4];
+    zero_acc(acc);
+    for (int r = 0; r < nks; ++r, ++i) {
+      issue(i + 1);
+      cp_async_wait<1>();
+      __syncthreads();  // slice i landed; pix, real written
+      const float* os = stages + (i & 1) * ssz;
+      warp_mma_f32(acc, os + 16 * wm * kSX32, kSX32, 1, 1, kTok - 16 * wm,
+                   os + osz + 32 * wn, kSO32, kSlice32 / 8, lane);
+      __syncthreads();
+    }
+    store_out_tf32(a, acc, pix, real, (q0 + q) * kOutSlice + 32 * wn, wm,
+                   lane);
+  }
+}
+
+// Launch 1. Its heads a block are sized on the unfused shared memory;
+// where that gives a block every head, C <= kFuseMaxC and the head
+// outputs' shared memory costs no block an SM, it also makes the output
+// (a.fuse) and launch 2 is skipped. (Cross mode at C = 72 keeps two
+// launches: one fused block fewer an SM took 0.55 ms for two cross calls
+// at 24x78x72 against 0.44 unfused.)
+template <int DP>
+static int launch_attention_tf32(AttnArgs& a, int B, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      window_attention_tf32_kernel<DP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)attn_tf32_smem(a.C, a.nh, a.cross));
+  if (err != cudaSuccess) return (int)err;
+  const void* kernel =
+      reinterpret_cast<const void*>(window_attention_tf32_kernel<DP>);
+  const int windows = B * a.nwin;
+  const int wave =
+      wave_blocks(kernel, kThreads, attn_tf32_smem(a.C, a.nh, a.cross, false));
+  a.group = one_wave_per(windows, a.nh, 1, [wave](int) { return wave; });
+  a.fuse = DP <= kFuseMaxDp && a.C <= kFuseMaxC && a.group == a.nh &&
+           wave_blocks(kernel, kThreads,
+                       attn_tf32_smem(a.C, a.nh, a.cross, true)) == wave;
+  const size_t bytes = attn_tf32_smem(a.C, a.nh, a.cross, a.fuse);
+  dim3 grid(windows, (a.nh + a.group - 1) / a.group);
+  window_attention_tf32_kernel<DP><<<grid, kThreads, bytes, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+static int launch_tf32(AttnArgs a, int B, cudaStream_t stream) {
+  const int d = a.C / a.nh;
+  a.vec_x = std::min(copy_bytes(a.qsrc, a.C), copy_bytes(a.kvsrc, a.C));
+  a.vec_w = std::min(copy_bytes(a.wqkv, a.C), copy_bytes(a.wqkv, d));
+  a.vec_o = copy_bytes(a.wo, a.C);
+  int err;
+  switch (head_pad32(a.C, a.nh)) {
+    case 16: err = launch_attention_tf32<16>(a, B, stream); break;
+    case 24: err = launch_attention_tf32<24>(a, B, stream); break;
+    case 40: err = launch_attention_tf32<40>(a, B, stream); break;
+    case 64: err = launch_attention_tf32<64>(a, B, stream); break;
+    default: return kErrNoPlan;
+  }
+  if (err != 0 || a.fuse) return err;
+  const size_t bytes = out_tf32_smem();
+  cudaError_t e = cudaFuncSetAttribute(
+      window_out_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  const int windows = B * a.nwin, nt = round_up(a.C, kOutSlice) / kOutSlice;
+  const int wave = wave_blocks(
+      reinterpret_cast<const void*>(window_out_tf32_kernel), kThreads, bytes);
+  const int per = one_wave_per(windows, nt, 1, [wave](int) { return wave; });
+  dim3 grid(windows, (nt + per - 1) / per);
+  window_out_tf32_kernel<<<grid, kThreads, bytes, stream>>>(a, per);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace hrf
 
-// The plan for (C, heads, cross, dtype). *mma = 1: the tensor-core plan
-// (*chunk = C, *resident = 0), returning the attention launch's shared
-// memory. Else the scalar plan's: *chunk = 0 when none fits.
+// The plan for (C, heads, cross, dtype). *mma = 1: the bf16 tensor-core
+// plan, 2: the float32 one (*chunk = C, *resident = 0 for both),
+// returning the attention launch's shared memory. Else, in bf16, the
+// scalar plan's (*chunk = 0 when none fits); in float32 *chunk = 0 and
+// the bytes "tf32x3" would need at this head dim.
 extern "C" long long hrf_window_attention_plan(int C, int nh, int cross,
                                                int bf16, int* chunk,
                                                int* resident, int* mma) {
-  if (bf16 && hrf::attn_mma_fits(C, nh, cross)) {
+  *resident = 0;
+  if (bf16 ? hrf::attn_mma_fits(C, nh, cross)
+           : hrf::attn_tf32_fits(C, nh, cross)) {
     *chunk = C;
-    *resident = 0;
-    *mma = 1;
-    return (long long)hrf::attn_mma_smem(C, nh, cross);
+    *mma = bf16 ? 1 : 2;
+    return (long long)(bf16 ? hrf::attn_mma_smem(C, nh, cross)
+                            : hrf::attn_tf32_smem(C, nh, cross));
+  }
+  *mma = 0;
+  if (!bf16) {  // float32 has no other plan
+    *chunk = 0;
+    return (long long)hrf::attn_tf32_smem(C, nh, cross);
   }
   size_t bytes;
   *chunk = hrf::attn_plan(C, nh, cross, resident, &bytes);
-  *mma = 0;
   return (long long)bytes;
 }
 
 // wqkvp [nh][3 round16(d)][round64(C)], wop [round64(C)][round64(C)]:
-// bf16 weights packed for the tensor-core plan; obuf [B * nwin, 49,
-// round8(C)] bf16 scratch. Used for bf16 activations only.
+// bf16 weights packed for the bf16 tensor-core plan (bf16 activations
+// only); obuf its head-output scratch, [B * nwin, 49, round8(C)] bf16 for
+// that plan and [B * nwin, 49, round4(C)] float32 for the float32 one.
 extern "C" int hrf_window_attention(
     const void* res, const void* qsrc, const void* kvsrc, const void* zadd,
     void* out, const float* lnq, const float* lnkv, const float* wqkv,
@@ -745,12 +1338,18 @@ extern "C" int hrf_window_attention(
   a.wop = static_cast<const hrf::bf16*>(wop);
   a.obuf = static_cast<hrf::bf16*>(obuf);
   a.group = a.nh;
+  a.obuf32 = static_cast<float*>(obuf);
+  a.fuse = 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16 && hrf::attn_mma_fits(C, nh, cross)) {
+  if (!bf16) {
+    if (!hrf::attn_tf32_fits(C, nh, cross) || obuf == nullptr)
+      return hrf::kErrNoPlan;
+    return hrf::launch_tf32(a, B, s);
+  }
+  if (hrf::attn_mma_fits(C, nh, cross)) {
     if (wqkvp == nullptr || wop == nullptr || obuf == nullptr)
       return hrf::kErrNoPlan;
     return hrf::launch_mma(a, B, s);
   }
-  if (bf16) return hrf::launch<__nv_bfloat16>(a, B, s);
-  return hrf::launch<float>(a, B, s);
+  return hrf::launch<__nv_bfloat16>(a, B, s);
 }

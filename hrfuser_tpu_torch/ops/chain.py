@@ -35,7 +35,9 @@ attention scale d^-0.5 folded into Wq / bq (`pallas_chain.py:740-753,
 are one [C, 3C] matrix in both modes. Folding also packs the projection
 weights once as bf16 in the layout the kernels' tensor-core plan reads
 (`pack_attention`, `pack_cross_ffn`: keys ending in `_p`), used for
-bfloat16 activations.
+bfloat16 activations. float32 activations take the kernels' 'tf32x3'
+plans, which read the float32 folded weights and multiply on tensor cores
+in split TF32 (`split_tf32`, `split_tf32_matmul`: their Python mirror).
 """
 
 from __future__ import annotations
@@ -174,6 +176,29 @@ def fold_fusion_block(blk) -> Dict[str, object]:
 # plain twins (float32 math, output in the activations' dtype)
 # ---------------------------------------------------------------------------
 
+def split_tf32(x: Tensor) -> Tuple[Tensor, Tensor]:
+    """float32 `x` as hi + lo, each a TF32 value (10 mantissa bits), as
+    the float32 ('tf32x3') plans of kernels A and B split every operand
+    (`csrc/common.cuh:split_tf32`): hi = tf32(x), lo = tf32(x - hi), each
+    rounded to nearest with ties away from zero as `cvt.rna.tf32.f32`
+    does (0x1000 added to the bit pattern, then the low 13 bits cleared).
+    hi + lo is within 2^-22 of x, relative, for normal x."""
+    def rna(t: Tensor) -> Tensor:
+        bits = t.float().contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+def split_tf32_matmul(a: Tensor, b: Tensor) -> Tensor:
+    """`a @ b` as the 'tf32x3' plans form it on tensor cores:
+    lo_a.hi_b + hi_a.lo_b + hi_a.hi_b, three products of TF32 values
+    (each exact in float32) summed in float32. lo_a.lo_b is dropped."""
+    (ah, al), (bh, bl) = split_tf32(a), split_tf32(b)
+    return al @ bh + ah @ bl + ah @ bh
+
+
 def _crop(t: Optional[Tensor], pads: Tuple[int, int], hw: Tuple[int, int]
           ) -> Optional[Tensor]:
     (pt, pl), (h, w) = pads, hw
@@ -184,12 +209,14 @@ def window_attention_plain(res: Optional[Tensor], q_src: Tensor, p: Folded,
                            num_heads: int, kv_src: Optional[Tensor] = None,
                            z: Optional[Tensor] = None,
                            padded_hw: Optional[Tuple[int, int]] = None,
-                           ln: bool = True) -> Tensor:
+                           ln: bool = True,
+                           matmul: Callable = torch.matmul) -> Tensor:
     """`[res] [+ z] + Wo . MHA(q = LN_q(q_src), kv = LN_kv(kv_src))` over
     centre-padded windows; `kv_src=None` is self-attention on q_src. All
     maps NHWC [B, H, W, C]. `padded_hw=(H, W)`: the maps are centre-padded
     slabs of a real H x W map, whose ring tokens get `[res] [+ z]`.
-    `ln=False` skips both LNs (pre-normed windows)."""
+    `ln=False` skips both LNs (pre-normed windows). `matmul` forms every
+    product (`split_tf32_matmul`: as the float32 kernel plan does)."""
     ws = int(round(p['bias'].shape[-1] ** 0.5))
     dtype = q_src.dtype
     if padded_hw is not None:
@@ -199,7 +226,7 @@ def window_attention_plain(res: Optional[Tensor], q_src: Tensor, p: Folded,
         inner = window_attention_plain(
             _crop(res, pads, padded_hw), _crop(q_src, pads, padded_hw), p,
             num_heads, _crop(kv_src, pads, padded_hw),
-            _crop(z, pads, padded_hw), ln=ln)
+            _crop(z, pads, padded_hw), ln=ln, matmul=matmul)
         if z is None:
             out = q_src.new_zeros(q_src.shape) if res is None else res.clone()
         else:
@@ -222,10 +249,12 @@ def window_attention_plain(res: Optional[Tensor], q_src: Tensor, p: Folded,
     def heads(t):
         return t.reshape(nw, n, num_heads, d).transpose(1, 2)
 
-    q, k, v = heads(qw @ wq + bq), heads(kvw @ wk + bk), heads(kvw @ wv + bv)
-    attn = torch.softmax(q @ k.transpose(-1, -2) + p['bias'][None], -1)
-    o = (attn @ v).transpose(1, 2).reshape(nw, n, c)
-    y = window_reverse(o @ p['wo'] + p['bo'], b, h, w, ws)
+    mm = matmul
+    q, k, v = (heads(mm(qw, wq) + bq), heads(mm(kvw, wk) + bk),
+               heads(mm(kvw, wv) + bv))
+    attn = torch.softmax(mm(q, k.transpose(-1, -2)) + p['bias'][None], -1)
+    o = mm(attn, v).transpose(1, 2).reshape(nw, n, c)
+    y = window_reverse(mm(o, p['wo']) + p['bo'], b, h, w, ws)
     if res is None and z is None:
         return y.to(dtype)
     out = res.float() if res is not None else z.float()
@@ -234,13 +263,17 @@ def window_attention_plain(res: Optional[Tensor], q_src: Tensor, p: Folded,
     return (out + y).to(dtype)
 
 
-def cross_ffn_plain(x: Tensor, p: Folded) -> Tensor:
-    """`x + GELU(fc2'(GELU(dw3x3'(GELU(fc1'(LN x))))))`, BNs folded."""
-    h = F.gelu(layer_norm(x, p['ln'][0], p['ln'][1]) @ p['w1'] + p['b1'])
+def cross_ffn_plain(x: Tensor, p: Folded,
+                    matmul: Callable = torch.matmul) -> Tensor:
+    """`x + GELU(fc2'(GELU(dw3x3'(GELU(fc1'(LN x))))))`, BNs folded;
+    `matmul` forms fc1 and fc2 (the depthwise conv stays a sum of
+    float32 products, as in the kernels)."""
+    h = F.gelu(matmul(layer_norm(x, p['ln'][0], p['ln'][1]), p['w1'])
+               + p['b1'])
     ch = h.shape[-1]
     h = F.conv2d(h.permute(0, 3, 1, 2), p['wdw'].reshape(ch, 1, 3, 3),
                  p['bdw'], padding=1, groups=ch).permute(0, 2, 3, 1)
-    h = F.gelu(F.gelu(h) @ p['w2'] + p['b2'])
+    h = F.gelu(matmul(F.gelu(h), p['w2']) + p['b2'])
     return (x.float() + h).to(x.dtype)
 
 
@@ -302,24 +335,35 @@ def _stream(t: Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+# the tensor-core plans by the code the C plan entries return
+_TC_PLANS = {1: 'mma', 2: 'tf32x3'}
+
+
 @functools.lru_cache(maxsize=None)
 def attention_plan(c: int, num_heads: int, cross: bool,
                    dtype: torch.dtype = torch.float32
                    ) -> Tuple[str, int, int]:
     """Kernel A's plan for a width and activation dtype: ('mma',
-    'resident' or 'streamed', channels staged per pass, bytes of shared
-    memory). 'mma' (tensor cores) serves bfloat16 wherever it fits.
-    Raises `ValueError` with the byte count when no plan fits a block."""
+    'tf32x3', 'resident' or 'streamed', channels staged per pass, bytes of
+    the attention launch's shared memory). The tensor-core plans serve
+    bfloat16 ('mma') and float32 ('tf32x3', `split_tf32`) at every head
+    dim up to 64; the CUDA-core plans ('resident', 'streamed') only wider
+    bfloat16 heads. Raises `ValueError` with the byte count when no plan
+    fits a block, and for every float32 head dim above 64."""
     chunk, resident, mma = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     nbytes = cuda_build.lib().hrf_window_attention_plan(
         c, num_heads, int(cross), int(dtype == torch.bfloat16),
         ctypes.byref(chunk), ctypes.byref(resident), ctypes.byref(mma))
     if chunk.value == 0:
+        why = ('' if dtype == torch.bfloat16 else
+               f'; the float32 plan (tf32x3) is built for head dims up to '
+               f'64, not {c // num_heads}')
         raise ValueError(
             f'window attention kernel: C={c} with {num_heads} heads '
             f'({"cross" if cross else "self"} mode) needs {nbytes} B of '
-            f'shared memory per block; an H100 block has {SMEM_MAX} B')
-    kind = ('mma' if mma.value else
+            f'shared memory per block; an H100 block has {SMEM_MAX} B'
+            + why)
+    kind = (_TC_PLANS[mma.value] if mma.value else
             'resident' if resident.value else 'streamed')
     return kind, chunk.value, nbytes
 
@@ -327,10 +371,12 @@ def attention_plan(c: int, num_heads: int, cross: bool,
 @functools.lru_cache(maxsize=None)
 def ffn_plan(c: int, hidden: int, dtype: torch.dtype = torch.float32
              ) -> Tuple[str, int, int, int]:
-    """Kernel B's plan: ('mma' or 'scalar', tile rows, hidden channels per
-    chunk, bytes of its largest launch). 'mma' (tensor cores, two launches
-    through a bf16 scratch of GELU(fc1)) serves bfloat16 wherever it fits.
-    Raises `ValueError` with the byte count when no plan fits a block."""
+    """Kernel B's plan: ('mma', 'tf32x3' or 'scalar', tile rows, hidden
+    channels per chunk, bytes of its largest launch). The tensor-core
+    plans (two launches through a scratch of GELU(fc1)) serve bfloat16
+    ('mma') wherever it fits and float32 ('tf32x3', `split_tf32`) at every
+    width. Raises `ValueError` with the byte count when no plan fits a
+    block."""
     th, kh, mma = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     nbytes = cuda_build.lib().hrf_cross_ffn_plan(
         c, hidden, int(dtype == torch.bfloat16), ctypes.byref(th),
@@ -340,7 +386,8 @@ def ffn_plan(c: int, hidden: int, dtype: torch.dtype = torch.float32
             f'cross_ffn kernel: C={c} with {hidden} hidden channels needs '
             f'{nbytes} B of shared memory per block at its smallest tile; '
             f'the plan allows 204800 B')
-    return ('mma' if mma.value else 'scalar'), th.value, kh.value, nbytes
+    return (_TC_PLANS[mma.value] if mma.value else 'scalar', th.value,
+            kh.value, nbytes)
 
 
 def launch_window_attention(q_src: Tensor, kv_src: Optional[Tensor],
@@ -383,15 +430,19 @@ def launch_window_attention(q_src: Tensor, kv_src: Optional[Tensor],
                   bias=(num_heads, 49, 49))
     if ln:
         shapes.update(lnq=(2, c), lnkv=(2, c))
-    mma = attention_plan(c, num_heads, cross, q_src.dtype)[0] == 'mma'
+    plan = attention_plan(c, num_heads, cross, q_src.dtype)[0]
+    mma = plan == 'mma'
     packed = obuf = None
+    nwin = -(-hs // 7) * -(-ws_ // 7)
     if mma:
         kp, dp = _round_up(c, 64), _round_up(c // num_heads, 16)
         shapes.update(wqkv_p=(num_heads * 3 * dp, kp),
                       wo_p=(_round_up(c, 64), kp))
-        nwin = -(-hs // 7) * -(-ws_ // 7)
         obuf = torch.empty((b * nwin * 49, _round_up(c, 8)),
                            dtype=torch.bfloat16, device=q_src.device)
+    elif plan == 'tf32x3':
+        obuf = torch.empty((b * nwin * 49, _round_up(c, 4)),
+                           dtype=torch.float32, device=q_src.device)
     _check_params(p, shapes, q_src.device)
     if mma:
         packed = (p['wqkv_p'].data_ptr(), p['wo_p'].data_ptr())
@@ -420,13 +471,14 @@ def launch_cross_ffn(x: Tensor, p: Folded) -> Tensor:
     ch = p['w1'].shape[1]
     shapes = dict(ln=(2, c), w1=(c, ch), b1=(ch,), wdw=(ch, 9), bdw=(ch,),
                   w2=(ch, c), b2=(c,))
-    mma = ffn_plan(c, ch, x.dtype)[0] == 'mma'
+    plan = ffn_plan(c, ch, x.dtype)[0]
+    mma = plan == 'mma'
     hbuf = None
+    cp, chp = _round_up(c, 64), _round_up(ch, 64)
     if mma:
-        cp, chp = _round_up(c, 64), _round_up(ch, 64)
         shapes.update(w1_p=(chp, cp), w2_p=(cp, chp))
-        hbuf = torch.empty((b * h * w, chp), dtype=torch.bfloat16,
-                           device=x.device)
+    if plan in _TC_PLANS.values():
+        hbuf = torch.empty((b * h * w, chp), dtype=x.dtype, device=x.device)
     _check_params(p, shapes, x.device)
     out = torch.empty_like(x)
     cuda_build.check(cuda_build.lib().hrf_cross_ffn(

@@ -9,11 +9,15 @@ False (this file imports no JAX, so it also runs where JAX is absent):
     python -m pytest tests/test_torch_cuda.py --noconftest -m cuda
 
 Tolerances: float32 with TF32 off 1e-3; bfloat16 0.05, as the Pallas
-kernel tests use. For float32 both sides compute in float32 and round
-once. For bfloat16 kernels A and B take their tensor-core plan ('mma'),
-which rounds the operands to bf16 where the TPU kernels do (LN output,
-q/k/v, probabilities, head outputs, the GELU'd hidden maps) and
-accumulates in float32; the twins stay float32.
+kernel tests use. For float32 kernels A and B take their tensor-core
+plan 'tf32x3' (split TF32: every product as three TF32 products, to
+float32's accuracy, rounding nothing), held here to 1e-3 with the rest of
+float32 and to 1e-4 by `test_float32_plans_match_twins_at_1e_4` (one-pass
+TF32 would miss that bar); the twins compute in float32. For bfloat16
+kernels A and B take their tensor-core plan ('mma'), which rounds the
+operands to bf16 where the TPU kernels do (LN output, q/k/v,
+probabilities, head outputs, the GELU'd hidden maps) and accumulates in
+float32; the twins stay float32.
 """
 
 from pathlib import Path
@@ -68,9 +72,8 @@ def _close(got, want, dt):
 
 SHAPES = [(13, 17, 8, 2), (7, 7, 18, 1), (96, 160, 18, 1), (12, 20, 144, 8),
           (25, 40, 72, 4), (13, 17, 36, 2),
-          # HRFuser-B widths, head dim 39 (padded to 48 by the 'mma' plans);
-          # float32: kernel A resident up to C = 156, streamed at 312 and
-          # 624, kernel B chunked at 312 and 624
+          # HRFuser-B widths, head dim 39 (padded to 48 by the 'mma' plans,
+          # to 40 by the 'tf32x3' plans)
           (13, 12, 78, 2), (48, 80, 156, 4), (24, 40, 312, 8),
           (12, 20, 624, 16),
           # ragged 4x8 tiles and split fc2 columns at the widest C
@@ -378,13 +381,20 @@ def test_pallas_entry_matches_twin(dev, variant, dt):
 
 
 def test_shapes_without_a_plan_raise_with_their_bytes(dev):
-    with pytest.raises(ValueError, match='B of shared memory'):
-        chain.attention_plan(2496, 64, True)
-    with pytest.raises(ValueError, match='B of shared memory'):
-        chain.ffn_plan(2048, 8192)
-    assert chain.attention_plan(624, 16, True) == ('streamed', 156, 217168)
-    assert chain.attention_plan(144, 8, True)[0] == 'resident'
-    assert chain.ffn_plan(624, 2496)[:3] == ('scalar', 2, 278)
+    # float32 has only the 'tf32x3' plan: head dims above 64 raise with the
+    # bytes that plan would need, on the host and before any launch
+    for c, heads in ((2496, 16), (512, 4), (256, 2)):
+        with pytest.raises(ValueError,
+                           match='B of shared memory.*head dims up to 64'):
+            chain.attention_plan(c, heads, True)
+    blk = _randomized(HRFormerBlock(256, 2), 256).to(dev)
+    x = torch.randn((1, 7, 7, 256), device=dev)
+    with pytest.raises(ValueError, match='head dims up to 64, not 128'):
+        chain.window_self_attention(x, blk.folded()['attn'], 2)
+    assert chain.attention_plan(2496, 64, True)[0] == 'tf32x3'
+    # kernel B's float32 plan streams C: its shared memory does not grow
+    assert chain.ffn_plan(2048, 8192) == chain.ffn_plan(624, 2496)
+    assert chain.ffn_plan(2048, 8192)[:3] == ('tf32x3', 4, 32)
     # bf16 widths beyond the 'mma' plan fall to the scalar plan's limits
     with pytest.raises(ValueError, match='B of shared memory'):
         chain.attention_plan(2496, 64, True, torch.bfloat16)
@@ -396,18 +406,63 @@ def test_shapes_without_a_plan_raise_with_their_bytes(dev):
                                      (78, 2), (156, 4), (312, 8),
                                      (624, 16)])
 def test_plans_by_dtype(dev, c, heads):
-    """bfloat16 takes the tensor-core plans at every HRFuser-T and
-    HRFuser-B width; float32 keeps the CUDA-core plans."""
+    """Both dtypes take the tensor-core plans at every HRFuser-T and
+    HRFuser-B width: bfloat16 'mma', float32 'tf32x3' (split TF32)."""
+    for dt, plan in ((torch.bfloat16, 'mma'), (torch.float32, 'tf32x3')):
+        for cross in (False, True):
+            kind, _, nbytes = chain.attention_plan(c, heads, cross, dt)
+            assert kind == plan and nbytes <= chain.SMEM_MAX
+        kind, th, kh, nbytes = chain.ffn_plan(c, 4 * c, dt)
+        assert (kind, th, kh) == (plan, 8 if c <= 192 else 4,
+                                  64 if plan == 'mma' else 32)
+        assert nbytes <= chain.SMEM_MAX
+
+
+F32_BAR = 1e-4        # the 'tf32x3' plans against the float32 twins
+
+
+@pytest.mark.parametrize('h,w,c,heads', [
+    (96, 160, 18, 1), (12, 20, 144, 8),             # HRFuser-T 18 and 144
+    # C <= 72 with a block's every head: the Wo product in the attention
+    # launch (two heads; four heads and two column tiles of Wo)
+    (48, 156, 36, 2), (96, 160, 72, 4),
+    (13, 12, 78, 2), (48, 80, 156, 4), (24, 40, 312, 8),
+    (12, 20, 624, 16)])                              # HRFuser-B, d = 39
+def test_float32_plans_match_twins_at_1e_4(dev, h, w, c, heads):
+    """Kernel A self, cross (two modalities) and windows mode and kernel
+    B on the float32 'tf32x3' plan, within 1e-4 of the float32 twins."""
+    g = torch.Generator().manual_seed(c)
+    blk = _randomized(HRFormerBlock(c, heads), c).to(dev)
+    fus = _randomized(HRFuserFusionBlock(c, heads, 2), c + 2).to(dev)
+    p, pf = blk.folded(), fus.folded()
+    x, z0, z1 = (torch.randn((2, h, w, c), generator=g).to(dev)
+                 for _ in range(3))
     for cross in (False, True):
-        kind, _, nbytes = chain.attention_plan(c, heads, cross,
-                                               torch.bfloat16)
-        assert kind == 'mma' and nbytes <= chain.SMEM_MAX
-        assert chain.attention_plan(c, heads, cross)[0] in ('resident',
-                                                            'streamed')
-    kind, th, kh, nbytes = chain.ffn_plan(c, 4 * c, torch.bfloat16)
-    assert (kind, th, kh) == ('mma', 8 if c <= 192 else 4, 64)
-    assert nbytes <= chain.SMEM_MAX
-    assert chain.ffn_plan(c, 4 * c)[0] == 'scalar'
+        assert chain.attention_plan(c, heads, cross)[0] == 'tf32x3'
+    assert chain.ffn_plan(c, 4 * c)[0] == 'tf32x3'
+
+    def close(got, want):
+        torch.testing.assert_close(got, want, atol=F32_BAR, rtol=F32_BAR)
+
+    close(chain.window_self_attention(x, p['attn'], heads),
+          chain.window_attention_plain(x, x, p['attn'], heads))
+    got = want = x
+    for z, pk in zip((z0, z1), pf['attn']):
+        got = chain.window_cross_attention(got, x, z, pk, heads)
+        want = chain.window_attention_plain(want, x, pk, heads, kv_src=z,
+                                            z=z)
+    close(got, want)
+    close(chain.cross_ffn(x, p['ffn']), chain.cross_ffn_plain(x, p['ffn']))
+    xw = torch.randn((7, 49, c), generator=g).to(dev)
+    yw = torch.randn((7, 49, c), generator=g).to(dev)
+    mats = [(torch.randn((c, c), generator=g) * c ** -0.5).to(dev)
+            for _ in range(4)]
+    vecs = [(torch.randn(c, generator=g) * 0.1).to(dev) for _ in range(4)]
+    bias = (torch.randn((heads, 49, 49), generator=g) * 0.5).to(dev)
+    close(window_attention.fused_window_attention(xw, yw, *mats, *vecs,
+                                                  bias, heads),
+          window_attention.fused_window_attention_plain(xw, yw, *mats,
+                                                        *vecs, bias, heads))
 
 
 def test_wrappers_raise_instead_of_falling_back(dev):
