@@ -3,7 +3,7 @@ checkout of the repository, in turns (other, this tree, this tree, other).
 
     python3 chip_profile.py [--parent DIR [DIR ...]] [--unchecked]
                             [--configs T,B,H] [--dtype bf16|f32]
-                            [--kernels | --offline]
+                            [--kernels | --offline] [--cases TEXT]
                             [--out FILE]
 
 Each DIR holds another checkout, e.g. the parent commit unpacked from
@@ -18,12 +18,16 @@ this tree's (`chip_smoke.py`). Measured, bf16:
 
 - `roi`: kernel C (`multilevel_roi_align`) at r640, C = 256, 8 x 1000
   RoIs: `chip_smoke.py` phase 3's batch (float32 too) and two skewed ones
-  (every RoI on level 0, every RoI on level 3). Per batch: the median of
-  3 CUDA-event timings of 30 calls, the device time per call under
-  `torch.profiler`, the max error against the plain twin (fails beyond
-  atol = rtol = 0.05, 1e-3 in float32), the bytes moved and the bound;
-  and kernel C's registers a thread, as `ptxas -v` gives them when the
-  turn builds its tree's kernels.
+  (every RoI on level 0, every RoI on level 3) on the 2x2 plan; phase
+  16a's batch (seed 16) on the 2x2 plan and on the general plan in each
+  of 16a's modes in bf16 (adaptive `max_grid` 4 and 8, static 1, 3 and
+  4, unaligned static 2 and adaptive) and adaptive `max_grid` 4 in
+  float32. Per batch: the median of 3 CUDA-event timings of 30 calls,
+  the device time per call of the plan's kernel under `torch.profiler`,
+  the max error against the plain twin (fails beyond atol = rtol =
+  0.05, 1e-3 in float32), the bytes moved and the bound; and kernel C's
+  registers a thread, as `ptxas -v` gives them when the turn builds its
+  tree's kernels.
 - `model`: per config, the latency per batch of 8 at 384x640 (median of
   7 calls after 2 warm-ups) and, under `torch.profiler` over 2 calls,
   wall and device busy time per call, idle share, kernel C's device time
@@ -92,35 +96,50 @@ def _ptxas(log):
     return out
 
 
-def _roi(smoke, checked=True):
+def _roi(smoke, checked=True, only=''):
     from hrfuser_tpu_torch.ops import roi_align
     from hrfuser_tpu_torch.utils import cuda_build
     ptxas = _ptxas(cuda_build.build().log)
     g = torch.Generator().manual_seed(4)
     feats32, mixed = smoke._roi_inputs(g)
     bf = [f.to(torch.bfloat16).contiguous() for f in feats32]
-    cases = {'mixed bf16': (bf, mixed),
-             'level 0 bf16': (bf, smoke._skewed_rois(g, 0)),
-             'level 3 bf16': (bf, smoke._skewed_rois(g, 3)),
-             'mixed f32': (feats32, mixed)}
+    # name: (features, RoIs, sample_num, max_grid, aligned)
+    cases = {'mixed bf16': (bf, mixed, 2, 4, True),
+             'level 0 bf16': (bf, smoke._skewed_rois(g, 0), 2, 4, True),
+             'level 3 bf16': (bf, smoke._skewed_rois(g, 3), 2, 4, True),
+             'mixed f32': (feats32, mixed, 2, 4, True)}
+    # the general plan on phase 16a's inputs, beside the 2x2 plan on them
+    feats32, grid = smoke._contract_rois(torch.Generator().manual_seed(16))
+    bf = [f.to(torch.bfloat16).contiguous() for f in feats32]
+    cases['16a 2x2 bf16'] = (bf, grid, 2, 4, True)
+    for label, sn, mg, al in smoke.ROI_MODES:
+        cases[f'16a {label} bf16'] = (bf, grid, sn, mg, al)
+    cases['16a adaptive max_grid 4 f32'] = (feats32, grid, 0, 4, True)
     out = {}
-    for name, (feats, rois) in cases.items():
+    for name, (feats, rois, sn, mg, al) in cases.items():
+        if only not in name:
+            continue
+
         def fk():
-            return roi_align.multilevel_roi_align(feats, rois, STRIDES)
+            return roi_align.multilevel_roi_align(feats, rois, STRIDES, 7,
+                                                  sn, 56, mg, al)
 
         got = fk()
-        want = roi_align.multilevel_roi_align_plain(feats, rois, STRIDES)
+        want = roi_align.multilevel_roi_align_plain(feats, rois, STRIDES, 7,
+                                                    sn, 56, mg, al)
         tol = smoke.TOL[feats[0].dtype]
         err = (got.float() - want.float()).abs().max().item()
         if checked and not torch.allclose(got.float(), want.float(),
                                           atol=tol, rtol=tol):
             raise AssertionError(f'kernel C {name}: max_abs_err {err}')
         times = sorted(smoke._time_ms(fk, iters=30) for _ in range(3))
-        flops, nbytes, peak_dt, pixels = smoke._roi_work(feats, rois, got)
+        flops, nbytes, peak_dt, pixels = smoke._roi_work(feats, rois, got,
+                                                         sn, mg, al)
         bound_ms, bound_by = smoke._bound(flops, nbytes, peak_dt)
+        kernel = ('roi_align_kernel' if roi_align.plan(sn, al) == '2x2'
+                  else 'roi_align_grid_kernel')
         out[name] = dict(ms=times[1], ms_runs=times,
-                         device_ms=smoke._device_ms(fk, 'roi_align_kernel',
-                                                    iters=30),
+                         device_ms=smoke._device_ms(fk, kernel, iters=30),
                          max_abs_err=err, mbytes=nbytes / 1e6, pixels=pixels,
                          bound_ms=bound_ms, bound_by=bound_by)
     return dict(cases=out, ptxas=ptxas)
@@ -165,7 +184,7 @@ def _model(smoke, config, dtype='bf16'):
                 idle=1 - busy / wall,
                 kernels_per_call=sum(count.values()) / calls,
                 roi_align_ms=sum(v for k, v in ms.items()
-                                 if 'roi_align_kernel' in k),
+                                 if 'roi_align_' in k),
                 top=[(k[:90], ms[k], count[k] / calls) for k in top])
 
 
@@ -274,7 +293,7 @@ def _offline(smoke):
                 top=[(k[:90], by_name[k], count[k]) for k in top])
 
 
-def _worker(root, what, config, checked, dtype):
+def _worker(root, what, config, checked, dtype, only):
     sys.path.insert(0, str(root))
     import hrfuser_tpu_torch
     pkg = Path(hrfuser_tpu_torch.__file__).resolve()
@@ -283,16 +302,16 @@ def _worker(root, what, config, checked, dtype):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smoke = _smoke()
-    res = (_roi(smoke, checked) if what == 'roi'
+    res = (_roi(smoke, checked, only) if what == 'roi'
            else _offline(smoke) if what == 'offline'
            else _kernels(smoke, dtype, checked) if what == 'kernels'
            else _model(smoke, config, dtype))
     print('RESULT ' + json.dumps(dict(root=str(root), what=what, **res)))
 
 
-def _turn(root, what, config=None, checked=True, dtype='bf16'):
+def _turn(root, what, config=None, checked=True, dtype='bf16', only=''):
     cmd = [sys.executable, str(Path(__file__).resolve()), '--worker-root',
-           str(root), '--what', what, '--dtype', dtype] + (
+           str(root), '--what', what, '--dtype', dtype, '--cases', only] + (
                ['--config', config] if config else [])
     cmd += [] if checked else ['--unchecked']
     t0 = time.perf_counter()
@@ -322,6 +341,8 @@ def main():
                     help='measure only kernels A and B by width')
     ap.add_argument('--offline', action='store_true',
                     help='measure only the offline nuScenes conversion')
+    ap.add_argument('--cases', default='',
+                    help='only the kernel C cases whose name holds this')
     ap.add_argument('--out', type=Path,
                     default=HERE / 'chiprun_out' / 'chip_profile.json')
     ap.add_argument('--worker-root', type=Path, help=argparse.SUPPRESS)
@@ -330,7 +351,7 @@ def main():
     args = ap.parse_args()
     if args.worker_root is not None:
         _worker(args.worker_root, args.what, args.config,
-                not args.unchecked, args.dtype)
+                not args.unchecked, args.dtype, args.cases)
         return
     others = [p.resolve() for p in args.parent]
     if not torch.cuda.is_available():
@@ -379,8 +400,8 @@ def main():
         print(f'wrote {args.out}')
         return
     nroi = 0 if args.dtype == 'f32' else len(roots)
-    runs = [_turn(r, 'roi', checked=r == HERE or not args.unchecked)
-            for r in roots[:nroi]]
+    runs = [_turn(r, 'roi', checked=r == HERE or not args.unchecked,
+                  only=args.cases) for r in roots[:nroi]]
     configs = [CONFIGS[c] for c in args.configs.split(',') if c]
     runs += [_turn(r, 'model', c, dtype=args.dtype) for c in configs
              for r in roots]

@@ -268,9 +268,13 @@ Phases, each printed on its own lines; any failure exits non-zero:
    either side): adaptive `sample_num=0` at `max_grid` 4 and 8, static
    grids 1, 3, 4, unaligned (static 2 and adaptive), float32 (TF32 off)
    and bfloat16, each launch counted on the plan; time, twin time and
-   bound (bytes and FLOPs from the RoIs' own grids) beside the 2x2 plan's
-   time on the same inputs; the single-image entry's v4 and v8 at a
-   static 3x3 grid; 16b HRFuser-T r640 bf16 batch 8 with
+   bound (bytes, and FLOPs of the separable form from the RoIs' own
+   samples, the per-sample count of 4 taps printed beside) beside the
+   2x2 plan's time on the same inputs; every mode again, correctness
+   only, on `roi_align.edge_rois()` with those grid RoIs (edge columns
+   and rows, the corner pixel, outside, zero-size, slivers) in every
+   image; the single-image entry's v4 and v8 at a static 3x3 grid; 16b
+   HRFuser-T r640 bf16 batch 8 with
    `roi.sample_num=0` on calibrated weights: exact launch counts (every C
    launch on the general plan), detections, latency and device busy time
    in turns beside `sample_num=2` on the same weights, then batch 1
@@ -458,16 +462,45 @@ def _ffn_work(x, p, dt, acts):
 
 
 def _roi_work(feats, rois, out, sample_num=2, max_grid=4, aligned=True):
-    """FLOPs (2 per channel of each of the 4 taps of each sample, float32,
-    counted from the RoIs' own grids: `sample_num` squared a bin, or in
-    the adaptive mode each RoI's ceil(bin) counts), bytes, float32 and
-    pixels of one kernel C call. The bytes are its output, its RoIs and
-    the pyramid pixels whose taps these RoIs weight non-zero, each
-    counted once (on the device)."""
+    """FLOPs, bytes, float32 and pixels of one kernel C call. The FLOPs are
+    the separable form's, counted from these RoIs' own samples (2 a
+    multiply-add a channel): per bin row that weights any pyramid row,
+    one y-pool multiply-add for each distinct (row, column) pair of its
+    rows and its bins' columns, and one x-pool multiply-add for each
+    (bin, distinct column) pair (`_roi_tap_flops` is the per-sample count
+    of 4 taps). The bytes are its output, its RoIs and the pyramid pixels
+    whose taps these RoIs weight non-zero, each counted once (on the
+    device)."""
+    b, n, _ = rois.shape
+    c = feats[0].shape[-1]
+    taps, lvl, fh, fw, starts = _roi_taps(feats, rois, sample_num, max_grid,
+                                          aligned)
+    pixels, fmas = 0, 0
+    for i in range(b):
+        (xt, xw), (yt, yw) = taps[i]                     # [N, 7, 2g]
+        base = starts[lvl[i]] + i * fh[i] * fw[i]                   # [N]
+        idx = (base[:, None, None, None, None]
+               + yt[:, :, :, None, None] * fw[i][:, None, None, None, None]
+               + xt[:, None, None])
+        wt = yw[:, :, :, None, None] * xw[:, None, None]
+        pixels += torch.unique(idx[wt != 0]).numel()
+        xs = _distinct(xt, xw, int(fw[i].max()))         # [N, 7, W] bool
+        ys = _distinct(yt, yw, int(fh[i].max()))
+        rows = ys.sum(-1)                                # [N, 7] a bin row
+        fmas += int((rows * xs.any(1).sum(-1)[:, None]
+                     + (rows > 0) * xs.sum((1, 2))[:, None]).sum())
+    nbytes = (pixels * c * feats[0].element_size() + _nbytes(rois, out))
+    return 2 * c * fmas, nbytes, torch.float32, pixels
+
+
+def _roi_taps(feats, rois, sample_num, max_grid, aligned):
+    """Per image, each axis's taps [N, 7, 2g] and their weights (bilinear
+    weight x 1 / count x inside) of every RoI, with the RoIs' levels, the
+    level sizes a RoI and the levels' offsets in a flat pyramid."""
     from hrfuser_tpu_torch.ops.roi_align import (_bilinear, _sample_coords,
                                                  map_roi_levels)
     b, n, _ = rois.shape
-    c, dev = feats[0].shape[-1], rois.device
+    dev = rois.device
     lvl = map_roi_levels(rois, 4)
     hs = torch.tensor([f.shape[1] for f in feats], device=dev)
     ws = torch.tensor([f.shape[2] for f in feats], device=dev)
@@ -476,26 +509,40 @@ def _roi_work(feats, rois, out, sample_num=2, max_grid=4, aligned=True):
                          device=dev)[lvl]
     xs, ys, wx, wy = _sample_coords(rois, scale, 7, sample_num, aligned,
                                     max_grid)
-    samples = int(((wy > 0).sum(-1) * (wx > 0).sum(-1)).sum())  # a bin
     fh, fw = hs[lvl], ws[lvl]
-    pixels = 0
+    taps = []
     for i in range(b):
-        taps = []
+        axes = []
         for coord, wgt, size in ((xs[i], wx[i], fw[i]), (ys[i], wy[i],
                                                           fh[i])):
             lo, hi, wl, wh = _bilinear(coord, size)
             per = wgt[:, None, :].expand(n, 7, wgt.shape[-1]).reshape(n, -1)
-            taps.append((torch.stack([lo, hi], -1),
-                         torch.stack([wl, wh], -1) * per[..., None]))
-        (xt, xw), (yt, yw) = taps                        # [N, 7g, 2]
-        base = starts[lvl[i]] + i * fh[i] * fw[i]                   # [N]
-        idx = (base[:, None, None, None, None]
-               + yt[:, :, :, None, None] * fw[i][:, None, None, None, None]
-               + xt[:, None, None])
-        wt = yw[:, :, :, None, None] * xw[:, None, None]
-        pixels += torch.unique(idx[wt != 0]).numel()
-    nbytes = (pixels * c * feats[0].element_size() + _nbytes(rois, out))
-    return samples * 49 * 4 * 2 * c, nbytes, torch.float32, pixels
+            axes.append((torch.stack([lo, hi], -1).reshape(n, 7, -1),
+                         (torch.stack([wl, wh], -1) * per[..., None])
+                         .reshape(n, 7, -1)))
+        taps.append(axes)
+    return taps, lvl, fh, fw, starts
+
+
+def _distinct(t, w, size):
+    """[N, 7, size] bool: the pixels each bin's taps `t` weight non-zero."""
+    n = t.shape[0]
+    hit = torch.zeros((n, 7, size), device=t.device)
+    return hit.scatter_add_(2, t, (w != 0).float()) > 0
+
+
+def _roi_tap_flops(rois, c, sample_num=2, max_grid=4, aligned=True):
+    """FLOPs of kernel C counted per sample: 4 taps, a multiply-add a
+    channel each, of each of a bin's samples (`sample_num` squared, or in
+    the adaptive mode each RoI's ceil(bin) counts)."""
+    from hrfuser_tpu_torch.ops.roi_align import (_sample_coords,
+                                                 map_roi_levels)
+    scale = torch.tensor([1.0 / s for s in (4, 8, 16, 32)],
+                         device=rois.device)[map_roi_levels(rois, 4)]
+    _, _, wx, wy = _sample_coords(rois, scale, 7, sample_num, aligned,
+                                  max_grid)
+    samples = int(((wy > 0).sum(-1) * (wx > 0).sum(-1)).sum())  # a bin
+    return samples * 49 * 4 * 2 * c
 
 
 def _randomize(module, g):
@@ -3901,14 +3948,34 @@ def phase_roi_contract(report, smi):
                                                         mg, al)
                 bound = _bound(flops, nbytes, peak)
                 _print_time(ms, plain_ms, bound)
-                print(f'    {flops / 1e9:.2f} GFLOP from the RoIs\' own '
-                      f'grids, {nbytes / 1e6:.1f} MB ({pixels} pyramid '
-                      f'pixels); {ms / ms2:.2f}x the 2x2 plan; {smi}')
+                taps = _roi_tap_flops(rois, 256, sn, mg, al)
+                print(f'    {flops / 1e9:.2f} GFLOP in the separable form '
+                      f'({taps / 1e9:.2f} at 4 taps a sample, bound '
+                      f'{_bound(taps, nbytes, peak)[0]:.4f} ms), '
+                      f'{nbytes / 1e6:.1f} MB ({pixels} pyramid pixels); '
+                      f'{ms / ms2:.2f}x the 2x2 plan; {smi}')
                 record = main and dt == torch.bfloat16
                 report.add('roi_align_grid', SRC_C, REPLACES_C, err,
                            *((ms, plain_ms, bound) if record else ()))
             else:
                 report.add('roi_align_grid', SRC_C, REPLACES_C, err)
+    edges = torch.cat([roi_align.edge_rois(H, W),
+                       torch.from_numpy(_checks().grid_rois())])
+    edges = edges.expand(BATCH, -1, -1).cuda().contiguous()
+    for label, sn, mg, al in ROI_MODES:
+        for dt in (torch.float32, torch.bfloat16):
+            feats = feats32 if dt == torch.float32 else fb
+            before = roi_align.PLAN_LAUNCHES['grid']
+            got = roi_align.multilevel_roi_align(feats, edges, strides, 7, sn,
+                                                 56, mg, al)
+            if roi_align.PLAN_LAUNCHES['grid'] != before + 1:
+                raise AssertionError(f'{label}: the general plan did not '
+                                     f'launch on the edge RoIs')
+            report.add('roi_align_grid', SRC_C, REPLACES_C, _compare(
+                f'roi_align {label} {str(dt)[6:]} on {BATCH} x '
+                f'{edges.shape[1]} edge RoIs [plan grid]', got,
+                roi_align.multilevel_roi_align_plain(
+                    feats, edges, strides, 7, sn, 56, mg, al), dt))
     for variant in ('v4', 'v8'):
         for dt in (torch.float32, torch.bfloat16):
             single = [f[0].to(dt).contiguous() for f in feats32]

@@ -1,6 +1,9 @@
 // Kernel C: multilevel RoIAlign, 7x7 bins. Two plans: the aligned 2x2
 // grid below, which the model path runs by default, and the general plan
-// further down (any static grid, the adaptive grid, aligned or not).
+// further down (any static grid, the adaptive grid, aligned or not), which
+// pools the separable form: per axis and bin, the distinct pixels its
+// samples touch with their summed weights, each pixel of a bin row loaded
+// once a lane. The notes below up to the general plan are the 2x2 plan's.
 //
 // Replaces the TPU Pallas kernels of hrfuser_tpu/ops/pallas_roi_align.py,
 // multilevel_roi_align_pallas -> _call: pallas_call :597 (_kernel_v7, the
@@ -63,6 +66,8 @@
 // shared memory. float32 moves twice the bytes and halves with every tap
 // a hit.
 #include "common.cuh"
+
+#include <climits>
 
 namespace hrf {
 
@@ -306,27 +311,84 @@ __global__ void __launch_bounds__(kRoiThreads)
 // it; the count comes from the same __fdiv_rn(a2 - a1, 7) bin width, so a
 // bin exactly on an integer samples as many points as the twin does.
 //
-// Each RoI's table holds its level, image, counts and up to 7 * G taps an
-// axis, G the launch's grid bound (the static k, or max_grid); it lives in
-// dynamic shared memory sized by G (16 + 224 G bytes a RoI, two buffers).
-// The 1 / gy and 1 / gx weights are folded into the taps. A thread owns
-// one bin row of its lane's channels, as in the 2x2 plan, and for each bin
-// y-pools the two pixel columns of each of its gx x samples over the gy y
-// samples' rows; there is no column reuse (simple, not yet fast).
+// The design. The function is separable: a bin's value is sum over its
+// x pixels of wx * sum over its y pixels of wy * f[y][x], where a pixel's
+// weight on an axis is the sum, over the bin's samples on that axis, of
+// the sample's bilinear weight on that pixel (lo or hi) times 1 / cnt and
+// the axis's `inside` mask. It equals the per-sample sum of 4 taps up to
+// float32 summation order. The TPU kernel pools the same way
+// (`pallas_roi_align.py:_axis_strip`: one weight per pixel, two one-hot
+// products); per sample taps would cost 4 x 16-byte loads a sample,
+// 448 a bin row and lane for 3.5-pixel adaptive bins, where the row's
+// distinct pixels are about 5 x 26.
+//  - Each RoI's table holds, for each of the 7 bins of each axis, the
+//    distinct pixels its samples touch with their summed weights (zero
+//    weights dropped), at most 2G entries, G the launch's grid bound (the
+//    static k, or max_grid): 48 + 224 G bytes a RoI, two buffers of rpb
+//    RoIs in dynamic shared memory, beside a 16-byte slot a thread. One
+//    thread per (RoI, axis, bin) builds a list. Samples are monotone in their coordinate, so a pixel met
+//    again is one of the list's last two entries; a list is sorted and
+//    holds no pixel twice (a RoI with x2 < x1 may repeat one, which costs
+//    a load and changes nothing). Capped bins and static grids with more
+//    than a pixel between samples give non-adjacent pixels: nothing
+//    assumes contiguity.
+//  - A thread owns one bin row (RoI, py) of its lane's 16-byte vector. The
+//    row's count of y entries picks an unrolled form (1-8 rows, their
+//    offsets and weights in registers; warp-uniform where a warp holds
+//    one row, C >= 256 bf16 / 128 f32), or a loop over the table past 8;
+//    a row with none stores zeros. It walks its 7 bins' x entries left to
+//    right and y-pools each new column once, two columns' loads issued
+//    together (2 x NY, up to 16 loads in flight a thread). The last two
+//    pooled columns are kept (the newer in registers, the older in a slot
+//    of shared memory a thread), so the 1-2 pixels that neighbouring bins
+//    share are loaded once, and all seven bins of an RoI clamped to one
+//    edge column read one pooled column. A bin is stored (evict-first)
+//    once its last column is added. Launches of one sample a bin (G = 1,
+//    at most 2 entries a bin) take a form without kept columns
+//    (grid_row_2), and build their tables on the row threads' lanes.
+//  - The schedule is the 2x2 plan's: groups of rpb RoIs, tables
+//    double-buffered, one wave from the occupancy calculator, C % 8 (bf16)
+//    / C % 4 (f32) with no scalar path; nothing else is staged in shared
+//    memory (PR 4 measured that L1 serves the re-reads). But for G > 1 a
+//    block's last warp builds the next group's tables while the others
+//    pool rows: a list is a chain of dependent steps that delayed one row
+//    warp a group.
+//
+// Measured (PERF.md, `chip_profile.py`, NVIDIA H100): a knock-out copy
+// whose loads all hit L1 is 30-50 % faster, so the plan waits on L2; more
+// loads in flight a thread (pairs up to 16 loads, at 99 registers, two
+// blocks an SM) beat more warps with fewer (64 registers, four blocks);
+// the tables alone (rows skipped) take 0.064 ms of the adaptive launch.
 
-struct GridHead {
-  const uint4* f;
-  int W;
-  short gy, gx;
+// A pixel of one axis (x, or y * W) and its summed weight.
+struct Ent {
+  int p;
+  float w;
 };
-static_assert(sizeof(GridHead) == 16, "GridHead is one 16-byte slot");
+static_assert(sizeof(Ent) == 8, "Ent is 8 bytes");
+
+struct __align__(16) GridHead {
+  const uint4* f;
+  int W, pad;
+  unsigned short nx[kOut], ny[kOut];  // entries of each bin, per axis
+};
+static_assert(sizeof(GridHead) == 48, "GridHead is three 16-byte slots");
 
 __host__ __device__ constexpr long long grid_tab_bytes(int G) {
-  return (long long)sizeof(GridHead) + 2LL * kOut * G * (long long)sizeof(Tap);
+  return (long long)sizeof(GridHead) +
+         2LL * kOut * 2 * G * (long long)sizeof(Ent);
+}
+
+// The entries of a table: x bins [0, 7), then y bins, 2G slots a bin.
+__device__ __forceinline__ Ent* grid_ents(unsigned char* tab) {
+  return reinterpret_cast<Ent*>(tab + sizeof(GridHead));
+}
+__device__ __forceinline__ const Ent* grid_ents(const unsigned char* tab) {
+  return reinterpret_cast<const Ent*>(tab + sizeof(GridHead));
 }
 
 struct GridArgs {
-  int G;         // taps a bin reserved an axis
+  int G;         // samples a bin reserved an axis
   int adaptive;  // 1: counts from ceil(bin), clamped to [1, G]
   float offset;  // 0.5 when aligned, else 0
   int aligned;
@@ -358,7 +420,41 @@ __device__ __forceinline__ void grid_axis(float v1, float v2, float s,
   cnt = a.adaptive ? (int)fminf(fmaxf(ceilf(bin), 1.f), (float)a.G) : a.G;
 }
 
-// Item k of RoI r's table: x taps [0, 7G), y taps [7G, 14G), the header.
+// The list of bin p of an axis (start a1, bin width `bin`, cnt samples,
+// `size` pixels, a pixel stored as pixel * mul): its entries at e, their
+// count returned. The last two entries stay in registers until pushed
+// out, so a sample costs no shared-memory round trip.
+__device__ __forceinline__ int grid_bin(Ent* e, float a1, float bin, int p,
+                                        int cnt, int size, int mul) {
+  const float w = __fdiv_rn(1.f, (float)cnt);
+  int n = 0, p1 = -1, p2 = -1;  // the second to last and the last pixel
+  float w1 = 0.f, w2 = 0.f;
+  auto add = [&](int q, float v) {
+    if (v == 0.f) return;  // outside (-1, size), or hi at weight 0
+    if (q == p2) {
+      w2 += v;
+    } else if (q == p1) {
+      w1 += v;
+    } else {
+      if (p1 >= 0) e[n++] = {p1, w1};
+      p1 = p2;
+      w1 = w2;
+      p2 = q;
+      w2 = v;
+    }
+  };
+#pragma unroll 4
+  for (int i = 0; i < cnt; ++i) {
+    const Tap t = grid_tap(a1, bin, p, i, cnt, size);
+    add(t.lo * mul, t.wlo * w);
+    add(t.hi * mul, t.whi * w);
+  }
+  if (p1 >= 0) e[n++] = {p1, w1};
+  if (p2 >= 0) e[n++] = {p2, w2};
+  return n;
+}
+
+// Item k of RoI r's table: x bins [0, 7), y bins [7, 14), the header.
 __device__ __forceinline__ void grid_fill(unsigned char* tab,
                                           const Pyramid& pyr,
                                           const float* __restrict__ rois,
@@ -372,127 +468,350 @@ __device__ __forceinline__ void grid_fill(unsigned char* tab,
   const int lvl = l >= 3.f ? 3 : (l >= 0.f ? (int)l : 0);
   const int H = pyr.h[lvl], W = pyr.w[lvl];
   const float s = pyr.scale[lvl];
-  const int S = kOut * a.G;
-  Tap* x = reinterpret_cast<Tap*>(tab + sizeof(GridHead));
-  Tap* y = x + S;
-  float a1, bin;
-  int cnt;
-  if (k < 2 * S) {
-    const bool is_x = k < S;
-    const int j = is_x ? k : k - S;
-    const int p = j / a.G, i = j % a.G;
+  GridHead* h = reinterpret_cast<GridHead*>(tab);
+  if (k < 2 * kOut) {
+    const bool is_x = k < kOut;
+    const int p = is_x ? k : k - kOut;
+    float a1, bin;
+    int cnt;
     if (is_x)
       grid_axis(x1, x2, s, a, a1, bin, cnt);
     else
       grid_axis(y1, y2, s, a, a1, bin, cnt);
-    if (i >= cnt) return;  // past this RoI's count: never read
-    Tap t = grid_tap(a1, bin, p, i, cnt, is_x ? W : H);
-    const float w = __fdiv_rn(1.f, (float)cnt);
-    if (is_x)
-      x[j] = {t.lo, t.hi, t.wlo * w, t.whi * w};
-    else
-      y[j] = {t.lo * W, t.hi * W, t.wlo * w, t.whi * w};
+    const int n = grid_bin(grid_ents(tab) + k * 2 * a.G, a1, bin, p, cnt,
+                           is_x ? W : H, is_x ? 1 : W);
+    (is_x ? h->nx : h->ny)[p] = (unsigned short)n;
   } else {
-    GridHead* h = reinterpret_cast<GridHead*>(tab);
-    int gy, gx;
-    grid_axis(y1, y2, s, a, a1, bin, gy);
-    grid_axis(x1, x2, s, a, a1, bin, gx);
     h->f = static_cast<const uint4*>(pyr.f[lvl]) + (size_t)(r / N) * H * W * V;
     h->W = W;
-    h->gy = (short)gy;
-    h->gx = (short)gx;
   }
 }
 
-// One bin row py of an RoI, 16-byte lane v: 7 output vectors at o.
-template <typename T>
-__device__ __forceinline__ void grid_row(const unsigned char* tab,
-                                         uint4* __restrict__ o, int V,
-                                         int py, int v, int G) {
+// The y-pool of NC columns of one bin row: g[j] = sum over the row's NY
+// rows of wy[t] * f[yo[t] + xo[j]] (offsets in 16-byte vectors). All NC *
+// NY loads are issued first.
+template <int NC, int NY, int E>
+__device__ __forceinline__ void ypool(const uint4* __restrict__ f,
+                                      const int (&yo)[NY],
+                                      const float (&wy)[NY],
+                                      const int (&xo)[NC],
+                                      float (&g)[NC][E]) {
+  uint4 d[NC][NY];
+#pragma unroll
+  for (int j = 0; j < NC; ++j)
+#pragma unroll
+    for (int t = 0; t < NY; ++t) d[j][t] = __ldg(f + (yo[t] + xo[j]));
+#pragma unroll
+  for (int j = 0; j < NC; ++j) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) g[j][e] = 0.f;
+#pragma unroll
+    for (int t = 0; t < NY; ++t) {
+      float v[E];
+      unpack(d[j][t], v);
+#pragma unroll
+      for (int e = 0; e < E; ++e) g[j][e] = fmaf(wy[t], v[e], g[j][e]);
+    }
+  }
+}
+
+// The same for one column over ny rows read from the table, 4 loads at a
+// time (a slot past ny reloads the last row at weight 0).
+template <int E>
+__device__ __forceinline__ void ypool_any(const uint4* __restrict__ f,
+                                          const Ent* __restrict__ ye, int ny,
+                                          int V, int xo, float (&g)[E]) {
+#pragma unroll
+  for (int e = 0; e < E; ++e) g[e] = 0.f;
+#pragma unroll 1
+  for (int t0 = 0; t0 < ny; t0 += 4) {
+    uint4 d[4];
+    float w[4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const Ent y = ye[min(t0 + t, ny - 1)];
+      w[t] = t0 + t < ny ? y.w : 0.f;
+      d[t] = __ldg(f + (y.p * V + xo));
+    }
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      float v[E];
+      unpack(d[t], v);
+#pragma unroll
+      for (int e = 0; e < E; ++e) g[e] = fmaf(w[t], v[e], g[e]);
+    }
+  }
+}
+
+// One bin row py of an RoI whose row has NY y entries (0: any number, read
+// from the table), 16-byte lane v: 7 output vectors at o.
+template <typename T, int NY>
+__device__ __forceinline__ void grid_row_n(const unsigned char* tab,
+                                           uint4* __restrict__ o, int V,
+                                           int py, int v, int G,
+                                           float4* __restrict__ slot,
+                                           int stride) {
   constexpr int E = Vec<T>::n;
-  const GridHead h = *reinterpret_cast<const GridHead*>(tab);
-  const Tap* xt = reinterpret_cast<const Tap*>(tab + sizeof(GridHead));
-  const Tap* yt = xt + kOut * G + py * G;
+  constexpr int R = NY > 0 ? NY : 1;
+  const GridHead& h = *reinterpret_cast<const GridHead*>(tab);
+  const Ent* xe = grid_ents(tab);
+  const Ent* ye = xe + (kOut + py) * 2 * G;
+  const int ny = h.ny[py];
   const uint4* f = h.f + v;
+  int yo[R];
+  float wy[R];
+#pragma unroll
+  for (int t = 0; t < R; ++t) {
+    const Ent y = ye[t];
+    yo[t] = y.p * V;
+    wy[t] = y.w;
+  }
+  // the last two pooled columns: the older (x offset ca) in this thread's
+  // slot of shared memory (E / 4 float4s `stride` apart), the newer (cb)
+  // in gb
+  int ca = -1, cb = -1;
+  float gb[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) gb[e] = 0.f;
+  auto put_a = [&](const float (&g)[E]) {
+#pragma unroll
+    for (int q = 0; q < E / 4; ++q)
+      slot[q * stride] =
+          make_float4(g[4 * q], g[4 * q + 1], g[4 * q + 2], g[4 * q + 3]);
+  };
+  auto add_a = [&](float w, float (&acc)[E]) {
+#pragma unroll
+    for (int q = 0; q < E / 4; ++q) {
+      const float4 c = slot[q * stride];
+      acc[4 * q] = fmaf(w, c.x, acc[4 * q]);
+      acc[4 * q + 1] = fmaf(w, c.y, acc[4 * q + 1]);
+      acc[4 * q + 2] = fmaf(w, c.z, acc[4 * q + 2]);
+      acc[4 * q + 3] = fmaf(w, c.w, acc[4 * q + 3]);
+    }
+  };
 #pragma unroll 1
   for (int px = 0; px < kOut; ++px) {
+    const Ent* xs = xe + px * 2 * G;
+    const int n = h.nx[px];
     float acc[E];
 #pragma unroll
     for (int e = 0; e < E; ++e) acc[e] = 0.f;
 #pragma unroll 1
-    for (int ix = 0; ix < h.gx; ++ix) {
-      const Tap tx = xt[px * G + ix];
-#pragma unroll 1
-      for (int iy = 0; iy < h.gy; ++iy) {
-        const Tap ty = yt[iy];
-        const uint4 d00 = __ldg(f + (size_t)(ty.lo + tx.lo) * V);
-        const uint4 d01 = __ldg(f + (size_t)(ty.lo + tx.hi) * V);
-        const uint4 d10 = __ldg(f + (size_t)(ty.hi + tx.lo) * V);
-        const uint4 d11 = __ldg(f + (size_t)(ty.hi + tx.hi) * V);
-        float v00[E], v01[E], v10[E], v11[E];
-        unpack(d00, v00);
-        unpack(d01, v01);
-        unpack(d10, v10);
-        unpack(d11, v11);
+    for (int k = 0; k < n;) {
+      const Ent e0 = xs[k];
+      const int x0 = e0.p * V;
+      if (x0 == cb) {  // pooled for an earlier bin
 #pragma unroll
-        for (int e = 0; e < E; ++e) {
-          const float lo = fmaf(ty.wlo, v00[e], ty.whi * v10[e]);
-          const float hi = fmaf(ty.wlo, v01[e], ty.whi * v11[e]);
-          acc[e] = fmaf(tx.wlo, lo, fmaf(tx.whi, hi, acc[e]));
+        for (int e = 0; e < E; ++e) acc[e] = fmaf(e0.w, gb[e], acc[e]);
+        ++k;
+        continue;
+      }
+      if (x0 == ca) {
+        add_a(e0.w, acc);
+        ++k;
+        continue;
+      }
+      if constexpr (NY > 0) {
+        if (k + 1 < n) {
+          const Ent e1 = xs[k + 1];
+          const int x1 = e1.p * V;
+          if (x1 != ca && x1 != cb) {
+            const int xo[2] = {x0, x1};
+            float g[2][E];
+            ypool<2, NY, E>(f, yo, wy, xo, g);
+            put_a(g[0]);
+#pragma unroll
+            for (int e = 0; e < E; ++e) {
+              gb[e] = g[1][e];
+              acc[e] = fmaf(e0.w, g[0][e], fmaf(e1.w, gb[e], acc[e]));
+            }
+            ca = x0;
+            cb = x1;
+            k += 2;
+            continue;
+          }
         }
       }
+      float g[E];
+      if constexpr (NY > 0) {
+        const int xo[1] = {x0};
+        float g1[1][E];
+        ypool<1, NY, E>(f, yo, wy, xo, g1);
+#pragma unroll
+        for (int e = 0; e < E; ++e) g[e] = g1[0][e];
+      } else {
+        ypool_any<E>(f, ye, ny, V, x0, g);
+      }
+      put_a(gb);
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        gb[e] = g[e];
+        acc[e] = fmaf(e0.w, g[e], acc[e]);
+      }
+      ca = cb;
+      cb = x0;
+      ++k;
     }
     __stcs(o + px * V + v, pack(acc));
   }
 }
 
+// One bin row of a launch whose bins hold at most 2 entries an axis (G =
+// 1: one sample, lo and hi): a bin's columns' NY rows loaded together, no
+// column kept (bins share a column only when under a pixel wide; the
+// reload is an L1 hit). Measured against two and more bins a batch, which
+// cost as much or more.
+template <typename T, int NY>
+__device__ __forceinline__ void grid_row_2(const unsigned char* tab,
+                                           uint4* __restrict__ o, int V,
+                                           int py, int v) {
+  constexpr int E = Vec<T>::n;
+  const GridHead& h = *reinterpret_cast<const GridHead*>(tab);
+  const Ent* xe = grid_ents(tab);
+  const Ent* ye = xe + (kOut + py) * 2;
+  const uint4* f = h.f + v;
+  int yo[NY];
+  float wy[NY];
+#pragma unroll
+  for (int t = 0; t < NY; ++t) {
+    const Ent y = ye[t];
+    yo[t] = y.p * V;
+    wy[t] = y.w;
+  }
+#pragma unroll 1
+  for (int px = 0; px < kOut; ++px) {
+    uint4 d[2][NY];
+    float w[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const bool on = j < h.nx[px];
+      const Ent e = xe[px * 2 + (on ? j : 0)];
+      w[j] = on ? e.w : 0.f;
+#pragma unroll
+      for (int t = 0; t < NY; ++t)
+        d[j][t] = on ? __ldg(f + (yo[t] + e.p * V))
+                     : make_uint4(0u, 0u, 0u, 0u);
+    }
+    float acc[E];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float g[E];
+#pragma unroll
+      for (int e = 0; e < E; ++e) g[e] = 0.f;
+#pragma unroll
+      for (int t = 0; t < NY; ++t) {
+        float u[E];
+        unpack(d[j][t], u);
+#pragma unroll
+        for (int e = 0; e < E; ++e) g[e] = fmaf(wy[t], u[e], g[e]);
+      }
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        acc[e] = j ? fmaf(w[j], g[e], acc[e]) : w[j] * g[e];
+    }
+    __stcs(o + px * V + v, pack(acc));
+  }
+}
+
+// One bin row py of an RoI, 16-byte lane v: 7 output vectors at o. ONE:
+// a launch of one sample a bin an axis (G = 1), whose rows take
+// grid_row_2 alone; the other launches take the form of the row's count
+// of y entries.
+template <typename T, bool ONE>
+__device__ __forceinline__ void grid_row(const unsigned char* tab,
+                                         uint4* __restrict__ o, int V,
+                                         int py, int v, int G,
+                                         float4* __restrict__ slot,
+                                         int stride) {
+  const int ny = reinterpret_cast<const GridHead*>(tab)->ny[py];
+  if (ny == 0) {  // every y sample outside the map
+#pragma unroll
+    for (int px = 0; px < kOut; ++px)
+      __stcs(o + px * V + v, make_uint4(0u, 0u, 0u, 0u));
+    return;
+  }
+  if constexpr (ONE) {
+    if (ny == 1) return grid_row_2<T, 1>(tab, o, V, py, v);
+    return grid_row_2<T, 2>(tab, o, V, py, v);
+  } else {
+    switch (ny) {
+      case 1: return grid_row_n<T, 1>(tab, o, V, py, v, G, slot, stride);
+      case 2: return grid_row_n<T, 2>(tab, o, V, py, v, G, slot, stride);
+      case 3: return grid_row_n<T, 3>(tab, o, V, py, v, G, slot, stride);
+      case 4: return grid_row_n<T, 4>(tab, o, V, py, v, G, slot, stride);
+      case 5: return grid_row_n<T, 5>(tab, o, V, py, v, G, slot, stride);
+      case 6: return grid_row_n<T, 6>(tab, o, V, py, v, G, slot, stride);
+      case 7: return grid_row_n<T, 7>(tab, o, V, py, v, G, slot, stride);
+      case 8: return grid_row_n<T, 8>(tab, o, V, py, v, G, slot, stride);
+      default: return grid_row_n<T, 0>(tab, o, V, py, v, G, slot, stride);
+    }
+  }
+}
+
 // The 2x2 kernel's schedule (groups of rpb RoIs, tables double-buffered)
-// over the general tables.
-template <typename T>
+// over the general tables, but the block's last warp builds the tables of
+// the next group while the others pool this one's rows: a table is a
+// chain of dependent steps (the RoI's box, its level, each sample's
+// coordinate and merge) that would otherwise delay one row warp a group.
+template <typename T, bool ONE>
 __global__ void __launch_bounds__(kRoiThreads)
     roi_align_grid_kernel(Pyramid pyr, const float* __restrict__ rois,
                           T* __restrict__ out, int R, int N, int V, int rpb,
                           float finest, GridArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int tab_bytes = (int)grid_tab_bytes(a.G);
-  const int tab_items = 2 * kOut * a.G + 1;
+  constexpr int tab_items = 2 * kOut + 1;
+  // threads that pool rows; the last warp builds (a launch of one sample
+  // a bin, whose tables are short, builds on the row threads' lanes)
+  const int rows_n = ONE ? blockDim.x : blockDim.x - 32;
+  const bool builder = ONE || threadIdx.x >= rows_n;
+  float4* slot = reinterpret_cast<float4*>(smem + 2 * rpb * tab_bytes) +
+                 threadIdx.x;
   const int items = rpb * kOut * V;
   const int groups = (R + rpb - 1) / rpb;
   auto build = [&](int g, unsigned char* tab) {
-    for (int t = threadIdx.x; t < rpb * tab_items; t += blockDim.x) {
+    const int lane = ONE ? threadIdx.x : threadIdx.x - rows_n;
+    for (int t = lane; t < rpb * tab_items; t += ONE ? blockDim.x : 32) {
       const int i = t / tab_items, r = g * rpb + i;
       if (g < groups && r < R)
         grid_fill(tab + i * tab_bytes, pyr, rois, r, N, V,
                   t - i * tab_items, finest, a);
     }
   };
-  build(blockIdx.x, smem);
+  if (builder) build(blockIdx.x, smem);
   __syncthreads();
   for (int g = blockIdx.x, buf = 0; g < groups; g += gridDim.x, buf ^= 1) {
     unsigned char* tab = smem + buf * rpb * tab_bytes;
-    build(g + gridDim.x, smem + (buf ^ 1) * rpb * tab_bytes);
-    for (int it = threadIdx.x; it < items; it += blockDim.x) {
-      const int row = it / V, i = row / kOut, r = g * rpb + i;
-      if (r < R)
-        grid_row<T>(tab + i * tab_bytes,
-                    reinterpret_cast<uint4*>(out) +
-                        ((size_t)r * kOut + row % kOut) * kOut * V,
-                    V, row % kOut, it - row * V, a.G);
+    if (builder) build(g + gridDim.x, smem + (buf ^ 1) * rpb * tab_bytes);
+    if (ONE || !builder) {
+      for (int it = threadIdx.x; it < items; it += rows_n) {
+        const int row = it / V, i = row / kOut, r = g * rpb + i;
+        if (r < R)
+          grid_row<T, ONE>(tab + i * tab_bytes,
+                           reinterpret_cast<uint4*>(out) +
+                               ((size_t)r * kOut + row % kOut) * kOut * V,
+                           V, row % kOut, it - row * V, a.G, slot,
+                           blockDim.x);
+      }
     }
     __syncthreads();
   }
 }
 
-// RoIs a group and threads a block, the same for both plans.
-static void roi_groups(int V, int& rpb, int& threads) {
+// RoIs a group (as the 2x2 plan's `launch`) and threads a block of the
+// general plan: the row threads (at most kRoiThreads - 32 when G > 1)
+// and, for G > 1, the builder warp.
+static void grid_groups(int V, bool one, int& rpb, int& threads) {
   rpb = V >= 32 ? 1 : 32 / V;  // about 7 warps a group
-  threads = std::min(round_up(rpb * kOut * V, 32), kRoiThreads);
+  const int rows = round_up(rpb * kOut * V, 32);
+  threads = one ? std::min(rows, kRoiThreads)
+                : std::min(rows, kRoiThreads - 32) + 32;
 }
 
 static long long grid_smem(int C, int vec, int G) {
   int rpb, threads;
-  roi_groups(C / vec, rpb, threads);
-  return 2LL * rpb * grid_tab_bytes(G);
+  grid_groups(C / vec, G == 1, rpb, threads);
+  return 2LL * rpb * grid_tab_bytes(G) + 4LL * threads * vec;  // + slots
 }
 
 template <typename T>
@@ -506,20 +825,28 @@ static int launch_grid(const Pyramid& pyr, const float* rois, void* out,
   const int R = B * N;
   if (R == 0) return 0;
   const int V = C / kVec;
+  for (int l = 0; l < 4; ++l)  // a pixel's vector offset in an image is an int
+    if ((long long)pyr.h[l] * pyr.w[l] * V > INT_MAX)
+      return (int)cudaErrorInvalidValue;
   int rpb, threads;
-  roi_groups(V, rpb, threads);
+  grid_groups(V, a.G == 1, rpb, threads);
   const int groups = (R + rpb - 1) / rpb;
-  const void* kernel = reinterpret_cast<const void*>(roi_align_grid_kernel<T>);
+  const void* kernel =
+      a.G == 1
+          ? reinterpret_cast<const void*>(roi_align_grid_kernel<T, true>)
+          : reinterpret_cast<const void*>(roi_align_grid_kernel<T, false>);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const int wave = wave_blocks(kernel, threads, (size_t)smem);
-  roi_align_grid_kernel<T><<<std::min(groups, wave), threads, (size_t)smem,
-                             stream>>>(pyr, rois, static_cast<T*>(out), R, N,
-                                       V, rpb, finest, a);
-  return (int)cudaGetLastError();
+  void* args[] = {(void*)&pyr, (void*)&rois, (void*)&out, (void*)&R,
+                  (void*)&N,   (void*)&V,    (void*)&rpb, (void*)&finest,
+                  (void*)&a};
+  const cudaError_t e = cudaLaunchKernel(kernel, std::min(groups, wave),
+                                         threads, args, (size_t)smem, stream);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
 template <typename T>

@@ -26,8 +26,9 @@ row-major order.
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from hrfuser_tpu_torch.ops.chain import (check_device, count_launch,
@@ -288,9 +289,124 @@ def plan(sample_num: int, aligned: bool) -> str:
 
 def plan_bytes(c: int, dtype: torch.dtype, grid: int) -> int:
     """Shared memory of kernel C's general plan for C channels of `dtype`
-    and a grid bound of `grid` samples an axis (its RoI tables)."""
+    and a grid bound of `grid` samples an axis: two buffers of its RoI
+    tables, 48 + 224 * grid bytes a RoI (a header, then 2 * grid merged
+    (pixel, weight) entries for each bin of each axis), and a pooled
+    column's 16-byte slot a thread."""
     return int(cuda_build.lib().hrf_roi_align_smem(
         c, int(dtype == torch.bfloat16), grid))
+
+
+def _merge(entries: list, pixel: int, w: np.float32) -> None:
+    """Kernel C's rule for adding weight `w` on `pixel` to a bin's list
+    (`csrc/roi_align.cu:grid_bin`): a zero weight is dropped, a pixel equal
+    to the last or the second to last entry adds to it (in float32), any
+    other is appended."""
+    if w == 0:
+        return
+    for e in entries[:-3:-1]:
+        if e[0] == pixel:
+            e[1] = np.float32(e[1] + w)
+            return
+    entries.append([pixel, w])
+
+
+def grid_strips(rois: Tensor, hw: Sequence[Tuple[int, int]],
+                strides: Sequence[int] = (4, 8, 16, 32), out_size: int = 7,
+                sample_num: int = 2, finest_scale: int = 56,
+                max_grid: int = 4, aligned: bool = True) -> list:
+    """The RoI tables of kernel C's general plan, built by its rule in
+    plain Python (`csrc/roi_align.cu:grid_fill`; tests hold them to the
+    twin and to JAX): for each RoI of `rois` [N, 4] (one image; levels of
+    (H, W) `hw`), `(level, xs, ys)`, where xs and ys hold `out_size` lists
+    of `[pixel, weight]` an axis (a column or a row; the kernel stores a
+    row as row * W). A bin's list holds the pixels its samples weight, in
+    sample order, each once, with the float32 sum over the samples of the
+    bilinear weight on it times 1 / count and the axis's `inside` mask."""
+    check_grid(sample_num, max_grid)
+    lvl = map_roi_levels(rois, len(hw), finest_scale)
+    scale = torch.tensor([1.0 / s for s in strides], dtype=rois.dtype)[lvl]
+    xs, ys, wx, wy = _sample_coords(rois, scale, out_size, sample_num,
+                                    aligned, max_grid)
+    heights = torch.tensor([h for h, _ in hw])[lvl]
+    widths = torch.tensor([w for _, w in hw])[lvl]
+    grid = wx.shape[-1]
+    tables = []
+    for i in range(rois.shape[0]):
+        axes = []
+        for coord, wgt, size in ((xs[i], wx[i], widths[i]),
+                                 (ys[i], wy[i], heights[i])):
+            lo, hi, w_lo, w_hi = (t[0].tolist() for t in
+                                  _bilinear(coord[None], size[None]))
+            per = wgt.numpy()
+            bins = []
+            for p in range(out_size):
+                ents = []
+                for g in range(grid):
+                    if per[g] == 0:             # past this RoI's count
+                        continue
+                    k = p * grid + g
+                    _merge(ents, lo[k], np.float32(w_lo[k]) * per[g])
+                    _merge(ents, hi[k], np.float32(w_hi[k]) * per[g])
+                bins.append(ents)
+            axes.append(bins)
+        tables.append((int(lvl[i]), axes[0], axes[1]))
+    return tables
+
+
+def multilevel_roi_align_strips(feats: Sequence[Tensor], rois: Tensor,
+                                strides: Sequence[int] = (4, 8, 16, 32),
+                                out_size: int = 7, sample_num: int = 2,
+                                finest_scale: int = 56, max_grid: int = 4,
+                                aligned: bool = True) -> Tensor:
+    """RoIAlign through `grid_strips`' tables, on any device's tensors, a
+    mirror of kernel C's general plan for the tests: per RoI a weighted
+    sum over each bin's rows, then over its columns, in float32. Same
+    arguments and result as `multilevel_roi_align_plain`."""
+    b, n, _ = rois.shape
+    c = feats[0].shape[-1]
+    hw = [tuple(f.shape[1:3]) for f in feats]
+    out = torch.zeros((b, n, out_size * out_size, c))
+    for i in range(b):
+        tables = grid_strips(rois[i].cpu(), hw, strides, out_size,
+                             sample_num, finest_scale, max_grid, aligned)
+        for r, (lvl, xs, ys) in enumerate(tables):
+            fmap = feats[lvl][i].detach().cpu().float()       # [H, W, C]
+            dense = []
+            for bins, size in ((ys, fmap.shape[0]), (xs, fmap.shape[1])):
+                m = torch.zeros((out_size, size))
+                for p, ents in enumerate(bins):
+                    for pixel, w in ents:
+                        m[p, pixel] += float(w)
+                dense.append(m)
+            cols = torch.einsum('ph,hwc->pwc', dense[0], fmap)
+            out[i, r] = torch.einsum('qw,pwc->pqc', dense[1],
+                                     cols).reshape(-1, c)
+    return out.to(feats[0].dtype).to(rois.device)
+
+
+def edge_rois(h: int, w: int) -> Tensor:
+    """[12, 4] float32 RoIs (image coordinates of an h x w image, h and w
+    multiples of 32) that take the edge branches of kernel C's general
+    plan: every sample of an axis in the last column, the last row, the
+    corner pixel, column 0; a large RoI past the bottom-right corner
+    (level 3, bins clamped to the edge or outside); outside top-left,
+    outside bottom-right, partly outside; zero-size at the origin and
+    inside; slivers across the whole width and height (bins capped at
+    `max_grid`)."""
+    return torch.tensor([
+        [w - 1.8, 10., w + 1.6, 40.],
+        [20., h - 1.8, 60., h + 1.6],
+        [w - 1.8, h - 1.8, w + 1.6, h + 1.6],
+        [0.1, 12., 1.9, 50.],
+        [w - 120., h - 90., w + 400., h + 300.],
+        [-30., -20., -2., -1.],
+        [w + 5., h + 5., w + 60., h + 40.],
+        [-8., -4., 40., 44.],
+        [0., 0., 0., 0.],
+        [37.3, 21.1, 37.3, 21.1],
+        [0., 40., w, 43.],
+        [20., 0., 23., h]], dtype=torch.float32)
 
 
 def _launch(feats: Sequence[Tensor], rois: Tensor, strides: Sequence[int],

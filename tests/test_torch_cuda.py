@@ -236,6 +236,35 @@ def test_roi_align_general_plan_matches_twin(dev, c, mode, dt):
         dt)
 
 
+@pytest.mark.parametrize('dt', DTYPES)
+@pytest.mark.parametrize('mode', GRID_MODES)
+@pytest.mark.parametrize('c', [32, 64, 256])
+def test_roi_align_general_plan_on_edge_rois(dev, c, mode, dt):
+    """The general plan's merged tables on `roi_align.edge_rois()` and
+    `card_checks.grid_rois()` in both images: every sample of an axis in
+    one edge column or row (all seven bins on one pixel), the corner
+    pixel, outside, zero-size, capped slivers, integer-boundary bins;
+    C = 32 and 64 put several bin rows, and RoIs, in a warp. One counted
+    launch of the plan."""
+    sample_num, max_grid, aligned = mode
+    g = torch.Generator().manual_seed(c + 7 * sample_num + max_grid)
+    h, w = 384, 640
+    feats = [torch.randn((2, h // s, w // s, c), generator=g).to(dev, dt)
+             for s in (4, 8, 16, 32)]
+    rois = torch.cat([roi_align.edge_rois(h, w),
+                      torch.from_numpy(_oracle('card_checks').grid_rois())])
+    rois = rois.expand(2, -1, -1).to(dev).contiguous()
+    before = dict(roi_align.PLAN_LAUNCHES)
+    n = roi_align.multilevel_roi_align.launches
+    got = roi_align.multilevel_roi_align(feats, rois, (4, 8, 16, 32), 7,
+                                         sample_num, 56, max_grid, aligned)
+    assert roi_align.multilevel_roi_align.launches == n + 1
+    assert roi_align.PLAN_LAUNCHES == dict(before, grid=before['grid'] + 1)
+    _close(got, roi_align.multilevel_roi_align_plain(
+        feats, rois, (4, 8, 16, 32), 7, sample_num, 56, max_grid, aligned),
+        dt)
+
+
 @pytest.mark.parametrize('variant', roi_align.VARIANTS)
 def test_pallas_entry_takes_any_static_grid_on_the_card(dev, variant):
     g = torch.Generator().manual_seed(3)
