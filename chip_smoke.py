@@ -297,6 +297,21 @@ Phases, each printed on its own lines; any failure exits non-zero:
    coefficients counted; then the loader alone over 9b's 16 samples with
    their camera JPEGs as they are and re-coded progressive (copies 9b
    makes), in turns.
+18. Lossless JPEG (SOF3) and `data/native.py`: a 900x1600 RGB camera
+   frame (predictor 7, restarts), a 900x1600 CMYK frame and a 360x640
+   1-component sensor frame from the oracle encoder (`encode_lossless`,
+   seed 18); each decoded on the card and on the CPU, bit-equal, with
+   exactly 1 JPEG kernel launch (the colour launch) a colour frame, 0
+   for the 1-component one, 0 of `jpeg_idct_kernel`; host entropy
+   decoding and reconstruction ms, the colour launch against its twin
+   on the card, its device time (`torch.profiler`) beside its bound
+   (bytes); the RGB frame through `tools.serve.predict` (what /predict
+   runs) on 6b's HRFuser-T, launch counts exact, detections as
+   `inference_detector` on the CPU decode; `native.decode_sensor_batch`
+   over 9b's 32 sensor PNGs (written again from its seed, cameras
+   skipped) card = CPU bit-equal, its ms beside
+   `LoadProjectedSensorImageFile` on the same files. Alone:
+   `cs.phase_lossless(smi, cs.Report(), {})` after `cs.phase_build()`.
 
 The last line is `{"ok": true, "device": {...}}`; the line before it
 lists each kernel's launches, error, times and bound as JSON.
@@ -372,6 +387,12 @@ REPLACES_C = ['hrfuser_tpu/ops/pallas_roi_align.py:597',
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
               'tf32x3': 495e12 / 3}
 HBM_BYTES_PER_S = 3.35e12
+# the H100's 32-bit integer rate, for the JPEG kernel's integer work: 64
+# results an SM a clock for integer add, multiply, multiply-add, shift,
+# compare and logic (CUDA C++ Programming Guide, arithmetic instruction
+# throughput table, compute capability 9.0), 132 SMs at 1.98 GHz, a
+# multiply-add counted as two operations as a FLOP count counts an FMA
+INT_OPS_PER_S = 33.5e12
 # kernels A and B's float32 ('tf32x3') lines against their twins, beside
 # the float32 tolerance: the CUDA-core loops measured 1.2e-6 to 1.2e-5
 # there, one-pass TF32 (about 2^-11 a product) would miss it
@@ -2077,16 +2098,21 @@ def _projection(rng, hw, c):
     return m
 
 
-def _jpeg_frame(rng, hw=RAW_HW, quality=90):
-    """A camera-like BGR frame (smooth ramps and noise) and its baseline
-    4:2:0 JPEG from the oracle encoder (`tests/oracles/jpeg_encoder.py`),
-    as nuScenes' camera frames are stored."""
-    enc = _oracle('jpeg_encoder')
+def _camera_image(rng, hw=RAW_HW):
+    """A camera-like BGR frame: smooth ramps and noise."""
     h, w = hw
     yy, xx = np.mgrid[0:h, 0:w]
     img = np.stack([xx * 200 / w, yy * 200 / h, (xx + yy) * 100 / (h + w)],
                    -1) + rng.integers(0, 40, (h, w, 3))
-    img = np.clip(img, 0, 255).astype(np.uint8)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def _jpeg_frame(rng, hw=RAW_HW, quality=90):
+    """`_camera_image` and its baseline 4:2:0 JPEG from the oracle encoder
+    (`tests/oracles/jpeg_encoder.py`), as nuScenes' camera frames are
+    stored."""
+    enc = _oracle('jpeg_encoder')
+    img = _camera_image(rng, hw)
     return img, enc.encode(*enc.image_coefficients(img, quality), hw)
 
 
@@ -2094,8 +2120,7 @@ def _jpeg_frame(rng, hw=RAW_HW, quality=90):
 # 8x8 block's dequantisation and two 8-point passes (8 x (16 + 82) +
 # 8 x (82 + 24) integer operations), a pixel's sample fetch (8 a
 # full-size component, 40 a fancy-upsampled one) and colour conversion
-# and store (18); the card's integer rate is taken as its float32
-# CUDA-core peak (the measurement table has no integer rate)
+# and store (18); counted at the card's integer rate, INT_OPS_PER_S
 JPEG_OPS_BLOCK, JPEG_OPS_FULL, JPEG_OPS_FANCY, JPEG_OPS_PIXEL = 1632, 8, 40, 18
 
 
@@ -2190,7 +2215,7 @@ def phase_decoders(report, smi):
                         warmup=1)
     ops, nbytes = _jpeg_work(frame, c, decoded)
     bound = max((nbytes / HBM_BYTES_PER_S * 1e3, 'bytes'),
-                (ops / PEAK_FLOPS[torch.float32] * 1e3, 'operations'))
+                (ops / INT_OPS_PER_S * 1e3, 'operations'))
     whole = _host_ms(lambda: jpeg.decode_jpeg(data, 'cuda'))
     with tempfile.TemporaryDirectory() as folder:
         with open(f'{folder}/x.jpg', 'wb') as f:
@@ -2205,7 +2230,8 @@ def phase_decoders(report, smi):
     print(f'    kernel {ms:.4f} ms (2 launches, CUDA events, mean of 50), '
           f'plain twin on the card {plain_ms:.3f} ms')
     print(f'    bound {bound[0]:.4f} ms ({bound[1]}: {nbytes / 1e6:.2f} MB '
-          f'at 3.35 TB/s, {ops / 1e6:.0f} M integer operations at 67 T/s), '
+          f'at 3.35 TB/s, {ops / 1e6:.0f} M integer operations at '
+          f'{INT_OPS_PER_S / 1e12:g} T/s), '
           f'{bound[0] / ms:.1%} of bound')
     print(f'    decode_jpeg end to end {_fmt(whole)} ms; imread of the JPEG '
           f'(side stream, copy back) {_fmt(loader_jpeg)} ms; imread of '
@@ -2214,19 +2240,24 @@ def phase_decoders(report, smi):
                plain_ms, bound)
 
 
-def _nus_folder(root, rng, classes):
+def _nus_folder(root, rng, classes, cameras=True):
     """`NUS_N` nuScenes samples: a 900x1600 camera JPEG (baseline 4:2:0,
     quality 90, from the oracle encoder, as nuScenes stores its frames),
     lidar `rih` and radar `riv` 360x640 projections, 2-6 boxes an image
     (one each of COCO's small, medium and large sizes, then random ones),
-    visibility tokens 1-4; the json as the val and the train split."""
+    visibility tokens 1-4; the json as the val and the train split.
+    Without `cameras` the same folder but its camera files (the same
+    draws from `rng`, nothing encoded)."""
     images, anns, lidar, radar = [], [], [], []
     h, w = RAW_HW
     for i in range(NUS_N):
         cam = f'samples/CAM_FRONT/{i:04d}.jpg'
-        os.makedirs(os.path.dirname(f'{root}/{cam}'), exist_ok=True)
-        with open(f'{root}/{cam}', 'wb') as f:
-            f.write(_jpeg_frame(rng)[1])
+        if cameras:
+            os.makedirs(os.path.dirname(f'{root}/{cam}'), exist_ok=True)
+            with open(f'{root}/{cam}', 'wb') as f:
+                f.write(_jpeg_frame(rng)[1])
+        else:
+            _camera_image(rng)
         images.append(dict(file_name=cam, id=f'tok{i}', width=w, height=h))
         sides = [20., 60., 200.] + list(rng.uniform(15, 400,
                                                     rng.integers(0, 4)))
@@ -4274,8 +4305,7 @@ def phase_jpeg_modes(smi, report):
         if len(frame.comps) == 4:
             ops, nbytes = _jpeg_modes_work(frame, c, got)
             bound = max((nbytes / HBM_BYTES_PER_S * 1e3, 'bytes'),
-                        (ops / PEAK_FLOPS[torch.float32] * 1e3,
-                         'operations'))
+                        (ops / INT_OPS_PER_S * 1e3, 'operations'))
             line += (f'; bound {bound[0]:.4f} ms ({bound[1]}: '
                      f'{nbytes / 1e6:.2f} MB, {ops / 1e6:.0f} M integer '
                      f'operations)')
@@ -4330,6 +4360,186 @@ def phase_jpeg_modes(smi, report):
             dt = time.perf_counter() - t0
             print(f'  loader alone, {coding} JPEG cameras: {n} images in '
                   f'{dt * 1e3:.0f} ms, {n / dt:.1f} images/s')
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _lossless_work(frame, planes, out):
+    """(operations, bytes) of a lossless frame's colour launch: each
+    full-size plane's fetch and the colour conversion and store a pixel
+    (`_jpeg_work`'s counts, no blocks), the planes read once, the image
+    written once."""
+    from hrfuser_tpu_torch.data import jpeg
+    per_pixel = (JPEG_OPS_CMYK if frame.colour == jpeg.CMYK
+                 else JPEG_OPS_PIXEL) + JPEG_OPS_FULL * len(frame.comps)
+    return per_pixel * frame.height * frame.width, _nbytes(planes, out)
+
+
+def _lossless_frames(rng):
+    """label -> (lossless JPEG, grey read, the image it must decode to or
+    None): a 900x1600 RGB camera frame (predictor 7, Pt 0, restarts every
+    15 rows), a 900x1600 CMYK frame (predictor 1, Pt 1), and a 360x640
+    1-component sensor frame of a projection's 8-bit values (predictor
+    4), all from the oracle encoder."""
+    enc = _oracle('jpeg_encoder')
+    img = _camera_image(rng, RAW_HW)
+    cmyk = np.dstack([255 - img[..., 2], 255 - img[..., 1],
+                      255 - img[..., 0],
+                      rng.integers(0, 80, RAW_HW).astype(np.uint8)])
+    sensor = np.clip(_projection(rng, GRID_HW, 1)[..., 0] / 100. - 200.,
+                     0, 255).round().astype(np.uint8)
+    return {
+        f'RGB {RAW_HW[0]}x{RAW_HW[1]}': (enc.encode_lossless(
+            img[..., ::-1], predictor=7, restart=RAW_HW[1] * 15), False,
+            img),
+        f'CMYK {RAW_HW[0]}x{RAW_HW[1]}': (enc.encode_lossless(
+            cmyk, predictor=1, pt=1), False, None),
+        f'grey sensor {GRID_HW[0]}x{GRID_HW[1]}': (enc.encode_lossless(
+            sensor, predictor=4), True, sensor)}
+
+
+def phase_lossless(smi, report, state):
+    print(f'== 18. lossless JPEG (SOF3) and the native loader\'s sensor '
+          f'decode, on {smi}')
+    from hrfuser_tpu_torch import get_experiment, inference_detector
+    from hrfuser_tpu_torch.data import jpeg, native
+    from hrfuser_tpu_torch.data.pipelines.loading import \
+        LoadProjectedSensorImageFile
+    from hrfuser_tpu_torch.tools import serve
+    t0 = time.perf_counter()
+    frames = _lossless_frames(np.random.default_rng(18))
+    print(f'  wrote the frames (oracle encoder) in '
+          f'{time.perf_counter() - t0:.1f} s')
+    err = 0
+    for label, (data, grey, image) in frames.items():
+        frame, planes = jpeg.decode_samples(data)
+        jpeg.pixels.launches = jpeg.pixels.idct_launches = 0
+        got = jpeg.decode_jpeg(data, 'cuda', grey)
+        torch.cuda.synchronize()
+        launches, idct = jpeg.pixels.launches, jpeg.pixels.idct_launches
+        cpu = jpeg.decode_jpeg(data, 'cpu', grey)
+        want = 0 if len(frame.comps) == 1 else 1
+        if launches != want or idct:
+            raise AssertionError(f'{label}: {launches} JPEG kernel launches '
+                                 f'({idct} of jpeg_idct_kernel), expected '
+                                 f'{want} (0)')
+        if not torch.equal(got.cpu(), cpu):
+            raise AssertionError(f'{label}: card and CPU decodes differ')
+        if image is not None and not np.array_equal(cpu.numpy(), image):
+            raise AssertionError(f'{label}: not the image it encodes')
+        t = torch.from_numpy(planes).cuda()
+        entropy = _host_ms(lambda: jpeg.decode_samples(data))
+        line = (f'  {label} ({len(data) / 1e6:.2f} MB, {len(frame.comps)} '
+                f'component(s)): card = CPU bit-equal'
+                + (', = the image' if image is not None else '')
+                + f', {launches} launch(es), {idct} of jpeg_idct_kernel; '
+                f'host entropy decoding and reconstruction {_fmt(entropy)} '
+                f'ms (median of 5)')
+        if launches:
+            kernel = jpeg.lossless_pixels(t, frame, grey)
+            plain = jpeg.lossless_pixels_plain(t, frame, grey)
+            diff = (kernel.int() - plain.int()).abs().max().item()
+            err = max(err, diff)
+            if diff:
+                raise AssertionError(f'{label}: the colour launch differs '
+                                     f'from its twin by {diff}')
+            dev_ms = (_device_ms(lambda: jpeg.lossless_pixels(t, frame, grey),
+                                 'jpeg_color', iters=50)
+                      or _device_ms(lambda: jpeg.lossless_pixels(t, frame,
+                                                                 grey),
+                                    'jpeg_color', iters=50))
+            call_ms = _time_ms(lambda: jpeg.lossless_pixels(t, frame, grey),
+                               iters=50)
+            plain_ms = _time_ms(lambda: jpeg.lossless_pixels_plain(
+                t, frame, grey), iters=5, warmup=1)
+            ops, nbytes = _lossless_work(frame, t, kernel)
+            bound = max((nbytes / HBM_BYTES_PER_S * 1e3, 'bytes'),
+                        (ops / INT_OPS_PER_S * 1e3, 'operations'))
+            line += (f'; colour launch = twin on the card bit-equal, '
+                     + (f'{dev_ms:.4f} ms device time (torch.profiler, '
+                        f'mean of 50)' if dev_ms is not None else
+                        'device time not measured (no CUDA events in the '
+                        'profile)')
+                     + f', the call {call_ms:.4f} ms (CUDA events, mean of '
+                     f'50), plain twin {plain_ms:.3f} ms; bound '
+                     f'{bound[0]:.4f} ms ({bound[1]}: {nbytes / 1e6:.2f} MB, '
+                     f'{ops / 1e6:.0f} M integer operations)'
+                     + (f', {bound[0] / dev_ms:.1%} of bound on device time'
+                        if dev_ms is not None else ''))
+        print(line)
+    report.add('jpeg_pixels', SRC_JPEG, REPLACES_JPEG, float(err))
+    # the lossless camera through the server's request function, against
+    # inference_detector on the CPU decode
+    det = state.get('det')
+    if det is None:
+        from hrfuser_tpu_torch import init_detector
+        det = init_detector(CONFIG, 'cuda', seed=1, dtype=torch.bfloat16)
+    data = next(iter(frames.values()))[0]
+    serve.predict(det, data, [])                       # warm-up
+    torch.cuda.synchronize()
+    _reset_counts()
+    jpeg.pixels.launches = jpeg.pixels.idct_launches = 0
+    t0 = time.perf_counter()
+    got = serve.predict(det, data, [])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    _check_counts(_expected_launches(det.cfg), 1,
+                  'serve.predict, a lossless RGB camera')
+    launches, idct = jpeg.pixels.launches, jpeg.pixels.idct_launches
+    want = inference_detector(det, jpeg.decode_jpeg(data, 'cpu').numpy())
+    same = (got['labels'].tolist() == want['labels'].tolist()
+            and np.allclose(got['boxes'], want['boxes'], atol=0.01)
+            and np.allclose(got['scores'], want['scores'], atol=1e-4))
+    print(f'  serve.predict (what /predict runs), the lossless RGB camera: '
+          f'{len(got["labels"])} detections in {ms:.1f} ms (decode '
+          f'included), {launches} JPEG kernel launch(es), {idct} of '
+          f'jpeg_idct_kernel; detections as inference_detector on the CPU '
+          f'decode: {same}')
+    _check_frame(got['boxes'], 'a lossless camera request')
+    if launches != 1 or idct or not same:
+        raise AssertionError('the lossless camera request: launches '
+                             f'{launches} ({idct}), same detections {same}')
+    # data/native.py's batched sensor decode over 9b's sensor PNGs
+    # (written again from its seed), beside the dataset loader's step
+    exp = get_experiment(CONFIG)
+    root = tempfile.mkdtemp(prefix='nus_sensors_')
+    try:
+        _nus_folder(root, np.random.default_rng(10), exp.data.classes,
+                    cameras=False)
+        names = [(f'{ch}/{i:04d}.png', ch) for i in range(NUS_N)
+                 for ch in ('rih', 'riv')]
+        paths = [f'{root}/{n}' for n, _ in names]
+        shapes = [(*GRID_HW, 3)] * len(paths)
+
+        def batch(device):
+            return native.decode_sensor_batch(paths, shapes, 100.0, 200.0,
+                                              num_threads=4, device=device)
+
+        card, cpu = batch('cuda'), batch('cpu')
+        if not all(torch.equal(a.cpu(), b) for a, b in zip(card, cpu)):
+            raise AssertionError('decode_sensor_batch: card and CPU differ')
+        steps = {'rih': LoadProjectedSensorImageFile('lidar', ['rih']),
+                 'riv': LoadProjectedSensorImageFile('radar', ['riv'])}
+
+        def loader():
+            out = []
+            for name, ch in names:
+                sensor = 'lidar' if ch == 'rih' else 'radar'
+                out.append(steps[ch]({
+                    f'{sensor}_prefix': root, f'{sensor}_info': {ch: dict(
+                        file_name=name, pixel_scale_factor=100.0,
+                        shift=200.0)}})[f'{sensor}_img'])
+            return out
+
+        off = max(float(np.abs(a.numpy() - b).max())
+                  for a, b in zip(cpu, loader()))
+        batch_ms, loader_ms = _host_ms(lambda: batch('cuda')), _host_ms(loader)
+        print(f'  native.decode_sensor_batch over 9b\'s {len(paths)} sensor '
+              f'PNGs ({GRID_HW[0]}x{GRID_HW[1]}x3 uint16), 4 host threads, '
+              f'dequantised on the card: {_fmt(batch_ms)} ms; card = CPU '
+              f'bit-equal; LoadProjectedSensorImageFile on the same files '
+              f'(numpy, one thread, v / 100 - 200 divided) {_fmt(loader_ms)} '
+              f'ms, values within {off:.2e} of the native decode\'s')
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -4412,6 +4622,7 @@ def main():
         ('16c', lambda: phase_remat(smi)),
         ('16d', lambda: phase_real_parity(smi)),
         ('17', lambda: phase_jpeg_modes(smi, report)),
+        ('18', lambda: phase_lossless(smi, report, state)),
     ]
     for name, run in phases:
         t1 = time.perf_counter()

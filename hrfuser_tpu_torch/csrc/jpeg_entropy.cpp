@@ -51,17 +51,31 @@
 //    that scan. The estimates are written into the coefficients, which
 //    is what libjpeg feeds its inverse DCT. A complete frame is not
 //    smoothed.
-// Lossless, hierarchical, arithmetic lossless and hierarchical frames,
-// other precisions than 8 bits, and 2-component images are refused with
-// a message naming the mode.
+// Lossless frames (SOF3, Huffman-coded) decode as libjpeg-turbo 3
+// (jdlhuff.c, jddiffct.c, jdlossls.c: what cv2 reads them with) decodes
+// them through its 8-bit interface: precision 2-8, predictors 1-7, the
+// point transform, restart intervals of whole MCU rows, any integral
+// sampling factors (samples repeated to full size), 1, 3 (RGB: libjpeg
+// converts no colour in lossless mode, so JFIF or an Adobe transform
+// other than 0 is refused) or 4 (CMYK) components; a scan whose data
+// runs out goes on from zero bits to the end of that MCU row, and each
+// later row restarts prediction from zero differences. Hierarchical,
+// arithmetic-coded lossless (which cv2 refuses too), other precisions and
+// 2-component images are refused with a message naming the mode.
 //
 // C interface (ctypes):
-//   hrf_jpeg_info(data, n, info, err, errlen): frame header -> info =
-//     [height, width, ncomp, colour (0 grey, 1 YCbCr, 2 RGB, 3 CMYK,
-//      4 YCCK), then per component: h, v, block rows, block cols]
+//   hrf_jpeg_info(data, n, info, err, errlen): frame header -> info
+//     (24 ints) = [height, width, ncomp, colour (0 grey, 1 YCbCr, 2 RGB,
+//      3 CMYK, 4 YCCK), then per component: h, v, block rows, block
+//      cols (a lossless frame: 1, 1 and its 8x8 tiles); at 20: lossless
+//      (0 or 1), precision, the first scan's point transform]
 //   hrf_jpeg_decode(data, n, out, out_len, err, errlen): out = every
 //     component's coefficients, one after the other, then ncomp x 64
 //     quantisation values (natural order); out_len counts int16 values.
+//   hrf_jpeg_decode_samples(data, n, out, out_len, err, errlen): a
+//     lossless frame's samples, each component a uint8 plane of its 8x8
+//     tiles at full size (hrf_jpeg_info's rows x 8 by cols x 8, the image
+//     at the top left, the rest 0), one after the other.
 //   hrf_jpeg_encode_scan(blocks, nmcu, per_mcu, comp, out, cap, written,
 //     err, errlen): Huffman-code one interleaved baseline scan with the
 //     standard tables of Annex K.3 (see there).
@@ -73,6 +87,7 @@
 #include <cstring>
 #include <stdexcept>
 #include <string>
+#include <vector>
 
 namespace {
 
@@ -106,7 +121,9 @@ struct HuffTable {
   uint8_t vals[256];
   uint16_t look[1 << kLookahead];  // (length << 8) | symbol; length 9 = slow
 
-  void build(const HuffSpec& spec, bool dc) {
+  // `max_symbol`: the largest symbol a table may hold, checked for DC
+  // tables (15; 16 in a lossless frame), -1 for none
+  void build(const HuffSpec& spec, int max_symbol) {
     char size[257];
     uint32_t code_of[257];
     int p = 0;
@@ -149,9 +166,9 @@ struct HuffTable {
           look[base + j] = (uint16_t)((l << 8) | spec.vals[p]);
       }
     }
-    if (dc)
+    if (max_symbol >= 0)
       for (int i = 0; i < nsym; i++)
-        if (spec.vals[i] > 15) fail("bad Huffman table");
+        if (spec.vals[i] > max_symbol) fail("bad Huffman table");
   }
 };
 
@@ -204,8 +221,10 @@ HuffSpec standard_table(bool ac, int t) {
 
 struct Component {
   int id, h, v, tq;
+  int fh, fv;              // the frame header's factors (lossless frames)
   int rows, cols;          // MCU-padded block grid
-  int wblocks, hblocks;    // blocks that hold image samples
+  int wblocks, hblocks;    // blocks that hold image samples (lossless:
+                           // samples, a block being one)
   long offset;             // first coefficient in the output
   bool latched = false;
   int16_t quant[64];       // as the IDCT multiplies (ISLOW_MULT_TYPE)
@@ -266,7 +285,8 @@ struct Decoder {
   const uint8_t* data;
   long n;
   long pos = 0;
-  bool frame = false, progressive = false, arith = false;
+  bool frame = false, progressive = false, arith = false, lossless = false;
+  int precision = 8;
   int height = 0, width = 0, ncomp = 0, hmax = 1, vmax = 1;
   int mcu_rows = 0, mcu_cols = 0;
   Component comp[4];
@@ -302,6 +322,19 @@ struct Decoder {
   int dc_context[4];
   uint8_t dc_stats[16][64], ac_stats[16][256];
   uint8_t fixed_bin = 113;
+
+  // lossless frames (jddiffct.c, jdlossls.c): each component's samples
+  // over its own (downsampled) grid, as the scaler writes them, and
+  // whether its next row restarts prediction (predict_undifference is
+  // jpeg_undifference_first_row)
+  std::vector<uint8_t> samples[4];
+  int lhmax = 1, lvmax = 1;
+  bool first_row[4] = {};
+  bool scanned[4] = {};
+  // a first scan that holds every component is the whole frame: libjpeg
+  // then decodes in one pass, emitting rows as the scan goes, and cv2
+  // keeps them whatever comes after (a later scan, a bad marker)
+  bool one_pass = false;
 
   Decoder() {
     for (int i = 0; i < 16; i++) {
@@ -694,7 +727,8 @@ struct Decoder {
     if (t > 3) fail("bad Huffman table index");
     const HuffSpec& s = (ac ? ac_spec : dc_spec)[t];
     if (s.defined) return s;
-    if (t > 1 || progressive) fail("scan uses an undefined Huffman table");
+    if (t > 1 || progressive || lossless)
+      fail("scan uses an undefined Huffman table");
     return standard_table(ac, t);
   }
 
@@ -743,6 +777,10 @@ struct Decoder {
     int ss = byte(), se = byte(), a = byte();
     int ah = a >> 4, al = a & 15;
     scans++;
+    if (lossless) {
+      lossless_scan(sc, ns, td, ss, se, ah, al);
+      return;
+    }
     for (int i = 0; i < ns; i++) {
       Component& c = *sc[i];
       if (!c.latched) {
@@ -774,8 +812,8 @@ struct Decoder {
         }
         if (ac_stage) memset(ac_stats[ta[i]], 0, 256);
       } else {
-        if (dc_stage) dct[i].build(table(false, td[i]), true);
-        if (ac_stage) act[i].build(table(true, ta[i]), false);
+        if (dc_stage) dct[i].build(table(false, td[i]), 15);
+        if (ac_stage) act[i].build(table(true, ta[i]), -1);
       }
     }
     // MCU geometry
@@ -899,6 +937,152 @@ struct Decoder {
                 arith_ac_refine(blk, ta[i], ss, se, al);
               break;
           }
+        }
+      }
+    }
+  }
+
+  // -- lossless scans (libjpeg-turbo 3: jdlhuff.c, jddiffct.c, jdlossls.c)
+
+  // one Huffman-coded difference (jdlhuff.c decode_mcus): category 16
+  // carries no extra bits and means 32768
+  int difference(const HuffTable& t) {
+    int s = decode(t);
+    if (s == 16) return 32768;
+    return s ? extend(get_bits(s), s) : 0;
+  }
+
+  // A lossless scan, as libjpeg-turbo 3 decodes it: an MCU row's
+  // differences at a time (the restart check before it: an interval must
+  // hold whole MCU rows; a row begun after the data ran out reads as zero
+  // differences and restarts prediction), then, an iMCU row at a time,
+  // each component's rows undifferenced (ITU T.81 H.1.2.1: a row that
+  // restarts prediction starts from 2^(P - Pt - 1) and predicts from the
+  // left; other rows' first sample from above, the rest by predictor Ss;
+  // sums modulo 2^16) and scaled (<< Pt, kept to 8 bits). A restart
+  // marks every component's next undifferenced row, so one that comes
+  // inside an iMCU row of a component with v > 1 restarts that iMCU
+  // row's first row, as there.
+  void lossless_scan(Component** sc, int ns, const int* td, int ss, int se,
+                     int ah, int al) {
+    if (ss < 1 || ss > 7 || se != 0 || ah != 0 || al >= precision) {
+      char msg[96];
+      snprintf(msg, sizeof(msg), "invalid lossless scan parameters Ss=%d "
+               "Se=%d Ah=%d Al=%d", ss, se, ah, al);
+      fail(msg);
+    }
+    HuffTable tab[4];
+    int ci[4];
+    for (int i = 0; i < ns; i++) {
+      tab[i].build(table(false, td[i]), 16);
+      ci[i] = (int)(sc[i] - comp);
+      scanned[ci[i]] = true;
+    }
+    one_pass = scans == 1 && ns == ncomp;
+    // MCU geometry: an interleaved MCU holds h x v samples of each
+    // component; a one-component scan one sample, v MCU rows an iMCU row
+    int per_row, imcu_rows = (height + lvmax - 1) / lvmax;
+    int span[4];  // a row of differences, dummy samples included
+    for (int i = 0; i < ns; i++) {
+      const Component& k = comp[ci[i]];
+      span[i] = ns > 1 ? (width + lhmax - 1) / lhmax * k.fh : k.wblocks;
+    }
+    per_row = ns > 1 ? (width + lhmax - 1) / lhmax : span[0];
+    if (restart_interval % per_row) {
+      char msg[96];
+      snprintf(msg, sizeof(msg), "restart interval %d is not a whole "
+               "number of MCU rows of %d MCUs", restart_interval, per_row);
+      fail(msg);
+    }
+    std::vector<int> diff[4], prev[4], cur;
+    for (int i = 0; i < ns; i++) {
+      diff[i].assign((size_t)comp[ci[i]].fv * span[i], 0);
+      prev[i].assign(comp[ci[i]].wblocks, 0);
+    }
+    for (int c = 0; c < ncomp; c++) first_row[c] = true;
+    buf = 0;
+    bits = 0;
+    marker = 0;
+    insufficient = false;
+    next_restart = 0;
+    int rows_to_go = restart_interval / per_row;
+    const int initial = 1 << (precision - al - 1);
+    for (int im = 0; im < imcu_rows; im++) {
+      bool last = im == imcu_rows - 1;
+      int rows_now = 1;  // MCU rows in this iMCU row
+      if (ns == 1) {
+        const Component& k = comp[ci[0]];
+        rows_now = last ? k.hblocks - (imcu_rows - 1) * k.fv : k.fv;
+      }
+      for (int y = 0; y < rows_now; y++) {
+        if (restart_interval) {
+          if (rows_to_go == 0) {
+            restart();
+            for (int c = 0; c < ncomp; c++) first_row[c] = true;
+            rows_to_go = restart_interval / per_row;
+          }
+          rows_to_go--;
+        }
+        if (insufficient) {
+          for (int i = 0; i < ns; i++) {
+            int rows = ns > 1 ? comp[ci[i]].fv : 1;
+            int* d = diff[i].data() + (size_t)(ns > 1 ? 0 : y) * span[i];
+            memset(d, 0, sizeof(int) * rows * span[i]);
+          }
+          for (int c = 0; c < ncomp; c++) first_row[c] = true;
+          continue;
+        }
+        for (int mc = 0; mc < per_row; mc++) {
+          for (int i = 0; i < ns; i++) {
+            if (ns == 1) {
+              diff[0][(size_t)y * span[0] + mc] = difference(tab[0]);
+              continue;
+            }
+            const Component& k = comp[ci[i]];
+            for (int yy = 0; yy < k.fv; yy++)
+              for (int xx = 0; xx < k.fh; xx++)
+                diff[i][(size_t)yy * span[i] + mc * k.fh + xx] =
+                    difference(tab[i]);
+          }
+        }
+      }
+      for (int i = 0; i < ns; i++) {
+        int c = ci[i];
+        const Component& k = comp[c];
+        int w = k.wblocks;
+        int rows = last ? k.hblocks - (imcu_rows - 1) * k.fv : k.fv;
+        cur.resize(w);
+        for (int r = 0; r < rows; r++) {
+          const int* d = diff[i].data() + (size_t)r * span[i];
+          int ra, rb, rc;
+          if (first_row[c]) {
+            ra = (d[0] + initial) & 0xFFFF;
+            cur[0] = ra;
+            for (int x = 1; x < w; x++) cur[x] = ra = (d[x] + ra) & 0xFFFF;
+            first_row[c] = false;
+          } else {
+            rb = prev[i][0];
+            ra = (d[0] + rb) & 0xFFFF;
+            cur[0] = ra;
+            for (int x = 1; x < w; x++) {
+              rc = rb;
+              rb = prev[i][x];
+              int p;
+              switch (ss) {
+                case 1: p = ra; break;
+                case 2: p = rb; break;
+                case 3: p = rc; break;
+                case 4: p = ra + rb - rc; break;
+                case 5: p = ra + ((rb - rc) >> 1); break;
+                case 6: p = rb + ((ra - rc) >> 1); break;
+                default: p = (ra + rb) >> 1; break;
+              }
+              cur[x] = ra = (d[x] + p) & 0xFFFF;
+            }
+          }
+          uint8_t* out8 = samples[c].data() + (size_t)(im * k.fv + r) * w;
+          for (int x = 0; x < w; x++) out8[x] = (uint8_t)(cur[x] << al);
+          prev[i].swap(cur);
         }
       }
     }
@@ -1055,7 +1239,6 @@ struct Decoder {
 
   void sof(int code) {
     switch (code) {
-      case 0xC3: fail("lossless JPEG is not supported");
       case 0xC5: case 0xC6: case 0xC7:
         fail("hierarchical (differential) JPEG is not supported");
       case 0xCB: fail("arithmetic-coded lossless JPEG is not supported");
@@ -1065,13 +1248,16 @@ struct Decoder {
     if (frame) fail("a second frame header");
     progressive = code == 0xC2 || code == 0xCA;
     arith = code == 0xC9 || code == 0xCA;
+    lossless = code == 0xC3;
     int len = word();
-    int precision = byte();
+    precision = byte();
     height = word();
     width = word();
     ncomp = byte();
+    // a lossless frame reads at 2-8 bits, as libjpeg-turbo 3's 8-bit
+    // interface (cv2's) reads it
     if (precision == 12) fail("12-bit precision is not supported");
-    if (precision != 8)
+    if (lossless ? precision < 2 || precision > 8 : precision != 8)
       fail("precision " + std::to_string(precision) + " is not supported");
     if (height == 0)
       fail("a height set by a DNL marker is not supported");
@@ -1083,8 +1269,8 @@ struct Decoder {
     for (int c = 0; c < ncomp; c++) {
       comp[c].id = byte();
       int hv = byte();
-      comp[c].h = hv >> 4;
-      comp[c].v = hv & 15;
+      comp[c].h = comp[c].fh = hv >> 4;
+      comp[c].v = comp[c].fv = hv & 15;
       comp[c].tq = byte();
       if (comp[c].h < 1 || comp[c].h > 4 || comp[c].v < 1 || comp[c].v > 4)
         fail("bad sampling factors");
@@ -1092,6 +1278,8 @@ struct Decoder {
       if (comp[c].h > hmax) hmax = comp[c].h;
       if (comp[c].v > vmax) vmax = comp[c].v;
     }
+    lhmax = hmax;
+    lvmax = vmax;
     mcu_cols = (width + 8 * hmax - 1) / (8 * hmax);
     mcu_rows = (height + 8 * vmax - 1) / (8 * vmax);
     long offset = 0;
@@ -1110,6 +1298,20 @@ struct Decoder {
       k.hblocks = (int)((sh + 7) / 8);
       k.offset = offset;
       offset += (long)k.rows * k.cols * 64;
+    }
+    if (lossless) {
+      // a sample an MCU row's column per unit of h, libjpeg's
+      // downsampled_width / _height over the header's factors; the
+      // upsampler repeats samples (no fancy upsampling in lossless mode),
+      // integral ratios only
+      for (int c = 0; c < ncomp; c++) {
+        Component& k = comp[c];
+        if (lhmax % k.fh || lvmax % k.fv)
+          fail("fractional sampling factors are not supported");
+        k.wblocks = (int)(((long)width * k.fh + lhmax - 1) / lhmax);
+        k.hblocks = (int)(((long)height * k.fv + lvmax - 1) / lvmax);
+        samples[c].assign((size_t)k.wblocks * k.hblocks, 0);
+      }
     }
     frame = true;
   }
@@ -1231,6 +1433,23 @@ struct Decoder {
     pos = 2;
     if (!until_scan()) fail("truncated before the image data");
     if (!frame) fail("scan before the frame header");
+    int cs = colour();
+    if (lossless && (cs == 1 || cs == 4))
+      fail(std::string("lossless ") + (cs == 1 ? "YCbCr" : "YCCK") +
+           " JPEG is not supported (libjpeg converts no colour in "
+           "lossless mode)");
+  }
+
+  // the point transform of the scan whose header comes next (after
+  // start(), the first scan's), read without moving on
+  int next_scan_al() {
+    long at = pos;
+    int len = word(), ns = byte();
+    if (ns < 1 || ns > 4 || len != 6 + 2 * ns) fail("bad scan header");
+    pos += 2 * ns + 2;
+    int al = byte() & 15;
+    pos = at;
+    return al;
   }
 
   // jdapimin.c default_decompress_parms: 0 grey, 1 YCbCr, 2 RGB, 3 CMYK,
@@ -1242,7 +1461,7 @@ struct Decoder {
     if (adobe) return adobe_transform == 0 ? 2 : 1;
     if (comp[0].id == 'R' && comp[1].id == 'G' && comp[2].id == 'B')
       return 2;
-    return 1;
+    return lossless ? 2 : 1;  // a lossless frame is RGB whatever its ids
   }
 };
 
@@ -1366,11 +1585,16 @@ extern "C" int hrf_jpeg_info(const uint8_t* data, long n, int* info,
     info[2] = d.ncomp;
     info[3] = d.colour();
     for (int c = 0; c < d.ncomp; c++) {
-      info[4 + 4 * c] = d.comp[c].h;
-      info[5 + 4 * c] = d.comp[c].v;
-      info[6 + 4 * c] = d.comp[c].rows;
-      info[7 + 4 * c] = d.comp[c].cols;
+      // a lossless frame's samples come out at full size, each plane
+      // padded to whole 8x8 tiles (hrf_jpeg_decode_samples)
+      info[4 + 4 * c] = d.lossless ? 1 : d.comp[c].h;
+      info[5 + 4 * c] = d.lossless ? 1 : d.comp[c].v;
+      info[6 + 4 * c] = d.lossless ? (d.height + 7) / 8 : d.comp[c].rows;
+      info[7 + 4 * c] = d.lossless ? (d.width + 7) / 8 : d.comp[c].cols;
     }
+    info[20] = d.lossless;
+    info[21] = d.precision;
+    info[22] = d.lossless ? d.next_scan_al() : 0;
     return 0;
   } catch (const Error& e) {
     return report(e.what(), err, errlen);
@@ -1384,6 +1608,7 @@ extern "C" int hrf_jpeg_decode(const uint8_t* data, long n, int16_t* out,
     d.data = data;
     d.n = n;
     d.start();
+    if (d.lossless) fail("a lossless frame holds samples, not coefficients");
     long total = 0;
     for (int c = 0; c < d.ncomp; c++)
       total += (long)d.comp[c].rows * d.comp[c].cols * 64;
@@ -1398,6 +1623,47 @@ extern "C" int hrf_jpeg_decode(const uint8_t* data, long n, int16_t* out,
     for (int c = 0; c < d.ncomp; c++)
       if (d.comp[c].latched)
         memcpy(out + total + 64 * c, d.comp[c].quant, 64 * sizeof(int16_t));
+    return 0;
+  } catch (const Error& e) {
+    return report(e.what(), err, errlen);
+  }
+}
+
+extern "C" int hrf_jpeg_decode_samples(const uint8_t* data, long n,
+                                       uint8_t* out, long out_len, char* err,
+                                       int errlen) {
+  try {
+    Decoder d;
+    d.data = data;
+    d.n = n;
+    d.start();
+    if (!d.lossless) fail("not a lossless frame: decode its coefficients");
+    long rows = (d.height + 7) / 8 * 8, cols = (d.width + 7) / 8 * 8;
+    if (out_len != rows * cols * d.ncomp)
+      fail("output buffer of the wrong size");
+    memset(out, 0, out_len);
+    do {
+      d.scan();
+    } while (!d.one_pass && d.until_scan());
+    // a file that ends before some component's first scan is refused,
+    // as libjpeg-turbo 3 (through cv2) refuses it
+    for (int c = 0; c < d.ncomp; c++)
+      if (!d.scanned[c])
+        fail("the file ends before a scan of component " +
+             std::to_string(c + 1));
+    for (int c = 0; c < d.ncomp; c++) {
+      const Component& k = d.comp[c];
+      int ey = d.lvmax / k.fv, ex = d.lhmax / k.fh;
+      for (int y = 0; y < d.height; y++) {
+        const uint8_t* src = d.samples[c].data() + (long)(y / ey) * k.wblocks;
+        uint8_t* dst = out + (c * rows + y) * cols;
+        if (ex == 1) {
+          memcpy(dst, src, d.width);
+        } else {
+          for (int x = 0; x < d.width; x++) dst[x] = src[x / ex];
+        }
+      }
+    }
     return 0;
   } catch (const Error& e) {
     return report(e.what(), err, errlen);

@@ -1,5 +1,6 @@
 // The JPEG decoder's pixel half: dequantisation, inverse DCT, upsampling
-// and colour conversion, in two launches an image.
+// and colour conversion, in two launches an image (one for a lossless
+// frame, below).
 //
 // Replaces no TPU kernel: the JAX package decodes camera JPEGs on the host
 // with libjpeg (hrfuser_tpu/data/native.py, _native/loader.cpp) or cv2,
@@ -31,17 +32,24 @@
 //    icvCvt_CMYK2BGR_8u_C4C3R does. A grey read stores one byte: the luma,
 //    jdcolor.c's rgb_gray_convert of RGB, cv2's icvCvt_CMYK2Gray of CMYK.
 //
+// Lossless frames (SOF3) take launch 2 alone: the host rebuilds their
+// samples (csrc/jpeg_entropy.cpp), repeated to full size and laid out as
+// launch 1 lays out its planes (each component 64 bytes a tile of its
+// 8x8 tiles), so every component runs here as a full-size one (1x1, no
+// upsampling): RGB stored as B, G, R, CMYK as cv2 converts it.
+//
 // What bounds it on the H100: for a 900x1600 4:2:0 frame it reads 34,200
 // blocks of 128 bytes of coefficients (4.38 MB) and writes 4.32 MB of
 // BGR, 2.6 us at 3.35 TB/s; its integer work, counted from this code in
 // chip_smoke.py (1,632 operations a block, 106 a pixel: 208 M), takes
-// 3.1 us at the 67 T/s of the card's CUDA cores, so the two bounds are
-// close. A 4-component frame with K at 2x2 has 57,000 blocks, so its
-// bound is some 1.6x that. The planes (1.4 MB at 4:2:0) stay in the
-// 50 MB L2 between the launches. The design is the simple one: no tiling
-// across blocks, no fusion of the two launches, no vector loads, the
-// parameters indexed at run time (they live on the stack); its time is
-// in PERF.md.
+// 6.2 us at the card's 32-bit integer rate (64 results an SM a clock,
+// CUDA C++ Programming Guide, compute capability 9.0: 33.5 T op/s with a
+// multiply-add counted as two), so the integer work bounds it. A
+// 4-component frame with K at 2x2 has 57,000 blocks (253 M operations,
+// 7.6 us). The planes (1.4 MB at 4:2:0) stay in the 50 MB L2 between the
+// launches. The design is the simple one: no tiling across blocks, no
+// fusion of the two launches, no vector loads, the parameters indexed at
+// run time (they live on the stack); its time is in PERF.md.
 
 #include <cuda_runtime.h>
 

@@ -38,9 +38,19 @@ CMYK to BGR by `cv2`'s own arithmetic, the Adobe marker's inversion
 ignored as `cv2` ignores it. A grey read (`grey=True`, what
 `cv2.IMREAD_GRAYSCALE` gives) of a grey or YCbCr file is its luma,
 whose chroma is then not transformed; of an RGB file `jdcolor.c`'s
-`rgb_gray_convert`; of a CMYK or YCCK one `cv2`'s CMYK -> grey. Lossless,
-hierarchical, 12-bit and 2-component files raise `JpegError` naming the
+`rgb_gray_convert`; of a CMYK or YCCK one `cv2`'s CMYK -> grey.
+Hierarchical, 12-bit and 2-component files raise `JpegError` naming the
 mode (tests/test_torch_jpeg_modes.py for the rest).
+
+Lossless files (SOF3) decode as `cv2` (libjpeg-turbo 3) decodes them,
+the JAX package's only reader of them: `decode_samples(data)` rebuilds
+the samples on the host (`hrf_jpeg_decode_samples`: prediction, the
+point transform, subsampled components repeated to full size), and
+`lossless_pixels` (twin `lossless_pixels_plain`) converts them with the
+kernel's colour launch alone: RGB to BGR, CMYK as `cv2` does, a
+1-component frame as it is. libjpeg converts no colour in lossless
+mode, so a colour read of a 1-component frame, a grey read of an RGB
+one, and YCbCr or YCCK frames raise (tests/test_torch_jpeg_lossless.py).
 
 The writer, `imencode(img)` / `imwrite(path, img)`, gives the bytes
 `cv2.imencode('.jpg', img)` gives with its defaults (libjpeg-turbo:
@@ -90,6 +100,9 @@ _SIGNATURES = {
                       ctypes.c_int],
     'hrf_jpeg_decode': [ctypes.c_char_p, ctypes.c_long, _P, ctypes.c_long,
                         ctypes.c_char_p, ctypes.c_int],
+    'hrf_jpeg_decode_samples': [ctypes.c_char_p, ctypes.c_long, _P,
+                                ctypes.c_long, ctypes.c_char_p,
+                                ctypes.c_int],
     'hrf_jpeg_encode_scan': [_P, ctypes.c_long, ctypes.c_int, _P, _P,
                              ctypes.c_long, _P, ctypes.c_char_p,
                              ctypes.c_int],
@@ -153,11 +166,17 @@ def lib() -> ctypes.CDLL:
 class Frame(NamedTuple):
     """A JPEG frame's layout: image size, colour space (GREY, YCBCR, RGB,
     CMYK or YCCK) and per component (h, v, block rows, block cols), the
-    block grid padded to whole MCUs."""
+    block grid padded to whole MCUs. A lossless frame (SOF3) has its
+    sample precision and its first scan's point transform `pt`, and each
+    component (1, 1, rows, cols): its samples come out at full size,
+    padded to whole 8x8 tiles (`decode_samples`)."""
     height: int
     width: int
     colour: int
     comps: Tuple[Tuple[int, int, int, int], ...]
+    lossless: bool = False
+    precision: int = 8
+    pt: int = 0
 
     @property
     def blocks(self) -> Tuple[int, ...]:
@@ -194,13 +213,14 @@ def _error(buf) -> str:
 
 def frame_info(data: bytes) -> Frame:
     """The frame header of a JPEG byte string."""
-    info = (ctypes.c_int * 20)()
+    info = (ctypes.c_int * 24)()
     err = ctypes.create_string_buffer(256)
     if lib().hrf_jpeg_info(data, len(data), info, err, len(err)):
         raise JpegError(_error(err))
     n = info[2]
     comps = tuple(tuple(info[4 + 4 * c:8 + 4 * c]) for c in range(n))
-    frame = Frame(info[0], info[1], info[3], comps)
+    frame = Frame(info[0], info[1], info[3], comps, bool(info[20]),
+                  info[21], info[22])
     for i in range(n):
         frame.expand(i)
     return frame
@@ -212,16 +232,34 @@ def jpeg_shape(data: bytes) -> Tuple[int, int, int]:
     return f.height, f.width, len(f.comps)
 
 
-def decode_coefficients(data: bytes) -> Tuple[Frame, np.ndarray]:
+def decode_coefficients(data: bytes, frame: Optional[Frame] = None
+                        ) -> Tuple[Frame, np.ndarray]:
     """Entropy-decode a JPEG on the host: (frame, int16 array of
     `frame.size` values: each component's [block rows, block cols, 64]
     coefficients in natural order, one after the other, then each
-    component's 64 quantisation values)."""
-    frame = frame_info(data)
+    component's 64 quantisation values). A lossless frame raises (it
+    holds samples: `decode_samples`)."""
+    frame = frame or frame_info(data)
     out = np.empty(frame.size, np.int16)
     err = ctypes.create_string_buffer(256)
     if lib().hrf_jpeg_decode(data, len(data), out.ctypes.data, out.size,
                              err, len(err)):
+        raise JpegError(_error(err))
+    return frame, out
+
+
+def decode_samples(data: bytes, frame: Optional[Frame] = None
+                   ) -> Tuple[Frame, np.ndarray]:
+    """Decode a lossless JPEG on the host (entropy decoding, prediction,
+    the point transform and, for subsampled components, repetition to
+    full size): (frame, uint8 array of each component's plane
+    [rows * 8, cols * 8], the image at its top left, one after the
+    other). Any other frame raises."""
+    frame = frame or frame_info(data)
+    out = np.empty(64 * sum(frame.blocks), np.uint8)
+    err = ctypes.create_string_buffer(256)
+    if lib().hrf_jpeg_decode_samples(data, len(data), out.ctypes.data,
+                                     out.size, err, len(err)):
         raise JpegError(_error(err))
     return frame, out
 
@@ -400,6 +438,29 @@ def pixels_plain(coefs: Tensor, frame: Frame, grey: bool = False) -> Tensor:
 
 # -- the kernel -------------------------------------------------------------
 
+def _params(frame: Frame):
+    """The kernel's per-component parameters: block rows and columns,
+    sample rows and columns, upsampling factors."""
+    params = []
+    for i, (h, v, r, c) in enumerate(frame.comps):
+        params += [r, c, *frame.sampled(i), *frame.expand(i)]
+    return (ctypes.c_int * len(params))(*params)
+
+
+def _launch_colour(planes: Tensor, frame: Frame, params, coded: int,
+                   grey: bool) -> Tensor:
+    """Launch 2 over the first `coded` planes (uint8, 64 bytes a block)."""
+    shape = (frame.height, frame.width) + (() if grey else (3,))
+    out = torch.empty(shape, dtype=torch.uint8, device=planes.device)
+    stream = torch.cuda.current_stream(planes.device).cuda_stream
+    cuda_build.check(cuda_build.lib().hrf_jpeg_color(
+        planes.data_ptr(), out.data_ptr(), params, coded, frame.height,
+        frame.width, frame.colour, 1 if grey else 3, stream),
+        'hrf_jpeg_color')
+    pixels.launches += 1
+    return out
+
+
 def _launch(coefs: Tensor, frame: Frame, grey: bool) -> Tensor:
     if (coefs.dtype != torch.int16 or coefs.dim() != 1
             or coefs.numel() != frame.size or not coefs.is_contiguous()):
@@ -410,32 +471,19 @@ def _launch(coefs: Tensor, frame: Frame, grey: bool) -> Tensor:
     dev = coefs.device
     planes = torch.empty(64 * sum(frame.blocks[:coded]), dtype=torch.uint8,
                          device=dev)
-    params = []
-    for i, (h, v, r, c) in enumerate(frame.comps):
-        dh, dw = frame.sampled(i)
-        ey, ex = frame.expand(i)
-        params += [r, c, dh, dw, ey, ex]
-    params = (ctypes.c_int * len(params))(*params)
+    params = _params(frame)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    lib = cuda_build.lib()
-    cuda_build.check(lib.hrf_jpeg_idct(coefs.data_ptr(), planes.data_ptr(),
-                                       params, n, coded, stream),
-                     'hrf_jpeg_idct')
+    cuda_build.check(cuda_build.lib().hrf_jpeg_idct(
+        coefs.data_ptr(), planes.data_ptr(), params, n, coded, stream),
+        'hrf_jpeg_idct')
     pixels.launches += 1
+    pixels.idct_launches += 1
     if grey and coded == 1 and frame.expand(0) == (1, 1):
         # full-size luma: its plane, cropped, is the grey image
         _, _, r, c = frame.comps[0]
         return planes.view(r * 8, c * 8)[:frame.height,
                                          :frame.width].contiguous()
-    shape = (frame.height, frame.width) + (() if grey else (3,))
-    out = torch.empty(shape, dtype=torch.uint8, device=dev)
-    cuda_build.check(lib.hrf_jpeg_color(planes.data_ptr(), out.data_ptr(),
-                                        params, coded, frame.height,
-                                        frame.width, frame.colour,
-                                        1 if grey else 3, stream),
-                     'hrf_jpeg_color')
-    pixels.launches += 1
-    return out
+    return _launch_colour(planes, frame, params, coded, grey)
 
 
 def pixels(coefs: Tensor, frame: Frame, grey: bool = False) -> Tensor:
@@ -445,13 +493,72 @@ def pixels(coefs: Tensor, frame: Frame, grey: bool = False) -> Tensor:
     The kernel counts its launches in `pixels.launches`: two a frame, one
     for a grey read of a grey or YCbCr file whose luma is full size (its
     plane cropped by one PyTorch copy, a device kernel not counted
-    there)."""
+    there); launch 1 alone also in `pixels.idct_launches`. A lossless
+    frame's colour launch (`lossless_pixels`) counts in
+    `pixels.launches` too."""
     if on_cpu(coefs):
         return pixels_plain(coefs, frame, grey)
     return _launch(coefs, frame, grey)
 
 
 pixels.launches = 0
+pixels.idct_launches = 0
+
+
+# -- lossless frames: the samples come from the host, launch 2 alone ---------
+
+def _lossless_read(frame: Frame, grey: bool) -> None:
+    """Raise where `cv2.imdecode` returns None for a lossless frame:
+    libjpeg converts no colour in lossless mode, so a 1-component frame
+    reads only grey (or unchanged) and an RGB one only in colour."""
+    if grey and frame.colour == RGB:
+        raise JpegError('a grey read of an RGB lossless JPEG is not '
+                        'supported (libjpeg converts no colour in lossless '
+                        'mode)')
+    if not grey and frame.colour == GREY:
+        raise JpegError('a colour read of a 1-component lossless JPEG is '
+                        'not supported (libjpeg converts no colour in '
+                        'lossless mode)')
+
+
+def lossless_planes(planes: Tensor, frame: Frame):
+    """Views of `decode_samples`' array: each component's samples [H, W]."""
+    _, _, r, c = frame.comps[0]
+    return list(planes.view(len(frame.comps), r * 8, c * 8)[
+        :, :frame.height, :frame.width])
+
+
+def lossless_pixels_plain(planes: Tensor, frame: Frame,
+                          grey: bool = False) -> Tensor:
+    """The colour launch's plain twin on a lossless frame:
+    `decode_samples`' array (uint8, any device) -> BGR uint8 [H, W, 3] (RGB
+    reordered, CMYK as `cv2` converts it), or with `grey` the grey image
+    [H, W] (a 1-component frame's samples, CMYK's `cv2` grey)."""
+    _lossless_read(frame, grey)
+    samples = [p.to(torch.int64) for p in lossless_planes(planes, frame)]
+    return _colour(samples, frame.colour, grey)
+
+
+def lossless_pixels(planes: Tensor, frame: Frame,
+                    grey: bool = False) -> Tensor:
+    """`decode_samples`' array as a tensor -> what `lossless_pixels_plain`
+    gives, on its device: for a CUDA tensor the kernel's colour launch
+    alone (launch 2, counted in `pixels.launches`; the planes are full
+    size, so it repeats and interpolates nothing), the plain twin for a
+    CPU one. A 1-component frame takes no launch: its plane, cropped by
+    one PyTorch copy, is the image."""
+    _lossless_read(frame, grey)
+    if on_cpu(planes):
+        return lossless_pixels_plain(planes, frame, grey)
+    n = len(frame.comps)
+    if (planes.dtype != torch.uint8 or planes.dim() != 1
+            or planes.numel() != 64 * sum(frame.blocks)
+            or not planes.is_contiguous()):
+        raise ValueError(f'jpeg colour kernel: samples must be a contiguous '
+                         f'uint8 vector of {64 * sum(frame.blocks)}')
+    if n == 1:
+        return lossless_planes(planes, frame)[0].contiguous()
+    return _launch_colour(planes, frame, _params(frame), n, grey)
 
 
 def decode_jpeg(data: bytes, device='cuda', grey: bool = False) -> Tensor:
@@ -459,8 +566,16 @@ def decode_jpeg(data: bytes, device='cuda', grey: bool = False) -> Tensor:
     `cv2.imdecode(buf, IMREAD_COLOR)` gives; with `grey`, uint8 [H, W] as
     `IMREAD_GRAYSCALE` gives). Entropy decoding runs here; the
     coefficients go to `device` in one copy, on its current stream, and
-    the pixels are made there."""
-    frame, coefs = decode_coefficients(data)
+    the pixels are made there. A lossless frame's samples are rebuilt
+    here and go to `device` in one copy; only their colour conversion
+    runs there (`lossless_pixels`)."""
+    frame = frame_info(data)
+    if frame.lossless:
+        _lossless_read(frame, grey)
+        _, planes = decode_samples(data, frame)
+        return lossless_pixels(torch.from_numpy(planes).to(device), frame,
+                               grey)
+    _, coefs = decode_coefficients(data, frame)
     return pixels(torch.from_numpy(coefs).to(device), frame, grey)
 
 

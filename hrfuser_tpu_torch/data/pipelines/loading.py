@@ -17,7 +17,7 @@ depth and interlace, bit-equal to `cv2.imread` in its three modes), JPEG
 through `data/jpeg.py` (entropy decoding on the host, the pixels on
 `device`; baseline, progressive and arithmetic-coded, grey, YCbCr, RGB,
 CMYK and YCCK, bit-equal to `cv2.imread` and the JAX package's libjpeg
-decoder), TIFF (the STF gated raw frames, read unchanged) through
+decoder; lossless frames as `cv2` reads them, in its three modes), TIFF (the STF gated raw frames, read unchanged) through
 `data/tiff.py`. `decode` / `imdecode` read a payload, JPEG or PNG by its
 first bytes. Nothing falls back to another decoder: a file neither can
 read raises. `imwrite` picks the

@@ -27,15 +27,16 @@ not called before costs about 200 ms more on the card (measured by
     GET  /healthz        -> {"status": "ok"}
 
 Camera payloads are JPEG (any coding: baseline, progressive,
-arithmetic) or PNG (any type), as the JAX server's `cv2.imdecode` takes
-them (`data/pipelines/loading.imdecode`, picked by the first bytes). A
+arithmetic, lossless) or PNG (any type), as the JAX server's
+`cv2.imdecode` takes them (`data/pipelines/loading.imdecode`, picked by the first bytes). A
 JPEG is entropy-decoded on the worker thread and its pixels are made on
 the detector's device, where the model reads them without a copy back
 to the host. Sensor payloads decode on the worker thread as
 `cv2.IMREAD_UNCHANGED` does (`data/pipelines/loading.decode`: a PNG on
 the host, a JPEG's pixels on the detector's device, copied back to the
 host as the dataset loader's are). A payload that does not
-decode (a 12-bit or lossless JPEG, say) gets a 400 with the reason.
+decode (a 12-bit JPEG, or a lossless one that `cv2` reads no colour
+from) gets a 400 with the reason.
 
     python -m hrfuser_tpu_torch.tools.serve \\
         cascade_rcnn_hrfuser_t_1x_nus_r640_l_r_fusion --dtype bf16 \\

@@ -841,3 +841,167 @@ def encode(coefs: Sequence[np.ndarray], quant: Sequence[np.ndarray],
             out += data
     out += b'\xff\xd9'
     return bytes(out)
+
+
+# -- lossless (SOF3, Annex H) ------------------------------------------------
+
+# a DC-class table for the 17 difference categories 0-16: two codes of 2
+# bits, three of 3, then one of each length 4-15 (the all-ones code of
+# 15 bits unused)
+LOSSLESS_TABLE = ([0, 2, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0],
+                  [2, 3, 1, 4, 5, 0, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15,
+                   16])
+
+
+def lossless_predict(s: np.ndarray, predictor: int, first_rows,
+                     initial: int) -> np.ndarray:
+    """Each sample's prediction (ITU T.81 H.1.2.1) from the samples s
+    [rows, cols] the decoder rebuilds: rows in `first_rows` (the scan's
+    first and each restart interval's) start from `initial` and predict
+    from the left, other rows' first column from above, the rest by
+    `predictor` (1-7) over Ra (left), Rb (above), Rc (above left)."""
+    s = np.asarray(s, np.int64)
+    p = np.empty_like(s)
+    ra, rb, rc = s[1:, :-1], s[:-1, 1:], s[:-1, :-1]
+    p[1:, 1:] = {1: ra, 2: rb, 3: rc, 4: ra + rb - rc,
+                 5: ra + ((rb - rc) >> 1), 6: rb + ((ra - rc) >> 1),
+                 7: (ra + rb) >> 1}[predictor]
+    p[1:, 0] = s[:-1, 0]
+    first = np.zeros(len(s), bool)
+    first[list(first_rows)] = True
+    p[first, 0] = initial
+    p[first, 1:] = s[first, :-1]
+    return p
+
+
+def lossless_differences(s: np.ndarray, predictor: int, first_rows,
+                         initial: int) -> np.ndarray:
+    """The differences a lossless scan codes for samples s: modulo 2^16,
+    in [-32767, 32768] (32768 is category 16)."""
+    d = (np.asarray(s, np.int64)
+         - lossless_predict(s, predictor, first_rows, initial)) % 65536
+    return np.where(d > 32768, d - 65536, d)
+
+
+def encode_lossless(img: np.ndarray, precision: int = 8, predictor: int = 1,
+                    pt: int = 0, restart: int = 0, sampling=None,
+                    marker: Optional[str] = None,
+                    ids: Optional[Sequence[int]] = None,
+                    interleaved: bool = True, diffs=None,
+                    sof: int = 0xC3, table=LOSSLESS_TABLE,
+                    dht: bool = True) -> bytes:
+    """A lossless JPEG stream (SOF3, Huffman-coded, one DC-class table
+    `LOSSLESS_TABLE` for every component) of an image, vectorised: the
+    decoder rebuilds the samples exactly, so every difference follows
+    from the point-transformed input at once.
+
+    Args:
+        img: [H, W] or [H, W, C] integers below 2^precision, the
+            components in stored order (a colour frame is R, G, B as
+            libjpeg stores it; CMYK as C, M, Y, K).
+        precision: the frame's sample precision P.
+        predictor: the scan's predictor Ss, 1-7.
+        pt: the point transform Al: the samples coded are img >> pt.
+        restart: the restart interval in MCUs (0: none). The decoder
+            restarts prediction at each interval's first row: give whole
+            MCU rows.
+        sampling: each component's (h, v); a component's samples are
+            img's taken every (hmax / h, vmax / v) pixels. Default 1x1.
+        marker: None, 'jfif', or 'adobe0' / 'adobe1' / 'adobe2' (an
+            Adobe APP14 with that colour transform).
+        ids: component identifiers (default 1, 2, ...).
+        interleaved: one scan for all components, or one each.
+        diffs: per component, differences to code in place of img's
+            ([MCU rows * v, MCU cols * h] for an interleaved scan, the
+            component's sample grid otherwise): any value in
+            [-32767, 32768].
+        sof: the frame marker (0xC3; another code writes the same
+            segments under it).
+        table: the Huffman table (counts of lengths 1-16, symbols),
+            written as DC table 0 unless `dht` is False.
+    """
+    img = np.asarray(img, np.int64)
+    if img.ndim == 2:
+        img = img[..., None]
+    hgt, wid, ncomp = img.shape
+    if img.min(initial=0) < 0 or img.max(initial=0) >= 1 << precision:
+        raise ValueError(f'samples beyond {precision} bits')
+    header = [tuple(f) for f in (sampling or [(1, 1)] * ncomp)]
+    # a 1-component frame is one sample an MCU whatever its factors say
+    factors = header if ncomp > 1 else [(1, 1)]
+    hmax = max(f[0] for f in factors)
+    vmax = max(f[1] for f in factors)
+    ids = list(ids or range(1, ncomp + 1))
+    mcu_rows, mcu_cols = -(-hgt // vmax), -(-wid // hmax)
+    initial = 1 << (precision - pt - 1)
+    codes, lens = _code_table(table)
+    out = bytearray(b'\xff\xd8')
+    if marker == 'jfif':
+        out += _segment(0xE0, b'JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00')
+    elif marker:
+        out += _segment(0xEE, _adobe(int(marker[-1])))
+    frame = (bytes([precision]) + hgt.to_bytes(2, 'big')
+             + wid.to_bytes(2, 'big') + bytes([ncomp]))
+    for c in range(ncomp):
+        frame += bytes([ids[c], header[c][0] * 16 + header[c][1], 0])
+    out += _segment(sof, frame)
+    if dht:
+        out += _segment(0xC4, bytes([0, *table[0], *table[1]]))
+    if restart:
+        out += _segment(0xDD, restart.to_bytes(2, 'big'))
+
+    def grid_diffs(c, rows, cols, per_row, mcu_h):
+        """Component c's differences over a grid of `rows` x `cols`
+        samples, its real samples predicted with restarts every
+        `restart` MCUs of `per_row` a row, `mcu_h` sample rows an MCU
+        row."""
+        if diffs is not None:
+            return np.asarray(diffs[c], np.int64)
+        h, v = factors[c]
+        s = img[::vmax // v, ::hmax // h, c] >> pt
+        first = [0]
+        if restart:
+            first = [r * mcu_h for r in range(rows // mcu_h)
+                     if (r * per_row) % restart == 0]
+        g = np.zeros((rows, cols), np.int64)
+        g[:s.shape[0], :s.shape[1]] = lossless_differences(
+            s, predictor, [f for f in first if f < len(s)], initial)
+        return g
+
+    scans = [list(range(ncomp))] if interleaved else [[c] for c in
+                                                     range(ncomp)]
+    for comps in scans:
+        body = bytes([len(comps)])
+        for c in comps:
+            body += bytes([ids[c], 0])
+        out += _segment(0xDA, body + bytes([predictor, 0, pt]))
+        if len(comps) > 1 or ncomp == 1:
+            parts = []
+            for c in comps:
+                h, v = factors[c]
+                rows, cols = mcu_rows, mcu_cols
+                g = grid_diffs(c, rows * v, cols * h, cols, v)
+                parts.append(g.reshape(rows, v, cols, h).transpose(
+                    0, 2, 1, 3).reshape(rows, cols, v * h))
+            d = np.concatenate(parts, 2)
+            per_row = d.shape[1]
+            d = d.reshape(len(d) * per_row, -1)
+        else:
+            h, v = factors[comps[0]]
+            rows, cols = -(-hgt * v // vmax), -(-wid * h // hmax)
+            d = grid_diffs(comps[0], rows, cols, cols, 1).reshape(-1, 1)
+        mcu = np.repeat(np.arange(len(d)), d.shape[1])
+        d = d.ravel()
+        size, bits = _category(d)
+        extra = np.where(size == 16, 0, size)
+        value = (codes[size] << extra) | np.where(size == 16, 0, bits)
+        length = lens[size] + extra
+        interval = mcu // restart if restart else np.zeros_like(mcu)
+        cuts = np.searchsorted(interval,
+                               np.arange(interval.max(initial=0) + 2))
+        for i, (a, b) in enumerate(zip(cuts[:-1], cuts[1:])):
+            if i:
+                out += bytes([0xFF, 0xD0 + (i - 1) % 8])
+            out += _stuff(_pack(value[a:b], length[a:b]))
+    out += b'\xff\xd9'
+    return bytes(out)

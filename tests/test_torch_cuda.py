@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels vs their plain PyTorch twins, on the card;
 the serving path (preprocessing, `inference_detector`, checkpoints), the
 HRNet-based configs and flip TTA (launch counts, card vs CPU), the image
-decoders and a loader batch on it.
+decoders (lossless frames through the colour launch alone) and a loader
+batch on it, and the native loader's sensor decode.
 
 Marked `cuda`: each test skips where `torch.cuda.is_available()` is
 False (this file imports no JAX, so it also runs where JAX is absent):
@@ -911,6 +912,70 @@ def test_jpeg_kernel_refuses_what_it_cannot_take(dev):
         jpeg.pixels(c.to(torch.int32), frame)
     with pytest.raises(ValueError, match='int16'):
         jpeg.pixels(c[:-64], frame)
+
+
+def _lossless_streams():
+    """name -> (lossless JPEG bytes, grey read) from the oracle encoder."""
+    enc = _oracle('jpeg_encoder')
+    img = np.random.default_rng(3).integers(0, 256, (37, 53, 4)).astype(
+        np.uint8)
+    return {
+        'rgb': (enc.encode_lossless(img[..., :3], predictor=7,
+                                    restart=53 * 2), False),
+        'rgb subsampled': (enc.encode_lossless(
+            img[..., :3], predictor=4, sampling=[(2, 2), (1, 1), (1, 1)]),
+            False),
+        'cmyk': (enc.encode_lossless(img, predictor=5, pt=1), False),
+        'grey cmyk': (enc.encode_lossless(img, predictor=5, pt=1), True),
+        'grey': (enc.encode_lossless(img[..., 0], predictor=2), True)}
+
+
+@pytest.mark.parametrize('name', ['rgb', 'rgb subsampled', 'cmyk',
+                                  'grey cmyk', 'grey'])
+def test_jpeg_colour_launch_on_lossless_frames_matches_the_twin(dev, name):
+    """A lossless frame's samples (rebuilt on the host) through the colour
+    launch alone: bit-equal to `lossless_pixels_plain`, one launch a
+    colour frame, none for a 1-component one, never launch 1; and
+    `decode_jpeg` on the card equals it on the CPU."""
+    from hrfuser_tpu_torch.data import jpeg
+    data, grey = _lossless_streams()[name]
+    frame, planes = jpeg.decode_samples(data)
+    t = torch.from_numpy(planes).to(dev)
+    before, idct = jpeg.pixels.launches, jpeg.pixels.idct_launches
+    got = jpeg.lossless_pixels(t, frame, grey)
+    torch.cuda.synchronize()
+    assert jpeg.pixels.launches - before == (0 if name == 'grey' else 1)
+    assert jpeg.pixels.idct_launches == idct
+    assert torch.equal(got.cpu(), jpeg.lossless_pixels_plain(
+        torch.from_numpy(planes), frame, grey))
+    assert torch.equal(jpeg.decode_jpeg(data, dev, grey).cpu(),
+                       jpeg.decode_jpeg(data, 'cpu', grey))
+    with pytest.raises(ValueError, match='uint8'):
+        jpeg.lossless_pixels(t[:-1], frame, grey)
+
+
+def test_native_sensor_decode_on_the_card_matches_cpu(dev, tmp_path):
+    """`data/native.py`: the fused sensor decode on the card is bit-equal
+    to the CPU's, single and batched."""
+    from hrfuser_tpu_torch.data import native, png
+    rng = np.random.default_rng(4)
+    paths = []
+    for i in range(3):
+        paths.append(str(tmp_path / f'{i}.png'))
+        png.imwrite(paths[-1], rng.integers(0, 65535, (36, 64, 3)).astype(
+            np.uint16))
+    mean, std = [0.5, -1.0, 2.0], [3.0, 0.7, 1e-2]
+    for p in paths:
+        got = native.decode_sensor_png(p, 100.0, 200.0, mean, std, dev)
+        assert got.device.type == 'cuda'
+        assert torch.equal(got.cpu(), native.decode_sensor_png(
+            p, 100.0, 200.0, mean, std, 'cpu'))
+    card = native.decode_sensor_batch(paths, [(36, 64, 3)] * 3, 100.0,
+                                      200.0, [mean] * 3, [std] * 3,
+                                      num_threads=2, device=dev)
+    cpu = native.decode_sensor_batch(paths, [(36, 64, 3)] * 3, 100.0, 200.0,
+                                     [mean] * 3, [std] * 3, device='cpu')
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(card, cpu))
 
 
 def test_loader_jpeg_reads_on_its_own_stream(dev):

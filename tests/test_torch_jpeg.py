@@ -11,7 +11,7 @@ encoder (`tests/oracles/jpeg_encoder.py`), many of whose inverse DCTs
 leave the sample range and overflow libjpeg-turbo's 16-bit SIMD lanes.
 Files cut short are held to the native decoder, which decodes them with
 a warning (`cv2.imdecode` refuses them). Modes the decoder refuses
-(lossless, hierarchical, 12-bit, 2-component) raise naming the mode;
+(hierarchical, 12-bit, 2-component, lossless YCbCr) raise naming the mode;
 progressive, arithmetic-coded and 4-component files decode
 (`tests/test_torch_jpeg_modes.py`).
 """
@@ -153,8 +153,10 @@ def test_a_cut_before_the_image_data_raises(tmp_path):
 
 
 def _refused(mode):
-    """A stream in a mode the decoder refuses (as the native decoder and
-    `cv2` do, but for lossless, which `cv2` reads grey or unchanged)."""
+    """A stream in a mode the decoder refuses, as the native decoder and
+    `cv2` do ('lossless': a JFIF frame marked lossless, so YCbCr, which
+    libjpeg cannot convert in lossless mode; other lossless frames are
+    read, tests/test_torch_jpeg_lossless.py)."""
     coefs, quant = enc.image_coefficients(_camera((16, 16)), 90, (1, 1))
     ncomp = 2 if mode == '2-component' else 3
     data = bytearray(enc.encode(coefs[:ncomp], quant[:ncomp], (16, 16),

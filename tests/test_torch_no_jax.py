@@ -11,7 +11,8 @@ train step and a sharded `run_inference`, `tools.train --remat`'s
 argument); data, offline and renderings (a `DetDataLoader` over JPEG
 files, JPEG decodes through the pixel kernel's twin, progressive and
 arithmetic-coded frames among them, a CMYK frame read grey, a colour
-PNG read grey, the offline converters (one nuScenes sample on a fake DB,
+PNG read grey, lossless colour and grey frames, the native loader's
+sensor decode, single and batched, the offline converters (one nuScenes sample on a fake DB,
 an STF frame, the inverse depth warp), the renderings (detections drawn
 with labels, a heatmap, a JPEG written, an 8-bit gated LUT image)); the
 tools (FLOP count, drift, `print_config`, `publish_model`,
@@ -167,6 +168,22 @@ grey = jpeg.decode_jpeg(encode(*image_coefficients(cmyk, 90), (16, 24),
 assert grey.shape == (16, 24)
 assert loading.decode(png.imencode(bgr), 'grayscale', 'cpu').shape == (37,
                                                                        53)
+from tests.oracles.jpeg_encoder import encode_lossless
+got = jpeg.decode_jpeg(encode_lossless(bgr[..., ::-1], predictor=7,
+                                       restart=53), 'cpu')
+assert np.array_equal(got.numpy(), bgr)
+grey = loading.decode(encode_lossless(bgr[..., 0], pt=1), 'unchanged', 'cpu')
+assert np.array_equal(grey, (bgr[..., 0] >> 1) << 1)
+from hrfuser_tpu_torch.data import native
+with tempfile.TemporaryDirectory() as root:
+    u16 = rng.integers(0, 65535, (20, 30, 3)).astype(np.uint16)
+    png.imwrite(root + '/s.png', u16)
+    one = native.decode_sensor_png(root + '/s.png', 100.0, 200.0,
+                                   device='cpu')
+    two = native.decode_sensor_batch([root + '/s.png'] * 2, [(20, 30, 3)] * 2,
+                                     100.0, 200.0, num_threads=2,
+                                     device='cpu')
+    assert one.shape == (20, 30, 3) and all(torch.equal(one, t) for t in two)
 from hrfuser_tpu_torch.data.gated_warp import inverse_depth_warp
 from hrfuser_tpu_torch.tools import create_data, stf_projection
 from tests.oracles.offline_data import nuscenes_sample, stf_frame
@@ -267,9 +284,11 @@ def test_image_loading_defaults_to_the_card():
     from hrfuser_tpu_torch.data import jpeg
     from hrfuser_tpu_torch.data.loader import DetDataLoader, build_pipeline
     from hrfuser_tpu_torch.data.pipelines import loading
+    from hrfuser_tpu_torch.data import native
     for fn in (jpeg.decode_jpeg, loading.imread, loading.imdecode,
                loading.read_jpeg, loading.LoadImageFromFile, build_pipeline,
-               DetDataLoader):
+               DetDataLoader, native.decode_jpeg_bgr,
+               native.decode_sensor_png, native.decode_sensor_batch):
         assert inspect.signature(fn).parameters['device'].default == 'cuda'
 
 

@@ -8,9 +8,11 @@ dequantized on the device; none for a camera-only config; a grey PNG as
 one channel; 8-bit JPEGs, decoded on the detector's device) with what
 `inference_detector` gives, a JPEG camera as the
 PNG of its decoded pixels (baseline, progressive and arithmetic-coded
-JPEGs alike), 404 for unknown paths and 400 for a JPEG mode the decoder
-refuses (12-bit) or a body that is not JSON; `--input-hw` sets the grid
-of the warm-up call.
+JPEGs alike), a lossless camera and lossless grey sensors as
+`inference_detector` answers `cv2`'s decodes of them, 404 for unknown
+paths and 400 for a JPEG mode the decoder refuses (12-bit, a lossless
+grey camera) or a body that is not JSON; `--input-hw` sets the grid of
+the warm-up call.
 """
 
 import base64
@@ -232,6 +234,87 @@ def test_a_jpeg_sensor_decodes_on_the_detectors_device(server,
     np.testing.assert_allclose(reply['boxes'], want['boxes'].reshape(-1, 4),
                                atol=0.01)
     np.testing.assert_allclose(reply['scores'], want['scores'], atol=1e-4)
+
+
+def _replies_equal(reply, want):
+    assert reply['labels'] == want['labels'].tolist()
+    np.testing.assert_allclose(reply['boxes'], want['boxes'].reshape(-1, 4),
+                               atol=0.01)
+    np.testing.assert_allclose(reply['scores'], want['scores'], atol=1e-4)
+
+
+def test_a_lossless_camera_answers_as_inference_detector(server):
+    """A lossless RGB camera payload (SOF3, which the JAX server's
+    `cv2.imdecode` reads as BGR) is answered on both routes as
+    `inference_detector` answers `cv2`'s decode of it."""
+    det, url = server
+    img, mods = _request()
+    data = enc.encode_lossless(img[..., ::-1], predictor=7, restart=90 * 3)
+    pixels = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+    np.testing.assert_array_equal(pixels, img)
+    code, reply = _call(url + '/predict', data)
+    assert code == 200, reply
+    _replies_equal(reply, inference_detector(det, pixels))
+    body = json.dumps({'img': base64.b64encode(data).decode(),
+                       'mods': [base64.b64encode(_png(m)).decode()
+                                for m in mods]}).encode()
+    code, reply = _call(url + '/predict_multi', body)
+    assert code == 200, reply
+    _replies_equal(reply, inference_detector(det, pixels, mods))
+    grey = enc.encode_lossless(img[..., 0])
+    code, reply = _call(url + '/predict', grey)    # cv2 reads it no colour
+    assert code == 400 and 'lossless' in reply['error']
+
+
+def test_lossless_sensors_answer_as_inference_detector():
+    """Lossless sensor payloads to a three-stream STF model: lidar and
+    radar as 3-component frames (`cv2.IMREAD_UNCHANGED` reads them BGR; the
+    radar's channel 0 dropped as the loader drops it), the gated image as
+    a 1-component frame (read grey [H, W], given its channel axis).
+    Answered as `inference_detector` answers `cv2`'s decodes of them."""
+    from hrfuser_tpu_torch.apis.inference import Detector
+    from hrfuser_tpu_torch.configs import presets
+    from hrfuser_tpu_torch.models.detectors.cascade_rcnn import CascadeRCNN
+    cfg = presets._tiny(presets.hrfuser_backbone(
+        channels=(8, 16, 24, 32), heads=(1, 2, 2, 4), num_modalities=3,
+        mod_in_channels=(3, 2, 1)))
+    torch.manual_seed(0)
+    model = CascadeRCNN(dataclasses.replace(cfg, roi=dataclasses.replace(
+        cfg.roi, num_classes=3))).eval()           # STF's three classes
+    data = dataclasses.replace(
+        get_experiment('cascade_rcnn_hrfuser_t_1x_stf_r1248_4mod').data,
+        img_scale=(96, 64))
+    det = Detector(model, data, torch.device('cpu'))
+    rng = np.random.default_rng(6)
+    img = rng.integers(0, 256, (60, 90, 3)).astype(np.uint8)
+    sensors = [enc.encode_lossless(rng.integers(0, 256, (60, 90, 3)),
+                                   predictor=4, restart=90),
+               enc.encode_lossless(rng.integers(0, 256, (60, 90, 3)),
+                                   predictor=6),
+               enc.encode_lossless(rng.integers(0, 256, (60, 90)),
+                                   predictor=1, pt=1, restart=90 * 2)]
+    srv = serve.make_server(det, '127.0.0.1', 0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        url = f'http://127.0.0.1:{srv.server_address[1]}'
+        body = json.dumps({'img': base64.b64encode(_png(img)).decode(),
+                           'mods': [base64.b64encode(s).decode()
+                                    for s in sensors]}).encode()
+        code, reply = _call(url + '/predict_multi', body)
+        assert code == 200, reply
+        lidar, radar, gated = (cv2.imdecode(np.frombuffer(s, np.uint8),
+                                            cv2.IMREAD_UNCHANGED)
+                               for s in sensors)
+        assert gated.shape == (60, 90) and lidar.shape == (60, 90, 3)
+        _replies_equal(reply, inference_detector(det, img, [
+            lidar.astype(np.float32), radar[..., 1:].astype(np.float32),
+            gated[..., None].astype(np.float32)]))
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=10)
+    assert not thread.is_alive()
 
 
 @pytest.mark.parametrize('dtype', [np.uint8, np.uint16])
