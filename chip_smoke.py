@@ -204,9 +204,10 @@ Phases, each printed on its own lines; any failure exits non-zero:
    batch of 6 whose last three have no valid GT, one step against one
    process on the joined batch, held with a float64 trunk (losses 1e-3,
    gradients 2e-2 together and 1e-1 each, params 2 x lr, the ranks' BN
-   statistics bit-identical) and shown in float32 (where a batch
-   layout's 1e-7 can swap a proposal), each beside one process's
-   float32 spread on the same batch in another row order; 12c sharded
+   statistics bit-identical; the float32 step, where a batch layout's
+   1e-7 can swap a proposal, runs on the CPU in
+   `tests/test_torch_parallel_train.py`'s `slow` case against JAX's
+   sharded step); 12c sharded
    `run_inference` over 9b's 16 JPEG samples (written again from its
    seed; weights `card_checks.calibrate`d), bf16, global batch 8, at
    world size 1 (`nccl`) and 2 (`gloo`): every image once in dataset
@@ -294,9 +295,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
    kernel launches, the re-coded frames bit-equal to the baseline's
    pixels; host entropy ms (median of 5) and kernel ms (CUDA events,
    mean of 50), the bound of the 4-component frames; the smoothed
-   coefficients counted; then the loader alone over 9b's 16 samples with
-   their camera JPEGs as they are and re-coded progressive (copies 9b
-   makes), in turns.
+   coefficients counted; then the loader alone over the first
+   `LOADER_N` = 4 of 9b's 16 samples (written again from its seed) with
+   their camera JPEGs as they are and re-coded progressive, in turns.
 18. Lossless JPEG (SOF3) and `data/native.py`: a 900x1600 RGB camera
    frame (predictor 7, restarts), a 900x1600 CMYK frame and a 360x640
    1-component sensor frame from the oracle encoder (`encode_lossless`,
@@ -312,6 +313,19 @@ Phases, each printed on its own lines; any failure exits non-zero:
    skipped) card = CPU bit-equal, its ms beside
    `LoadProjectedSensorImageFile` on the same files. Alone:
    `cs.phase_lossless(smi, cs.Report(), {})` after `cs.phase_build()`.
+19. The small image formats `cv2` reads (no kernel: host numpy): a
+   900x1600 camera frame (`_camera_image`, seed 19) written by
+   `tests/oracles/raster_files.py:camera_frames` as P6 8-bit, P6 16-bit,
+   24-bit BMP, RLE8 BMP, 8-bit Sun raster with a colour map, PFM and
+   run-length Radiance HDR; each read through `loading.imread` (a file
+   without an extension: the first bytes pick the decoder) and
+   `loading.decode` in the three modes, equal to the written pixels
+   unchanged and to `data/cvt.py` of them in colour and grey (a PFM read
+   grey: `imread` refuses, `decode` gives 3 channels, as `cv2`); host
+   decode ms (median of 5); then the frame as PNG, 24-bit BMP and P6
+   through `tools.serve.predict` on HRFuser-T: launch counts exact,
+   detections bit-equal across the three, at least one. Alone:
+   `cs.phase_rasters(smi, {})` after `cs.phase_build()`.
 
 The last line is `{"ok": true, "device": {...}}`; the line before it
 lists each kernel's launches, error, times and bound as JSON.
@@ -2075,6 +2089,9 @@ def phase_train_parity():
 
 FIXTURES = 'tests/data'
 NUS_N, STF_N = 16, 8
+# phase 17's loader runs over the first samples of 9b's folder only: their
+# progressive copies cost the oracle's Python coder ~0.7 s a sample
+LOADER_N = 4
 NUS_VAL = 'nuscenes_infos_val_mono3d.coco.json'
 NUS_TRAIN = 'nuscenes_infos_train_mono3d.coco.json'
 STF_TEST = ('dense_infos_test_clear.pkl', 'dense_infos_light_fog.pkl',
@@ -2240,8 +2257,8 @@ def phase_decoders(report, smi):
                plain_ms, bound)
 
 
-def _nus_folder(root, rng, classes, cameras=True):
-    """`NUS_N` nuScenes samples: a 900x1600 camera JPEG (baseline 4:2:0,
+def _nus_folder(root, rng, classes, cameras=True, n=NUS_N):
+    """`n` nuScenes samples: a 900x1600 camera JPEG (baseline 4:2:0,
     quality 90, from the oracle encoder, as nuScenes stores its frames),
     lidar `rih` and radar `riv` 360x640 projections, 2-6 boxes an image
     (one each of COCO's small, medium and large sizes, then random ones),
@@ -2250,7 +2267,7 @@ def _nus_folder(root, rng, classes, cameras=True):
     draws from `rng`, nothing encoded)."""
     images, anns, lidar, radar = [], [], [], []
     h, w = RAW_HW
-    for i in range(NUS_N):
+    for i in range(n):
         cam = f'samples/CAM_FRONT/{i:04d}.jpg'
         if cameras:
             os.makedirs(os.path.dirname(f'{root}/{cam}'), exist_ok=True)
@@ -3120,62 +3137,35 @@ def phase_parallel_joined(smi):
     exp = get_experiment(CONFIG)
     print(f'== 12b. 2 ranks on the one card (gloo, CUDA tensors), global '
           f'batch 6 (3 a rank; rank 1\'s images have no valid GT), one step '
-          f'against one process on the joined batch: held with a float64 '
-          f'trunk, then shown in float32 beside the float32 spread of one '
-          f'process on the batch in another row order')
+          f'against one process on the joined batch, held with a float64 '
+          f'trunk')
     bars = dict(losses=1e-3, acc=3 / (6 * 512), together=2e-2, each=1e-1,
                 params=2 * exp.optim.lr)
-    perm = np.array([3, 4, 5, 0, 1, 2])
-    for dtype in (torch.float64, torch.float32):
-        t0 = time.perf_counter()
-        name = str(dtype).split('.')[-1]
-        batch = pr.joined_batch(6, (H, W), exp.model.backbone.mod_in_channels,
-                                empty=(3, 4, 5))
-        if dtype == torch.float64:
-            batch = pr.in_float64(batch)
-        draws = pr.RecordingDraws(KeyedDraws(100))
-        want = pr.one_process_step(CONFIG, batch, draws, 'cuda', caps={},
-                                   dtype=dtype)
-        torch.cuda.empty_cache()
-        if dtype == torch.float32:
-            spread = pr.mismatch(pr.one_process_step(
-                CONFIG, pr.permuted(batch, perm),
-                pr.PermutedDraws(draws.table, perm), 'cuda', caps={}), want)
-            torch.cuda.empty_cache()
-            print(f'  {name}: one process on the batch in another row order: '
-                  f'losses {spread["losses"]:.2e}, accuracies '
-                  f'{spread["acc"]:.2e}, gradients together '
-                  f'{spread["together"]:.2e}, worst one {spread["each"]:.2e}'
-                  f', BN statistics {spread["stats"]:.2e}')
-        ranks = run_ranks(pr.sharded_train_rank, 2, (
-            CONFIG, [batch], [draws.table],
-            dict(device='cuda:0', backend='gloo', caps={}, threads=4,
-                 dtype=dtype)), timeout_s=PARALLEL_DEADLINE_S)
-        for r in ranks:
-            m = pr.mismatch(r, want)
-            label = f'{name}, rank {r["rank"]} vs one process'
-            if dtype == torch.float64:
-                _held(m, bars, label)
-            else:               # a proposal swap at a cut moves it by O(1e-2)
-                print(f'  {label} (not held: a batch layout\'s 1e-7 can '
-                      f'swap a proposal at the top-k / NMS cut, and the '
-                      f'sampler then picks other RoIs): losses '
-                      f'{m["losses"]:.2e}, accuracies {m["acc"]:.2e}, '
-                      f'gradients together {m["together"]:.2e}, worst one '
-                      f'{m["each"]:.2e}, BN statistics {m["stats"]:.2e}')
-        a, c = (r['stats'] for r in ranks)
-        if not all(np.array_equal(a[n], c[n]) for n in a):
-            raise AssertionError(f'12b {name}: the ranks\' BN running '
-                                 f'statistics differ')
-        if ranks[0]['losses'] != ranks[1]['losses']:
-            raise AssertionError(f'12b {name}: the ranks report different '
-                                 f'losses')
-        print(f'  {name}: BN running statistics bit-identical on the two '
-              f'ranks; the ranks\' first step {ranks[0]["ms"][0]:.1f} / '
-              f'{ranks[1]["ms"][0]:.1f} ms (a fresh process), its gradient '
-              f'all-reduce over gloo {ranks[0]["reduce_ms"][0]:.1f} ms for '
-              f'{ranks[0]["buffer_mb"]:.1f} MB; {time.perf_counter() - t0:.1f}'
-              f' s with set-up, {SHARED}, {smi}')
+    t0 = time.perf_counter()
+    batch = pr.in_float64(pr.joined_batch(
+        6, (H, W), exp.model.backbone.mod_in_channels, empty=(3, 4, 5)))
+    draws = pr.RecordingDraws(KeyedDraws(100))
+    want = pr.one_process_step(CONFIG, batch, draws, 'cuda', caps={},
+                               dtype=torch.float64)
+    torch.cuda.empty_cache()
+    ranks = run_ranks(pr.sharded_train_rank, 2, (
+        CONFIG, [batch], [draws.table],
+        dict(device='cuda:0', backend='gloo', caps={}, threads=4,
+             dtype=torch.float64)), timeout_s=PARALLEL_DEADLINE_S)
+    for r in ranks:
+        _held(pr.mismatch(r, want), bars,
+              f'float64, rank {r["rank"]} vs one process')
+    a, c = (r['stats'] for r in ranks)
+    if not all(np.array_equal(a[n], c[n]) for n in a):
+        raise AssertionError('12b: the ranks\' BN running statistics differ')
+    if ranks[0]['losses'] != ranks[1]['losses']:
+        raise AssertionError('12b: the ranks report different losses')
+    print(f'  float64: BN running statistics bit-identical on the two ranks; '
+          f'the ranks\' first step {ranks[0]["ms"][0]:.1f} / '
+          f'{ranks[1]["ms"][0]:.1f} ms (a fresh process), its gradient '
+          f'all-reduce over gloo {ranks[0]["reduce_ms"][0]:.1f} ms for '
+          f'{ranks[0]["buffer_mb"]:.1f} MB; {time.perf_counter() - t0:.1f} s '
+          f'with set-up, {SHARED}, {smi}')
 
 
 def phase_parallel_eval(smi):
@@ -4339,17 +4329,19 @@ def phase_jpeg_modes(smi, report):
     if not estimated:
         raise AssertionError('the cut frame was not smoothed')
     report.add('jpeg_pixels', SRC_JPEG, REPLACES_JPEG, float(err))
-    # the loader over 9b's samples (written again from its seed), their
-    # cameras as they are and re-coded progressive
+    # the loader over the first of 9b's samples (written again from its
+    # seed), their cameras as they are and re-coded progressive
     exp = get_experiment(CONFIG)
     root = tempfile.mkdtemp(prefix='nus_codings_')
     try:
         t0 = time.perf_counter()
-        _nus_folder(root, np.random.default_rng(10), exp.data.classes)
+        _nus_folder(root, np.random.default_rng(10), exp.data.classes,
+                    n=LOADER_N)
         t1 = time.perf_counter()
         _progressive_twin(root, f'{root}/progressive')
-        print(f'  wrote 9b\'s {NUS_N} samples again in {t1 - t0:.1f} s, their '
-              f'progressive copies in {time.perf_counter() - t1:.1f} s')
+        print(f'  wrote the first {LOADER_N} of 9b\'s {NUS_N} samples again '
+              f'in {t1 - t0:.1f} s, their progressive copies in '
+              f'{time.perf_counter() - t1:.1f} s')
         for coding, folder in (('baseline', root),
                                ('progressive', f'{root}/progressive')) * 2:
             ds = CocoFusionDataset(NUS_VAL, exp.data.classes,
@@ -4544,6 +4536,94 @@ def phase_lossless(smi, report, state):
         shutil.rmtree(root, ignore_errors=True)
 
 
+def phase_rasters(smi, state):
+    print(f'== 19. the small image formats cv2 reads (PNM, BMP, Sun raster, '
+          f'PFM, Radiance HDR): a {RAW_HW[0]}x{RAW_HW[1]} camera frame in '
+          f'each family, on {smi}')
+    from hrfuser_tpu_torch import init_detector
+    from hrfuser_tpu_torch.data import cvt
+    from hrfuser_tpu_torch.data.pipelines import loading
+    from hrfuser_tpu_torch.data.png import imencode
+    from hrfuser_tpu_torch.tools import serve
+    img = _camera_image(np.random.default_rng(19), RAW_HW)
+    t0 = time.perf_counter()
+    frames = _oracle('raster_files').camera_frames(img)
+    print(f'  wrote the frames (tests/oracles/raster_files.py) in '
+          f'{time.perf_counter() - t0:.1f} s')
+    root = tempfile.mkdtemp(prefix='rasters_')
+    try:
+        path = f'{root}/frame'          # no extension: the first bytes pick
+        for label, (data, pixels) in frames.items():
+            with open(path, 'wb') as f:
+                f.write(data)
+            hdr = label.startswith('HDR')
+            colour = (cvt.float_to_u8(pixels * np.float32(255 if hdr else 1))
+                      if pixels.dtype == np.float32 else cvt.high_byte(pixels))
+            grey = (cvt.bgr_to_grey_cvtcolor if hdr else cvt.bgr_to_grey)(
+                colour)
+            for flag, want in (('unchanged', pixels), ('color', colour),
+                               ('grayscale', grey)):
+                if label == 'PFM' and flag == 'grayscale':
+                    # cv2's PFM reader keeps the file's 3 channels:
+                    # cv2.imread refuses them, cv2.imdecode hands them back
+                    try:
+                        loading.imread(path, flag)
+                        raise AssertionError('PFM read grey: imread did not '
+                                             'refuse it')
+                    except ValueError:
+                        pass
+                    reads = {'decode': loading.decode(data, flag)}
+                    want = colour
+                else:
+                    reads = {'imread': loading.imread(path, flag),
+                             'decode': loading.decode(data, flag)}
+                for how, got in reads.items():
+                    if (got.dtype != want.dtype or got.shape != want.shape
+                            or not np.array_equal(got, want)):
+                        raise AssertionError(
+                            f'{label}: {how} {flag} gives {got.dtype} '
+                            f'{list(got.shape)}, not the written pixels '
+                            f'through data/cvt.py')
+            ms = {flag: _host_ms(lambda: loading.decode(data, flag, 'cpu'))
+                  for flag in ('color', 'unchanged')}
+            print(f'  {label} ({len(data) / 1e6:.2f} MB): imread (no '
+                  f'extension) and decode = the written pixels unchanged, '
+                  f'data/cvt.py of them read color and grayscale; host decode '
+                  f'ms (median of 5): color {_fmt(ms["color"])}, unchanged '
+                  f'{_fmt(ms["unchanged"])}')
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    # the camera frame as PNG, 24-bit BMP and P6 through what /predict runs
+    det = state.get('det')
+    if det is None:
+        det = init_detector(CONFIG, 'cuda', seed=1, dtype=torch.bfloat16)
+    payloads = {'PNG': imencode(img), 'BMP 24-bit': frames['BMP 24-bit'][0],
+                'P6': frames['P6 8-bit'][0]}
+    serve.predict(det, payloads['PNG'], [])                 # warm-up
+    torch.cuda.synchronize()
+    _reset_counts()
+    got, ms = {}, {}
+    for label, data in payloads.items():
+        t0 = time.perf_counter()
+        got[label] = serve.predict(det, data, [])
+        torch.cuda.synchronize()
+        ms[label] = (time.perf_counter() - t0) * 1e3
+    _check_counts(_expected_launches(det.cfg), len(payloads),
+                  f'serve.predict, {len(payloads)} payloads')
+    ref = got['PNG']
+    same = all(np.array_equal(g[k], ref[k]) for g in got.values()
+               for k in ('boxes', 'scores', 'labels'))
+    print(f'  serve.predict (what /predict runs), HRFuser-T r640: '
+          + ', '.join(f'{k} {len(payloads[k]) / 1e6:.2f} MB {v:.1f} ms'
+                      for k, v in ms.items())
+          + f' (decode included); {len(ref["labels"])} valid detections, '
+          f'bit-equal across the three payloads: {same}')
+    _check_frame(ref['boxes'], 'a BMP / P6 camera request')
+    if not same or not len(ref['labels']):
+        raise AssertionError(f'PNG, BMP and P6 payloads: detections equal '
+                             f'{same}, {len(ref["labels"])} valid')
+
+
 def main():
     smi = phase_environment()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4623,6 +4703,7 @@ def main():
         ('16d', lambda: phase_real_parity(smi)),
         ('17', lambda: phase_jpeg_modes(smi, report)),
         ('18', lambda: phase_lossless(smi, report, state)),
+        ('19', lambda: phase_rasters(smi, state)),
     ]
     for name, run in phases:
         t1 = time.perf_counter()

@@ -11,17 +11,29 @@ Port of `hrfuser_tpu/data/pipelines/loading.py:47-200` (the reference's
   * `LoadAnnotations`: gt boxes and labels (+ visibilities);
   * `FilterAnnotations`: drops tiny or barely visible gts.
 
-The card's machine has no `cv2`, so `imread` picks a decoder by the
-file's extension: PNG through `data/png.py` (every colour type, bit
-depth and interlace, bit-equal to `cv2.imread` in its three modes), JPEG
-through `data/jpeg.py` (entropy decoding on the host, the pixels on
-`device`; baseline, progressive and arithmetic-coded, grey, YCbCr, RGB,
-CMYK and YCCK, bit-equal to `cv2.imread` and the JAX package's libjpeg
-decoder; lossless frames as `cv2` reads them, in its three modes), TIFF (the STF gated raw frames, read unchanged) through
-`data/tiff.py`. `decode` / `imdecode` read a payload, JPEG or PNG by its
-first bytes. Nothing falls back to another decoder: a file neither can
-read raises. `imwrite` picks the
-encoder by the extension, as `cv2.imwrite` does: JPEG through
+The card's machine has no `cv2`. `decode` / `imread` choose the decoder
+by the first bytes, as `cv2`'s `findDecoder` does, whatever the file is
+called (`image_format`):
+  * JPEG (`ff d8`) through `data/jpeg.py` (entropy decoding on the host,
+    the pixels on `device`; baseline, progressive and arithmetic-coded,
+    grey, YCbCr, RGB, CMYK and YCCK, lossless, bit-equal to `cv2` and the
+    JAX package's libjpeg decoder);
+  * PNG through `data/png.py` (every colour type, bit depth and
+    interlace);
+  * TIFF (`II*\0`, `MM\0*`) through `data/tiff.py`: the STF gated raw
+    frames, grey strips, read 'unchanged' only;
+  * BMP / DIB (`BM`) through `data/bmp.py`, PBM / PGM / PPM (`P1`-`P6`)
+    through `data/pxm.py`, PAM (`P7`) through `data/pam.py`, PFM (`PF`,
+    `Pf`) through `data/pfm.py`, Sun raster (`59 a6 6a 95`) through
+    `data/sunras.py` and Radiance HDR (`#?RADIANCE`, `#?RGBE`) through
+    `data/hdr.py`, all on the host, with `cv2`'s conversions
+    (`data/cvt.py`).
+Every decoder returns what `cv2.imdecode` does in the three modes, and
+raises where `cv2` returns None; `imread` also refuses what `cv2.imread`
+refuses when a decoder hands back another type than the mode asks for
+(a colour PFM read grey, a grey one read colour). Nothing falls back to
+another decoder: bytes none of them reads raise `UnknownImage`. `imwrite`
+picks the encoder by the extension, as `cv2.imwrite` does: JPEG through
 `data/jpeg.py` (pixels on the image's device, bytes equal to `cv2`'s),
 PNG through `data/png.py`.
 """
@@ -35,7 +47,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from hrfuser_tpu_torch.data import jpeg, png, tiff
+from hrfuser_tpu_torch.data import (bmp, hdr, jpeg, pam, pfm, png, pxm,
+                                    sunras, tiff)
 
 FLAGS = ('color', 'unchanged', 'grayscale')
 
@@ -65,55 +78,114 @@ def read_jpeg(data: bytes, device='cuda', grey: bool = False) -> np.ndarray:
         return jpeg.decode_jpeg(data, device, grey).cpu().numpy()
 
 
+class UnknownImage(OSError, ValueError):
+    """Bytes no decoder of the port reads: an `IOError`, and a
+    `ValueError` so that the server answers 400."""
+
+
+# cv2's decoders this port has, each with its signature check; a JPEG
+# starts `ff d8`, a TIFF `II*\0` or `MM\0*` (`II+\0` / `MM\0+`, BigTIFF,
+# reach `data/tiff.py`, which refuses them by name)
+_HOST = {'BMP': bmp, 'Radiance HDR': hdr, 'Sun raster': sunras,
+         'PNM': pxm, 'PAM': pam, 'PFM': pfm}
+READS = ('JPEG', 'PNG', 'TIFF', *_HOST)
+
+
+def image_format(data: bytes) -> str:
+    """The format `cv2` would pick for these bytes, one of `READS`;
+    `UnknownImage` for bytes none of them starts."""
+    if data[:2] == b'\xff\xd8':
+        return 'JPEG'
+    if data[:8] == png.SIGNATURE:
+        return 'PNG'
+    if data[:4] in (b'II*\0', b'MM\0*', b'II+\0', b'MM\0+'):
+        return 'TIFF'
+    for name, module in _HOST.items():
+        if module.matches(data):
+            return name
+    raise UnknownImage(f'unknown image signature {bytes(data[:8])!r}: not '
+                       f'a {", ".join(READS[:-1])} or {READS[-1]} file')
+
+
 def decode(data: bytes, flag: str = 'color', device='cuda') -> np.ndarray:
-    """What `cv2.imdecode(buf, IMREAD_<FLAG>)` gives for a JPEG or PNG
-    byte string (told apart by their first bytes), as a host array; a
-    JPEG's pixels are made on `device` (`read_jpeg`). A JPEG reads grey
-    in 'grayscale' mode, and in 'unchanged' mode when it has one
-    component. Other bytes raise `jpeg.JpegError`."""
+    """What `cv2.imdecode(buf, IMREAD_<FLAG>)` gives for the formats of
+    `READS`, chosen by the first bytes (`image_format`), as a host array;
+    a JPEG's pixels are made on `device` (`read_jpeg`), every other
+    format decodes on the host. A JPEG reads grey in 'grayscale' mode,
+    and in 'unchanged' mode when it has one component; a TIFF reads in
+    'unchanged' mode only. What a decoder cannot read raises a
+    `ValueError` whose text starts with the format's name (a
+    `jpeg.JpegError` for JPEG)."""
     if flag not in FLAGS:
         raise ValueError(f'imread flag {flag!r}: one of {FLAGS}')
-    if data[:2] == b'\xff\xd8':
-        grey = flag == 'grayscale' or (flag == 'unchanged'
-                                       and jpeg.jpeg_shape(data)[2] == 1)
-        return read_jpeg(data, device, grey)
-    if data[:8] == png.SIGNATURE:
-        return png.imdecode(data, unchanged=flag == 'unchanged',
-                            grayscale=flag == 'grayscale')
-    raise jpeg.JpegError('not a JPEG or PNG payload')
+    kind = image_format(data)
+    try:
+        if kind == 'JPEG':
+            grey = flag == 'grayscale' or (
+                flag == 'unchanged' and jpeg.jpeg_shape(data)[2] == 1)
+            return read_jpeg(data, device, grey)
+        if kind == 'PNG':
+            return png.imdecode(data, unchanged=flag == 'unchanged',
+                                grayscale=flag == 'grayscale')
+        if kind == 'TIFF':
+            if flag != 'unchanged':
+                raise ValueError(f'TIFF reads unchanged only, not {flag!r}')
+            return tiff.imdecode(data)
+        return _HOST[kind].imdecode(data, flag)
+    except ValueError as e:
+        _name_the_format(kind, e)
+
+
+def _name_the_format(kind: str, e: ValueError):
+    """Raise `e` again, its text starting with the format's name (the
+    server's 400 reply)."""
+    if str(e).startswith(kind):
+        raise e
+    raise type(e)(f'{kind}: {e}') from e
 
 
 def imread(path: str, flag: str = 'color', device='cuda') -> np.ndarray:
     """What `cv2.imread(path, IMREAD_<FLAG>)` gives: 'color' uint8 BGR
-    [H, W, 3]; 'unchanged' the file's own depth and channels (a PNG's
-    alpha kept, BGRA), [H, W] for grey; 'grayscale' uint8 [H, W]. A .png,
-    .jpg or .jpeg file is read by its first bytes (`decode`: a JPEG's
-    pixels made on `device`), a TIFF in 'unchanged' only (uint8 or
-    uint16 [H, W]). PNG and TIFF decode on the host whatever `device`
-    says."""
+    [H, W, 3]; 'unchanged' the file's own depth and channels (alpha
+    kept, BGRA), [H, W] for grey; 'grayscale' uint8 [H, W]. The decoder
+    is chosen by the file's first bytes, whatever its name (`decode`: a
+    JPEG's pixels made on `device`, every other format on the host); a
+    TIFF reads 'unchanged' only. Where a decoder gives another type than
+    the mode asks for, `cv2.imread` returns None ("Internal imread
+    issue": a colour PFM read grey, a grey one read colour), and this
+    raises `ValueError`."""
     if not osp.exists(path):
         raise FileNotFoundError(path)
-    lower = path.lower()
-    if lower.endswith(('.png', '.jpg', '.jpeg')):
-        with open(path, 'rb') as f:
-            return decode(f.read(), flag, device)
-    if lower.endswith(('.tif', '.tiff')):
-        if flag != 'unchanged':
-            raise ValueError(f'{path}: TIFF reads unchanged only, not '
-                             f'{flag!r}')
-        return tiff.imread(path)
-    raise ValueError(f'{path}: only PNG and JPEG files are read, and TIFF '
-                     f'unchanged')
+    with open(path, 'rb') as f:
+        data = f.read()
+    img = decode(data, flag, device)
+    want = {'color': (3, 3), 'grayscale': (2, 1)}.get(flag)
+    if want and (img.dtype != np.uint8 or img.ndim != want[0]
+                 or (img.ndim == 3 and img.shape[2] != want[1])):
+        raise ValueError(f'{path}: a {image_format(data)} file read '
+                         f'{flag} decodes to {img.dtype} '
+                         f'{list(img.shape)}, which cv2.imread refuses')
+    return img
 
 
 def imdecode(data: bytes, device='cuda') -> torch.Tensor:
-    """A camera payload, JPEG or PNG (told apart by their first bytes),
-    as uint8 BGR [H, W, 3] on `device`, what `cv2.imdecode(buf,
+    """A camera payload, any format of `READS` (chosen by its first
+    bytes), as uint8 BGR [H, W, 3] on `device`, what `cv2.imdecode(buf,
     IMREAD_COLOR)` gives. A JPEG's pixels are made on `device` and stay
-    there; a PNG decodes on the host and is copied."""
-    if data[:2] == b'\xff\xd8':
-        return jpeg.decode_jpeg(data, device)
-    return torch.from_numpy(decode(data, 'color', 'cpu')).to(device)
+    there; every other format decodes on the host and is copied. A
+    payload that decodes to anything but BGR (a grey PFM) raises
+    `ValueError`."""
+    if image_format(data) == 'JPEG':
+        try:
+            return jpeg.decode_jpeg(data, device)
+        except ValueError as e:
+            _name_the_format('JPEG', e)
+    img = decode(data, 'color', 'cpu')
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f'a {image_format(data)} camera payload decodes '
+                         f'to {img.dtype} {list(img.shape)}, not BGR '
+                         f'[H, W, 3]')
+    return torch.from_numpy(img).to(device)
 
 
 def imwrite(path: str, img, device='cuda') -> None:

@@ -138,8 +138,12 @@ def test_missing_and_unknown_files_raise(files, tmp_path):
         loading.imread(str(tmp_path / 'none.jpg'), device='cpu')
     bmp = tmp_path / 'x.bmp'
     bmp.write_bytes(b'BM')
-    with pytest.raises(ValueError, match='PNG and JPEG'):
+    with pytest.raises(ValueError, match='BMP: the file ends inside'):
         loading.imread(str(bmp))
+    gif = tmp_path / 'x.gif'
+    gif.write_bytes(b'GIF89a' + bytes(20))
+    with pytest.raises(ValueError, match='unknown image signature'):
+        loading.imread(str(gif))
     with pytest.raises(ValueError, match='flag'):
         loading.imread(files[1]['cam.png'][0], 'anydepth')
 

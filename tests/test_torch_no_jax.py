@@ -184,6 +184,11 @@ with tempfile.TemporaryDirectory() as root:
                                      100.0, 200.0, num_threads=2,
                                      device='cpu')
     assert one.shape == (20, 30, 3) and all(torch.equal(one, t) for t in two)
+from tests.oracles.raster_files import variants
+for name, data in variants(rng, (9, 11)).items():
+    assert loading.decode(data, 'unchanged', 'cpu').shape[0] == 9, name
+    if not name.startswith(('pam grayscale_alpha', 'pam rgb_alpha')):
+        assert loading.decode(data, 'grayscale', 'cpu').shape[0] == 9, name
 from hrfuser_tpu_torch.data.gated_warp import inverse_depth_warp
 from hrfuser_tpu_torch.tools import create_data, stf_projection
 from tests.oracles.offline_data import nuscenes_sample, stf_frame

@@ -11,8 +11,9 @@ PNG of its decoded pixels (baseline, progressive and arithmetic-coded
 JPEGs alike), a lossless camera and lossless grey sensors as
 `inference_detector` answers `cv2`'s decodes of them, 404 for unknown
 paths and 400 for a JPEG mode the decoder refuses (12-bit, a lossless
-grey camera) or a body that is not JSON; `--input-hw` sets the grid of
-the warm-up call.
+grey camera) or a body that is not JSON; a BMP or PPM camera as the PNG
+of its pixels, and a 400 naming what it met for a cut BMP or bytes no
+decoder reads; `--input-hw` sets the grid of the warm-up call.
 """
 
 import base64
@@ -38,6 +39,7 @@ from hrfuser_tpu_torch.tools import test as test_cli
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / 'oracles'))
 import jpeg_encoder as enc  # noqa: E402
+import raster_files as rf  # noqa: E402
 
 NAME = 'tiny_fusion_test'
 
@@ -146,6 +148,26 @@ def test_predict_camera_only(server):
     code, reply = _call(url + '/predict', _png(img))
     assert code == 200
     assert reply['labels'] == inference_detector(det, img)['labels'].tolist()
+
+
+def test_bmp_and_ppm_cameras_answer_as_the_png(server):
+    """The camera decoder is chosen by the first bytes: the same pixels
+    as a 24-bit BMP and as a P6 PPM are answered as their PNG is; a cut
+    BMP and bytes no decoder reads get a 400 that names them."""
+    _, url = server
+    img, _ = _request()
+    code, want = _call(url + '/predict', _png(img))
+    assert code == 200
+    want.pop('latency_ms')
+    for data in (rf.bmp(img), rf.pnm(img)):
+        code, reply = _call(url + '/predict', data)
+        assert code == 200
+        reply.pop('latency_ms')
+        assert reply == want
+    code, reply = _call(url + '/predict', rf.bmp(img)[:200])
+    assert code == 400 and reply['error'].startswith('BMP')
+    code, reply = _call(url + '/predict', b'GIF89a' + bytes(64))
+    assert code == 400 and 'unknown image signature' in reply['error']
 
 
 def test_jpeg_gets_a_400(server):
