@@ -219,7 +219,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
    CUDA implementations against their fakes and the ops' host dispatch
    cost; 13b `apis/export.export_predict` of HRFuser-T r640 bf16 batch
    8, saved, loaded and run with exact launch counts beside eager
-   `predict`; 13c `tools/export_model.py` as a subprocess.
+   `predict`; 13c `tools/export_model.py` through its `main` (in this
+   process: as a subprocess its start-up and first-use tracing took
+   50-70 s of the time limit).
 14. the model tools: 14a `apis/flops.count_flops` of one bf16 batch of 8
    on HRFuser-T and HRFuser-B r640 on the card: each kernel op's calls
    equal that forward's launch counters, its FLOPs the formula of
@@ -326,6 +328,20 @@ Phases, each printed on its own lines; any failure exits non-zero:
    through `tools.serve.predict` on HRFuser-T: launch counts exact,
    detections bit-equal across the three, at least one. Alone:
    `cs.phase_rasters(smi, {})` after `cs.phase_build()`.
+20. TIFF as `cv2` reads it (host numpy, and the JPEG pixel kernel for
+   JPEG-compressed TIFF): a 900x1600 camera frame (`_camera_image`, seed
+   20) written by `tests/oracles/tiff_files.py:camera_frames` as LZW
+   predictor-2 RGB strips, Deflate 256x256 tiles, PackBits planes, JPEG
+   YCbCr 256x256 tiles, 16-bit RGB, an 8-bit palette, CMYK and
+   unassociated RGBA; each read through `loading.imread` (no extension)
+   and `loading.decode` in the three modes, equal to the written pixels
+   through the conversion rules (16-bit to `(v + 128) // 257`, CMYK and
+   premultiplied alpha, grey through `cvt.bgr_to_grey`); the JPEG frame
+   card vs CPU bit-equal with exactly 2 JPEG kernel launches a tile; host
+   decode ms of each read colour (median of 5); then the frame as PNG
+   and as the LZW TIFF through `tools.serve.predict` on HRFuser-T: launch
+   counts exact, detections bit-equal, at least one. Alone:
+   `cs.phase_tiff(smi, {})` after `cs.phase_build()`.
 
 The last line is `{"ok": true, "device": {...}}`; the line before it
 lists each kernel's launches, error, times and bound as JSON.
@@ -3422,25 +3438,22 @@ def phase_export(smi):
 
 
 def phase_export_cli(smi):
-    print(f'== 13c. `python -m hrfuser_tpu_torch.tools.export_model '
-          f'{CLI_EXPORT_CONFIG} --dtype bf16 --verify` as a subprocess on '
-          f'the card')
+    print(f'== 13c. `hrfuser_tpu_torch.tools.export_model '
+          f'{CLI_EXPORT_CONFIG} --dtype bf16 --verify` through its `main` in '
+          f'this process, on the card')
+    from hrfuser_tpu_torch.tools import export_model
     root = tempfile.mkdtemp(prefix='export_cli_')
     try:
         path = os.path.join(root, 'tiny.pt2')
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, '-m', 'hrfuser_tpu_torch.tools.export_model',
-             CLI_EXPORT_CONFIG, '--dtype', 'bf16', '--out', path,
-             '--verify'], capture_output=True, text=True, timeout=600,
-            cwd=os.path.dirname(os.path.abspath(__file__)))
-        for line in proc.stdout.splitlines():
+        out = _main_output(export_model.main, [
+            CLI_EXPORT_CONFIG, '--dtype', 'bf16', '--out', path, '--verify'])
+        for line in out.splitlines():
             print('  ' + line)
-        if proc.returncode != 0 or 'verify ok' not in proc.stdout:
-            raise AssertionError(f'13c: the CLI exited {proc.returncode}:\n'
-                                 f'{proc.stderr[-3000:]}')
-        print(f'  {time.perf_counter() - t0:.1f} s with the process\'s '
-              f'start-up, on {smi}')
+        if 'verify ok' not in out:
+            raise AssertionError(f'13c: the CLI printed no "verify ok":\n'
+                                 f'{out[-3000:]}')
+        print(f'  {time.perf_counter() - t0:.1f} s, on {smi}')
     finally:
         shutil.rmtree(root)
 
@@ -4624,6 +4637,93 @@ def phase_rasters(smi, state):
                              f'{same}, {len(ref["labels"])} valid')
 
 
+def phase_tiff(smi, state):
+    print(f'== 20. TIFF as cv2 reads it: a {RAW_HW[0]}x{RAW_HW[1]} camera '
+          f'frame in each main variant, on {smi}')
+    from hrfuser_tpu_torch import init_detector
+    from hrfuser_tpu_torch.data import cvt, jpeg, tiff
+    from hrfuser_tpu_torch.data.pipelines import loading
+    from hrfuser_tpu_torch.data.png import imencode
+    from hrfuser_tpu_torch.tools import serve
+    img = _camera_image(np.random.default_rng(20), RAW_HW)
+    t0 = time.perf_counter()
+    frames = _oracle('tiff_files').camera_frames(img)
+    print(f'  wrote the frames (tests/oracles/tiff_files.py) in '
+          f'{time.perf_counter() - t0:.1f} s')
+    root = tempfile.mkdtemp(prefix='tiff_')
+    try:
+        path = f'{root}/frame'          # no extension: the first bytes pick
+        for label, (data, unchanged, colour) in frames.items():
+            with open(path, 'wb') as f:
+                f.write(data)
+            lay = tiff.layout(data)
+            tiles = len(lay.offsets) if lay.compression == 7 else 0
+            note = ''
+            if tiles:           # JPEG tiles: the card against the CPU
+                unchanged = colour = tiff.imdecode(data, 'color', 'cpu')
+            for flag in ('unchanged', 'color', 'grayscale'):
+                want = {'unchanged': unchanged, 'color': colour,
+                        'grayscale': cvt.bgr_to_grey(colour)}[flag]
+                jpeg.pixels.launches = 0
+                reads = {'imread': loading.imread(path, flag),
+                         'decode': loading.decode(data, flag)}
+                torch.cuda.synchronize()
+                if jpeg.pixels.launches != 2 * tiles * len(reads):
+                    raise AssertionError(
+                        f'TIFF {label} read {flag}: {jpeg.pixels.launches} '
+                        f'JPEG kernel launches, expected {2 * tiles} a read')
+                for how, got in reads.items():
+                    if (got.dtype != want.dtype or got.shape != want.shape
+                            or not np.array_equal(got, want)):
+                        raise AssertionError(
+                            f'TIFF {label}: {how} {flag} gives {got.dtype} '
+                            f'{list(got.shape)}, not '
+                            + ('the CPU decode' if tiles else
+                               'the written pixels through the conversion '
+                               'rules'))
+            if tiles:
+                err = np.abs(colour.astype(np.int64) - img).max()
+                note = (f'; card = CPU bit-equal, {2 * tiles} JPEG kernel '
+                        f'launches a read ({tiles} tiles), at most {err} '
+                        f'from the written pixels')
+            ms = _host_ms(lambda: loading.decode(data, 'color'))
+            print(f'  {label} ({len(data) / 1e6:.2f} MB): imread (no '
+                  f'extension) and decode in the three modes as cv2 reads '
+                  f'it{note}; host decode ms read color (median of 5): '
+                  f'{_fmt(ms)}')
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    # the camera frame as PNG and as the LZW TIFF through what /predict runs
+    det = state.get('det')
+    if det is None:
+        det = init_detector(CONFIG, 'cuda', seed=1, dtype=torch.bfloat16)
+    payloads = {'PNG': imencode(img),
+                'TIFF LZW': frames['LZW predictor 2 RGB strips'][0]}
+    serve.predict(det, payloads['PNG'], [])                 # warm-up
+    torch.cuda.synchronize()
+    _reset_counts()
+    got, ms = {}, {}
+    for label, data in payloads.items():
+        t0 = time.perf_counter()
+        got[label] = serve.predict(det, data, [])
+        torch.cuda.synchronize()
+        ms[label] = (time.perf_counter() - t0) * 1e3
+    _check_counts(_expected_launches(det.cfg), len(payloads),
+                  f'serve.predict, {len(payloads)} payloads')
+    ref = got['PNG']
+    same = all(np.array_equal(g[k], ref[k]) for g in got.values()
+               for k in ('boxes', 'scores', 'labels'))
+    print(f'  serve.predict (what /predict runs), HRFuser-T r640: '
+          + ', '.join(f'{k} {len(payloads[k]) / 1e6:.2f} MB {v:.1f} ms'
+                      for k, v in ms.items())
+          + f' (decode included); {len(ref["labels"])} valid detections, '
+          f'bit-equal across the two payloads: {same}')
+    _check_frame(ref['boxes'], 'a TIFF camera request')
+    if not same or not len(ref['labels']):
+        raise AssertionError(f'PNG and TIFF payloads: detections equal '
+                             f'{same}, {len(ref["labels"])} valid')
+
+
 def main():
     smi = phase_environment()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4704,6 +4804,7 @@ def main():
         ('17', lambda: phase_jpeg_modes(smi, report)),
         ('18', lambda: phase_lossless(smi, report, state)),
         ('19', lambda: phase_rasters(smi, state)),
+        ('20', lambda: phase_tiff(smi, state)),
     ]
     for name, run in phases:
         t1 = time.perf_counter()

@@ -47,10 +47,12 @@ def check_size(name: str, w: int, h: int) -> None:
 
 def bgr_to_grey(bgr: np.ndarray, rgb: bool = False) -> np.ndarray:
     """uint8 [..., 3] BGR (RGB with `rgb`) -> uint8 grey, 14-bit fixed
-    point, rounded."""
+    point, rounded; uint16 -> uint16 by the same weights (`cv2`'s 16-bit
+    `icvCvt_BGRA2Gray_16u_CnC1R`, a TIFF's grey samples)."""
     b, g, r = (bgr[..., i].astype(np.int32) for i in ((2, 1, 0) if rgb
                                                       else (0, 1, 2)))
-    return ((b * _CB + g * _CG + r * _CR + (1 << 13)) >> 14).astype(np.uint8)
+    return ((b * _CB + g * _CG + r * _CR + (1 << 13)) >> 14).astype(
+        np.uint16 if bgr.dtype == np.uint16 else np.uint8)
 
 
 def bgr_to_grey_float(bgr: np.ndarray) -> np.ndarray:

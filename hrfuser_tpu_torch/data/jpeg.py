@@ -561,15 +561,20 @@ def lossless_pixels(planes: Tensor, frame: Frame,
     return _launch_colour(planes, frame, _params(frame), n, grey)
 
 
-def decode_jpeg(data: bytes, device='cuda', grey: bool = False) -> Tensor:
+def decode_jpeg(data: bytes, device='cuda', grey: bool = False,
+                colour: Optional[int] = None) -> Tensor:
     """A JPEG byte string -> BGR uint8 [H, W, 3] on `device` (what
     `cv2.imdecode(buf, IMREAD_COLOR)` gives; with `grey`, uint8 [H, W] as
     `IMREAD_GRAYSCALE` gives). Entropy decoding runs here; the
     coefficients go to `device` in one copy, on its current stream, and
     the pixels are made there. A lossless frame's samples are rebuilt
     here and go to `device` in one copy; only their colour conversion
-    runs there (`lossless_pixels`)."""
+    runs there (`lossless_pixels`). `colour` (GREY, YCBCR, RGB, ...)
+    replaces the colour space the markers name, as a container that
+    states it does (a TIFF's photometric interpretation)."""
     frame = frame_info(data)
+    if colour is not None:
+        frame = frame._replace(colour=colour)
     if frame.lossless:
         _lossless_read(frame, grey)
         _, planes = decode_samples(data, frame)

@@ -20,8 +20,11 @@ called (`image_format`):
     JAX package's libjpeg decoder);
   * PNG through `data/png.py` (every colour type, bit depth and
     interlace);
-  * TIFF (`II*\0`, `MM\0*`) through `data/tiff.py`: the STF gated raw
-    frames, grey strips, read 'unchanged' only;
+  * TIFF and BigTIFF (`II*\0`, `MM\0*`, `II+\0`, `MM\0+`) through
+    `data/tiff.py` (libtiff's reading as `cv2` uses it: grey, palette,
+    RGB, CMYK and alpha at 1 to 64 bits, integer and float samples,
+    strips and tiles, planes, LZW, Deflate, PackBits and JPEG (its pixels
+    on `device`), predictors, orientation), on the host;
   * BMP / DIB (`BM`) through `data/bmp.py`, PBM / PGM / PPM (`P1`-`P6`)
     through `data/pxm.py`, PAM (`P7`) through `data/pam.py`, PFM (`PF`,
     `Pf`) through `data/pfm.py`, Sun raster (`59 a6 6a 95`) through
@@ -78,14 +81,26 @@ def read_jpeg(data: bytes, device='cuda', grey: bool = False) -> np.ndarray:
         return jpeg.decode_jpeg(data, device, grey).cpu().numpy()
 
 
+def read_tiff(data: bytes, flag: str = 'color', device='cuda',
+              from_file: bool = False) -> np.ndarray:
+    """A TIFF byte string as `cv2.imdecode` reads it in mode `flag` (as
+    `cv2.imread` reads its file, `from_file`), on the host; the pixels of
+    JPEG strips or tiles are made on `device`, on a stream of this
+    thread's own."""
+    device, lay = torch.device(device), tiff.layout(data)
+    if device.type != 'cuda' or lay.compression != 7:
+        return tiff.imdecode(data, flag, device, from_file, lay)
+    with torch.cuda.stream(_own_stream(device)):
+        return tiff.imdecode(data, flag, device, from_file, lay)
+
+
 class UnknownImage(OSError, ValueError):
     """Bytes no decoder of the port reads: an `IOError`, and a
     `ValueError` so that the server answers 400."""
 
 
 # cv2's decoders this port has, each with its signature check; a JPEG
-# starts `ff d8`, a TIFF `II*\0` or `MM\0*` (`II+\0` / `MM\0+`, BigTIFF,
-# reach `data/tiff.py`, which refuses them by name)
+# starts `ff d8`, a TIFF `II*\0` or `MM\0*`, a BigTIFF `II+\0` / `MM\0+`
 _HOST = {'BMP': bmp, 'Radiance HDR': hdr, 'Sun raster': sunras,
          'PNM': pxm, 'PAM': pam, 'PFM': pfm}
 READS = ('JPEG', 'PNG', 'TIFF', *_HOST)
@@ -107,13 +122,16 @@ def image_format(data: bytes) -> str:
                        f'a {", ".join(READS[:-1])} or {READS[-1]} file')
 
 
-def decode(data: bytes, flag: str = 'color', device='cuda') -> np.ndarray:
+def decode(data: bytes, flag: str = 'color', device='cuda',
+           from_file: bool = False) -> np.ndarray:
     """What `cv2.imdecode(buf, IMREAD_<FLAG>)` gives for the formats of
-    `READS`, chosen by the first bytes (`image_format`), as a host array;
-    a JPEG's pixels are made on `device` (`read_jpeg`), every other
-    format decodes on the host. A JPEG reads grey in 'grayscale' mode,
-    and in 'unchanged' mode when it has one component; a TIFF reads in
-    'unchanged' mode only. What a decoder cannot read raises a
+    `READS`, chosen by the first bytes (`image_format`), as a host array
+    (with `from_file`, what `cv2.imread` gives for a file of these bytes,
+    which differs for a TIFF only: `tiff.imdecode`); a JPEG's pixels are
+    made on `device` (`read_jpeg`), as are a JPEG TIFF's; every other
+    format decodes on the host. A JPEG reads grey in
+    'grayscale' mode, and in 'unchanged' mode when it has one component.
+    What a decoder cannot read raises a
     `ValueError` whose text starts with the format's name (a
     `jpeg.JpegError` for JPEG)."""
     if flag not in FLAGS:
@@ -128,9 +146,7 @@ def decode(data: bytes, flag: str = 'color', device='cuda') -> np.ndarray:
             return png.imdecode(data, unchanged=flag == 'unchanged',
                                 grayscale=flag == 'grayscale')
         if kind == 'TIFF':
-            if flag != 'unchanged':
-                raise ValueError(f'TIFF reads unchanged only, not {flag!r}')
-            return tiff.imdecode(data)
+            return read_tiff(data, flag, device, from_file)
         return _HOST[kind].imdecode(data, flag)
     except ValueError as e:
         _name_the_format(kind, e)
@@ -149,16 +165,17 @@ def imread(path: str, flag: str = 'color', device='cuda') -> np.ndarray:
     [H, W, 3]; 'unchanged' the file's own depth and channels (alpha
     kept, BGRA), [H, W] for grey; 'grayscale' uint8 [H, W]. The decoder
     is chosen by the file's first bytes, whatever its name (`decode`: a
-    JPEG's pixels made on `device`, every other format on the host); a
-    TIFF reads 'unchanged' only. Where a decoder gives another type than
-    the mode asks for, `cv2.imread` returns None ("Internal imread
-    issue": a colour PFM read grey, a grey one read colour), and this
-    raises `ValueError`."""
+    JPEG's pixels, and a JPEG TIFF's, made on `device`, every other format
+    on the host). Where a decoder gives another type than the mode asks
+    for, `cv2.imread` returns None ("Internal imread issue": a colour PFM
+    read grey, a grey one read colour), and this raises `ValueError`. A
+    TIFF reads as `cv2.imread` reads it from a file, which differs from
+    `cv2.imdecode` on two points (`tiff.imdecode`, `from_file`)."""
     if not osp.exists(path):
         raise FileNotFoundError(path)
     with open(path, 'rb') as f:
         data = f.read()
-    img = decode(data, flag, device)
+    img = decode(data, flag, device, from_file=True)
     want = {'color': (3, 3), 'grayscale': (2, 1)}.get(flag)
     if want and (img.dtype != np.uint8 or img.ndim != want[0]
                  or (img.ndim == 3 and img.shape[2] != want[1])):
@@ -172,17 +189,19 @@ def imdecode(data: bytes, device='cuda') -> torch.Tensor:
     """A camera payload, any format of `READS` (chosen by its first
     bytes), as uint8 BGR [H, W, 3] on `device`, what `cv2.imdecode(buf,
     IMREAD_COLOR)` gives. A JPEG's pixels are made on `device` and stay
-    there; every other format decodes on the host and is copied. A
+    there; every other format decodes on the host and is copied (a JPEG
+    TIFF's strips or tiles have their pixels made on `device` first). A
     payload that decodes to anything but BGR (a grey PFM) raises
     `ValueError`."""
-    if image_format(data) == 'JPEG':
+    kind = image_format(data)
+    if kind == 'JPEG':
         try:
             return jpeg.decode_jpeg(data, device)
         except ValueError as e:
             _name_the_format('JPEG', e)
-    img = decode(data, 'color', 'cpu')
+    img = decode(data, 'color', device if kind == 'TIFF' else 'cpu')
     if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
-        raise ValueError(f'a {image_format(data)} camera payload decodes '
+        raise ValueError(f'a {kind} camera payload decodes '
                          f'to {img.dtype} {list(img.shape)}, not BGR '
                          f'[H, W, 3]')
     return torch.from_numpy(img).to(device)

@@ -1,229 +1,460 @@
-"""TIFF decoding in numpy, in place of `cv2.imread(path,
-IMREAD_UNCHANGED)` for the STF gated raw frames.
+"""TIFF decoding in numpy, as `cv2.imread` / `cv2.imdecode` 5.0 read it
+through their libtiff 4.7 in `IMREAD_COLOR`, `IMREAD_GRAYSCALE` and
+`IMREAD_UNCHANGED`. The card's machine has no `cv2`.
 
-The card's machine has no `cv2`. What `cv2` writes for a uint16 grey
-frame is little-endian, LZW compressed (tag 259 = 5) with the horizontal
-predictor (tag 317 = 2), in strips of a few rows. This reader takes what
-such files need and no more: the first image of the file, grey (one
-sample a pixel, black is zero), 8 or 16 bits unsigned, in strips,
-uncompressed or LZW, predictor 1 or 2, either byte order. Anything else
-raises `ValueError` naming the tag and its value. LZW is decoded in a few
-whole-array passes over all strips (`_lzw_expand`), not code by code.
+The container, here: the first image file directory of classic TIFF
+(`II*\\0`, `MM\\0*`) or BigTIFF (`II+\\0`, `MM\\0+`, 8-byte offsets), in
+either byte order, every field type parsed; strips or tiles (edge tiles
+cropped), PlanarConfiguration 1 or 2, FillOrder 2 (bits reversed before
+decoding, JPEG data excepted), SamplesPerPixel with ExtraSamples,
+SampleFormat 1 / 2 / 3 at 1, 4, 8, 16, 32 and 64 bits, Orientation 1-8,
+the first page only. The compressions and predictors are in
+`data/tiff_codecs.py`; JPEG strips and tiles (compression 7) go through
+the port's JPEG decoder (`data/jpeg.py`, pixels on `device`).
 
-`imdecode(data)` returns uint8 or uint16 [H, W], as `cv2` does.
+What `cv2` does with the samples, and so this (found by testing `cv2`
+5.0):
+  * 'color', 'grayscale', and 'unchanged' for 1- to 8-bit samples go
+    through libtiff's RGBA reader (`data/tiff_rgba.py`): 16-bit samples
+    become 8-bit, alpha is premultiplied, palettes and CMYK become RGB;
+    then BGR, or grey through `cvt.bgr_to_grey`. 'unchanged' keeps one
+    channel for grey images and 1-bit palettes, four for 4-sample RGB
+    (BGRA) and CMYK (alpha 255), three otherwise; 8-bit signed samples
+    come back as int8.
+  * 'unchanged' for 16-, 32- and 64-bit grey or RGB samples with 1, 3 or
+    4 samples reads them as stored (BGR / BGRA order): uint16, int16,
+    uint32, int32, float32, uint64, int64, float64. Grey files of 3 or 4
+    16-bit samples give one channel, `cvt.bgr_to_grey` of the first three
+    at 16 bits.
+  * 32- and 64-bit samples read colour or grey, float16, 2-, 10-, 12-
+    and 14-bit samples, a 4-bit grey image, and more than 4 samples are
+    refused by `cv2` (None); so are LZMA, ZSTD, WebP and old-style JPEG,
+    which its libtiff is built without. This raises there.
+  * libtiff applies the predictor under LZW and Deflate only: an
+    uncompressed or PackBits file's Predictor tag is ignored.
+  * Orientation is applied in every mode. In the RGBA reader libtiff
+    mirrors each tile by itself, so a tiled file whose orientation
+    mirrors left to right (2, 3, 6, 7) reads with its tiles mirrored in
+    place (`tiff_rgba.orient`).
+  * 16-bit planar files of more than one sample, read 'unchanged', make
+    `cv2` read past the first plane: no answer is defined, and this
+    raises.
+
+Anything else `cv2` reads and this does not raises `ValueError` naming
+the tag and its value (`_refuse`): CCITT G3 / G4 (compression 2, 3, 4,
+32771), SGILog (34676, 34677), photometric interpretations other than
+0, 1, 2, 3, 5 and 6 (YCbCr with JPEG only), JPEG with planes or CMYK.
+Damaged or cut data raises too, where libtiff's RGBA reader fills what
+it cannot decode and `cv2` returns the rest.
+
+`imdecode(data, flag, device)` returns what `cv2.imdecode` does,
+`imdecode(..., from_file=True)` and `imread(path)` what `cv2.imread`
+does (the two differ on two points: `imdecode`'s docstring). Both read
+'unchanged' by default.
 """
 
 from __future__ import annotations
 
 import struct
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 
-_TYPE_FORMAT = {1: 'B', 3: 'H', 4: 'I'}          # BYTE, SHORT, LONG
+from hrfuser_tpu_torch.data import cvt, tiff_codecs, tiff_rgba
+
+# field type -> (struct format of one value, its size); ASCII and
+# UNDEFINED come back as bytes, RATIONALs as (numerator, denominator)
+_TYPES = {1: ('B', 1), 2: ('s', 1), 3: ('H', 2), 4: ('I', 4), 5: ('II', 8),
+          6: ('b', 1), 7: ('s', 1), 8: ('h', 2), 9: ('i', 4), 10: ('ii', 8),
+          11: ('f', 4), 12: ('d', 8), 13: ('I', 4), 16: ('Q', 8),
+          17: ('q', 8), 18: ('Q', 8)}
 _TAG_NAMES = {256: 'ImageWidth', 257: 'ImageLength', 258: 'BitsPerSample',
               259: 'Compression', 262: 'PhotometricInterpretation',
-              266: 'FillOrder', 273: 'StripOffsets', 277: 'SamplesPerPixel',
-              278: 'RowsPerStrip', 279: 'StripByteCounts',
-              284: 'PlanarConfiguration', 317: 'Predictor',
-              322: 'TileWidth', 339: 'SampleFormat'}
-# tag: the values read; a missing tag takes the first (TIFF 6.0 default)
-_ALLOWED = {258: (8, 16), 259: (1, 5), 262: (1,), 266: (1,), 277: (1,),
-            284: (1,), 317: (1, 2), 339: (1,)}
-_CLEAR, _EOI = 256, 257
-# code k of a run (the codes after a Clear code) is 9 bits wide for
-# k < 254, then 10, 11, and 12 from k = 1790 on: libtiff widens one code
-# before the table needs it
-_RUN_WIDTHS = np.repeat(np.array([9, 10, 11, 12], np.int64),
-                        [254, 512, 1024, 2306])
-_TAIL_WIDTHS = np.full(4096, 12, np.int64)
+              266: 'FillOrder', 273: 'StripOffsets', 274: 'Orientation',
+              277: 'SamplesPerPixel', 278: 'RowsPerStrip',
+              279: 'StripByteCounts', 284: 'PlanarConfiguration',
+              317: 'Predictor', 320: 'ColorMap', 322: 'TileWidth',
+              323: 'TileLength', 324: 'TileOffsets', 325: 'TileByteCounts',
+              332: 'InkSet', 338: 'ExtraSamples', 339: 'SampleFormat',
+              347: 'JPEGTables', 530: 'YCbCrSubSampling'}
+COMPRESSIONS = {1: 'none', 5: 'LZW', 7: 'JPEG', 8: 'Deflate',
+                32773: 'PackBits', 32946: 'Deflate'}
+PHOTOMETRICS = {0: 'MinIsWhite', 1: 'MinIsBlack', 2: 'RGB', 3: 'Palette',
+                5: 'Separated', 6: 'YCbCr'}
+FLAGS = ('color', 'unchanged', 'grayscale')
 
 
-def _refuse(tag: int, value) -> ValueError:
-    return ValueError(f'TIFF tag {tag} ({_TAG_NAMES[tag]}) = {value}: '
-                      f'only grey 8- or 16-bit unsigned strips, '
-                      f'uncompressed or LZW, predictor 1 or 2 are read')
+def _refuse(tag: int, value, why: str = '') -> ValueError:
+    return ValueError(f'TIFF tag {tag} ({_TAG_NAMES.get(tag, "?")}) = '
+                      f'{value}: not read{": " + why if why else ""}')
 
 
-def _tags(data: bytes, order: str) -> Dict[int, List[int]]:
-    """The integer tags of the first image file directory."""
-    (ifd,) = struct.unpack(order + 'I', data[4:8])
-    (n,) = struct.unpack(order + 'H', data[ifd:ifd + 2])
-    tags = {}
-    for i in range(n):
-        pos = ifd + 2 + 12 * i
-        tag, kind, count = struct.unpack(order + 'HHI', data[pos:pos + 8])
-        if kind not in _TYPE_FORMAT:
-            continue                        # rationals, text: never needed
-        fmt = order + _TYPE_FORMAT[kind] * count
-        size = struct.calcsize(fmt)
-        if size <= 4:
-            raw = data[pos + 8:pos + 8 + size]
-        else:
-            (off,) = struct.unpack(order + 'I', data[pos + 8:pos + 12])
-            raw = data[off:off + size]
-        if len(raw) != size:
-            raise ValueError(f'truncated TIFF: tag {tag}')
-        tags[tag] = list(struct.unpack(fmt, raw))
-    return tags
-
-
-def _lzw_runs(data: bytes) -> Tuple[List[np.ndarray],
-                                     Optional[Tuple[int, int]]]:
-    """Split one strip's LZW stream into runs of codes, each decoded with
-    a fresh table: the codes from the start or a Clear code up to the
-    next Clear code. Reading stops at the end-of-information code, at the
-    data's end, or at an invalid code (one past the table), which is
-    returned as (code, table size) beside the runs before it."""
-    buf = np.frombuffer(data + b'\0\0\0', np.uint8).astype(np.int64)
-    end = len(data) * 8
-    runs, run, pos, k0 = [], [], 0, 0
-    while True:
-        widths = _RUN_WIDTHS if k0 == 0 else _TAIL_WIDTHS
-        stops = pos + np.cumsum(widths)
-        n = int(np.searchsorted(stops, end, side='right'))
-        starts = stops[:n] - widths[:n]
-        i = starts >> 3
-        word = (buf[i] << 16) | (buf[i + 1] << 8) | buf[i + 2]
-        codes = ((word >> (24 - widths[:n] - (starts & 7)))
-                 & ((1 << widths[:n]) - 1))
-        # before code k of a run the table holds max(258, 257 + k)
-        # entries; a code may also name the entry it is about to make
-        k = k0 + np.arange(n)
-        invalid = (codes >= 258) & (codes > 257 + k)
-        hit = np.flatnonzero(invalid | (codes == _CLEAR) | (codes == _EOI))
-        t = int(hit[0]) if hit.size else n
-        run.append(codes[:t])
-        if t == n == len(widths):                 # the run goes on
-            pos, k0 = int(stops[-1]), k0 + n
-            continue
-        runs.append(np.concatenate(run))
-        if t == n or codes[t] == _EOI:
-            return runs, None
-        if invalid[t]:
-            return runs, (int(codes[t]), max(258, 257 + int(k[t])))
-        pos, run, k0 = int(stops[t]), [], 0      # Clear: a fresh table
-
-
-def _lzw_expand(runs: List[np.ndarray]) -> Tuple[np.ndarray, np.ndarray]:
-    """The bytes that runs of valid codes stand for, concatenated, and
-    each run's count of them.
-
-    Entry e >= 258 of a run's table is made at its code e - 257: the
-    string of code e - 258 and the first byte of the next one. So code k
-    naming it stands for a copy of code e - 258's output and the byte
-    after it, one byte longer, and every output byte is a literal
-    code's byte or a copy of an earlier one. Both chains (lengths
-    through the codes, bytes through their sources) are followed by
-    pointer doubling, a few whole-array passes in place of one Python
-    step per code.
-    """
-    sizes = np.array([len(r) for r in runs], np.int64)
-    codes = np.concatenate(runs) if runs else np.zeros(0, np.int64)
-    copy = codes >= 258
-    run_start = np.repeat(np.cumsum(sizes) - sizes, sizes)
-    parent = np.where(copy, codes - 258 + run_start, np.arange(codes.size))
-    length, p = copy.astype(np.int64), parent      # steps to p
-    while True:
-        pp = p[p]
-        if np.array_equal(pp, p):
-            break
-        length = length + length[p]
-        p = pp
-    length += 1
-    start = np.cumsum(length) - length
-    total = int(length.sum())
-    src = np.repeat(start[parent] - start, length) + np.arange(total)
-    while True:
-        ss = src[src]
-        if np.array_equal(ss, src):
-            break
-        src = ss
-    literal = np.zeros(total, np.uint8)
-    literal[start[~copy]] = codes[~copy]
-    ends = np.concatenate([[0], np.cumsum(length)])
-    return literal[src], np.diff(ends[np.concatenate([[0], np.cumsum(sizes)])])
-
-
-def _lzw_decode(strips: List[bytes], sizes: List[int]) -> List[np.ndarray]:
-    """TIFF LZW strips (MSB-first codes of 9-12 bits, the width growing
-    one code early, as libtiff writes) into at most `sizes` bytes each."""
-    runs, owner, bad = [], [], {}
-    for s, body in enumerate(strips):
-        r, b = _lzw_runs(body)
-        runs += r
-        owner += [s] * len(r)
-        if b is not None:
-            bad[s] = b
-    out, run_bytes = _lzw_expand(runs)
-    per_strip = np.bincount(np.array(owner, np.int64), run_bytes,
-                            len(strips)).astype(np.int64)
-    ends = np.cumsum(per_strip)
-    parts = []
-    for s, size in enumerate(sizes):
-        part = out[ends[s] - per_strip[s]:ends[s]]
-        if len(part) < size and s in bad:
-            raise ValueError(f'corrupt TIFF LZW data: code {bad[s][0]} '
-                             f'with {bad[s][1]} table entries')
-        parts.append(part[:size])
-    return parts
-
-
-def imdecode(data: bytes) -> np.ndarray:
-    """Decode a TIFF byte string (see the module docstring)."""
-    order = {b'II': '<', b'MM': '>'}.get(data[:2])
-    if order is None:
+def directory(data: bytes) -> Tuple[str, Dict[int, object]]:
+    """(byte order, {tag: values}) of the first image file directory.
+    Numbers come back as lists, ASCII and UNDEFINED values as bytes,
+    RATIONALs as (numerator, denominator) pairs."""
+    order = {b'II': '<', b'MM': '>'}.get(bytes(data[:2]))
+    if order is None or len(data) < 8:
         raise ValueError('not a TIFF file')
     (magic,) = struct.unpack(order + 'H', data[2:4])
-    if magic != 42:
-        raise ValueError(f'TIFF version {magic}: only classic TIFF (42) '
-                         f'is read, not BigTIFF')
-    tags = _tags(data, order)
-    if 322 in tags:
-        raise _refuse(322, tags[322][0])
-    for tag, allowed in _ALLOWED.items():
-        value = tags.get(tag, [allowed[0]])
-        if tag == 258 and len(set(value)) == 1:
-            value = value[:1]
-        if len(value) != 1 or value[0] not in allowed:
-            raise _refuse(tag, value[0] if len(value) == 1 else value)
-    try:
-        w, h = tags[256][0], tags[257][0]
-        offsets = tags[273]
-    except KeyError as e:
-        raise ValueError(f'TIFF without tag {e.args[0]} '
-                         f'({_TAG_NAMES[e.args[0]]})') from None
-    bits, compression = tags[258][0], tags[259][0]
-    nbytes = bits // 8
-    rows = min(tags.get(278, [h])[0], h)
-    strip = rows * w * nbytes
-    counts = tags.get(279)
+    if magic == 42:
+        big, (ifd,) = False, struct.unpack(order + 'I', data[4:8])
+    elif magic == 43:
+        if len(data) < 16 or struct.unpack(order + 'HH', data[4:8]) != (8, 0):
+            raise ValueError('BigTIFF header with offsets that are not '
+                             '8 bytes')
+        big, (ifd,) = True, struct.unpack(order + 'Q', data[8:16])
+    else:
+        raise ValueError(f'TIFF version {magic}: not 42 (TIFF) or 43 '
+                         f'(BigTIFF)')
+    count_fmt, entry, inline = ('Q', 20, 8) if big else ('H', 12, 4)
+    head = struct.calcsize(count_fmt)
+    if ifd + head > len(data):
+        raise ValueError(f'truncated TIFF: the first directory at {ifd}')
+    (n,) = struct.unpack(order + count_fmt, data[ifd:ifd + head])
+    if ifd + head + n * entry > len(data):
+        raise ValueError(f'truncated TIFF: a directory of {n} entries')
+    tags = {}
+    for i in range(n):
+        pos = ifd + head + entry * i
+        tag, kind, count = struct.unpack(order + ('HHQ' if big else 'HHI'),
+                                         data[pos:pos + entry - inline])
+        if kind not in _TYPES:
+            raise ValueError(f'TIFF tag {tag}: field type {kind} is not a '
+                             f'TIFF type')
+        fmt, size = _TYPES[kind]
+        nbytes = size * count
+        at = pos + (12 if big else 8)
+        if nbytes > inline:
+            (at,) = struct.unpack(order + ('Q' if big else 'I'),
+                                  data[at:at + inline])
+        raw = bytes(data[at:at + nbytes])
+        if len(raw) != nbytes:
+            raise ValueError(f'truncated TIFF: tag {tag}')
+        if fmt == 's':
+            tags[tag] = raw
+        else:
+            values = struct.unpack(order + fmt * count, raw)
+            tags[tag] = (list(zip(values[::2], values[1::2])) if len(fmt) == 2
+                         else list(values))
+    return order, tags
+
+
+class Layout(NamedTuple):
+    """The fields of a first directory that decoding needs, checked."""
+    order: str
+    width: int
+    height: int
+    bits: int
+    spp: int
+    sample_format: int
+    photometric: int
+    compression: int
+    predictor: int
+    planar: int
+    tile: Optional[Tuple[int, int]]       # (rows, columns); None: strips
+    rows: int                             # of a strip or tile
+    offsets: List[int]
+    counts: List[int]
+    fill_order: int
+    orientation: int
+    alpha: int                            # 0 none, 1 associated, 2 not
+    colormap: Optional[np.ndarray]
+    jpeg_tables: Optional[bytes]
+    subsampling: Tuple[int, int]
+
+    @property
+    def dtype(self) -> np.dtype:
+        """The samples' dtype in the file's byte order (1- and 4-bit
+        samples unpack to uint8)."""
+        if self.bits < 8:
+            return np.dtype(np.uint8)
+        kind = {1: 'u', 2: 'i', 3: 'f'}[self.sample_format]
+        return np.dtype(f'{self.order}{kind}{self.bits // 8}')
+
+    @property
+    def grid(self) -> Tuple[int, int, int, int]:
+        """(segment rows, segment columns, segments down, across)."""
+        if self.tile:
+            th, tw = self.tile
+            return th, tw, -(-self.height // th), -(-self.width // tw)
+        return self.rows, self.width, -(-self.height // self.rows), 1
+
+
+def _one(tags, tag, default=None, allowed=None):
+    values = tags.get(tag)
+    if values is None:
+        if default is None:
+            raise ValueError(f'TIFF without tag {tag} '
+                             f'({_TAG_NAMES.get(tag, "?")})')
+        return default
+    if isinstance(values, bytes) or not values:
+        raise _refuse(tag, values)
+    if len(set(values)) != 1:
+        raise _refuse(tag, values, 'different values a sample')
+    v = values[0]
+    if allowed is not None and v not in allowed:
+        raise _refuse(tag, v)
+    return v
+
+
+def layout(data: bytes) -> Layout:
+    """Parse and check the first directory (see the module docstring for
+    what is read)."""
+    order, tags = directory(data)
+    w, h = _one(tags, 256), _one(tags, 257)
+    cvt.check_size('TIFF', w, h)
+    spp = _one(tags, 277, 1)
+    if not 1 <= spp <= 4:
+        raise _refuse(277, spp, 'cv2 reads 1 to 4 samples a pixel')
+    bits = _one(tags, 258, 1, (1, 4, 8, 16, 32, 64))
+    fmt = _one(tags, 339, 1, (1, 2, 3))
+    if fmt == 3 and bits not in (32, 64):
+        raise _refuse(339, fmt, f'floating point samples of {bits} bits')
+    compression = _one(tags, 259, 1)
+    if compression not in COMPRESSIONS:
+        raise _refuse(259, compression, 'read: none (1), LZW (5), JPEG (7),'
+                      ' Deflate (8, 32946), PackBits (32773)')
+    photometric = _one(tags, 262)
+    if photometric not in PHOTOMETRICS:
+        raise _refuse(262, photometric, 'read: ' + ', '.join(
+            f'{k} ({v})' for k, v in PHOTOMETRICS.items()))
+    planar = _one(tags, 284, 1, (1, 2))
+    if spp == 1:
+        planar = 1
+    predictor = 1
+    if compression in tiff_codecs.PREDICTED:
+        predictor = _one(tags, 317, 1, (1, 2, 3))
+        if predictor == 2 and bits < 8:
+            raise _refuse(317, 2, f'horizontal differences of {bits}-bit '
+                          f'samples')
+        if predictor == 3 and fmt != 3:
+            raise _refuse(317, 3, 'floating point differences of integer '
+                          'samples')
+    extra = tags.get(338, [])
+    alpha = 0
+    if extra:
+        alpha = {0: 1 if spp > 3 else 0, 1: 1, 2: 2}.get(extra[0], 0)
+    elif spp == 4 and photometric == 2:
+        alpha = 1                 # libtiff's DEFAULT_EXTRASAMPLE_AS_ALPHA
+    colormap = None
+    if photometric == 3:
+        cmap = tags.get(320)
+        if cmap is None or len(cmap) != 3 << bits:
+            raise _refuse(320, None if cmap is None else f'{len(cmap)} values',
+                          f'a palette of {bits}-bit indices needs {3 << bits}')
+        colormap = np.array(cmap, np.int64).reshape(3, 1 << bits).T
+    if photometric == 5:
+        _one(tags, 332, 1, (1,))
+    if photometric == 6 and compression != 7:
+        raise _refuse(262, 6, 'YCbCr is read JPEG-compressed only')
+    if compression == 7:
+        if (planar == 2 or photometric not in (1, 2, 6) or bits != 8
+                or spp != (1 if photometric == 1 else 3)):
+            raise _refuse(259, 7, f'JPEG is read for 8-bit grey, RGB and '
+                          f'YCbCr pixels, not {spp} {bits}-bit samples of '
+                          f'photometric {photometric} in planar '
+                          f'configuration {planar}')
+    tables = tags.get(347)
+    if isinstance(tables, list):
+        tables = bytes(tables)
+    sub = tags.get(530, [2, 2])
+    tiled = 322 in tags or 323 in tags
+    if tiled:
+        tile = (_one(tags, 323), _one(tags, 322))
+        if min(tile) < 1:
+            raise _refuse(322, tile[1], 'tiles of no pixels')
+        rows = tile[0]
+        offsets, counts = tags.get(324), tags.get(325)
+        off_tag, count_tag = 324, 325
+    else:
+        tile = None
+        rows = min(_one(tags, 278, 2 ** 32 - 1), h)
+        if rows < 1:
+            raise _refuse(278, rows)
+        offsets, counts = tags.get(273), tags.get(279)
+        off_tag, count_tag = 273, 279
+    if offsets is None or isinstance(offsets, bytes):
+        raise ValueError(f'TIFF without tag {off_tag} '
+                         f'({_TAG_NAMES[off_tag]})')
+    lay = Layout(order, w, h, bits, spp, fmt, photometric, compression,
+                 predictor, planar, tile, rows, list(offsets), [],
+                 _one(tags, 266, 1, (1, 2)), _one(tags, 274, 1,
+                                                  tuple(range(1, 9))),
+                 alpha, colormap, tables, tuple(sub[:2]))
+    th, tw, down, across = lay.grid
+    n = down * across * (spp if planar == 2 else 1)
     if counts is None:
-        if compression != 1:
-            raise ValueError('TIFF tag 279 (StripByteCounts) missing')
-        counts = [strip] * len(offsets)
-    if len(offsets) != -(-h // rows) or len(counts) != len(offsets):
-        raise ValueError(f'TIFF with {len(offsets)} strip offsets and '
-                         f'{len(counts)} byte counts for {h} rows of '
-                         f'{rows}')
-    wants = [min(rows, h - k * rows) * w * nbytes
-             for k in range(len(offsets))]
-    parts = [data[off:off + count] for off, count in zip(offsets, counts)]
-    parts = (_lzw_decode(parts, wants) if compression == 5
-             else [np.frombuffer(p, np.uint8) for p in parts])
-    for k, (body, want) in enumerate(zip(parts, wants)):
-        if len(body) < want:
-            raise ValueError(f'TIFF strip {k} holds {len(body)} of its '
+        if compression != 1 or tiled:
+            raise ValueError(f'TIFF without tag {count_tag} '
+                             f'({_TAG_NAMES[count_tag]})')
+        counts = [_segment_bytes(lay, min(th, h - k * th))
+                  for k in range(down)] * (spp if planar == 2 else 1)
+    if len(offsets) < n or len(counts) < n:
+        raise ValueError(f'TIFF with {len(offsets)} offsets and '
+                         f'{len(counts)} byte counts for {n} '
+                         f'{"tiles" if tiled else "strips"}')
+    return lay._replace(offsets=list(offsets[:n]), counts=list(counts[:n]))
+
+
+def _segment_spp(lay: Layout) -> int:
+    return 1 if lay.planar == 2 else lay.spp
+
+
+def _segment_bytes(lay: Layout, rows: int) -> int:
+    th, tw, _, _ = lay.grid
+    return rows * -(-tw * _segment_spp(lay) * lay.bits // 8)
+
+
+def _unpack(raw: np.ndarray, lay: Layout, rows: int) -> np.ndarray:
+    """One segment's decoded bytes -> samples [rows, cols, spp] in native
+    byte order (1- and 4-bit samples as uint8 values)."""
+    _, cols, _, _ = lay.grid
+    s = _segment_spp(lay)
+    raw = raw[:_segment_bytes(lay, rows)]
+    if lay.bits < 8:
+        bits = np.unpackbits(raw.reshape(rows, -1), axis=1)
+        if lay.bits == 4:
+            bits = bits.reshape(rows, -1, 4)
+            bits = (bits * np.array([8, 4, 2, 1], np.uint8)).sum(
+                -1, dtype=np.uint8)
+        return bits[:, :cols * s].reshape(rows, cols, s)
+    v = tiff_codecs.native_bits(raw, lay.dtype).reshape(rows, cols, s)
+    return v.view(lay.dtype.newbyteorder('='))
+
+
+def _segments(data: bytes, lay: Layout) -> List[np.ndarray]:
+    """Every strip or tile decompressed (and its bits reversed first for
+    FillOrder 2), predictor undone, unpacked: samples [rows, cols, s]."""
+    th, tw, down, across = lay.grid
+    rows = [min(th, lay.height - k * th) if not lay.tile else th
+            for k in range(down) for _ in range(across)]
+    rows = rows * (lay.spp if lay.planar == 2 else 1)
+    kind = 'tile' if lay.tile else 'strip'
+    sizes = [_segment_bytes(lay, r) for r in rows]
+    parts = []
+    for k, (off, count) in enumerate(zip(lay.offsets, lay.counts)):
+        part = bytes(data[off:off + count])
+        if off >= len(data) or (lay.compression == 1
+                                and len(part) < sizes[k]):
+            raise ValueError(f'truncated TIFF: {kind} {k} at {off} of '
+                             f'{count} bytes')
+        parts.append(tiff_codecs.reverse_bits(part) if lay.fill_order == 2
+                     else part)
+    c = lay.compression
+    if c == 1:
+        raws = [np.frombuffer(p, np.uint8) for p in parts]
+    elif c == 5:
+        raws = tiff_codecs.lzw_decode(parts, sizes)
+    elif c == 32773:
+        raws = [tiff_codecs.packbits_decode(p, n)
+                for p, n in zip(parts, sizes)]
+    else:
+        raws = [tiff_codecs.deflate_decode(p, n)
+                for p, n in zip(parts, sizes)]
+    out = []
+    s = _segment_spp(lay)
+    for k, (raw, want, r) in enumerate(zip(raws, sizes, rows)):
+        if len(raw) < want:
+            raise ValueError(f'TIFF {kind} {k} holds {len(raw)} of its '
                              f'{want} bytes')
-    img = np.concatenate([p[:want] for p, want in zip(parts, wants)])
-    dtype = np.dtype(np.uint8 if nbytes == 1 else order + 'u2')
-    img = img.view(dtype).reshape(h, w)
-    if tags.get(317, [1])[0] == 2:                  # horizontal differences
-        return np.cumsum(img, axis=1, dtype=img.dtype.newbyteorder('='))
-    return img.astype(img.dtype.newbyteorder('='))
+        if lay.predictor != 1:
+            out.append(tiff_codecs.predict(raw[:want], lay.predictor, r, tw,
+                                           s, lay.dtype))
+        else:
+            out.append(_unpack(raw, lay, r))
+    return out
 
 
-def imread(path: str) -> np.ndarray:
-    """`imdecode` of the file at `path`."""
+def _jpeg_segments(data: bytes, lay: Layout, device) -> List[np.ndarray]:
+    """Every JPEG strip or tile decoded by the port's decoder (pixels on
+    `device`): RGB or grey samples [rows, cols, 3 or 1], uint8."""
+    from hrfuser_tpu_torch.data import jpeg
+    th, tw, down, across = lay.grid
+    colour = {1: jpeg.GREY, 2: jpeg.RGB, 6: jpeg.YCBCR}[lay.photometric]
+    kind = 'tile' if lay.tile else 'strip'
+    out = []
+    for k, (off, count) in enumerate(zip(lay.offsets, lay.counts)):
+        rows = th if lay.tile else min(th, lay.height - (k // across) * th)
+        stream = tiff_codecs.jpeg_stream(bytes(data[off:off + count]),
+                                         lay.jpeg_tables)
+        frame = jpeg.frame_info(stream)
+        want = [(1, 1)] * lay.spp
+        if lay.photometric == 6:
+            want[0] = lay.subsampling
+        got = [c[:2] for c in frame.comps]
+        if got != want or frame.precision != 8:
+            raise ValueError(f'TIFF JPEG {kind} {k}: {len(got)} components '
+                             f'sampled {got} at {frame.precision} bits, not '
+                             f'{want} at 8')
+        # libtiff takes a last strip coded taller than the image and cuts it
+        last_strip = not lay.tile and k == len(lay.offsets) - 1
+        if frame.width != tw or not (frame.height == rows or (
+                last_strip and frame.height > rows)):
+            raise ValueError(f'TIFF JPEG {kind} {k} of {frame.width}x'
+                             f'{frame.height}, not {tw}x{rows}')
+        px = jpeg.decode_jpeg(stream, device, lay.photometric == 1,
+                              colour).cpu().numpy()
+        px = px[:rows]
+        out.append(px[..., ::-1] if px.ndim == 3 else px[..., None])
+    return out
+
+
+def samples(data: bytes, lay: Layout, device='cuda') -> np.ndarray:
+    """All samples [H', W', spp] in native byte order: the image, and for
+    tiles the padding of the edge tiles beyond it (H', W' whole tiles)."""
+    th, tw, down, across = lay.grid
+    segs = (_jpeg_segments(data, lay, device) if lay.compression == 7
+            else _segments(data, lay))
+    full = np.empty((down * th if lay.tile else lay.height, across * tw,
+                     lay.spp), segs[0].dtype)
+    planes = lay.spp if lay.planar == 2 else 1
+    for k, seg in enumerate(segs):
+        p, i = divmod(k, down * across)
+        y, x = (i // across) * th, (i % across) * tw
+        chans = slice(p, p + 1) if planes > 1 else slice(None)
+        full[y:y + seg.shape[0], x:x + tw, chans] = seg
+    return full
+
+
+def imdecode(data: bytes, flag: str = 'unchanged', device='cuda',
+             from_file: bool = False,
+             lay: Optional[Layout] = None) -> np.ndarray:
+    """What `cv2.imdecode(buf, IMREAD_<FLAG>)` gives for a TIFF byte
+    string (see the module docstring); JPEG strips and tiles have their
+    pixels made on `device`. With `from_file`, what `cv2.imread` gives
+    for a file of these bytes, which differs twice: it refuses a
+    non-square image that orientation 5-8 turns, and it reads
+    uncompressed tiles of any size through the RGBA reader, where
+    `cv2.imdecode` returns None unless a tile's bytes (a plane's) are a
+    multiple of 1024 (`cv2.imread` too, for FillOrder 2: libtiff copies
+    those tiles rather than mapping them; measured). `lay` is
+    `layout(data)` where the caller has it already."""
+    if flag not in FLAGS:
+        raise ValueError(f'imread flag {flag!r}: one of {FLAGS}')
+    lay = layout(data) if lay is None else lay
+    if from_file and lay.orientation >= 5 and lay.width != lay.height:
+        raise _refuse(274, lay.orientation, f'cv2.imread returns None for a '
+                      f'{lay.width}x{lay.height} file turned by it (only '
+                      f'cv2.imdecode reads it)')
+    raw_route = tiff_rgba.raw_route(lay, flag)
+    if not raw_route:
+        tiff_rgba.check_rgba(lay)
+        copied = not from_file or lay.fill_order == 2
+        if (lay.compression == 1 and lay.tile and copied
+                and _segment_bytes(lay, lay.tile[0]) % 1024):
+            raise _refuse(322, lay.tile[1], f'cv2 returns None for '
+                          f'uncompressed tiles of '
+                          f'{_segment_bytes(lay, lay.tile[0])} bytes it '
+                          f'copies (a multiple of 1024 reads)')
+    full = samples(data, lay, device)
+    if raw_route:
+        img = tiff_rgba.raw_image(full[:lay.height, :lay.width], lay)
+        return np.ascontiguousarray(tiff_rgba.orient(img, lay.orientation))
+    return tiff_rgba.rgba_read(full, lay, flag)
+
+
+def imread(path: str, flag: str = 'unchanged', device='cuda') -> np.ndarray:
+    """What `cv2.imread(path, IMREAD_<FLAG>)` gives for a TIFF file."""
     with open(path, 'rb') as f:
-        return imdecode(f.read())
+        return imdecode(f.read(), flag, device, from_file=True)

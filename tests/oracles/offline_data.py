@@ -237,41 +237,44 @@ def tiff_bytes(img, order='<'):
 
 
 def lzw_encode(data: bytes) -> bytes:
-    """TIFF LZW as libtiff writes it (MSB-first codes of 9-12 bits, a
-    Clear code first and when the table fills)."""
-    out, acc, nacc = bytearray(), 0, 0
-    nbits = 9
+    """TIFF LZW as libtiff writes it (MSB-first codes of 9-12 bits, the
+    width growing one code early, a Clear code first and when the table
+    fills). The table is keyed by (code, byte) integers, so that a frame
+    of megabytes takes seconds."""
+    out = bytearray()
+    acc = nacc = 0
+    nbits, free, table = 9, 258, {}
+    code = -1
 
-    def emit(code):
+    def emit(c):
         nonlocal acc, nacc
-        acc, nacc = (acc << nbits) | code, nacc + nbits
+        acc, nacc = (acc << nbits) | c, nacc + nbits
         while nacc >= 8:
             nacc -= 8
             out.append((acc >> nacc) & 0xFF)
-
-    def reset():
-        return {bytes([i]): i for i in range(256)}, 258
+        acc &= (1 << nacc) - 1
 
     emit(256)
-    table, free = reset()
-    w = b''
     for b in data:
-        wc = w + bytes([b])
-        if wc in table:
-            w = wc
+        if code < 0:
+            code = b
             continue
-        emit(table[w])
-        table[wc] = free
+        key = (code << 8) | b
+        nxt = table.get(key)
+        if nxt is not None:
+            code = nxt
+            continue
+        emit(code)
+        table[key] = free
         free += 1
         if free == 4094:
             emit(256)
-            table, free = reset()
-            nbits = 9
+            nbits, free, table = 9, 258, {}
         elif free > (1 << nbits) - 1:
             nbits += 1
-        w = bytes([b])
-    if w:
-        emit(table[w])
+        code = b
+    if code >= 0:
+        emit(code)
     emit(257)
     if nacc:
         out.append((acc << (8 - nacc)) & 0xFF)

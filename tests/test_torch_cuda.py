@@ -1158,6 +1158,33 @@ def test_tiff_reader_reads_the_committed_cv2_fixtures(dev):
         np.testing.assert_array_equal(got, ref)
 
 
+def test_jpeg_tiff_pixels_are_made_on_the_card(dev):
+    """A JPEG-compressed TIFF (YCbCr tiles, RGB strips, grey tiles; from
+    `tests/oracles/tiff_files.py`) read through `loading.decode` for the
+    card equals its CPU read in the three modes, with exactly 2 JPEG
+    kernel launches a strip or tile (1 for grey: its full-size luma plane
+    is the image)."""
+    import sys
+    sys.path.insert(0, str(Path(__file__).resolve().parent / 'oracles'))
+    import tiff_files as tf
+    from hrfuser_tpu_torch.data import jpeg, tiff
+    from hrfuser_tpu_torch.data.pipelines import loading
+    rng = np.random.default_rng(22)
+    rgb = rng.integers(0, 256, (70, 90, 3)).astype(np.uint8)
+    for data in (tf.tiff(rgb, photometric=6, compression=7, tile=(32, 48)),
+                 tf.tiff(rgb, photometric=2, compression=7, rows=16),
+                 tf.tiff(rgb[..., 0], compression=7, tile=(16, 16))):
+        lay = tiff.layout(data)
+        per = 1 if lay.photometric == 1 else 2
+        for flag in ('color', 'unchanged', 'grayscale'):
+            jpeg.pixels.launches = 0
+            got = loading.decode(data, flag, dev)
+            assert jpeg.pixels.launches == per * len(lay.offsets)
+            want = loading.decode(data, flag, 'cpu')
+            assert got.dtype == want.dtype and got.shape == want.shape
+            np.testing.assert_array_equal(got, want)
+
+
 def _parallel_ranks():
     """`tests/oracles/parallel_ranks.py` as a top-level module: the ranks
     `run_ranks` spawns import its functions by name, and inherit

@@ -189,6 +189,12 @@ for name, data in variants(rng, (9, 11)).items():
     assert loading.decode(data, 'unchanged', 'cpu').shape[0] == 9, name
     if not name.startswith(('pam grayscale_alpha', 'pam rgb_alpha')):
         assert loading.decode(data, 'grayscale', 'cpu').shape[0] == 9, name
+from hrfuser_tpu_torch.data import tiff, tiff_codecs, tiff_rgba  # noqa: F401
+from tests.oracles import tiff_files
+for name, data in tiff_files.variants(rng, (9, 11)).items():
+    flag = 'unchanged' if tiff.layout(data).bits >= 32 else 'grayscale'
+    assert loading.decode(data, flag, 'cpu').shape[:2] in (
+        (9, 11), (11, 9)), name
 from hrfuser_tpu_torch.data.gated_warp import inverse_depth_warp
 from hrfuser_tpu_torch.tools import create_data, stf_projection
 from tests.oracles.offline_data import nuscenes_sample, stf_frame
@@ -289,9 +295,11 @@ def test_image_loading_defaults_to_the_card():
     from hrfuser_tpu_torch.data import jpeg
     from hrfuser_tpu_torch.data.loader import DetDataLoader, build_pipeline
     from hrfuser_tpu_torch.data.pipelines import loading
-    from hrfuser_tpu_torch.data import native
+    from hrfuser_tpu_torch.data import native, tiff
     for fn in (jpeg.decode_jpeg, loading.imread, loading.imdecode,
-               loading.read_jpeg, loading.LoadImageFromFile, build_pipeline,
+               loading.decode, loading.read_jpeg, loading.read_tiff,
+               tiff.imread, tiff.imdecode, tiff.samples,
+               loading.LoadImageFromFile, build_pipeline,
                DetDataLoader, native.decode_jpeg_bgr,
                native.decode_sensor_png, native.decode_sensor_batch):
         assert inspect.signature(fn).parameters['device'].default == 'cuda'

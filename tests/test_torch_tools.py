@@ -40,6 +40,7 @@ from hrfuser_tpu_torch.tools import test as test_cli
 sys.path.insert(0, str(Path(__file__).resolve().parent / 'oracles'))
 import jpeg_encoder as enc  # noqa: E402
 import raster_files as rf  # noqa: E402
+import tiff_files as tf  # noqa: E402
 
 NAME = 'tiny_fusion_test'
 
@@ -168,6 +169,27 @@ def test_bmp_and_ppm_cameras_answer_as_the_png(server):
     assert code == 400 and reply['error'].startswith('BMP')
     code, reply = _call(url + '/predict', b'GIF89a' + bytes(64))
     assert code == 400 and 'unknown image signature' in reply['error']
+
+
+def test_a_tiff_camera_answers_as_the_png(server):
+    """The same pixels as an LZW TIFF, a tiled Deflate BigTIFF and a
+    16-bit TIFF are answered as their PNG is; a cut TIFF gets a 400 that
+    names it."""
+    _, url = server
+    img, _ = _request()
+    code, want = _call(url + '/predict', _png(img))
+    assert code == 200
+    want.pop('latency_ms')
+    rgb = np.ascontiguousarray(img[..., ::-1])
+    for data in (tf.tiff(rgb, compression=5, predictor=2, rows=16),
+                 tf.tiff(rgb, compression=8, tile=(64, 64), big=True),
+                 tf.tiff(rgb.astype(np.uint16) * 257, compression=5)):
+        code, reply = _call(url + '/predict', data)
+        assert code == 200
+        reply.pop('latency_ms')
+        assert reply == want
+    code, reply = _call(url + '/predict', tf.tiff(rgb)[:300])
+    assert code == 400 and reply['error'].startswith('TIFF')
 
 
 def test_jpeg_gets_a_400(server):

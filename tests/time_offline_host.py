@@ -62,7 +62,7 @@ def _ms(fn, runs):
 
 def _plain_tiff(data):
     """The strips of an LZW TIFF through `lzw_decode_plain`."""
-    tags = tiff._tags(data, '<')
+    _, tags = tiff.directory(data)
     rows, w = tags[278][0], tags[256][0]
     return [lzw_decode_plain(data[o:o + c], rows * w * 2)
             for o, c in zip(tags[273], tags[279])]
