@@ -6,10 +6,12 @@ Phases, each printed on its own lines; any failure exits non-zero:
 
 1. environment: torch / CUDA / nvcc versions and the card's name and
    power limit (exits non-zero without a CUDA device);
-2. build: nvcc compiles `hrfuser_tpu_torch/csrc/*.cu` into `build/`; the
-   count of tensor-core instructions (`HMMA`, `HGMMA`) in each kernel of
-   the library, from `cuobjdump --dump-sass` (fails if a launch of kernel
-   A's or B's bf16 plan 'mma' or float32 plan 'tf32x3' has none);
+2. build: nvcc compiles `hrfuser_tpu_torch/csrc/*.cu` into `build/`
+   (g++ compiles phase 21's host WebP decoder, `csrc/webp_decode.cpp`,
+   beside it); the count of tensor-core instructions (`HMMA`, `HGMMA`)
+   in each kernel of the library, from `cuobjdump --dump-sass` (fails if
+   a launch of kernel A's or B's bf16 plan 'mma' or float32 plan
+   'tf32x3' has none);
 3. every kernel of the eval path vs its plain PyTorch twin on the card at
    HRFuser-T's main-path shapes, float32 (TF32 off) and bfloat16, with
    both timed, each line naming the plan the host picked and each timed
@@ -54,7 +56,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
    `evaluate_proposal_recall` on seeded ground truth, images/s; 6d the
    HTTP server on 127.0.0.1 (/healthz, /predict_multi with PNGs encoded
    here, its `latency_ms` beside the host's PNG, JSON and base64 decode
-   times; /predict with the camera as a baseline JPEG from the oracle
+   times; /predict with a camera frame (phase 17's, `_jpeg_frame` seed
+   17) as a baseline JPEG from the oracle
    encoder: 200, 2 JPEG kernel launches, the detections of a PNG payload
    of its decoded pixels; the same coefficients progressive and
    arithmetic-coded: 200, 2 launches each, the baseline payload's
@@ -288,7 +291,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
    BN update, the generator's end state, peak memory and ms a step of
    both, then a `sample_num=0` step through the one-hot pool; 16d
    `tools.real_parity --dry-run`.
-17. JPEG modes: a 900x1600 4:2:0 frame (`_jpeg_frame`, seed 17) in each
+17. JPEG modes: a 900x1600 4:2:0 frame (`_jpeg_frame`, seed 17, which
+   6d also serves: its progressive and arithmetic re-codes are written
+   once a run) in each
    coding the port reads: baseline, progressive, arithmetic sequential,
    arithmetic progressive (the last three re-coded from the baseline's
    coefficients by the oracle encoder), progressive cut after its DC
@@ -342,6 +347,18 @@ Phases, each printed on its own lines; any failure exits non-zero:
    and as the LZW TIFF through `tools.serve.predict` on HRFuser-T: launch
    counts exact, detections bit-equal, at least one. Alone:
    `cs.phase_tiff(smi, {})` after `cs.phase_build()`.
+
+21. WebP as `cv2` reads it (host C++ `csrc/webp_decode.cpp`, no
+   kernel): a 900x1600 camera frame (`webp_files.camera(0)`) written by
+   `tests/oracles/webp_files.py:camera_frames` as lossless VP8L, lossy
+   VP8 and lossy VP8X + ALPH (VP8L-coded, gradient filter); the lossless
+   read through `loading.imread` (no extension) and `loading.decode`
+   equal to the written pixels, the lossy reads (colour; and with alpha
+   in the three modes) equal to the SHA-256 digests of `cv2`'s decodes
+   pinned in `webp_files.PINNED`; host decode ms (median of 5); then the
+   frame as PNG and as lossless WebP through `tools.serve.predict` on
+   HRFuser-T: launch counts exact, detections bit-equal, at least one.
+   Alone: `cs.phase_webp(smi, {})` after `cs.phase_build()`.
 
 The last line is `{"ok": true, "device": {...}}`; the line before it
 lists each kernel's launches, error, times and bound as JSON.
@@ -728,10 +745,17 @@ def _sass_mma_counts(path):
 
 def phase_build():
     print('== 2. build')
+    from concurrent.futures import ThreadPoolExecutor
+    from hrfuser_tpu_torch.data import webp
     from hrfuser_tpu_torch.utils import cuda_build
-    info = cuda_build.build()
-    cuda_build.lib()
-    print(f'built {info.path.name} in {info.seconds:.1f} s')
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(1) as pool:     # g++ beside nvcc
+        host = pool.submit(webp.build)
+        info = cuda_build.build()
+        cuda_build.lib()
+        print(f'built {info.path.name} in {info.seconds:.1f} s; '
+              f'{host.result().name} (g++) beside it, both in '
+              f'{time.perf_counter() - t0:.1f} s')
     for line in info.log.splitlines():
         if 'registers' in line or 'spill' in line or 'Compiling' in line:
             print('  ' + line.strip())
@@ -1629,7 +1653,7 @@ def phase_serve(state):
               f'decode {(time.perf_counter() - t0) * 1e3:.1f} ms')
         print('  inference_detector ms by calling thread: '
               + _by_thread(lambda: inference_detector(det, img, mods)))
-        _serve_jpeg(call, img)
+        _serve_jpeg(call)
         _serve_jpeg_sensors(call, det, img, pngs[0], mods)
     finally:
         server.shutdown()
@@ -1639,10 +1663,24 @@ def phase_serve(state):
         raise AssertionError('server thread did not stop')
 
 
+_RECODED = {}
+
+
 def _recode(data, **kw):
     """The oracle encoder's stream of a JPEG's own coefficients (as the
     port's entropy decoder reads them) in another coding (`kw`: the
-    oracle's `progressive`, `arithmetic`, ...): the same pixels."""
+    oracle's `progressive`, `arithmetic`, ...): the same pixels. Written
+    once a run for each stream and coding (phases 6d and 17 re-code the
+    same seed-17 camera JPEG; the arithmetic coder takes 10 s of
+    Python)."""
+    import hashlib
+    key = (hashlib.sha256(data).hexdigest(), tuple(sorted(kw.items())))
+    if key not in _RECODED:
+        _RECODED[key] = _recode_now(data, **kw)
+    return _RECODED[key]
+
+
+def _recode_now(data, **kw):
     from hrfuser_tpu_torch.data import jpeg
     enc = _oracle('jpeg_encoder')
     frame, coefs = jpeg.decode_coefficients(data)
@@ -1653,17 +1691,18 @@ def _recode(data, **kw):
                       [c[:2] for c in frame.comps], **kw)
 
 
-def _serve_jpeg(call, img):
-    """/predict with the request's camera as a baseline JPEG: 200, two
-    JPEG kernel launches, and the detections of a PNG payload of the
-    decoded pixels; the same coefficients progressive and
+def _serve_jpeg(call):
+    """/predict with phase 17's camera frame as a baseline JPEG
+    (`_jpeg_frame`, seed 17: its re-codes are written once a run, here,
+    and 17 reads them back): 200, two JPEG kernel launches, and the
+    detections of a PNG payload of the decoded pixels; the same
+    coefficients progressive and
     arithmetic-coded: 200, two launches, the baseline's detections
     exactly; a 12-bit JPEG (a mode the port refuses, as the JAX package's
     readers do) refused with 400."""
     from hrfuser_tpu_torch.data import jpeg
     from hrfuser_tpu_torch.data.png import imencode
-    enc = _oracle('jpeg_encoder')
-    data = enc.encode(*enc.image_coefficients(img, 90), img.shape[:2])
+    _, data = _jpeg_frame(np.random.default_rng(17))
     pixels = imencode(jpeg.decode_jpeg(data, 'cuda').cpu().numpy())
     jpeg.pixels.launches = 0
     code, by_jpeg = call('/predict', data)
@@ -4724,6 +4763,92 @@ def phase_tiff(smi, state):
                              f'{same}, {len(ref["labels"])} valid')
 
 
+def phase_webp(smi, state):
+    print(f'== 21. WebP as cv2 reads it (host C++, no kernel): a '
+          f'{RAW_HW[0]}x{RAW_HW[1]} camera frame as lossless VP8L, lossy VP8 '
+          f'and lossy VP8X + ALPH, on {smi}')
+    import hashlib
+    from hrfuser_tpu_torch import init_detector
+    from hrfuser_tpu_torch.data import webp
+    from hrfuser_tpu_torch.data.pipelines import loading
+    from hrfuser_tpu_torch.data.png import imencode
+    from hrfuser_tpu_torch.tools import serve
+    wf = _oracle('webp_files')
+    t0 = time.perf_counter()
+    img = wf.camera(0, RAW_HW)
+    frames = wf.camera_frames(img)
+    print(f'  wrote the frames (tests/oracles/webp_files.py) in '
+          f'{time.perf_counter() - t0:.1f} s: '
+          + ', '.join(f'{k} {len(v) / 1e6:.2f} MB' for k, v in frames.items()))
+    t0 = time.perf_counter()
+    webp.lib()
+    print(f'  loaded csrc/webp_decode.cpp (built in phase 2) in '
+          f'{time.perf_counter() - t0:.1f} s')
+    root = tempfile.mkdtemp(prefix='webp_')
+    try:
+        path = f'{root}/frame'          # no extension: the first bytes pick
+        with open(path, 'wb') as f:
+            f.write(frames['lossless'])
+        for flag in ('unchanged', 'color'):
+            for how, got in (('imread', loading.imread(path, flag)),
+                             ('decode', loading.decode(frames['lossless'],
+                                                       flag))):
+                if got.shape != img.shape or not np.array_equal(got, img):
+                    raise AssertionError(f'lossless WebP: {how} {flag} is '
+                                         f'not the written pixels')
+        digests = {'lossy color': loading.decode(frames['lossy'], 'color')}
+        for flag in ('color', 'unchanged', 'grayscale'):
+            digests[f'lossy_alpha {flag}'] = loading.decode(
+                frames['lossy_alpha'], flag)
+        for key, got in digests.items():
+            digest = hashlib.sha256(np.ascontiguousarray(got).tobytes()
+                                    ).hexdigest()
+            if digest != wf.PINNED[key]:
+                raise AssertionError(f'WebP {key}: SHA-256 {digest}, not '
+                                     f'the pinned digest of cv2\'s decode')
+        print(f'  lossless: imread (no extension) and decode, unchanged and '
+              f'color = the written pixels; lossy read color and lossy + '
+              f'alpha in the three modes = the SHA-256 digests of cv2 5.0\'s '
+              f'decodes pinned in webp_files.PINNED ({len(digests)} reads)')
+        for label, flag in (('lossless', 'color'), ('lossy', 'color'),
+                            ('lossy_alpha', 'color'),
+                            ('lossy_alpha', 'unchanged')):
+            data = frames[label]
+            ms = _host_ms(lambda: loading.decode(data, flag, 'cpu'))
+            print(f'  {label} read {flag} ({len(data) / 1e6:.2f} MB): host '
+                  f'decode ms (median of 5) {_fmt(ms)}')
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    # the camera frame as PNG and as lossless WebP through what /predict runs
+    det = state.get('det')
+    if det is None:
+        det = init_detector(CONFIG, 'cuda', seed=1, dtype=torch.bfloat16)
+    payloads = {'PNG': imencode(img), 'WebP lossless': frames['lossless']}
+    serve.predict(det, payloads['PNG'], [])                 # warm-up
+    torch.cuda.synchronize()
+    _reset_counts()
+    got, ms = {}, {}
+    for label, data in payloads.items():
+        t0 = time.perf_counter()
+        got[label] = serve.predict(det, data, [])
+        torch.cuda.synchronize()
+        ms[label] = (time.perf_counter() - t0) * 1e3
+    _check_counts(_expected_launches(det.cfg), len(payloads),
+                  f'serve.predict, {len(payloads)} payloads')
+    ref = got['PNG']
+    same = all(np.array_equal(g[k], ref[k]) for g in got.values()
+               for k in ('boxes', 'scores', 'labels'))
+    print(f'  serve.predict (what /predict runs), HRFuser-T r640: '
+          + ', '.join(f'{k} {len(payloads[k]) / 1e6:.2f} MB {v:.1f} ms'
+                      for k, v in ms.items())
+          + f' (decode included); {len(ref["labels"])} valid detections, '
+          f'bit-equal across the two payloads: {same}')
+    _check_frame(ref['boxes'], 'a WebP camera request')
+    if not same or not len(ref['labels']):
+        raise AssertionError(f'PNG and WebP payloads: detections equal '
+                             f'{same}, {len(ref["labels"])} valid')
+
+
 def main():
     smi = phase_environment()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4805,6 +4930,7 @@ def main():
         ('18', lambda: phase_lossless(smi, report, state)),
         ('19', lambda: phase_rasters(smi, state)),
         ('20', lambda: phase_tiff(smi, state)),
+        ('21', lambda: phase_webp(smi, state)),
     ]
     for name, run in phases:
         t1 = time.perf_counter()

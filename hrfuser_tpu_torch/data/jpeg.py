@@ -76,9 +76,6 @@ is built when this module is imported.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
 import threading
 from pathlib import Path
 from typing import NamedTuple, Optional, Tuple
@@ -88,7 +85,7 @@ import torch
 from torch import Tensor
 
 from hrfuser_tpu_torch.ops.chain import on_cpu
-from hrfuser_tpu_torch.utils import cuda_build
+from hrfuser_tpu_torch.utils import cuda_build, host_build
 
 SOURCE = Path(__file__).resolve().parents[1] / 'csrc' / 'jpeg_entropy.cpp'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build'
@@ -121,23 +118,8 @@ def build(again: bool = False) -> Path:
     """Compile `csrc/jpeg_entropy.cpp` into `build/` unless this source
     is built (or `again`); returns the library's path. Raises
     `RuntimeError` with the compiler's output if it cannot be built."""
-    tag = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    out = BUILD_DIR / f'libhrfuser_jpeg_{tag}.so'
-    if out.exists() and not again:
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f'.{os.getpid()}.tmp')
-    cmd = ['g++', '-O3', '-std=c++17', '-shared', '-fPIC', str(SOURCE),
-           '-o', str(tmp)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-    except FileNotFoundError as e:
-        raise RuntimeError(f'the JPEG entropy decoder needs g++: {e}') from e
-    if proc.returncode != 0:
-        raise RuntimeError(f'building the JPEG entropy decoder failed\n'
-                           f'{" ".join(cmd)}\n{proc.stderr}')
-    os.replace(tmp, out)
-    return out
+    return host_build.build(SOURCE, BUILD_DIR, 'libhrfuser_jpeg',
+                            'the JPEG entropy decoder', again)
 
 
 def lib() -> ctypes.CDLL:
@@ -146,20 +128,8 @@ def lib() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            try:
-                handle = ctypes.CDLL(str(build()))
-            except OSError:
-                path = build(again=True)
-                try:
-                    handle = ctypes.CDLL(str(path))
-                except OSError as e:
-                    raise RuntimeError(f'the JPEG entropy decoder {path} '
-                                       f'does not load ({e})') from e
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(handle, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _lib = handle
+            _lib = host_build.load(build, 'the JPEG entropy decoder',
+                                   _SIGNATURES)
     return _lib
 
 

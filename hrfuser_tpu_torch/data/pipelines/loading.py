@@ -30,7 +30,12 @@ called (`image_format`):
     `Pf`) through `data/pfm.py`, Sun raster (`59 a6 6a 95`) through
     `data/sunras.py` and Radiance HDR (`#?RADIANCE`, `#?RGBE`) through
     `data/hdr.py`, all on the host, with `cv2`'s conversions
-    (`data/cvt.py`).
+    (`data/cvt.py`);
+  * WebP (`RIFF....WEBP`, or a bare chunk or raw bitstream that
+    libwebp's `WebPGetFeatures` takes) through `data/webp.py` (lossless
+    VP8L, lossy VP8 with libwebp's fancy upsampling, ALPH alpha, the
+    extended container and an animation's first frame, as `cv2`'s
+    libwebp reads them), decoded on the host by `csrc/webp_decode.cpp`.
 Every decoder returns what `cv2.imdecode` does in the three modes, and
 raises where `cv2` returns None; `imread` also refuses what `cv2.imread`
 refuses when a decoder hands back another type than the mode asks for
@@ -51,7 +56,7 @@ import numpy as np
 import torch
 
 from hrfuser_tpu_torch.data import (bmp, hdr, jpeg, pam, pfm, png, pxm,
-                                    sunras, tiff)
+                                    sunras, tiff, webp)
 
 FLAGS = ('color', 'unchanged', 'grayscale')
 
@@ -102,7 +107,7 @@ class UnknownImage(OSError, ValueError):
 # cv2's decoders this port has, each with its signature check; a JPEG
 # starts `ff d8`, a TIFF `II*\0` or `MM\0*`, a BigTIFF `II+\0` / `MM\0+`
 _HOST = {'BMP': bmp, 'Radiance HDR': hdr, 'Sun raster': sunras,
-         'PNM': pxm, 'PAM': pam, 'PFM': pfm}
+         'PNM': pxm, 'PAM': pam, 'PFM': pfm, 'WebP': webp}
 READS = ('JPEG', 'PNG', 'TIFF', *_HOST)
 
 
@@ -127,7 +132,8 @@ def decode(data: bytes, flag: str = 'color', device='cuda',
     """What `cv2.imdecode(buf, IMREAD_<FLAG>)` gives for the formats of
     `READS`, chosen by the first bytes (`image_format`), as a host array
     (with `from_file`, what `cv2.imread` gives for a file of these bytes,
-    which differs for a TIFF only: `tiff.imdecode`); a JPEG's pixels are
+    which differs for a TIFF, `tiff.imdecode`, and a WebP over 64 MiB,
+    `webp.imdecode`); a JPEG's pixels are
     made on `device` (`read_jpeg`), as are a JPEG TIFF's; every other
     format decodes on the host. A JPEG reads grey in
     'grayscale' mode, and in 'unchanged' mode when it has one component.
@@ -147,6 +153,8 @@ def decode(data: bytes, flag: str = 'color', device='cuda',
                                 grayscale=flag == 'grayscale')
         if kind == 'TIFF':
             return read_tiff(data, flag, device, from_file)
+        if kind == 'WebP':
+            return webp.imdecode(data, flag, from_file)
         return _HOST[kind].imdecode(data, flag)
     except ValueError as e:
         _name_the_format(kind, e)

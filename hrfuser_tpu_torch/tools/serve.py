@@ -14,7 +14,8 @@ not called before costs about 200 ms more on the card (measured by
 `chip_smoke.py` phase 6d).
 
     POST /predict        body = the camera image's bytes (JPEG, PNG,
-                         BMP, PNM, PAM, PFM, Sun raster or Radiance HDR)
+                         TIFF, BMP, PNM, PAM, PFM, Sun raster, Radiance
+                         HDR or WebP)
     POST /predict_multi  json {"img": <b64 camera image>,
                                "mods": [<b64 png or jpeg>, ...]}
                          (sensor PNGs in the config's modality order, as
@@ -30,8 +31,9 @@ not called before costs about 200 ms more on the card (measured by
 Camera payloads are read as the JAX server's `cv2.imdecode` reads them,
 the decoder chosen by the first bytes (`data/pipelines/loading.imdecode`,
 `loading.READS`): JPEG (any coding: baseline, progressive, arithmetic,
-lossless), PNG (any type), BMP, PBM / PGM / PPM, PAM, PFM, Sun raster or
-Radiance HDR. A JPEG is entropy-decoded on the worker thread and its
+lossless), PNG (any type), TIFF, BMP, PBM / PGM / PPM, PAM, PFM, Sun
+raster, Radiance HDR or WebP (lossless, lossy, with alpha, or an
+animation's first frame). A JPEG is entropy-decoded on the worker thread and its
 pixels are made on the detector's device, where the model reads them
 without a copy back to the host; the other formats decode on the worker
 thread's host and are copied. Sensor payloads decode on the worker
@@ -39,7 +41,7 @@ thread as `cv2.IMREAD_UNCHANGED` does (`data/pipelines/loading.decode`:
 a PNG on the host, a JPEG's pixels on the detector's device, copied back
 to the host as the dataset loader's are). A payload that does not decode
 (a 12-bit JPEG, a lossless one that `cv2` reads no colour from, a cut
-BMP) gets a 400 whose text names the format it met, or says "unknown
+BMP or WebP) gets a 400 whose text names the format it met, or says "unknown
 image signature".
 
     python -m hrfuser_tpu_torch.tools.serve \\

@@ -12,7 +12,8 @@ argument); data, offline and renderings (a `DetDataLoader` over JPEG
 files, JPEG decodes through the pixel kernel's twin, progressive and
 arithmetic-coded frames among them, a CMYK frame read grey, a colour
 PNG read grey, lossless colour and grey frames, the native loader's
-sensor decode, single and batched, the offline converters (one nuScenes sample on a fake DB,
+sensor decode, single and batched, WebP reads (lossless, lossy, alpha,
+an animation's first frame; PIL not loaded), the offline converters (one nuScenes sample on a fake DB,
 an STF frame, the inverse depth warp), the renderings (detections drawn
 with labels, a heatmap, a JPEG written, an 8-bit gated LUT image)); the
 tools (FLOP count, drift, `print_config`, `publish_model`,
@@ -40,6 +41,7 @@ SCRIPTS = [ROOT / 'chip_smoke.py', ROOT / 'chip_profile.py',
            ROOT / 'tests' / 'oracles' / 'card_checks.py',
            ROOT / 'tests' / 'oracles' / 'offline_data.py',
            ROOT / 'tests' / 'oracles' / 'jpeg_encoder.py',
+           ROOT / 'tests' / 'oracles' / 'webp_files.py',
            ROOT / 'tests' / 'oracles' / 'parallel_ranks.py',
            ROOT / 'tests' / 'oracles' / 'make_render_tables.py']
 # what a script may import although the package may not
@@ -195,6 +197,20 @@ for name, data in tiff_files.variants(rng, (9, 11)).items():
     flag = 'unchanged' if tiff.layout(data).bits >= 32 else 'grayscale'
     assert loading.decode(data, flag, 'cpu').shape[:2] in (
         (9, 11), (11, 9)), name
+from hrfuser_tpu_torch.data import webp
+from tests.oracles import webp_files
+cam = rng.integers(0, 256, (19, 35, 3)).astype(np.uint8)
+assert np.array_equal(webp.imdecode(webp_files.lossless(cam)), cam)
+vp8 = webp_files.lossy(cam, q=40)
+lossy = webp.imdecode(webp_files.container(vp8, False))
+alpha = webp.imdecode(webp_files.with_alpha(vp8, 35, 19, webp_files.alph(
+    cam[..., 0], 1, 3)), 'unchanged')
+assert np.array_equal(alpha[..., :3], lossy)
+assert np.array_equal(alpha[..., 3], cam[..., 0])
+first = webp.imdecode(webp_files.animation(
+    (40, 24), [(webp_files.chunk(b'VP8 ', vp8), 35, 19, 4, 2, 0)]))
+assert np.array_equal(first[2:21, 4:39], lossy) and not first[:2].any()
+assert 'PIL' not in sys.modules
 from hrfuser_tpu_torch.data.gated_warp import inverse_depth_warp
 from hrfuser_tpu_torch.tools import create_data, stf_projection
 from tests.oracles.offline_data import nuscenes_sample, stf_frame

@@ -13,7 +13,9 @@ JPEGs alike), a lossless camera and lossless grey sensors as
 paths and 400 for a JPEG mode the decoder refuses (12-bit, a lossless
 grey camera) or a body that is not JSON; a BMP or PPM camera as the PNG
 of its pixels, and a 400 naming what it met for a cut BMP or bytes no
-decoder reads; `--input-hw` sets the grid of the warm-up call.
+decoder reads; a WebP camera (lossless, lossy, with alpha, animated) as
+the PNG of `cv2`'s decode of it, a 400 naming WebP for a cut one;
+`--input-hw` sets the grid of the warm-up call.
 """
 
 import base64
@@ -41,6 +43,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / 'oracles'))
 import jpeg_encoder as enc  # noqa: E402
 import raster_files as rf  # noqa: E402
 import tiff_files as tf  # noqa: E402
+import webp_files as wf  # noqa: E402
 
 NAME = 'tiny_fusion_test'
 
@@ -190,6 +193,53 @@ def test_a_tiff_camera_answers_as_the_png(server):
         assert reply == want
     code, reply = _call(url + '/predict', tf.tiff(rgb)[:300])
     assert code == 400 and reply['error'].startswith('TIFF')
+
+
+def test_a_webp_camera_answers_as_the_png(server):
+    """The same pixels as lossless WebP (the oracle's and `cv2`'s) are
+    answered as their PNG is; lossy WebP, with alpha and as an
+    animation's first frame, as the PNG of `cv2`'s decode; through
+    /predict_multi too; a cut WebP gets a 400 that names it."""
+    _, url = server
+    img, mods = _request()
+    code, want = _call(url + '/predict', _png(img))
+    assert code == 200
+    want.pop('latency_ms')
+    lossless = (wf.lossless(img), cv2.imencode(
+        '.webp', img, [cv2.IMWRITE_WEBP_QUALITY, 101])[1].tobytes())
+    for data in lossless:
+        code, reply = _call(url + '/predict', data)
+        assert code == 200
+        reply.pop('latency_ms')
+        assert reply == want
+    h, w = img.shape[:2]
+    vp8 = wf.lossy(img, q=40)
+    chunks = wf.chunk(b'VP8 ', vp8)
+    lossy = (wf.container(vp8, False),
+             wf.with_alpha(vp8, w, h, wf.alph(img[..., 1], 1, 3)),
+             wf.animation((w + 4, h + 6), [(chunks, w, h, 4, 2, 0)]))
+    sensors = [base64.b64encode(_png(m)).decode() for m in mods]
+    for data in lossy:
+        pixels = cv2.imdecode(np.frombuffer(data, np.uint8),
+                              cv2.IMREAD_COLOR)
+        code, want = _call(url + '/predict', _png(pixels))
+        assert code == 200
+        want.pop('latency_ms')
+        code, reply = _call(url + '/predict', data)
+        assert code == 200
+        reply.pop('latency_ms')
+        assert reply == want
+        replies = []
+        for payload in (_png(pixels), data):
+            body = json.dumps({'img': base64.b64encode(payload).decode(),
+                               'mods': sensors}).encode()
+            code, reply = _call(url + '/predict_multi', body)
+            assert code == 200
+            reply.pop('latency_ms')
+            replies.append(reply)
+        assert replies[0] == replies[1]
+    code, reply = _call(url + '/predict', lossless[0][:500])
+    assert code == 400 and reply['error'].startswith('WebP')
 
 
 def test_jpeg_gets_a_400(server):
